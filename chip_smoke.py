@@ -8,16 +8,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every CUDA kernel of the port, from ``fastmax_tpu_torch/csrc``;
 3. the int4 rank-1 matmul kernel against its plain PyTorch version at the four
-   Llama-2-7B linear shapes, m in {1, 64, 512}, stacked (layer 2 of 3) and
-   per-layer, f32 and bf16 x, with per-launch times;
+   Llama-2-7B linear shapes, m in {1, 8, 64, 512}, stacked (layer 2 of 3) and
+   per-layer, f32 and bf16 x, with per-launch times at m in {1, 8, 64};
 4. the int8 decode-attention kernel against its plain version (7B: B=1, G=32,
    D=128, S=1024, pos in {0, 63, 1023}; a GQA case and a D=64 case);
-5. the main path: a random Llama-2-7B (full width, all 32 layers) in the
-   rank-1 int4 format, int8 KV cache, batch 1, a 64-token prompt,
-   ``InferenceEngine.generate`` of 256 tokens greedy; launch counts of every
-   kernel during that call (each must be > 0); TTFT, decode tok/s and peak
+5. the batch-1 path: a random Llama-2-7B (full width, all 32 layers) in the
+   rank-1 int4 format, int8 KV cache, block_size 1024, a 64-token prompt,
+   ``InferenceEngine.generate`` of 256 tokens greedy; launch counts of K1 and
+   K2 during that call (each must be > 0); TTFT, decode tok/s and peak
    memory; first-token and first-decode-step logits with the kernels against
-   the same forward through the plain versions.
+   the same forward through the plain versions;
+6. the flash prefill kernel against its plain version at the 7B shapes
+   (B=1, Hq=G=32, D=128, S=4096, 512-row chunks at pos0 0, 1536 and 3584,
+   bf16; a GQA case with ragged T; an f32 case), with device times (k/v
+   cold), bounds and one ``scaled_dot_product_attention`` call as yardstick;
+7. the serving path: the same 7B at its full 4096-token context behind a
+   ``ContinuousBatcher`` (8 slots, int8 cache, decode quantum 8, adaptive)
+   and the HTTP ``Server``: 8 requests from 4 client threads (prompts of
+   256-3072 tokens, 64 new tokens; six greedy, two sampled, one streamed),
+   then ``run_load`` closed loop over 16 requests, and over 16 requests that
+   share a 2048-token prefix registered in the prefix cache; launch counts of
+   K1, K2 and K3 over the whole phase (each must be > 0); tok/s, TTFT
+   percentiles, peak memory; profiles of one prefill and one decode step;
+   the batcher's greedy tokens against ``InferenceEngine.generate`` (a
+   divergence fails unless the top-2 margin there is a near-tie); and 32-layer
+   prefill logits at S=4096 with the kernels against the plain route.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -44,6 +59,11 @@ INT4_ATOL, INT4_RTOL = 2e-4, 2e-3          # f32 x: the reference's own (test_qu
 INT4_BF16_RTOL = 2.0 ** -7                 # bf16 x: one bf16 ulp of the rounded output
 ATTN_MAX_ABS = 2e-2                        # the reference's own (test_decode_attention.py)
 LOGITS_REL_TOL = 2e-2                      # full 7B forward, kernels vs plain, bf16 activations
+FLASH_BF16_ATOL = 1e-2                     # a bf16 ulp (2^-7) of outputs up to 2, and a p rounding
+FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4  # the reference's own (test_flash_attention.py)
+NEAR_TIE_REL = LOGITS_REL_TOL              # top-2 margin under this x max|logit|: a near-tie
+BF16_TC_FLOPS_PER_S = 989e12               # H100 SXM dense bf16 tensor-core rate (data sheet)
+N_SLOTS = 8
 
 LLAMA7B_LINEARS = [("qkv", 4096, 12288), ("attn_proj", 4096, 4096),
                    ("fc_12", 4096, 22016), ("mlp_proj", 11008, 4096)]
@@ -119,7 +139,7 @@ def check_int4(torch, gen, results):
         v = torch.rand((3, n), generator=gen, device=dev) + 0.5
         p = {"q4r1": pw, "u4": u, "v4": v}
         p2 = {"q4r1": pw[2], "u4": u[2], "v4": v[2]}
-        for m in (1, 64, 512):
+        for m in (1, N_SLOTS, 64, 512):
             x = torch.randn((m, k), generator=gen, device=dev)
             ref = qk.int4_matmul_rank1_plain(x, pw[2], u[2], v[2])
             checks = [("stacked", qk.int4_matmul_rank1_stacked(x, p, 2))]
@@ -151,7 +171,7 @@ def check_int4(torch, gen, results):
         u = torch.full((n_layers, k), 0.02, device=dev)
         v = torch.ones((n_layers, n), device=dev)
         p = {"q4r1": pw, "u4": u, "v4": v}
-        for m in (1, 64):
+        for m in (1, N_SLOTS, 64):
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             it = iter(range(10**9))
             kern_ms = graph_ms(lambda: qk.int4_matmul_rank1_stacked(
@@ -266,52 +286,62 @@ def check_attention(torch, gen, results):
 
 
 # ----------------------------------------------------------------- phase 5
-def profile_decode(torch, engine, first, tok_s, steps: int = 8) -> dict:
-    """Device time of ``steps`` decode steps by kernel (torch.profiler), and
-    the device's busy share at the unprofiled decode rate ``tok_s``."""
+KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel",
+                                             "int4_splitk_reduce_kernel")),
+                 ("K2 int8_decode_attention", ("int8_decode_attention_kernel",)),
+                 ("K3 flash_attention", ("flash_attention_kernel",)),
+                 ("gemm (dequantized weights)", ("gemm", "cutlass", "nvjet", "xmma")))
+
+
+def profile_device(torch, fn, label, per: int = 1) -> dict:
+    """Device time of ``fn`` by kernel group (torch.profiler), per ``per``
+    (steps or tokens), with the top kernels and the aten calls issued."""
     from torch.profiler import ProfilerActivity, profile
 
-    cache = engine.new_cache()
-    _, cache = engine.prefill(torch.zeros((1, 64), dtype=torch.int32, device="cuda"), cache)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.decode(cache, first, 64, steps + 1)
+        fn()
         torch.cuda.synchronize()
-    groups = {"int4_rank1_matmul": 0.0, "int8_decode_attention": 0.0, "other": 0.0}
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
     top = []
     averages = prof.key_averages()
-    host_ops = sum(ev.count for ev in averages if ev.key.startswith("aten::")) / steps
     for ev in averages:
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = ev.key
-        if "int4_gemv_kernel" in name or "int4_gemm_kernel" in name or \
-                "int4_splitk_reduce_kernel" in name:
-            groups["int4_rank1_matmul"] += dev_us
-        elif "int8_decode_attention_kernel" in name:
-            groups["int8_decode_attention"] += dev_us
-        else:
-            groups["other"] += dev_us
-        top.append((dev_us, name[:90], ev.count))
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in ev.key.lower() for k in keys)), "other")
+        groups[group] += dev_us / per
+        top.append((dev_us / per, ev.key[:90], ev.count / per))
     total = sum(groups.values())
     if total <= 0:
-        log("  profile: the profiler recorded no device time (not measured)")
-        return {"device_us_per_token": None}
-    per_tok = {k: v / steps for k, v in groups.items()}
-    busy = total / steps * 1e-6 * tok_s
-    log(f"  profile of {steps} decode steps: device us/token {total / steps:.1f} "
-        f"({', '.join(f'{k} {v:.1f}' for k, v in per_tok.items())}); device busy share at "
-        f"{tok_s:.2f} tok/s: {busy:.4f}; aten calls per token (nested ones included) "
-        f"{host_ops:.0f}")
-    for dev_us, name, count in sorted(top, reverse=True)[:8]:
-        log(f"    {dev_us / steps:9.1f} us/token  x{count // steps:5d}  {name}")
-    return {"device_us_per_token": total / steps, "by_group_us_per_token": per_tok,
-            "busy_share": busy, "aten_calls_per_token": host_ops,
-            "top": [{"us_per_token": d / steps, "name": n, "calls_per_token": c / steps}
-                    for d, n, c in sorted(top, reverse=True)[:12]]}
+        log(f"  profile of {label}: the profiler recorded no device time (not measured)")
+        return {"device_us": None}
+    aten = sum(ev.count for ev in averages if ev.key.startswith("aten::")) / per
+    by_group = ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
+    log(f"  profile of {label}: device {total:.1f} us ({by_group}); aten calls (nested ones "
+        f"included) {aten:.0f}")
+    top = sorted(top, reverse=True)[:8]
+    for dev_us, name, count in top:
+        log(f"    {dev_us:10.1f} us  x{count:7.1f}  {name}")
+    return {"device_us": total, "by_group_us": groups, "aten_calls": aten,
+            "top": [{"us": d, "name": n, "calls": c} for d, n, c in top]}
+
+
+def profile_decode(torch, engine, first, tok_s, steps: int = 8) -> dict:
+    """Device time per token of ``steps`` decode steps, and the device's busy
+    share at the unprofiled decode rate ``tok_s``."""
+    cache = engine.new_cache()
+    _, cache = engine.prefill(torch.zeros((1, 64), dtype=torch.int32, device="cuda"), cache)
+    prof = profile_device(torch, lambda: engine.decode(cache, first, 64, steps + 1),
+                          f"{steps} decode steps, per token", per=steps)
+    if prof["device_us"]:
+        prof["busy_share"] = prof["device_us"] * 1e-6 * tok_s
+        log(f"  device busy share at {tok_s:.2f} tok/s: {prof['busy_share']:.4f}")
+    return prof
 
 
 def main_path(torch, results, card):
@@ -344,8 +374,8 @@ def main_path(torch, results, card):
     log(f"  generate(64 + {n_new}): {gen_s:.3f} s, launches {counts}")
     if tuple(out.shape) != (1, 64 + n_new):
         raise AssertionError(f"generate returned shape {tuple(out.shape)}")
-    if any(c <= 0 for c in counts.values()):
-        raise AssertionError(f"a kernel of the main path was never launched: {counts}")
+    if counts["int4_rank1_matmul"] <= 0 or counts["int8_decode_attention"] <= 0:
+        raise AssertionError(f"a kernel of the batch-1 path was never launched: {counts}")
     first16 = out[0, 64:80].tolist()
     log(f"  first 16 generated tokens: {first16}")
 
@@ -402,6 +432,339 @@ def main_path(torch, results, card):
     return counts
 
 
+# ----------------------------------------------------------------- phase 6
+def flash_bound(b, hq, g, t, d, pos0, kv_len, elem_bytes):
+    """Least time for one call: bytes (q, the k/v rows below kv_len, out,
+    each once) against the operations (4*D flops per visible (row, key)
+    pair) at the f32 rate, and at the bf16 tensor-core rate."""
+    visible = sum(min(pos0 + i + 1, kv_len) for i in range(t))
+    nbytes = elem_bytes * (2 * b * hq * t * d + 2 * b * g * kv_len * d)
+    flops = 4 * b * hq * d * visible
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f32_ms, tc_ms = flops / F32_FLOPS_PER_S * 1e3, flops / BF16_TC_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(b_ms, f32_ms),
+            "bound_by": "bytes" if b_ms >= f32_ms else "operations",
+            "bound_tc_ms": max(b_ms, tc_ms)}
+
+
+def sdpa_backend(torch, q, k, v, mask, scale) -> str:
+    """Name of the backend scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(val): name for name, val in SDPBackend.__members__.items()}
+    try:  # a private function: the name is a label, not a result, so a miss is reported
+        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=scale)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return f"not determined ({type(e).__name__})"
+    return names.get(int(choice), str(choice))
+
+
+def check_flash(torch, gen, results):
+    from fastmax_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases = [(1, 32, 32, 4096, 128, torch.bfloat16, 512, (0, 1536, 3584)),
+             (2, 8, 2, 4096, 64, torch.bfloat16, 300, (0, 1000)),
+             (1, 32, 32, 4096, 128, torch.float32, 512, (0, 3584))]
+    for b, hq, g, s, d, dt, t, positions in cases:
+        q = torch.randn((b, hq, t, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, g, s, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, g, s, d), generator=gen, device=dev).to(dt)
+        for pos0 in positions:
+            got = fa.flash_attention(q, k, v, pos0=pos0, kv_len=pos0 + t)
+            ref = fa.flash_attention_plain(q, k, v, pos0=pos0, kv_len=pos0 + t)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            if dt == torch.bfloat16:
+                bad = bool((err > FLASH_BF16_ATOL).any())
+            else:
+                bad = bool((err > FLASH_F32_ATOL + FLASH_F32_RTOL * ref.float().abs()).any())
+            worst[dt] = max(worst[dt], float(err.max()))
+            if bad or got.dtype != dt or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash B={b} Hq={hq} G={g} D={d} T={t} pos0={pos0} "
+                                     f"{dt}: max err {float(err.max()):.3e}")
+            log(f"  flash B={b} Hq={hq:2d} G={g:2d} S={s} D={d:3d} T={t} {str(dt)[6:]:8s} "
+                f"pos0={pos0:4d}: ok, max abs err {float(err.max()):.3e}")
+        del q, k, v
+    # timing at the 7B shapes, k/v cold: rotate over 4 layers' k/v (256 MB)
+    rows = []
+    n_sets, t, d = 4, 512, 128
+    q = torch.randn((1, 32, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    kv = [(torch.randn((1, 32, 4096, d), generator=gen, device=dev).to(torch.bfloat16),
+           torch.randn((1, 32, 4096, d), generator=gen, device=dev).to(torch.bfloat16))
+          for _ in range(n_sets)]
+    for pos0 in (0, 1536, 3584):
+        kv_len = pos0 + t
+        it = iter(range(10**9))
+
+        def call(plain=False):
+            k, v = kv[next(it) % n_sets]
+            return fa.flash_attention(q, k, v, pos0=pos0, kv_len=kv_len, plain=plain)
+
+        kern_ms = graph_ms(call, calls=2 * n_sets)
+        plain_ms = graph_ms(lambda: call(plain=True), calls=n_sets, reps=1)
+        keys = torch.arange(4096, device=dev)[None, :]
+        mask = (keys <= pos0 + torch.arange(t, device=dev)[:, None]) & (keys < kv_len)
+        backend = sdpa_backend(torch, q, kv[0][0], kv[0][1], mask, d ** -0.5)
+
+        def library():
+            k, v = kv[next(it) % n_sets]
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                    scale=d ** -0.5)
+
+        lib_ms = graph_ms(library, calls=2 * n_sets)
+        bound = flash_bound(1, 32, 32, t, d, pos0, kv_len, 2)
+        rows.append({"pos0": pos0, "t": t, "kv_len": kv_len, "ms": kern_ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
+                     **bound})
+        log(f"  flash 7B T={t} pos0={pos0:4d}: kernel {kern_ms * 1e3:8.1f} us  plain "
+            f"{plain_ms * 1e3:8.1f} us  SDPA ({backend}) {lib_ms * 1e3:8.1f} us  bound "
+            f"{bound['bound_ms'] * 1e3:6.1f} us ({bound['bound_by']}, f32 rate; "
+            f"{bound['bound_tc_ms'] * 1e3:5.1f} us at the bf16 tensor-core rate)")
+    results["flash_times"] = rows
+    results["flash_max_abs_err"] = {str(k)[6:]: v for k, v in worst.items()}
+    return worst[torch.bfloat16], rows
+
+
+# ----------------------------------------------------------------- phase 7
+class ByteTokenizer:
+    """Stand-in tokenizer: UTF-8 bytes as ids 3..258 (Llama's byte-fallback
+    ids); other ids decode as ``<id>``."""
+
+    eos_id = None
+
+    def encode(self, text):
+        return [c + 3 for c in text.encode()]
+
+    def decode(self, ids):
+        out = bytearray()
+        for i in (int(i) for i in ids):
+            out += bytes([i - 3]) if 3 <= i < 259 else f"<{i}>".encode()
+        return out.decode(errors="replace")
+
+
+def http_requests(server, prompts, n_new):
+    """8 requests from 4 client threads, two each: six greedy, two sampled
+    (temperature 0.8, top-k 40), request 0 as text and request 1 streamed."""
+    import threading
+    import urllib.request
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/v1/generate",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=600)
+
+    out = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        body = {"prompt": prompts[i], "max_new_tokens": n_new}
+        if i in (3, 6):
+            body.update(temperature=0.8, top_k=40)
+        t0 = time.perf_counter()
+        if i == 1:
+            body["stream"] = True
+            tokens, first = [], None
+            with post(body) as conn:
+                for raw in conn:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    first = first or time.perf_counter()
+                    tokens += json.loads(line[6:])["token_ids"]
+            out[i] = {"tokens": tokens, "finish_reason": "length", "stream": True,
+                      "ttft_s": first - t0}
+        else:
+            with post(body) as conn:
+                out[i] = json.load(conn)
+        out[i]["wall_s"] = time.perf_counter() - t0
+
+    def worker(w):
+        try:
+            for i in (w, w + 4):
+                one(i)
+        except Exception as e:  # noqa: BLE001 - reported and failed below
+            errors.append(f"client {w}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"HTTP clients failed: {errors or 'timed out'}")
+    return out
+
+
+def first_divergence(torch, engine, prompt, a, b):
+    """Index of the first differing token of two greedy runs, and the
+    engine's top-2 margin and max |logit| there (None if equal)."""
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    if not diff:
+        return None
+    i = diff[0]
+    seq = torch.as_tensor(list(prompt) + list(a[:i]), dtype=torch.int32, device="cuda")[None]
+    logits, _ = engine.prefill(seq, engine.new_cache())
+    top2 = torch.topk(logits[0].float(), 2).values
+    return i, float(top2[0] - top2[1]), float(logits[0].float().abs().max())
+
+
+def serving_path(torch, results, card):
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.bench_serving import run_load
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.inference.server import Server
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
+
+    cfg = Config.from_name("Llama-2-7b-hf")
+    cfg.block_size = 4096
+    n_new = 64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_fake_7b_int4(cfg, seed=0)
+    batcher = ContinuousBatcher(cfg, params, n_slots=N_SLOTS, max_seq_length=4096,
+                                weights_mode="quantized", cache_dtype=torch.int8,
+                                decode_quantum=8, adaptive_quantum=True, prefix_cache_size=4)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(256, 3073, 8)
+    prompts = [rng.integers(1, 32000, n).tolist() for n in lengths]
+    prompts[0] = "".join(chr(c) for c in rng.integers(32, 127, lengths[0]))  # a text prompt
+    load_prompts = [rng.integers(1, 32000, n).astype(np.int32)
+                    for n in rng.integers(256, 3073, 16)]
+    shared = rng.integers(1, 32000, 2048).astype(np.int32)
+    prefix_prompts = [np.concatenate([shared, rng.integers(1, 32000, n).astype(np.int32)])
+                      for n in rng.integers(64, 1025, 16)]
+    check_seq = torch.as_tensor(rng.integers(1, 32000, 2048), device="cuda")[None]
+    log(f"  prompt lengths: HTTP {lengths.tolist()}, load {[len(p) for p in load_prompts]}, "
+        f"prefix load 2048 + {[len(p) - 2048 for p in prefix_prompts]}")
+    # warm-up (cuBLAS handles, first launches) outside the counted run
+    w = batcher.submit(np.arange(1, 300, dtype=np.int32), 9, return_request=True)
+    while not w.done:
+        batcher.step()
+    torch.cuda.synchronize()
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = Server(batcher, ByteTokenizer(), port=0, model_name=cfg.name).start()
+    try:
+        answers = http_requests(server, prompts, n_new)
+    finally:
+        server.stop()
+    http_s = time.perf_counter() - t0
+    for i, a in enumerate(answers):
+        toks = a["tokens"]
+        if len(toks) != n_new or not all(0 <= x < cfg.padded_vocab_size for x in toks):
+            raise AssertionError(f"HTTP request {i}: {len(toks)} tokens, {toks[:8]}...")
+    log(f"  HTTP: 8 requests from 4 clients answered in {http_s:.2f} s; walls "
+        f"{[round(a['wall_s'], 2) for a in answers]} s; request 1 streamed, first event after "
+        f"{answers[1]['ttft_s'] * 1e3:.1f} ms")
+    load = run_load(batcher, load_prompts, n_new)
+    log(f"  run_load closed loop, 16 requests: {load}   [{card}]")
+    t1 = time.perf_counter()
+    batcher.register_prefix(shared)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t1
+    hits0 = batcher.prefix_cache_hits
+    load_prefix = run_load(batcher, prefix_prompts, n_new)
+    hits = batcher.prefix_cache_hits - hits0
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  run_load closed loop, 16 requests on a shared 2048-token prefix (registered in "
+        f"{register_s * 1e3:.1f} ms; {hits} prompt tokens reused): {load_prefix}   [{card}]")
+    log(f"  launches over the serving phase: {counts}; requests admitted in batched waves: "
+        f"{batcher.batched_admissions}; peak device memory {peak_gb:.3f} GB   [{card}]")
+    if any(c <= 0 for c in counts.values()):
+        raise AssertionError(f"a kernel of the serving path was never launched: {counts}")
+    if hits < 16 * 2048:
+        raise AssertionError(f"the prefix cache reused {hits} tokens, not 16 x 2048")
+
+    # the batcher's greedy tokens against InferenceEngine.generate (batch 1)
+    engine = InferenceEngine(cfg, batcher.params, max_seq_length=4096,
+                             weights_mode="quantized", cache_dtype=torch.int8)
+    checks = []
+    for i in (2, 4):
+        p = prompts[i]
+        want = engine.generate(torch.as_tensor(p), len(p) + n_new)[0, len(p):].tolist()
+        div = first_divergence(torch, engine, p, want, answers[i]["tokens"])
+        checks.append({"request": i, "prompt_len": len(p), "divergence": div})
+        if div is None:
+            log(f"  request {i} ({len(p)} tokens): batcher greedy tokens == engine.generate's")
+            continue
+        step, margin, top = div
+        near = margin <= NEAR_TIE_REL * top
+        log(f"  request {i} ({len(p)} tokens): first divergence at generated token {step}, "
+            f"engine top-2 margin {margin:.4f} of max |logit| {top:.3f}: "
+            f"{'a near-tie' if near else 'NOT a near-tie'}")
+        if not near:
+            raise AssertionError(f"batcher and engine diverge beyond a near-tie: {div}")
+    del engine
+
+    # where a prefill and a decode step spend the card's time
+    with torch.inference_mode():
+        row = {k: torch.zeros_like(v[:, :1]) for k, v in batcher.cache.items()}
+        prof_prefill = profile_device(torch, lambda: gpt.forward(
+            batcher.params, cfg, check_seq, input_pos=0, kv_cache=row, rope_cache=batcher.rope),
+            "one 2048-token prefill")
+        del row
+        toks = torch.ones(N_SLOTS, dtype=torch.int32, device="cuda")
+        pos = torch.full((N_SLOTS,), 3000, dtype=torch.int32, device="cuda")
+        temps0, topk0 = torch.zeros(N_SLOTS, device="cuda"), torch.full((N_SLOTS,), 32000,
+                                                                        device="cuda")
+        prof_decode = profile_device(torch, lambda: batcher._decode_step(
+            toks, pos, temps0, topk0, False), f"one decode step at {N_SLOTS} slots, positions 3000")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(8):
+            batcher._decode_step(toks, pos, temps0, topk0, False)
+        torch.cuda.synchronize()
+        prof_decode["wall_ms_per_step"] = (time.perf_counter() - t2) / 8 * 1e3
+        if prof_decode["device_us"]:
+            prof_decode["busy_share"] = prof_decode["device_us"] / 1e3 / prof_decode[
+                "wall_ms_per_step"]
+        log(f"  8 decode steps back to back: {prof_decode['wall_ms_per_step']:.2f} ms a step on "
+            f"the host clock (busy share {prof_decode.get('busy_share', 'not measured')})   "
+            f"[{card}]")
+
+        # 32-layer prefill logits at S=4096: kernels against the plain route,
+        # four 512-token chunks (positions 0-2047, K1 at m=512 and K3)
+        chunk_logits = {}
+        for plain in (False, True):
+            cache = gpt.init_kv_cache(cfg, 1, 4096, torch.int8, device="cuda")
+            for p0 in range(0, 2048, 512):
+                logits, _ = gpt.forward(batcher.params, cfg, check_seq[:, p0:p0 + 512],
+                                        input_pos=p0,
+                                        kv_cache=cache, rope_cache=batcher.rope, plain=plain)
+            chunk_logits[plain] = logits.float()
+            del cache
+    a, b = chunk_logits[False], chunk_logits[True]
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise AssertionError("non-finite prefill logits")
+    rel = float((a - b).abs().max() / b.abs().max())
+    log(f"  prefill logits at S=4096 (chunk at pos0 1536), kernels vs plain, "
+        f"max|diff|/max|plain|: {rel:.3e} (tolerance {LOGITS_REL_TOL})")
+    if rel > LOGITS_REL_TOL:
+        raise AssertionError(f"prefill logits differ beyond {LOGITS_REL_TOL}: {rel}")
+    results["serving"] = {
+        "model": "Llama-2-7b-hf (random weights, seed 0), q4r1 int4, int8 KV cache, "
+                 "block_size 4096",
+        "n_slots": N_SLOTS, "decode_quantum": 8, "adaptive_quantum": True, "new_tokens": n_new,
+        "http_s": http_s, "http": [{k: v for k, v in a.items() if k != "text"} for a in answers],
+        "load": load, "load_prefix": load_prefix, "prefix_register_ms": register_s * 1e3,
+        "prefix_hits": hits, "batched_admissions": batcher.batched_admissions,
+        "launches": counts, "peak_gb": peak_gb,
+        "engine_checks": checks, "profile_prefill_2048": prof_prefill,
+        "profile_decode_step": prof_decode, "prefill_logits_rel_diff": rel, "card": card}
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -444,13 +807,22 @@ def main() -> int:
     int4_err, int4_rows = check_int4(torch, gen, results)
     log("[4] int8 decode attention kernel vs plain")
     attn_err, attn_rows = check_attention(torch, gen, results)
-    log("[5] main path: Llama-2-7B int4, int8 KV cache, generate")
-    counts = main_path(torch, results, card)
+    log("[5] batch-1 path: Llama-2-7B int4, int8 KV cache, block_size 1024, generate")
+    counts_b1 = main_path(torch, results, card)
+    log("[6] flash prefill attention kernel vs plain")
+    flash_err, flash_rows = check_flash(torch, gen, results)
+    log(f"[7] serving path: Llama-2-7B int4 at 4096 context, {N_SLOTS}-slot batcher, HTTP")
+    counts = serving_path(torch, results, card)
+    results["launches"] = {"batch1_path": counts_b1, "serving_path": counts}
 
-    # one decode step of one layer: the four linears at m=1; attention at pos 191
+    # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
+    # K3: the three 512-row chunks at pos0 0, 1536, 3584. Launches: the serving path.
     dec = [r for r in int4_rows if r["m"] == 1]
     att = next(r for r in attn_rows if r["pos"] == 191)
     k1, k2 = build.KERNELS["int4_rank1_matmul"], build.KERNELS["int8_decode_attention"]
+    k3 = build.KERNELS["flash_attention"]
+    f_ops = sum(r["flops"] / F32_FLOPS_PER_S for r in flash_rows)
+    f_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in flash_rows)
     kernels = [
         {"name": k1.name, "route": "cuda", "source": str(k1.source.relative_to(REPO)),
          "replaces": k1.replaces, "launches": counts[k1.name], "max_abs_err": int4_err,
@@ -461,6 +833,12 @@ def main() -> int:
          "replaces": k2.replaces, "launches": counts[k2.name], "max_abs_err": attn_err,
          "ms": att["ms"], "plain_ms": att["plain_ms"], "bound_ms": att["bound_ms"],
          "bound_by": att["bound_by"], "library_ms": None},
+        {"name": k3.name, "route": "cuda", "source": str(k3.source.relative_to(REPO)),
+         "replaces": k3.replaces, "launches": counts[k3.name], "max_abs_err": flash_err,
+         "ms": sum(r["ms"] for r in flash_rows), "plain_ms": sum(r["plain_ms"] for r in flash_rows),
+         "bound_ms": sum(r["bound_ms"] for r in flash_rows),
+         "bound_by": "operations" if f_ops >= f_bytes else "bytes",
+         "library_ms": sum(r["library_ms"] for r in flash_rows)},
     ]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

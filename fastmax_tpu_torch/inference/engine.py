@@ -1,12 +1,13 @@
-"""KV-cached greedy inference engine (counterpart of
+"""KV-cached inference engine (counterpart of
 ``fastmax_tpu/inference/engine.py``): one prefill (chunked past
-``PREFILL_CHUNK`` tokens), then one single-token forward per new token.
+``PREFILL_CHUNK`` tokens), then one single-token forward per new token,
+greedy or sampled (temperature, top-k) from an explicit ``torch.Generator``.
 
-The decode loop keeps the token buffer and the argmax on the device and
+The decode loop keeps the token buffer and the sampling on the device and
 reads nothing back per token when ``eos_id`` is None: the host learns the
 result once, at the end. With an ``eos_id`` it checks the new token each
-step, as the reference's eos test does. Sampled decoding (temperature > 0,
-top-k) and the linear-attention state cache come with later slices.
+step, as the reference's eos test does. The linear-attention state cache
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ class InferenceEngine:
         if mode not in ("quantized", "auto"):
             raise NotImplementedError(
                 f"weights_mode {mode!r} is not ported yet: it comes with the slice that ports "
-                "the quantizers (ROADMAP queue A8)")
+                "the quantizers (ROADMAP.md queue A, item 3)")
         params = _fuse_mlp_gates(params)
         unported = [n for n in _leaf_names(params)
                     if n[-1] in ("q4", "q8", "q4b", "absmax", "lora_A", "adapter_scale")]
@@ -125,9 +126,11 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def decode(self, cache: dict, first_token: torch.Tensor, prompt_len: int, max_new: int,
-               eos_id: Optional[int] = None):
-        """Greedy decode from ``first_token`` (B,) until ``max_new`` tokens
-        (first included) or, with ``eos_id``, until every row has emitted it.
+               eos_id: Optional[int] = None, *, temperature: float = 0.0,
+               top_k: Optional[int] = None, generator: Optional[torch.Generator] = None):
+        """Decode from ``first_token`` (B,) until ``max_new`` tokens (first
+        included) or, with ``eos_id``, until every row has emitted it; greedy
+        at temperature 0, else sampled (see ``ops.sampling.sample``).
         Returns ((B, n) generated tokens on the device, cache)."""
         b = first_token.shape[0]
         max_new = max(max_new, 1)
@@ -139,7 +142,7 @@ class InferenceEngine:
             if done is not None and bool(done.all()):
                 break
             logits, cache = self._forward(tokens[:, n - 1:n], cache, prompt_len + n - 1)
-            nxt = sample(logits[:, -1, :])
+            nxt = sample(logits[:, -1, :], temperature, top_k, generator=generator)
             tokens[:, n] = nxt
             if done is not None:
                 done = done | (nxt == eos_id)
@@ -148,11 +151,13 @@ class InferenceEngine:
 
     def generate(self, prompt: torch.Tensor, max_returned_tokens: int, *,
                  temperature: float = 0.0, top_k: Optional[int] = None,
-                 eos_id: Optional[int] = None) -> torch.Tensor:
-        """Greedy generation. prompt: (T,) or (B, T) token ids. Returns the
-        (B, n) sequence including the prompt, truncated at eos for batch 1."""
-        if temperature > 0.0 or top_k is not None:
-            raise NotImplementedError("sampled decoding comes with the serving slice")
+                 eos_id: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Generation, greedy at temperature 0 (the default), else sampled
+        with the top_k most likely tokens and noise from ``generator`` (the
+        JAX engine's ``key``; None draws from PyTorch's default generator).
+        prompt: (T,) or (B, T) token ids. Returns the (B, n) sequence
+        including the prompt, truncated at eos for batch 1."""
         prompt = torch.as_tensor(prompt, device=self.device).to(torch.int32)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -163,8 +168,9 @@ class InferenceEngine:
             raise ValueError(f"max_returned_tokens {max_returned_tokens} > max_seq_length "
                              f"{self.max_seq_length}")
         logits, cache = self.prefill(prompt, self.new_cache())
-        first = sample(logits)
-        gen, _ = self.decode(cache, first, t, max_returned_tokens - t, eos_id)
+        first = sample(logits, temperature, top_k, generator=generator)
+        gen, _ = self.decode(cache, first, t, max_returned_tokens - t, eos_id,
+                             temperature=temperature, top_k=top_k, generator=generator)
         out = torch.cat([prompt, gen], dim=1)
         if eos_id is not None and b == 1:
             hits = (out[0, t:] == eos_id).nonzero()

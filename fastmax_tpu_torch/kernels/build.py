@@ -114,6 +114,12 @@ KERNELS = {
         "fm_int8_decode_attention",
         # q, q_bf16, kc, vc, ks, vs, pos, out, b, hq, g, s_len, d, scale, stream
         [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "flash_attention": Kernel(
+        "flash_attention", "flash_attention.cu",
+        "fastmax_tpu/ops/flash_attention.py:137",
+        "fm_flash_attention",
+        # q, k, v, out, bf16, b, hq, g, t, s, d, pos0, kv_len, scale, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
 }
 
 

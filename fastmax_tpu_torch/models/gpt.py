@@ -7,10 +7,12 @@ and the layer loop is a Python loop that indexes layer ``l`` (a view, or a
 pointer into the stack for the int4 kernel). The KV cache is one
 (L, B, G, S, D) tensor per leaf, written in place, layer by layer.
 
-Ported here: scalar ``input_pos`` with a dense or int8 cache, fused-QKV
-grouped attention with (partial) RoPE, the LLaMA SwiGLU MLP (split or fused
-``fc_12``), sequential and parallel residual. Per-slot (vector) positions,
-the linear-attention algorithms, MoE and the no-cache training forward come
+Ported here: a scalar ``input_pos`` (a Python int) or per-slot positions
+(a (B,) device tensor, continuous batching) with a dense or int8 cache,
+fused-QKV grouped attention with (partial) RoPE, the flash prefill route
+over the cache (``ops/flash_attention.py``), ``logits_at``, the LLaMA
+SwiGLU MLP (split or fused ``fc_12``), sequential and parallel residual.
+The linear-attention algorithms, MoE and the no-cache training forward come
 in later slices.
 """
 
@@ -22,6 +24,8 @@ import torch
 
 from ..ops.attention import int8_cache_attention, scaled_dot_product_attention
 from ..ops.decode_attention import int8_decode_attention_stacked, int8_decode_eligible
+from ..ops.flash_attention import BLOCK_Q as FLASH_BLOCK_Q
+from ..ops.flash_attention import flash_attention, flash_eligible
 from ..ops.linear import embedding, linear
 from ..ops.norms import apply_norm
 from ..ops.rope import apply_rope, build_rope_cache
@@ -78,11 +82,28 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool 
                   * linear(p["fc_2"], x, layer, plain=plain), layer, plain=plain)
 
 
+def _write(cache: torch.Tensor, new: torch.Tensor, layer: int, input_pos) -> None:
+    """Write new (B, G, T[, D]) into layer ``layer`` of cache (L, B, G, S[, D])
+    at each row's position. A vector input_pos writes row b at input_pos[b]
+    onwards by one indexed store on the device; as the reference's
+    dynamic_update_slice does, a start past S - T is clamped to S - T."""
+    t = new.shape[2]
+    if isinstance(input_pos, int):
+        cache[layer, :, :, input_pos:input_pos + t] = new
+        return
+    b, s = new.shape[0], cache.shape[3]
+    start = torch.clamp(input_pos.to(torch.int64), 0, s - t)
+    pos = start[:, None] + torch.arange(t, device=new.device)  # (B, T)
+    rows = torch.arange(b, device=new.device)[:, None].expand(b, t)
+    cache[layer][rows, :, pos] = new.transpose(1, 2).to(cache.dtype)  # values (B, T, G[, D])
+
+
 def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: dict,
-               input_pos: int, layer: int, posv: torch.Tensor, *, plain: bool = False):
+               input_pos, layer: int, posv: torch.Tensor, *, plain: bool = False):
     """Fused-QKV grouped attention over layer ``layer`` of the stacked cache,
-    which is updated in place. ``posv`` (B,) int32 holds the position of the
-    last token (the decode kernel's mask frontier)."""
+    which is updated in place. ``input_pos`` is a Python int or a (B,)
+    tensor of per-row positions; ``posv`` (B,) int32 holds the position of
+    the last token (the decode kernel's mask frontier)."""
     b, t, _ = x.shape
     hs, g = cfg.head_size, cfg.n_query_groups
     q_per_kv = cfg.n_head // g
@@ -96,14 +117,12 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
     k = _rope(k, cos, sin, nre)
 
     act_dtype = k.dtype
-    sl = slice(input_pos, input_pos + t)
     if "k_scale" in kv_cache:
         k_new, k_new_scale = _quantize_kv(k)
         v_new, v_new_scale = _quantize_kv(v)
-        kv_cache["k"][layer, :, :, sl] = k_new
-        kv_cache["v"][layer, :, :, sl] = v_new
-        kv_cache["k_scale"][layer, :, :, sl] = k_new_scale
-        kv_cache["v_scale"][layer, :, :, sl] = v_new_scale
+        for name, new in (("k", k_new), ("v", v_new), ("k_scale", k_new_scale),
+                          ("v_scale", v_new_scale)):
+            _write(kv_cache[name], new, layer, input_pos)
         kc, vc = kv_cache["k"], kv_cache["v"]
         ks, vs = kv_cache["k_scale"], kv_cache["v_scale"]
         if cfg.attn_alg == "quadratic" and t == 1:
@@ -119,12 +138,20 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
         k = _dequantize_kv(kc[layer], ks[layer], act_dtype)
         v = _dequantize_kv(vc[layer], vs[layer], act_dtype)
     else:
-        kv_cache["k"][layer, :, :, sl] = k.to(kv_cache["k"].dtype)
-        kv_cache["v"][layer, :, :, sl] = v.to(kv_cache["v"].dtype)
+        _write(kv_cache["k"], k.to(kv_cache["k"].dtype), layer, input_pos)
+        _write(kv_cache["v"], v.to(kv_cache["v"].dtype), layer, input_pos)
         k, v = kv_cache["k"][layer], kv_cache["v"][layer]
     if cfg.attn_alg != "quadratic":
         raise NotImplementedError(f"attn_alg {cfg.attn_alg!r} is not ported yet")
-    y = scaled_dot_product_attention(q, k, v, mask=mask, scale=1.0 / hs ** 0.5)
+    s_len = k.shape[2]
+    if t > 1 and isinstance(input_pos, int) and \
+            flash_eligible(t + (-t) % FLASH_BLOCK_Q, s_len, hs):
+        # KV-cache prefill: flash attention over the cache layer, the invalid
+        # tail masked by kv_len; the kernel masks the ragged query rows itself
+        y = flash_attention(q, k, v, scale=1.0 / hs ** 0.5, pos0=input_pos,
+                            kv_len=input_pos + t, plain=plain)
+    else:
+        y = scaled_dot_product_attention(q, k, v, mask=mask, scale=1.0 / hs ** 0.5)
     return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
 
 
@@ -156,35 +183,47 @@ def forward(
     cfg: Config,
     idx: torch.Tensor,
     *,
-    input_pos: int,
+    input_pos,
     kv_cache: dict,
     rope_cache: Optional[tuple] = None,
     max_seq_length: Optional[int] = None,
+    logits_at: Optional[torch.Tensor] = None,
     plain: bool = False,
 ):
     """Cached forward. idx: (B, T) token ids; input_pos: the position of
-    idx[:, 0] (a Python int). Writes the T new tokens into ``kv_cache`` in
-    place. ``plain=True`` sends every kernel call to its plain PyTorch
-    version (a test hook for comparing the two on the card).
+    idx[:, 0], a Python int, or a (B,) integer tensor of per-row positions
+    (continuous batching: token i of row b sits at input_pos[b] + i; the
+    positions stay on the device). Writes the T new tokens into
+    ``kv_cache`` in place. ``logits_at`` (B,) picks one row of T per batch
+    row for the lm_head, which then returns (B, 1, padded_vocab).
+    ``plain=True`` sends every kernel call to its plain PyTorch version (a
+    test hook for comparing the two on the card).
 
-    Returns (logits (B, T, padded_vocab), kv_cache).
+    Returns (logits (B, T or 1, padded_vocab), kv_cache).
     """
-    if isinstance(input_pos, torch.Tensor) and input_pos.ndim > 0:
-        raise NotImplementedError("per-slot (vector) input_pos comes with the serving slice")
-    input_pos = int(input_pos)
     b, t = idx.shape
     device = idx.device
     if rope_cache is None:
         n = max_seq_length or cfg.block_size
         rope_cache = build_rope_cache(n, cfg.rope_n_elem, cfg.rope_base,
                                       cfg.rope_condense_ratio, device=device)
-    cos = rope_cache[0][input_pos:input_pos + t]
-    sin = rope_cache[1][input_pos:input_pos + t]
     s = kv_cache["k"].shape[3]
-    # mask[i, j]: the query at position input_pos + i attends to slot j <= input_pos + i
-    qpos = input_pos + torch.arange(t, device=device)[:, None]
-    mask = (torch.arange(s, device=device)[None, :] <= qpos)[None, None]
-    posv = torch.full((b,), input_pos + t - 1, dtype=torch.int32, device=device)
+    if isinstance(input_pos, torch.Tensor) and input_pos.ndim == 1:
+        input_pos = input_pos.to(device=device, dtype=torch.int32)
+        qpos = input_pos[:, None] + torch.arange(t, device=device, dtype=torch.int32)  # (B, T)
+        # an out-of-range gather clamps in the reference; garbage rows of idle slots only
+        rows = torch.clamp(qpos, 0, rope_cache[0].shape[0] - 1).long()
+        cos, sin = rope_cache[0][rows][:, None], rope_cache[1][rows][:, None]  # (B, 1, T, n)
+        mask = torch.arange(s, device=device)[None, None, None, :] <= qpos[:, None, :, None]
+        posv = qpos[:, -1]
+    else:
+        input_pos = int(input_pos)
+        cos = rope_cache[0][input_pos:input_pos + t]
+        sin = rope_cache[1][input_pos:input_pos + t]
+        # mask[i, j]: the query at position input_pos + i attends to slot j <= input_pos + i
+        qpos = input_pos + torch.arange(t, device=device)[:, None]
+        mask = (torch.arange(s, device=device)[None, :] <= qpos)[None, None]
+        posv = torch.full((b,), input_pos + t - 1, dtype=torch.int32, device=device)
 
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
@@ -193,4 +232,6 @@ def forward(
         x = apply_block(params["blocks"], x, cfg, cos, sin, mask, kv_cache, input_pos, layer,
                         posv, plain=plain)
     x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
+    if logits_at is not None:
+        x = x[torch.arange(b, device=device), logits_at.to(device).long()][:, None]
     return linear(params["lm_head"], x), kv_cache

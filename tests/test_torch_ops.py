@@ -154,5 +154,7 @@ def test_greedy_sample():
     ref = jsampling.sample(jnp.asarray(logits), None, 0.0)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError):
-        sampling.sample(torch.from_numpy(logits), temperature=1.0)
+    # sampled with the top-1 filter: the argmax again, whatever the noise
+    hot = sampling.sample(torch.from_numpy(logits[:2]), temperature=1.0, top_k=1,
+                          generator=torch.Generator().manual_seed(0))
+    assert torch.equal(hot, got[:2])
