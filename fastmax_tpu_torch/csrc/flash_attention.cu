@@ -22,7 +22,8 @@
 // pair) against the f32 FMA rate, since this first version computes both
 // products with f32 FMAs from shared memory; the tensor-core (wgmma) version
 // is later work. The k/v tile is staged in two 64-key halves so a CTA uses
-// ~100 KB of shared memory and two CTAs fit on an SM.
+// ~100 KB of shared memory at D=128 and two CTAs fit on an SM; D=192 and 256
+// (134 and 167 KB) run one CTA an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,7 +58,7 @@ constexpr int smem_floats() {
 // tx = tid % 16 owns key columns tx + 16*c of a staged half (scores) and
 // head-dim columns tx + 16*c (the accumulator).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_attention_kernel(
+__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int hq, int g_count, int t_len, int s_len, int pos0, int kv_len,
     float scale) {
@@ -241,27 +242,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, int b, int hq,
+                     int g, int t_len, int s_len, int d, int pos0, int kv_len, float scale,
+                     cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch<T, 64>(q, k, v, out, b, hq, g, t_len, s_len, pos0, kv_len, scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, b, hq, g, t_len, s_len, pos0, kv_len, scale, stream);
+    case 192:
+      return launch<T, 192>(q, k, v, out, b, hq, g, t_len, s_len, pos0, kv_len, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, b, hq, g, t_len, s_len, pos0, kv_len, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // q: (B, Hq, T, D); k, v: (B, G, S, D); out: (B, Hq, T, D); all contiguous, in
-// f32 (bf16 = 0) or bf16 (bf16 = 1). D is 64 or 128; Hq % G == 0; T >= 1.
+// f32 (bf16 = 0) or bf16 (bf16 = 1). D is 64, 128, 192 or 256; Hq % G == 0; T >= 1.
 int fm_flash_attention(const void* q, const void* k, const void* v, void* out, int bf16,
                        int b, int hq, int g, int t_len, int s_len, int d, int pos0,
                        int kv_len, float scale, cudaStream_t stream) {
-  if (d != 64 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (bf16)
-    err = d == 64 ? launch<__nv_bfloat16, 64>(q, k, v, out, b, hq, g, t_len, s_len, pos0,
-                                             kv_len, scale, stream)
-                  : launch<__nv_bfloat16, 128>(q, k, v, out, b, hq, g, t_len, s_len, pos0,
-                                              kv_len, scale, stream);
-  else
-    err = d == 64 ? launch<float, 64>(q, k, v, out, b, hq, g, t_len, s_len, pos0, kv_len,
+  const cudaError_t err =
+      bf16 ? launch_d<__nv_bfloat16>(q, k, v, out, b, hq, g, t_len, s_len, d, pos0, kv_len,
                                      scale, stream)
-                  : launch<float, 128>(q, k, v, out, b, hq, g, t_len, s_len, pos0, kv_len,
-                                      scale, stream);
+           : launch_d<float>(q, k, v, out, b, hq, g, t_len, s_len, d, pos0, kv_len, scale,
+                             stream);
   return static_cast<int>(err);
 }
 

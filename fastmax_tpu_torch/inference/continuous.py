@@ -181,30 +181,15 @@ class ContinuousBatcher:
                 continue
             req = self.queue.pop(0)
             t = len(req.prompt)
+            row = self._slot_row(slot)
+            p0 = self._apply_prefix(req.prompt[:t], row) if self.prefix_cache_size else 0
             if self.prefill_chunk:
                 # chunked admission: claim the slot, start at the shared prefix
                 # (if cached); _prefill_tick does the work
-                p0 = 0
-                if self.prefix_cache_size:
-                    entry = self._prefix_lookup(req.prompt[:t])
-                    if entry is not None:
-                        p0 = entry["len"]
-                        for k, v in self.cache.items():
-                            v[:, slot:slot + 1, :, :p0] = entry[k]
-                        self.prefix_cache_hits += p0
                 self._prefilling[slot] = p0
                 self.positions[slot] = p0
                 self.slots[slot] = req
                 continue
-            row = self._slot_row(slot)
-            p0 = 0
-            if self.prefix_cache_size:
-                entry = self._prefix_lookup(req.prompt[:t])
-                if entry is not None:
-                    p0 = entry["len"]
-                    for k in row:
-                        row[k][:, :, :, :p0] = entry[k]
-                    self.prefix_cache_hits += p0
             n_suffix = t - p0
             bucket = self._bucket(n_suffix, self.max_seq_length - p0)
             padded = np.zeros(bucket, np.int32)
@@ -331,13 +316,8 @@ class ContinuousBatcher:
             raise ValueError("prefix_cache_size is 0: enable the prefix cache first")
         tokens = np.asarray(tokens, np.int32)
         t = len(tokens)
-        entry = self._prefix_lookup(np.concatenate([tokens, [0]]).astype(np.int32))
-        p0 = 0
         row = {k: torch.zeros_like(v[:, :1]) for k, v in self.cache.items()}
-        if entry is not None:
-            p0 = entry["len"]
-            for k in row:
-                row[k][:, :, :, :p0] = entry[k]
+        p0 = self._apply_prefix(np.concatenate([tokens, [0]]).astype(np.int32), row, count=False)
         n_suffix = t - p0
         bucket = self._bucket(n_suffix, self.max_seq_length - p0)
         padded = np.zeros(bucket, np.int32)
@@ -358,6 +338,20 @@ class ContinuousBatcher:
         if best_key is not None:
             self._prefix_cache.move_to_end(best_key)
         return best
+
+    def _apply_prefix(self, prompt: np.ndarray, row: dict, count: bool = True) -> int:
+        """Copy the longest cached strict prefix of ``prompt`` into ``row``;
+        returns its length p0 (0 on a miss), counted in ``prefix_cache_hits``
+        unless ``count`` is False."""
+        entry = self._prefix_lookup(prompt)
+        if entry is None:
+            return 0
+        p0 = entry["len"]
+        for k in row:
+            row[k][:, :, :, :p0] = entry[k]
+        if count:
+            self.prefix_cache_hits += p0
+        return p0
 
     def _prefix_insert(self, prompt: np.ndarray, row: dict) -> None:
         """Keep a device copy of this prompt's KV rows, LRU-bounded."""

@@ -30,12 +30,12 @@ from ..kernels.build import KERNELS, use_kernel
 BLOCK_Q = 128   # the reference's query block: the route pads T to it for eligibility
 BLOCK_K = 128   # keys per online-softmax step, in the kernel and the plain version
 NEG_INF = -1e30
+KERNEL_HEAD_SIZES = (64, 128, 192, 256)  # the head sizes the CUDA kernel is built for
 
 
 def flash_eligible(t: int, s: int, d: int) -> bool:
-    """The reference's conditions (T % 128, S % 128, D % 64, S >= 2048) plus
-    the kernel's: D is 64 or 128."""
-    return t % BLOCK_Q == 0 and s % BLOCK_K == 0 and d in (64, 128) and s >= 2048
+    """The reference's conditions: T % 128, S % 128, D % 64 and S >= 2048."""
+    return t % BLOCK_Q == 0 and s % BLOCK_K == 0 and d % 64 == 0 and s >= 2048
 
 
 def _args(q, k, scale, kv_len):
@@ -77,8 +77,9 @@ def _launch(q, k, v, scale: float, pos0: int, kv_len: int) -> torch.Tensor:
     bb, g, s, dd = k.shape
     if bb != b or dd != d or tuple(v.shape) != tuple(k.shape) or hq % g or t < 1:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"the flash kernel takes head size 64 or 128, not {d}")
+    if d not in KERNEL_HEAD_SIZES:
+        raise NotImplementedError(f"the flash kernel is built for head sizes "
+                                  f"{KERNEL_HEAD_SIZES}, not {d}")
     if not 0 <= kv_len <= s or pos0 < 0:
         raise ValueError(f"pos0 {pos0} and kv_len {kv_len} must lie in [0, S={s}]")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -75,11 +75,29 @@ def test_ragged_rows_match_the_padded_call():
     np.testing.assert_allclose(got, ref, **F32)
 
 
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_heads_match_reference(d):
+    """Head sizes 192 and 256 (eligible by the reference's D % 64) take the
+    same route and give the reference's result."""
+    got, ref = _both(*_inputs(4, 1, 4, 2, 128, 256, d=d), pos0=64, kv_len=192)
+    np.testing.assert_allclose(got, ref, **F32)
+
+
 @pytest.mark.parametrize("t,s,d", [(128, 2048, 64), (256, 4096, 128), (128, 1024, 128),
-                                   (100, 2048, 128), (128, 2048, 96), (128, 2048, 256)])
+                                   (100, 2048, 128), (128, 2048, 96), (128, 2048, 256),
+                                   (128, 2048, 192), (128, 2048, 320)])
 def test_eligibility(t, s, d):
-    """The reference's conditions, plus the kernel's head sizes (64, 128)."""
-    assert fa.flash_eligible(t, s, d) == (jax_eligible(t, s, d) and d in (64, 128))
+    """The route takes exactly the reference's conditions."""
+    assert fa.flash_eligible(t, s, d) == jax_eligible(t, s, d)
+
+
+def test_unbuilt_head_size_raises_before_launch():
+    """A head size the kernel is not built for raises NotImplementedError on
+    the kernel's route instead of falling back to a plain version."""
+    q, k, v = (torch.zeros(shape) for shape in ((1, 2, 128, 320), (1, 2, 2048, 320),
+                                                (1, 2, 2048, 320)))
+    with pytest.raises(NotImplementedError, match="320"):
+        fa._launch(q, k, v, 320 ** -0.5, 0, 128)
 
 
 @pytest.mark.cuda
@@ -88,7 +106,8 @@ def test_kernel_matches_plain_on_the_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, hq, g, t, s, d, pos0 in ((1, 32, 32, 512, 4096, 128, 1536), (2, 8, 2, 200, 2048, 64, 0)):
+    for b, hq, g, t, s, d, pos0 in ((1, 32, 32, 512, 4096, 128, 1536), (2, 8, 2, 200, 2048, 64, 0),
+                                    (1, 8, 4, 256, 2048, 192, 512), (1, 8, 8, 130, 2048, 256, 100)):
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for shape in ((b, hq, t, d), (b, g, s, d), (b, g, s, d)))
         before = build.KERNELS["flash_attention"].launches
