@@ -38,7 +38,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    first-token logits against the engine's; and 32-layer prefill logits at
    S=4096 with the kernels against the plain route, through the engine's
    512-token chunks and through the batcher's whole-prompt and prefix-suffix
-   prefills.
+   prefills;
+8. training: the fastmax kernels K4 (forward, with and without its g and
+   state outputs) and K5 (the reverse walk) against their plain versions at
+   the shape a training step gives them (B=4, H=8, N=512, D=64, p=2, f32 and
+   bf16; p=1; N=2048 at D=16; a ragged N=200 through ``fastmax()``), with
+   device times (inputs cold) and bounds; ``pretrain.setup`` on
+   easy-transformer-fastmax with its defaults (float32, global batch 8,
+   micro-batch 4, T=512, remat, AdamW) for 40 steps over a ``train.bin``
+   made from the repository's own ``*.md`` and ``*.py`` bytes: tokens/s, step
+   time, MFU against the card's f32 peak, peak memory, the first and last
+   logged loss (the last must be lower), K4/K5 launch counts (exactly 2 and 1
+   per layer per micro-batch under remat), a profile of one step; one step's
+   loss and every gradient with the kernels against ``plain=True``; and the
+   same 40 steps of easy-transformer (quadratic attention) as a yardstick.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -47,6 +60,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -71,6 +85,15 @@ FLASH_BF16_ATOL = 1e-2                     # a bf16 ulp (2^-7) of outputs up to 
 FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4  # the reference's own (test_flash_attention.py)
 NEAR_TIE_REL = LOGITS_REL_TOL              # top-2 margin under this x max|logit|: a near-tie
 N_SLOTS = 8
+# fastmax K4/K5 against their plain walks: f32 (atol, rtol), the reference's own
+# (test_fastmax_pallas.py: forward 2e-4/1e-3, gradients 5e-4/2e-3); bf16, of the
+# largest value, the reference's bf16 ones (4e-2 forward, 6e-2 gradients)
+FASTMAX_F32 = {"fwd": (2e-4, 1e-3), "grad": (5e-4, 2e-3)}
+FASTMAX_BF16_REL = {"fwd": 4e-2, "grad": 6e-2}
+# one training step, kernels against plain=True, f32: the loss (relative) and
+# each gradient leaf (of its largest entry), as the CPU test holds port and JAX
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-3
+TRAIN_STEPS = 40
 
 LLAMA7B_LINEARS = [("qkv", 4096, 12288), ("attn_proj", 4096, 4096),
                    ("fc_12", 4096, 22016), ("mlp_proj", 11008, 4096)]
@@ -303,7 +326,9 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel
                                              "int4_splitk_reduce_kernel")),
                  ("K2 int8_decode_attention", ("int8_decode_attention_kernel",)),
                  ("K3 flash_attention", ("flash_attention_kernel",)),
-                 ("gemm (dequantized weights)", ("gemm", "cutlass", "nvjet", "xmma")))
+                 ("K4 fastmax_fwd", ("fastmax_fwd_kernel",)),
+                 ("K5 fastmax_bwd", ("fastmax_bwd_kernel",)),
+                 ("gemm (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")))
 
 
 def profile_device(torch, fn, label, per: int = 1) -> dict:
@@ -648,6 +673,9 @@ def batcher_prefill(torch, gpt, batcher, seq, p0: int, row: dict, plain: bool):
     return logits[:, t - p0 - 1]
 
 
+SERVING_KERNELS = ("int4_rank1_matmul", "int8_decode_attention", "flash_attention")
+
+
 def serving_path(torch, results, card):
     import numpy as np
 
@@ -728,7 +756,7 @@ def serving_path(torch, results, card):
         f"in batched waves): {load_wave}   [{card}]")
     log(f"  launches over the serving phase: {counts}; requests admitted in batched waves: "
         f"{batcher.batched_admissions}; peak device memory {peak_gb:.3f} GB   [{card}]")
-    if any(c <= 0 for c in counts.values()):
+    if any(counts[k] <= 0 for k in SERVING_KERNELS):
         raise AssertionError(f"a kernel of the serving path was never launched: {counts}")
     if hits < 16 * 2048:
         raise AssertionError(f"the prefix cache reused {hits} tokens, not 16 x 2048")
@@ -839,6 +867,292 @@ def serving_path(torch, results, card):
     return counts
 
 
+# ----------------------------------------------------------------- phase 8
+def fastmax_work(bh, n, d, p, chunk, elem, backward: bool) -> tuple:
+    """(bytes, operations) of one fastmax call: the function's work, not the
+    kernels' tiling. Operations: 4 D (forward) or 10 D (backward) per causal
+    (row, key) pair inside a chunk; per row the D x D state products and, for
+    p = 2, the pair terms over P = D (D + 1) / 2 pairs m <= j (2 P D each:
+    f2 and the S3 update forward; the rewind, dq2, dk2, dv and dS3 backward).
+    Bytes: each input read once and each output written once."""
+    causal = (n // chunk) * chunk * (chunk + 1) // 2
+    pairs = d * (d + 1) // 2
+    sym = -(-pairs // 128) * 128  # the packed state's padded rows
+    state = 4 * (d * d + d + (sym * d + d * d if p == 2 else 0))
+    if backward:
+        per_row = (20 if p == 2 else 10) * d * d + ((10 * pairs * d + 11 * pairs) if p == 2 else 0)
+        ops = bh * (causal * 10 * d + n * per_row)
+        nbytes = bh * (5 * n * d * elem + 4 * n + state + 3 * n * d * elem)
+    else:
+        per_row = (10 if p == 2 else 4) * d * d + ((4 * pairs * d + 2 * pairs) if p == 2 else 0)
+        ops = bh * (causal * 4 * d + n * per_row)
+        nbytes = bh * (3 * n * d * elem + n * d * elem + 4 * n + state)
+    return nbytes, ops
+
+
+def check_fastmax(torch, gen, results):
+    from fastmax_tpu_torch.ops import fastmax as tfm
+    from fastmax_tpu_torch.ops import fastmax_kernels as fk
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"f32": 0.0, "bf16": 0.0}
+
+    def close(what, got, ref, kind, dt):
+        got, ref = got.float(), ref.float()
+        err = (got - ref).abs()
+        if dt == f32:
+            atol, rtol = FASTMAX_F32[kind]
+            bad = bool((err > atol + rtol * ref.abs()).any())
+        else:
+            bad = float(err.max()) > FASTMAX_BF16_REL[kind] * float(ref.abs().max())
+        name = "f32" if dt == f32 else "bf16"
+        worst[name] = max(worst[name], float(err.max()))
+        if bad or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"fastmax {what}: max abs err {float(err.max()):.3e}")
+        return float(err.max())
+
+    # (B*H, N, D, p, chunk, dtype): the training shape, p = 1, 16 chunks at D = 16
+    cases = [(32, 512, 64, 2, 128, f32), (32, 512, 64, 2, 128, bf16), (32, 512, 64, 1, 128, f32),
+             (2, 2048, 16, 2, 128, f32)]
+    for bh, n, d, p, chunk, dt in cases:
+        q, k, v, do = ((torch.randn((bh, n, d), generator=gen, device=dev) * 0.5).to(dt)
+                       for _ in range(4))
+        z = 8.0 * math.sqrt(d)
+        o_k, g_k, st_k = fk._fwd_launch(q, k, v, p, z, chunk, train=True)
+        only = fk._fwd_launch(q, k, v, p, z, chunk, train=False)
+        o_p, g_p, st_p = fk.fastmax_fwd_plain(q, k, v, p, z, chunk)
+        tag = f"BH={bh} N={n} D={d} p={p} {str(dt)[6:]}"
+        errs = {"o": close(f"K4 o {tag}", o_k, o_p, "fwd", dt),
+                "o (forward only)": close(f"K4 forward-only o {tag}", only, o_p, "fwd", dt),
+                "g": close(f"K4 g {tag}", g_k, g_p, "fwd", dt)}
+        for name, a, b in zip(("s_kv", "s_k", "s_kkv", "s_kk"), st_k, st_p):
+            errs[name] = close(f"K4 {name} {tag}", a, b, "fwd", dt)
+        g_kern = fk._bwd_launch(q, k, v, do, o_p, g_p, st_p, p, z, chunk)
+        g_plain = fk.fastmax_bwd_plain(q, k, v, do, o_p, g_p, st_p, p, z, chunk)
+        for name, a, b in zip(("dq", "dk", "dv"), g_kern, g_plain):
+            errs[name] = close(f"K5 {name} {tag}", a, b, "grad", dt)
+        torch.cuda.synchronize()
+        log(f"  fastmax {tag}: ok, max abs err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        del q, k, v, do, o_k, g_k, st_k, only, o_p, g_p, st_p, g_kern, g_plain
+    # a ragged N = 200 through fastmax(): padded to 256 at the tail; output and
+    # gradients, kernels against plain
+    base = [torch.randn((4, 8, 200, 64), generator=gen, device=dev) * 0.5 for _ in range(4)]
+    got = {}
+    for plain in (False, True):
+        ts = [x.clone().requires_grad_(True) for x in base[:3]]
+        o = tfm.fastmax(*ts, p=2, plain=plain)
+        (o * base[3]).sum().backward()
+        got[plain] = [o.detach()] + [t.grad for t in ts]
+    errs = [close("fastmax() N=200 o", got[False][0], got[True][0], "fwd", f32)]
+    errs += [close(f"fastmax() N=200 {n}", a, b, "grad", f32)
+             for n, a, b in zip(("dq", "dk", "dv"), got[False][1:], got[True][1:])]
+    log(f"  fastmax() B=4 H=8 N=200 (padded to 256) D=64 p=2 f32: ok, max abs err "
+        f"{max(errs):.2e}")
+
+    # device time at the training shape, inputs cold: four input sets (67 MB f32)
+    rows = []
+    n_sets = 4
+    for p, dt in ((2, f32), (2, bf16), (1, f32)):
+        sets = [[(torch.randn((32, 512, 64), generator=gen, device=dev) * 0.5).to(dt)
+                 for _ in range(4)] for _ in range(n_sets)]
+        z = 8.0 * math.sqrt(64)
+        fwd_out = [fk.fastmax_fwd_plain(q, k, v, p, z, 128) for q, k, v, _ in sets]
+        it = iter(range(10**9))
+
+        def fwd(train=True, plain=False):
+            q, k, v, _ = sets[next(it) % n_sets]
+            if plain:
+                return fk.fastmax_fwd_plain(q, k, v, p, z, 128)
+            return fk._fwd_launch(q, k, v, p, z, 128, train=train)
+
+        def bwd(plain=False):
+            i = next(it) % n_sets
+            q, k, v, do = sets[i]
+            o, g, st = fwd_out[i]
+            walk = fk.fastmax_bwd_plain if plain else fk._bwd_launch
+            return walk(q, k, v, do, o, g, st, p, z, 128)
+
+        k4 = graph_ms(fwd, calls=2 * n_sets)
+        k4_only = graph_ms(lambda: fwd(train=False), calls=2 * n_sets)
+        plain_f = graph_ms(lambda: fwd(plain=True), calls=n_sets, reps=1)
+        k5 = graph_ms(bwd, calls=2 * n_sets)
+        plain_b = graph_ms(lambda: bwd(plain=True), calls=n_sets, reps=1)
+        elem = 2 if dt == bf16 else 4
+        b_f = bound(*fastmax_work(32, 512, 64, p, 128, elem, False), bf16=dt == bf16)
+        b_b = bound(*fastmax_work(32, 512, 64, p, 128, elem, True), bf16=dt == bf16)
+        rows.append({"p": p, "dtype": str(dt)[6:], "k4_ms": k4, "k4_forward_only_ms": k4_only,
+                     "plain_fwd_ms": plain_f, "k5_ms": k5, "plain_bwd_ms": plain_b,
+                     "fwd_bound": b_f, "bwd_bound": b_b})
+        log(f"  fastmax B=4 H=8 N=512 D=64 p={p} {str(dt)[6:]:8s}: K4 {k4 * 1e3:8.1f} us "
+            f"(forward only {k4_only * 1e3:8.1f})  plain {plain_f * 1e3:8.1f} us  bound "
+            f"{b_f['bound_ms'] * 1e3:6.1f} us ({b_f['bound_by']}; {b_f['bound_f32_ms'] * 1e3:6.1f} "
+            f"at the f32 rate);  K5 {k5 * 1e3:8.1f} us  plain {plain_b * 1e3:8.1f} us  bound "
+            f"{b_b['bound_ms'] * 1e3:6.1f} us ({b_b['bound_by']}; "
+            f"{b_b['bound_f32_ms'] * 1e3:6.1f} at the f32 rate)")
+        del sets, fwd_out
+    results["fastmax_times"] = rows
+    results["fastmax_max_abs_err"] = worst
+    return worst, rows
+
+
+def repo_text_tokens(np):
+    """The bytes of the repository's own *.md and *.py files, bytes >= 205
+    (the easy-transformer vocabulary) dropped, as uint16 tokens."""
+    skip = {"_build", "_checkout", "chiprun_out", "__pycache__"}
+    files = sorted(f for f in REPO.rglob("*") if f.suffix in (".md", ".py") and f.is_file()
+                   and not skip.intersection(f.relative_to(REPO).parts))
+    raw = np.frombuffer(b"".join(f.read_bytes() for f in files), np.uint8)
+    return raw[raw < 205].astype(np.uint16), len(files)
+
+
+def clone_tree(tree, requires_grad: bool):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v, requires_grad) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(requires_grad)
+
+
+def train_args():
+    """``pretrain.setup``'s defaults, TRAIN_STEPS steps, a log line every step."""
+    from fastmax_tpu_torch.utils.args import TrainArgs
+
+    return TrainArgs(global_batch_size=8, micro_batch_size=4, max_iters=TRAIN_STEPS,
+                     learning_rate=6e-4, save_interval=1000, log_interval=1)
+
+
+def training_run(torch, pretrain, build, data, out, model_name, card):
+    """TRAIN_STEPS steps of ``pretrain.setup`` with its defaults."""
+    import csv
+
+    from fastmax_tpu_torch.utils.args import IOArgs
+
+    gc.collect()  # what earlier phases left in reference cycles (the 7B batcher)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = pretrain.setup(model_name=model_name, data_format="openwebtext",
+                           train=train_args(), io=IOArgs(train_data_dir=data, out_dir=out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9  # the run's own peak
+    with open(out / "metrics.csv", newline="") as f:
+        steps = {int(r["step"]): r for r in csv.DictReader(f)}
+    losses = [float(steps[s]["loss"]) for s in sorted(steps)]
+    step_s = (float(steps[TRAIN_STEPS]["time"]) - float(steps[10]["time"])) / (TRAIN_STEPS - 10)
+    tok_s = 8 * 512 / step_s
+    run = {"model": model_name, "steps": state.step, "wall_s": wall, "step_s": step_s,
+           "tokens_per_s": tok_s, "peak_gb": peak_gb, "held_before_gb": held / 1e9,
+           "launches": counts,
+           "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+           "est_mfu_logged": float(steps[TRAIN_STEPS].get("est_mfu") or "nan"), "card": card}
+    log(f"  {model_name}: {state.step} steps in {wall:.2f} s; steps 11-{TRAIN_STEPS}: "
+        f"{step_s * 1e3:.2f} ms a step, {tok_s:.1f} tokens/s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; peak {peak_gb:.3f} GB; launches {counts}   [{card}]")
+    return state, run
+
+
+def training_path(torch, results, card):
+    import tempfile
+
+    import numpy as np
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.training import pretrain
+    from fastmax_tpu_torch.training.fit import build_optimizer
+    from fastmax_tpu_torch.training.step import make_loss_fn, tree_leaves
+    from fastmax_tpu_torch.utils.flops import estimate_flops
+
+    cfg = Config.from_name("easy-transformer-fastmax")
+    tokens, n_files = repo_text_tokens(np)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "data"
+        data.mkdir()
+        tokens.tofile(data / "train.bin")
+        (data / "meta.json").write_text('{"dtype": "uint16"}')
+        log(f"  train.bin: {tokens.size} tokens from {n_files} *.md/*.py files of the repository")
+        state, run = training_run(torch, pretrain, build, data, Path(tmp) / "fm",
+                                  "easy-transformer-fastmax", card)
+        n_params = sum(p.numel() for p in tree_leaves(state.params))
+        flops_tok = estimate_flops(cfg, n_params, 512) / 512
+        run["mfu_f32"] = run["tokens_per_s"] * flops_tok / F32_FLOPS_PER_S
+        mb = TRAIN_STEPS * 2
+        want = {"fastmax_fwd": 2 * cfg.n_layer * mb, "fastmax_bwd": cfg.n_layer * mb}
+        log(f"  easy-transformer-fastmax: {n_params} parameters, {flops_tok / 1e6:.1f} MFLOP a "
+            f"token (6N + attention, the reference's count), MFU {run['mfu_f32']:.4f} of the "
+            f"f32 peak; K4/K5 launches {run['launches']['fastmax_fwd']}/"
+            f"{run['launches']['fastmax_bwd']} (remat: {want['fastmax_fwd']}/"
+            f"{want['fastmax_bwd']})   [{card}]")
+        if {k: run["launches"][k] for k in want} != want:
+            raise AssertionError(f"K4/K5 launches {run['launches']} != {want}")
+        if not run["last_loss"] < run["first_loss"]:
+            raise AssertionError(f"the loss did not fall: {run['losses']}")
+
+        # one step's device time by kernel group, and the busy share
+        loss_fn = make_loss_fn(cfg, remat=True)
+        leaves = tree_leaves(state.params)
+        batches = [torch.as_tensor(tokens[i * 2052:(i + 1) * 2052].astype(np.int64),
+                                   device="cuda").reshape(4, 513) for i in range(2)]
+        optimizer = build_optimizer(train_args())
+
+        def one_step():
+            for p in leaves:
+                p.grad = None
+            for b in batches:
+                loss_fn(state.params, b).backward()
+            optimizer.update(state.params, [p.grad / 2 for p in leaves], state.opt_state)
+
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof = profile_device(torch, one_step, "one training step (2 micro-batches)")
+        prof["wall_ms"] = wall_ms
+        if prof["device_us"]:
+            prof["busy_share"] = prof["device_us"] / 1e3 / wall_ms
+        log(f"  one step: {wall_ms:.2f} ms on the host clock, device busy share "
+            f"{prof.get('busy_share', 'not measured')}   [{card}]")
+        run["profile_step"] = prof
+        del state, leaves, optimizer
+        out["fastmax"] = run
+
+        # one step's loss and every gradient: kernels against plain=True
+        params0 = gpt.init_params(cfg, seed=1337, device="cuda")
+        res = {}
+        for plain in (False, True):
+            ps = clone_tree(params0, True)
+            loss = make_loss_fn(cfg, remat=True, plain=plain)(ps, batches[0])
+            loss.backward()
+            res[plain] = (float(loss.detach()), [p.grad for p in tree_leaves(ps)])
+        loss_rel = abs(res[False][0] - res[True][0]) / abs(res[True][0])
+        grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(res[False][1], res[True][1]))
+        log(f"  one step, kernels vs plain: loss {res[False][0]:.6f} vs {res[True][0]:.6f} "
+            f"(rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_REL}); worst gradient leaf "
+            f"max|diff|/max|plain| {grad_rel:.2e} (tolerance {TRAIN_GRAD_REL})")
+        if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL):
+            raise AssertionError(f"kernels vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
+        out["kernels_vs_plain"] = {"loss": [res[False][0], res[True][0]], "loss_rel": loss_rel,
+                                   "worst_grad_rel": grad_rel}
+        del res, params0
+
+        # the yardstick: the same 40 steps with quadratic attention
+        _, quad = training_run(torch, pretrain, build, data, Path(tmp) / "quad",
+                               "easy-transformer", card)
+        out["quadratic"] = quad
+        log(f"  tokens/s: easy-transformer-fastmax {run['tokens_per_s']:.1f}, easy-transformer "
+            f"(quadratic) {quad['tokens_per_s']:.1f}   [{card}]")
+    results["training"] = out
+    return run["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -887,10 +1201,16 @@ def main() -> int:
     flash_err, flash_rows = check_flash(torch, gen, results)
     log(f"[7] serving path: Llama-2-7B int4 at 4096 context, {N_SLOTS}-slot batcher, HTTP")
     counts = serving_path(torch, results, card)
-    results["launches"] = {"batch1_path": counts_b1, "serving_path": counts}
+    log("[8] training: fastmax kernels vs plain, then pretrain.setup on easy-transformer-fastmax")
+    fm_err, fm_rows = check_fastmax(torch, gen, results)
+    counts_train = training_path(torch, results, card)
+    results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
+                           "training_path": counts_train}
 
     # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
-    # K3: the five timed 7B calls of phase 6. Launches: the serving path. The
+    # K3: the five timed 7B calls of phase 6; K4, K5: one call at the training
+    # shape (p=2, f32). Launches: the serving path (K1-K3), the training path
+    # (K4, K5). The
     # bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
@@ -920,6 +1240,17 @@ def main() -> int:
          "bound_by": bound_by(flash_rows),
          "library_ms": sum(r["library_ms"] for r in flash_rows)},
     ]
+    train_row = next(r for r in fm_rows if r["p"] == 2 and r["dtype"] == "float32")
+    for kern, ms, plain_ms, bnd in (
+            (build.KERNELS["fastmax_fwd"], train_row["k4_ms"], train_row["plain_fwd_ms"],
+             train_row["fwd_bound"]),
+            (build.KERNELS["fastmax_bwd"], train_row["k5_ms"], train_row["plain_bwd_ms"],
+             train_row["bwd_bound"])):
+        kernels.append({"name": kern.name, "route": "cuda",
+                        "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
+                        "launches": counts_train[kern.name], "max_abs_err": fm_err["f32"],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+                        "bound_by": bnd["bound_by"], "library_ms": None})
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

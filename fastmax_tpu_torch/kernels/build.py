@@ -48,7 +48,9 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        # the shared headers of csrc/ are part of every source's build
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha1(self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:12]}.so"
 
     def _start_build(self):
@@ -120,6 +122,20 @@ KERNELS = {
         "fm_flash_attention",
         # q, k, v, out, bf16, b, hq, g, t, s, d, pos0, kv_len, scale, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "fastmax_fwd": Kernel(
+        "fastmax_fwd", "fastmax_fwd.cu",
+        "fastmax_tpu/ops/fastmax_pallas.py:503",  # and fastmax_pallas's forward alone at :649
+        "fm_fastmax_fwd",
+        # q, k, v, o, bf16, g, skv, sk, s3, skk, fpart, bh, n, d, chunk, p2, z, s3_rows, nsplit,
+        # stream
+        [_P, _P, _P, _P, _I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
+    "fastmax_bwd": Kernel(
+        "fastmax_bwd", "fastmax_bwd.cu",
+        "fastmax_tpu/ops/fastmax_pallas.py:568",
+        "fm_fastmax_bwd",
+        # q, k, v, dout, o, bf16, g, skv, sk, skk, s3, ds3, part, dq, dk, dv, bh, n, d, chunk,
+        # p2, z, s3_rows, nsplit, stream
+        [_P] * 5 + [_I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
 }
 
 

@@ -12,8 +12,15 @@ Ported here: a scalar ``input_pos`` (a Python int) or per-slot positions
 fused-QKV grouped attention with (partial) RoPE, the flash prefill route
 over the cache (``ops/flash_attention.py``), ``logits_at``, the LLaMA
 SwiGLU MLP (split or fused ``fc_12``), sequential and parallel residual.
-The linear-attention algorithms, MoE and the no-cache training forward come
-in later slices.
+
+The no-cache forward (``kv_cache=None``: training and evaluation) runs every
+block over the whole sequence with ``ops/attention.attention``, so
+``attn_alg="fastmax"``/``"fastmax_cuda"`` goes through the fastmax kernels K4
+(forward) and K5 (backward); ``remat=True`` recomputes each block in the
+backward (``torch.utils.checkpoint``). ``init_params`` gives the GPT-NeoX
+initialisation from a seed; the GPT-NeoX MLP (exact or tanh GELU) and bias
+leaves are ported. The linear-attention cache, MoE and the XLA remat policies
+come in later slices.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import int8_cache_attention, scaled_dot_product_attention
+from ..ops.attention import attention, int8_cache_attention, scaled_dot_product_attention
 from ..ops.decode_attention import int8_decode_attention_stacked, int8_decode_eligible
 from ..ops.flash_attention import BLOCK_Q as FLASH_BLOCK_Q
 from ..ops.flash_attention import flash_attention, flash_eligible
@@ -30,6 +38,72 @@ from ..ops.linear import embedding, linear
 from ..ops.norms import apply_norm
 from ..ops.rope import apply_rope, build_rope_cache
 from .config import Config
+
+
+def _init_linear(gen, n_in, n_out, bias, dtype, std=0.02):
+    p = {"kernel": (torch.randn((n_in, n_out), generator=gen) * std).to(dtype)}
+    if bias:
+        p["bias"] = torch.zeros((n_out,), dtype=dtype)
+    return p
+
+
+def _init_norm(cfg: Config, dtype):
+    p = {"weight": torch.ones((cfg.n_embd,), dtype=dtype)}
+    if cfg.norm_class_name == "LayerNorm":
+        p["bias"] = torch.zeros((cfg.n_embd,), dtype=dtype)
+    return p
+
+
+def _init_block(gen, cfg: Config, dtype) -> dict:
+    e, i = cfg.n_embd, cfg.intermediate_size
+    if cfg.mlp_class_name == "GptNeoxMLP":
+        mlp = {"fc": _init_linear(gen, e, i, cfg.bias, dtype),
+               "proj": _init_linear(gen, i, e, cfg.bias, dtype)}
+    elif cfg.mlp_class_name == "LLaMAMLP":
+        mlp = {"fc_1": _init_linear(gen, e, i, cfg.bias, dtype),
+               "fc_2": _init_linear(gen, e, i, cfg.bias, dtype),
+               "proj": _init_linear(gen, i, e, cfg.bias, dtype)}
+    else:
+        raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet")
+    block = {
+        "norm_1": _init_norm(cfg, dtype),
+        "attn": {"attn": _init_linear(gen, e, cfg.qkv_shape, cfg.bias, dtype),
+                 "proj": _init_linear(gen, cfg.head_size * cfg.n_head, e, cfg.bias, dtype)},
+        "mlp": mlp,
+    }
+    if not cfg.shared_attention_norm:
+        block["norm_2"] = _init_norm(cfg, dtype)
+    return block
+
+
+def _stack(trees: list) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: Config, seed: int = 0, dtype=torch.float32, device=None) -> dict:
+    """GPT-NeoX initialisation (normal, std 0.02; zero biases, unit norms) from
+    a ``torch.Generator`` seeded with ``seed``, made on the CPU and moved to
+    ``device`` (default: the card), with the block leaves stacked on a leading
+    (n_layer,) axis. The numbers differ from the JAX package's (another
+    generator); the layout is the same."""
+    from ..inference.engine import default_device
+
+    device = default_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    wte = (torch.randn((cfg.padded_vocab_size, cfg.n_embd), generator=gen) * 0.02).to(dtype)
+    params = {
+        "wte": wte,
+        "lm_head": _init_linear(gen, cfg.n_embd, cfg.padded_vocab_size, cfg.lm_head_bias, dtype),
+        "ln_f": _init_norm(cfg, dtype),
+        "blocks": _stack([_init_block(gen, cfg, dtype) for _ in range(cfg.n_layer)]),
+    }
+
+    def move(node):
+        return {k: move(v) for k, v in node.items()} if isinstance(node, dict) else node.to(device)
+
+    return move(params)
 
 
 def init_kv_cache(cfg: Config, batch_size: int, max_seq_length: int,
@@ -71,8 +145,14 @@ def _rope(x, cos, sin, nre):
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool = False):
+    if cfg.mlp_class_name == "GptNeoxMLP":
+        h = linear(p["fc"], x, layer, plain=plain)
+        h = torch.nn.functional.gelu(h, approximate="tanh" if cfg.gelu_approximate == "tanh"
+                                     else "none")
+        return linear(p["proj"], h, layer, plain=plain)
     if cfg.mlp_class_name != "LLaMAMLP":
-        raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet (LLaMAMLP only)")
+        raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet "
+                                  "(GptNeoxMLP and LLaMAMLP)")
     silu = torch.nn.functional.silu
     if "fc_12" in p:
         h = linear(p["fc_12"], x, layer, plain=plain)
@@ -98,6 +178,19 @@ def _write(cache: torch.Tensor, new: torch.Tensor, layer: int, input_pos) -> Non
     cache[layer][rows, :, pos] = new.transpose(1, 2).to(cache.dtype)  # values (B, T, G[, D])
 
 
+def _project_qkv(p: dict, x: torch.Tensor, cfg: Config, cos, sin, layer, plain: bool):
+    """The fused QKV projection, split into q (B, n_head, T, hs) and grouped
+    k, v (B, G, T, hs), with (partial) RoPE on q and k."""
+    b, t, _ = x.shape
+    hs, g = cfg.head_size, cfg.n_query_groups
+    q_per_kv = cfg.n_head // g
+    qkv = linear(p["attn"], x, layer, plain=plain).reshape(b, t, g, q_per_kv + 2, hs)
+    q = qkv[..., :q_per_kv, :].reshape(b, t, cfg.n_head, hs).permute(0, 2, 1, 3)
+    k = qkv[..., q_per_kv, :].permute(0, 2, 1, 3)
+    v = qkv[..., q_per_kv + 1, :].permute(0, 2, 1, 3)
+    return _rope(q, cos, sin, cfg.rope_n_elem), _rope(k, cos, sin, cfg.rope_n_elem), v
+
+
 def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: dict,
                input_pos, layer: int, posv: torch.Tensor, *, plain: bool = False):
     """Fused-QKV grouped attention over layer ``layer`` of the stacked cache,
@@ -105,16 +198,8 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
     tensor of per-row positions; ``posv`` (B,) int32 holds the position of
     the last token (the decode kernel's mask frontier)."""
     b, t, _ = x.shape
-    hs, g = cfg.head_size, cfg.n_query_groups
-    q_per_kv = cfg.n_head // g
-
-    qkv = linear(p["attn"], x, layer, plain=plain).reshape(b, t, g, q_per_kv + 2, hs)
-    q = qkv[..., :q_per_kv, :].reshape(b, t, cfg.n_head, hs).permute(0, 2, 1, 3)
-    k = qkv[..., q_per_kv, :].permute(0, 2, 1, 3)  # (B, G, T, hs)
-    v = qkv[..., q_per_kv + 1, :].permute(0, 2, 1, 3)
-    nre = cfg.rope_n_elem
-    q = _rope(q, cos, sin, nre)
-    k = _rope(k, cos, sin, nre)
+    hs, q_per_kv = cfg.head_size, cfg.n_head // cfg.n_query_groups
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, layer, plain)
 
     act_dtype = k.dtype
     if "k_scale" in kv_cache:
@@ -161,16 +246,16 @@ def _finish_attn(p, y, x, cfg, b, t, hs, layer, plain):
     return linear(p["proj"], y, layer, plain=plain)
 
 
-def apply_block(bp, x, cfg, cos, sin, mask, kv_cache, input_pos, layer, posv, *,
-                plain: bool = False):
-    """One transformer block over layer ``layer`` of the stacked weights."""
+def apply_block(bp, x, cfg, layer, attn_fn, *, plain: bool = False):
+    """One transformer block over layer ``layer`` of the stacked weights (or,
+    with ``layer=None``, over one layer's weights); ``attn_fn(attn_params, n1)``
+    computes the attention part."""
     def norm(name, h):
-        return apply_norm(h, {k: a[layer] for k, a in bp[name].items()}, cfg.norm_class_name,
-                          cfg.norm_eps, cfg.add_unit_offset)
+        p = bp[name] if layer is None else {k: a[layer] for k, a in bp[name].items()}
+        return apply_norm(h, p, cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
 
     n1 = norm("norm_1", x)
-    h = apply_attn(bp["attn"], n1, cfg, cos, sin, mask, kv_cache, input_pos, layer, posv,
-                   plain=plain)
+    h = attn_fn(bp["attn"], n1)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else norm("norm_2", x)
         return apply_mlp(bp["mlp"], n2, cfg, layer, plain=plain) + h + x
@@ -178,19 +263,74 @@ def apply_block(bp, x, cfg, cos, sin, mask, kv_cache, input_pos, layer, posv, *,
     return apply_mlp(bp["mlp"], norm("norm_2", x), cfg, layer, plain=plain) + x
 
 
+def apply_attn_nocache(p: dict, x: torch.Tensor, cfg: Config, cos, sin, *,
+                       plain: bool = False):
+    """Fused-QKV attention over the whole sequence (training and evaluation),
+    dispatched on ``cfg.attn_alg``; ``p`` holds one layer's weights."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, None, plain)
+    y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=cfg.head_size, plain=plain)
+    return _finish_attn(p, y, x, cfg, b, t, cfg.head_size, None, plain)
+
+
+def _unstack(tree, n: int) -> list:
+    """Per-layer views of the stacked block leaves: one ``unbind`` a leaf, so
+    the backward stacks each leaf's layer gradients once."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _check_remat(remat) -> bool:
+    if remat is True or remat == "full":
+        return True
+    if not remat:
+        return False
+    if isinstance(remat, str):
+        raise NotImplementedError(
+            f"remat policy {remat!r} is one of the reference's XLA checkpoint policies; the port "
+            "has True/'full' (each block recomputed in the backward) and False")
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _forward_nocache(params, cfg, idx, rope_cache, remat, plain):
+    t = idx.shape[1]
+    cos, sin = rope_cache[0][:t], rope_cache[1][:t]
+    x = embedding(params["wte"], idx)
+    if cfg.scale_embeddings:
+        x = x * (cfg.n_embd ** 0.5)
+    use_remat = _check_remat(remat)
+
+    def attn_fn(ap, n1):
+        return apply_attn_nocache(ap, n1, cfg, cos, sin, plain=plain)
+
+    for bp in _unstack(params["blocks"], cfg.n_layer):
+        def body(h, bp=bp):
+            return apply_block(bp, h, cfg, None, attn_fn, plain=plain)
+        x = checkpoint(body, x, use_reentrant=False) if use_remat else body(x)
+    x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
+    return linear(params["lm_head"], x)
+
+
 def forward(
     params: dict,
     cfg: Config,
     idx: torch.Tensor,
     *,
-    input_pos,
-    kv_cache: dict,
+    input_pos=None,
+    kv_cache: Optional[dict] = None,
     rope_cache: Optional[tuple] = None,
     max_seq_length: Optional[int] = None,
     logits_at: Optional[torch.Tensor] = None,
+    remat=False,
     plain: bool = False,
 ):
-    """Cached forward. idx: (B, T) token ids; input_pos: the position of
+    """Run the model. Without ``kv_cache`` (and ``input_pos``): the full-sequence
+    training/evaluation forward, each block recomputed in the backward when
+    ``remat`` is True or "full"; returns (logits (B, T, padded_vocab), None).
+
+    Cached forward. idx: (B, T) token ids; input_pos: the position of
     idx[:, 0], a Python int, or a (B,) integer tensor of per-row positions
     (continuous batching: token i of row b sits at input_pos[b] + i; the
     positions stay on the device). Writes the T new tokens into
@@ -207,6 +347,10 @@ def forward(
         n = max_seq_length or cfg.block_size
         rope_cache = build_rope_cache(n, cfg.rope_n_elem, cfg.rope_base,
                                       cfg.rope_condense_ratio, device=device)
+    if kv_cache is None:
+        if input_pos is not None:
+            raise ValueError("input_pos requires a kv_cache (call init_kv_cache)")
+        return _forward_nocache(params, cfg, idx, rope_cache, remat, plain), None
     s = kv_cache["k"].shape[3]
     if isinstance(input_pos, torch.Tensor) and input_pos.ndim == 1:
         input_pos = input_pos.to(device=device, dtype=torch.int32)
@@ -229,8 +373,10 @@ def forward(
     if cfg.scale_embeddings:
         x = x * (cfg.n_embd ** 0.5)
     for layer in range(cfg.n_layer):
-        x = apply_block(params["blocks"], x, cfg, cos, sin, mask, kv_cache, input_pos, layer,
-                        posv, plain=plain)
+        def attn_fn(ap, n1, layer=layer):
+            return apply_attn(ap, n1, cfg, cos, sin, mask, kv_cache, input_pos, layer, posv,
+                              plain=plain)
+        x = apply_block(params["blocks"], x, cfg, layer, attn_fn, plain=plain)
     x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
     if logits_at is not None:
         x = x[torch.arange(b, device=device), logits_at.to(device).long()][:, None]

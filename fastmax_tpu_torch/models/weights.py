@@ -1,9 +1,11 @@
-"""Bring a parameter tree of the JAX package into the port.
+"""Bring a parameter tree of the JAX package into the port, and back.
 
 ``from_numpy_params`` takes the tree as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``) and returns the same keys and layouts
-as torch tensors: dense kernels stay (in, out), stacked block leaves keep
-their leading (n_layer,) axis and q4r1 int32 words are kept as they are.
+as torch tensors: dense kernels stay (in, out), biases and norm weights stay
+vectors, stacked block leaves keep their leading (n_layer,) axis and q4r1
+int32 words are kept as they are. ``to_numpy_params`` gives a port tree back
+as numpy arrays in the same layout (bfloat16 leaves as float32 values).
 """
 
 from __future__ import annotations
@@ -33,3 +35,11 @@ def from_numpy_params(tree: dict, device=None) -> dict:
         return _tensor(node, device)
 
     return walk(tree)
+
+
+def to_numpy_params(tree: dict) -> dict:
+    """Torch parameter tree -> numpy arrays on the host."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_params(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

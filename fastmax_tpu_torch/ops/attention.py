@@ -1,8 +1,12 @@
-"""Softmax attention over grouped KV heads (counterpart of the quadratic
-part of ``fastmax_tpu/ops/attention.py``).
+"""Attention algorithms and the ``attn_alg`` dispatch (counterpart of
+``fastmax_tpu/ops/attention.py``).
 
-GQA/MQA run on grouped shapes: q (B, Hq, T, D) is viewed as
-(B, G, Hq/G, T, D) against un-expanded k/v (B, G, S, D).
+Softmax attention runs on grouped shapes: q (B, Hq, T, D) is viewed as
+(B, G, Hq/G, T, D) against un-expanded k/v (B, G, S, D). The dispatch
+``attention`` is ported for ``quadratic`` below ``BLOCKWISE_MIN_T`` and for
+``fastmax``/``fastmax_cuda`` (degree 2, ops/fastmax.py); the trainable
+long-context kernels (B8/B9), ``performer`` and ``linearmax`` come in later
+slices.
 """
 
 from __future__ import annotations
@@ -11,7 +15,13 @@ from typing import Optional
 
 import torch
 
+from .fastmax import fastmax
+
 NEG_INF = float("-inf")
+
+# full-sequence quadratic forwards at T >= this take the reference's trainable
+# flash/blockwise kernels (B8/B9), not ported yet
+BLOCKWISE_MIN_T = 1024
 
 
 def repeat_kv_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -96,3 +106,38 @@ def int8_cache_attention(
     pv = (probs * v_scale.float()[:, :, None, None, :]).to(q.dtype)
     out = torch.einsum("bgrts,bgsd->bgrtd", pv.float(), v_codes.float()).to(q.dtype)
     return out.reshape(b, hq, t, d)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    attn_alg: str,
+    head_size: int,
+    mask: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Dispatch on ``attn_alg`` for the full-sequence forward. q: (B, Hq, T, D);
+    k, v: (B, G, S, D). For the linear algorithms the grouped KV heads are
+    repeated to the full head count first. The reference's ``is_decode`` (the
+    linear algorithms unmasked over a KV cache) comes with the fastmax
+    linear-cache slice."""
+    scale = 1.0 / head_size ** 0.5
+    if attn_alg == "quadratic":
+        t, s = q.shape[2], k.shape[2]
+        if mask is None and t == s and t >= BLOCKWISE_MIN_T:
+            raise NotImplementedError(
+                f"quadratic attention without a mask at T={t} >= {BLOCKWISE_MIN_T} takes the "
+                "trainable flash kernels B8/B9, which are not ported yet (ROADMAP queue A)")
+        return scaled_dot_product_attention(q, k, v, mask=mask, scale=scale,
+                                            is_causal=mask is None)
+    n_head = q.shape[1]
+    k = repeat_kv_heads(k, n_head)
+    v = repeat_kv_heads(v, n_head)
+    if attn_alg in ("fastmax", "fastmax_cuda"):
+        return fastmax(q, k, v, p=2, mask=True, plain=plain)
+    if attn_alg in ("performer", "linearmax"):
+        raise NotImplementedError(f"attn_alg {attn_alg!r} comes with the fastmax linear-cache "
+                                  "slice (ROADMAP queue A, item 4)")
+    raise ValueError(f"Attention algorithm {attn_alg} not supported")

@@ -1,0 +1,126 @@
+"""From-scratch pretraining recipe (counterpart of
+``fastmax_tpu/training/pretrain.py``).
+
+  --data_format openwebtext   nanoGPT train.bin/val.bin memmaps (+ meta.json dtype)
+  --data_format enwik8        byte-level random crops (the easy-transformer configs)
+
+``attn_alg`` selects the fork's attention algorithm; with ``fastmax`` or
+``fastmax_cuda`` every attention call of a step goes through the fastmax
+kernels K4/K5 on the card. Not ported yet: the ``packed`` data format,
+``dp``/``fsdp``/``tp`` above 1 (the multi-GPU item of ROADMAP queue A) and the
+lit-format deploy checkpoint that the reference writes at the end: ``setup``
+saves the torch train state (``out_dir/state/train_state.pt``) instead.
+
+Example (the card; pass device="cpu" to run on the CPU):
+
+    from fastmax_tpu_torch.training import pretrain
+    from fastmax_tpu_torch.utils.args import IOArgs
+    pretrain.setup(model_name="easy-transformer-fastmax", data_format="openwebtext",
+                   io=IOArgs(train_data_dir="data/openwebtext", out_dir="out"))
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.lm_datasets import Enwik8Dataset, MemmapDataset
+from ..data.packed_dataset import batch_iterator
+from ..inference.engine import default_device
+from ..models import gpt
+from ..models.config import Config
+from ..utils.args import EvalArgs, IOArgs, TrainArgs
+from ..utils.logging import choose_logger
+from .fit import (TrainState, build_optimizer, fit, has_train_state, load_train_state,
+                  save_train_state)
+from .step import tree_leaves
+
+
+def _token_dtype(data_dir: Path) -> str:
+    meta = data_dir / "meta.json"
+    return json.loads(meta.read_text()).get("dtype", "uint16") if meta.is_file() else "uint16"
+
+
+def data_iterators(data_format: str, io: IOArgs, block_size: int, batch_size: int, seed: int = 0):
+    if data_format == "openwebtext":
+        data_dir = Path(io.train_data_dir)
+        train_ds = MemmapDataset(data_dir / "train.bin", block_size, seed,
+                                 dtype=getattr(np, _token_dtype(data_dir)))
+        val_dir = Path(io.val_data_dir or io.train_data_dir)
+        val_path = val_dir / "val.bin"
+        val_ds = (MemmapDataset(val_path, block_size, seed + 1,
+                                dtype=getattr(np, _token_dtype(val_dir)))
+                  if val_path.exists() else None)
+    elif data_format == "enwik8":
+        src = Path(io.train_data_dir)
+        src = src / "enwik8.gz" if src.is_dir() else src
+        train_ds = Enwik8Dataset(src, block_size, "train", seed)
+        val_ds = Enwik8Dataset(src, block_size, "val", seed + 1)
+    elif data_format == "packed":
+        raise NotImplementedError("the packed data format (native reader) is not ported yet")
+    else:
+        raise ValueError(f"unknown data_format {data_format!r}")
+    train_iter = batch_iterator(train_ds, batch_size)
+    val_iter_fn = (lambda: batch_iterator(val_ds, batch_size)) if val_ds is not None else None
+    return train_iter, val_iter_fn
+
+
+def setup(
+    model_name: str = "easy-transformer",
+    data_format: str = "openwebtext",
+    attn_alg: Optional[str] = None,
+    logger_name: str = "csv",
+    seed: int = 1337,
+    dtype: str = "float32",
+    dp: int = 1,
+    fsdp: int = 1,
+    tp: int = 1,
+    train: TrainArgs = TrainArgs(
+        global_batch_size=8, micro_batch_size=4, max_iters=100, learning_rate=6e-4,
+        save_interval=1000, log_interval=10,
+    ),
+    eval: EvalArgs = EvalArgs(interval=50, max_iters=20),
+    io: IOArgs = IOArgs(),
+    device=None,
+) -> TrainState:
+    """Train ``model_name`` from scratch on the card (``device="cpu"`` for the
+    CPU); resume from ``out_dir/state`` with ``io.resume``. Logs to
+    ``out_dir/metrics.csv`` and returns the final TrainState."""
+    if dp * fsdp * tp > 1:
+        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU item of ROADMAP "
+                                  "queue A")
+    device = default_device(device)
+    cfg = Config.from_name(model_name, **({"attn_alg": attn_alg} if attn_alg else {}))
+    if train.max_seq_length:
+        cfg.block_size = min(cfg.block_size, train.max_seq_length)
+
+    out_dir = Path(io.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger = choose_logger(logger_name, out_dir)
+
+    optimizer = build_optimizer(train)
+    ckpt_dir = out_dir / "state"
+    if io.resume and has_train_state(ckpt_dir):
+        state = load_train_state(ckpt_dir, device)
+        print(f"resumed at step {state.step}")
+    else:
+        params = gpt.init_params(cfg, seed, getattr(torch, dtype), device)
+        state = TrainState(params, optimizer.init(params))
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    print(f"model {cfg.name}: {n_params/1e6:.1f}M params, attn_alg={cfg.attn_alg}")
+
+    train_iter, val_iter_fn = data_iterators(
+        data_format, io, cfg.block_size, train.micro_batch_size, seed)
+
+    t0 = time.perf_counter()
+    state = fit(cfg, state, optimizer, train_iter, train=train, eval_args=eval,
+                val_iter_fn=val_iter_fn, logger=logger,
+                checkpoint_fn=lambda s: save_train_state(s, ckpt_dir))
+    print(f"done: {state.step} steps in {time.perf_counter()-t0:.1f}s")
+    logger.finalize()
+    return state

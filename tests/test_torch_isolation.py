@@ -15,8 +15,10 @@ import torch
 from fastmax_tpu_torch.inference.engine import InferenceEngine, default_device
 from fastmax_tpu_torch.kernels import build
 from fastmax_tpu_torch.models.config import Config
+from fastmax_tpu_torch.models import gpt
 from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
 from fastmax_tpu_torch.models.weights import from_numpy_params
+from fastmax_tpu_torch.training import pretrain
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -42,6 +44,10 @@ def test_no_jax_and_no_reference_package_imported():
         "'fastmax_tpu'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
+        "for sub in ('training.pretrain', 'training.fit', 'training.step', 'data.lm_datasets',\n"
+        "            'data.packed_dataset', 'utils.args', 'utils.flops', 'utils.logging',\n"
+        "            'utils.loss', 'ops.fastmax', 'ops.fastmax_kernels'):\n"
+        "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=_clean_env(), cwd=REPO, timeout=120)
@@ -63,6 +69,10 @@ def test_entry_points_default_to_cuda():
         build_fake_7b_int4(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         from_numpy_params({"wte": params["wte"].float().numpy()})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpt.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain.setup(model_name="easy-transformer-fastmax")
 
 
 def test_cuda_tensor_never_takes_the_plain_version():
