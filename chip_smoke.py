@@ -40,17 +40,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    512-token chunks and through the batcher's whole-prompt and prefix-suffix
    prefills;
 8. training: the fastmax kernels K4 (forward, with and without its g and
-   state outputs) and K5 (the reverse walk) against their plain versions at
-   the shape a training step gives them (B=4, H=8, N=512, D=64, p=2, f32 and
-   bf16; p=1; N=2048 at D=16; a ragged N=200 through ``fastmax()``), with
-   device times (inputs cold) and bounds; ``pretrain.setup`` on
+   state outputs) and K5 (the reverse walk), through ``fastmax_trainable``
+   and ``fastmax_forward``, against their plain versions at the shape a
+   training step gives them (B=4, H=8, N=512, D=64, p=2, f32 and bf16; p=1;
+   N=2048 at D=16; a ragged N=200 through ``fastmax()``), on inputs where
+   s = q.k / z is of order 1 so that the degree-2 terms weigh as much as the
+   others; those terms alone (p=2 minus p=1) kernels against plain; K4 and
+   K5 repeating bit for bit; device times (inputs cold) and bounds;
+   ``pretrain.setup`` on
    easy-transformer-fastmax with its defaults (float32, global batch 8,
    micro-batch 4, T=512, remat, AdamW) for 40 steps over a ``train.bin``
    made from the repository's own ``*.md`` and ``*.py`` bytes: tokens/s, step
    time, MFU against the card's f32 peak, peak memory, the first and last
    logged loss (the last must be lower), K4/K5 launch counts (exactly 2 and 1
    per layer per micro-batch under remat), a profile of one step; one step's
-   loss and every gradient with the kernels against ``plain=True``; and the
+   loss and every gradient with the kernels against ``plain=True`` (qkv
+   weights scaled so that s is of order 1); and the
    same 40 steps of easy-transformer (quadratic attention) as a yardstick.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
@@ -85,14 +90,30 @@ FLASH_BF16_ATOL = 1e-2                     # a bf16 ulp (2^-7) of outputs up to 
 FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4  # the reference's own (test_flash_attention.py)
 NEAR_TIE_REL = LOGITS_REL_TOL              # top-2 margin under this x max|logit|: a near-tie
 N_SLOTS = 8
-# fastmax K4/K5 against their plain walks: f32 (atol, rtol), the reference's own
-# (test_fastmax_pallas.py: forward 2e-4/1e-3, gradients 5e-4/2e-3); bf16, of the
-# largest value, the reference's bf16 ones (4e-2 forward, 6e-2 gradients)
-FASTMAX_F32 = {"fwd": (2e-4, 1e-3), "grad": (5e-4, 2e-3)}
+# fastmax K4/K5 against their plain walks. q and k are drawn with the standard
+# deviation below, so that s = q.k / z (z = 8 sqrt(D)) has one of about 1 at
+# p = 2 and the degree-2 terms s^2 / 2 weigh as much as the others (at std 0.5
+# they would move the outputs by about 1e-5 of their size); p = 1 at std 1,
+# where its normaliser, a sum of 1 + s, stays away from 0. v and the output
+# cotangent have std 1. Each output is held by max|kernel - plain| / max|plain|:
+# float32 1e-5 forward and 1e-4 gradients (dq sums terms far larger than
+# itself, which cancel: on an H100 two f32 walks differ there by 1e-5 to 3e-5
+# of the largest dq, and each lies as far from a float64 O(N^2) reference,
+# which the checks report); bfloat16 the reference's (test_fastmax_pallas.py)
+# 4e-2 forward and 6e-2 gradients. A walk of 16 chunks or more rewinds its
+# state by subtracting 16 or more updates from the final one, and its f32 dq
+# then lies up to 1.5e-4 of the largest from float64 by either route: its
+# gradients are held at 1e-3. The
+# degree-2 terms alone, o, dq, dk and dv at p = 2 minus p = 1 on the same
+# inputs (q, k std 1), are held at 1e-3 of the plain difference's largest value.
+FASTMAX_QK_STD = {2: 8.0 ** 0.5, 1: 1.0}
+FASTMAX_F32_REL = {"fwd": 1e-5, "grad": 1e-4, "grad, 16 chunks": 1e-3}
 FASTMAX_BF16_REL = {"fwd": 4e-2, "grad": 6e-2}
-# one training step, kernels against plain=True, f32: the loss (relative) and
-# each gradient leaf (of its largest entry), as the CPU test holds port and JAX
-TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-5, 1e-3
+FASTMAX_PAIR_REL = 1e-3
+# one training step, kernels against plain=True, f32, with the qkv weights
+# scaled so that s has a standard deviation of about 1 (at the init std 0.02
+# it is 0.025): the loss (relative) and each gradient leaf (of its largest entry)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-6, 1e-4
 TRAIN_STEPS = 40
 
 LLAMA7B_LINEARS = [("qkv", 4096, 12288), ("attn_proj", 4096, 4096),
@@ -890,65 +911,169 @@ def fastmax_work(bh, n, d, p, chunk, elem, backward: bool) -> tuple:
     return nbytes, ops
 
 
+def fastmax_close(torch, what, got, ref, kind, dt):
+    """max|got - ref| and that over max|ref|; raises past the tolerance."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    tol = (FASTMAX_F32_REL if dt == torch.float32 else FASTMAX_BF16_REL)[kind]
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()) or not rel <= tol:
+        raise AssertionError(f"fastmax {what}: max abs err {err:.3e}, {rel:.3e} of the largest "
+                             f"value (tolerance {tol})")
+    return err, rel
+
+
+def fastmax_qkv(torch, gen, shape, p, dt):
+    """q, k (std FASTMAX_QK_STD[p]), v and the output cotangent (std 1) on the card."""
+    std = FASTMAX_QK_STD[p]
+    return [(torch.randn(shape, generator=gen, device="cuda") * s).to(dt)
+            for s in (std, std, 1.0, 1.0)]
+
+
+def fastmax_case(torch, gen, shape, p, chunk, dt):
+    """K4 and K5 against the plain walks on one random (B, H, N, D) input:
+    o through ``fastmax_trainable`` and ``fastmax_forward`` (K4 with and
+    without its g and state outputs), dq, dk, dv through the autograd
+    backward (K5), and K4's g and final state through its launcher. Raises
+    on a mismatch; returns {output: (max abs err, that of the largest value)}
+    and, for float32, ``fastmax_f64_errors``."""
+    from fastmax_tpu_torch.ops import fastmax_kernels as fk
+
+    q, k, v, do = fastmax_qkv(torch, gen, shape, p, dt)
+    b, h, n, d = shape
+    out = {}
+    for plain in (False, True):
+        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = fk.fastmax_trainable(*ts, p, 8.0, chunk, plain=plain)
+        o.backward(do)
+        only = fk.fastmax_forward(q, k, v, p, 8.0, chunk, plain=plain)
+        out[plain] = {"o": o.detach(), "o (forward only)": only,
+                      "dq": ts[0].grad, "dk": ts[1].grad, "dv": ts[2].grad}
+    flat = [x.reshape(b * h, n, d) for x in (q, k, v)]
+    z = 8.0 * math.sqrt(d)
+    for plain, (_, g, state) in ((False, fk._fwd_launch(*flat, p, z, chunk, train=True)),
+                                 (True, fk.fastmax_fwd_plain(*flat, p, z, chunk))):
+        out[plain].update(zip(("g", "s_kv", "s_k", "s_kkv", "s_kk"), (g,) + tuple(state)))
+    tag = f"B={b} H={h} N={n} D={d} p={p} {str(dt)[6:]}"
+    errs = {}
+    for name, ref in out[True].items():
+        kind = "grad" if name in ("dq", "dk", "dv") else "fwd"
+        label = "K5" if kind == "grad" else "K4"
+        if kind == "grad" and n // chunk >= 16 and dt == torch.float32:
+            kind = "grad, 16 chunks"
+        errs[name] = fastmax_close(torch, f"{label} {name} {tag}", out[False][name], ref, kind, dt)
+    return errs, (fastmax_f64_errors(torch, q, k, v, do, p, out) if dt == torch.float32 else None)
+
+
+def fastmax_f64_errors(torch, q, k, v, do, p, out) -> dict:
+    """Each route's distance from the O(N^2) reference in float64, of its
+    largest value: {output: (kernels, plain)}. A yardstick, not a check."""
+    from fastmax_tpu_torch.ops.fastmax import polynomial_attention_reference
+
+    ts = [x.double().requires_grad_(True) for x in (q, k, v)]
+    o = polynomial_attention_reference(*ts, p=p, mask=True)
+    o.backward(do.double())
+    ref = {"o": o.detach(), "dq": ts[0].grad, "dk": ts[1].grad, "dv": ts[2].grad}
+    return {name: tuple(float((out[plain][name].double() - r).abs().max() / r.abs().max())
+                        for plain in (False, True))
+            for name, r in ref.items()}
+
+
+def fastmax_pair_terms(torch, gen, shape, chunk):
+    """The degree-2 terms alone: o, dq, dk, dv at p = 2 minus p = 1 on the same
+    f32 inputs (q, k std 1), kernels against plain, held at FASTMAX_PAIR_REL of
+    the plain difference's largest value. Returns {output: (that error, the
+    difference's largest value over the p = 2 output's)}."""
+    from fastmax_tpu_torch.ops import fastmax_kernels as fk
+
+    q, k, v, do = fastmax_qkv(torch, gen, shape, 1, torch.float32)
+    got = {}
+    for plain in (False, True):
+        per_p = {}
+        for p in (2, 1):
+            ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = fk.fastmax_trainable(*ts, p, 8.0, chunk, plain=plain)
+            o.backward(do)
+            per_p[p] = [o.detach()] + [t.grad for t in ts]
+        got[plain] = (per_p[2], [a - b for a, b in zip(per_p[2], per_p[1])])
+    errs = {}
+    for i, name in enumerate(("o", "dq", "dk", "dv")):
+        a, b = got[False][1][i], got[True][1][i]
+        rel = float((a - b).abs().max()) / float(b.abs().max())
+        share = float(b.abs().max()) / float(got[True][0][i].abs().max())
+        if not rel <= FASTMAX_PAIR_REL:
+            raise AssertionError(f"fastmax degree-2 terms of {name}: kernels vs plain "
+                                 f"{rel:.3e} of the largest value (tolerance {FASTMAX_PAIR_REL})")
+        errs[name] = (rel, share)
+    return errs
+
+
+def fastmax_repeats(torch, gen, shape, chunk, runs: int = 3) -> None:
+    """K4 and K5 give the same bits on every call (no float atomics: every sum
+    has a fixed order); raises otherwise."""
+    from fastmax_tpu_torch.ops import fastmax_kernels as fk
+
+    q, k, v, do = fastmax_qkv(torch, gen, shape, 2, torch.float32)
+    outs = []
+    for _ in range(runs):
+        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = fk.fastmax_trainable(*ts, 2, 8.0, chunk)
+        o.backward(do)
+        outs.append([o.detach()] + [t.grad for t in ts])
+    for other in outs[1:]:
+        for name, a, b in zip(("o", "dq", "dk", "dv"), outs[0], other):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fastmax {name} differs between two calls on the same "
+                                     f"inputs by {float((a - b).abs().max()):.3e}")
+
+
 def check_fastmax(torch, gen, results):
     from fastmax_tpu_torch.ops import fastmax as tfm
     from fastmax_tpu_torch.ops import fastmax_kernels as fk
 
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    worst = {"f32": 0.0, "bf16": 0.0}
-
-    def close(what, got, ref, kind, dt):
-        got, ref = got.float(), ref.float()
-        err = (got - ref).abs()
-        if dt == f32:
-            atol, rtol = FASTMAX_F32[kind]
-            bad = bool((err > atol + rtol * ref.abs()).any())
-        else:
-            bad = float(err.max()) > FASTMAX_BF16_REL[kind] * float(ref.abs().max())
-        name = "f32" if dt == f32 else "bf16"
-        worst[name] = max(worst[name], float(err.max()))
-        if bad or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"fastmax {what}: max abs err {float(err.max()):.3e}")
-        return float(err.max())
-
-    # (B*H, N, D, p, chunk, dtype): the training shape, p = 1, 16 chunks at D = 16
-    cases = [(32, 512, 64, 2, 128, f32), (32, 512, 64, 2, 128, bf16), (32, 512, 64, 1, 128, f32),
-             (2, 2048, 16, 2, 128, f32)]
-    for bh, n, d, p, chunk, dt in cases:
-        q, k, v, do = ((torch.randn((bh, n, d), generator=gen, device=dev) * 0.5).to(dt)
-                       for _ in range(4))
-        z = 8.0 * math.sqrt(d)
-        o_k, g_k, st_k = fk._fwd_launch(q, k, v, p, z, chunk, train=True)
-        only = fk._fwd_launch(q, k, v, p, z, chunk, train=False)
-        o_p, g_p, st_p = fk.fastmax_fwd_plain(q, k, v, p, z, chunk)
-        tag = f"BH={bh} N={n} D={d} p={p} {str(dt)[6:]}"
-        errs = {"o": close(f"K4 o {tag}", o_k, o_p, "fwd", dt),
-                "o (forward only)": close(f"K4 forward-only o {tag}", only, o_p, "fwd", dt),
-                "g": close(f"K4 g {tag}", g_k, g_p, "fwd", dt)}
-        for name, a, b in zip(("s_kv", "s_k", "s_kkv", "s_kk"), st_k, st_p):
-            errs[name] = close(f"K4 {name} {tag}", a, b, "fwd", dt)
-        g_kern = fk._bwd_launch(q, k, v, do, o_p, g_p, st_p, p, z, chunk)
-        g_plain = fk.fastmax_bwd_plain(q, k, v, do, o_p, g_p, st_p, p, z, chunk)
-        for name, a, b in zip(("dq", "dk", "dv"), g_kern, g_plain):
-            errs[name] = close(f"K5 {name} {tag}", a, b, "grad", dt)
-        torch.cuda.synchronize()
-        log(f"  fastmax {tag}: ok, max abs err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-        del q, k, v, do, o_k, g_k, st_k, only, o_p, g_p, st_p, g_kern, g_plain
+    train_shape = (4, 8, 512, 64)
+    # ((B, H, N, D), p, chunk, dtype): the training shape, p = 1, 16 chunks at D = 16
+    cases = [(train_shape, 2, 128, f32), (train_shape, 2, 128, bf16), (train_shape, 1, 128, f32),
+             ((1, 2, 2048, 16), 2, 128, f32)]
+    checks = []
+    for shape, p, chunk, dt in cases:
+        errs, f64 = fastmax_case(torch, gen, shape, p, chunk, dt)
+        checks.append({"shape": shape, "p": p, "dtype": str(dt)[6:], "errors": errs,
+                       "from_f64_kernels_plain": f64})
+        log(f"  fastmax {shape} p={p} {str(dt)[6:]}: ok, max abs err (of the largest value) "
+            + ", ".join(f"{k} {a:.2e} ({r:.1e})" for k, (a, r) in errs.items()))
+        if f64:
+            log("    from the float64 O(N^2) reference, of its largest value, kernels / plain: "
+                + ", ".join(f"{k} {a:.1e} / {b:.1e}" for k, (a, b) in f64.items()))
+    train_errs = checks[0]["errors"]
+    own_err = {"fastmax_fwd": max(train_errs[k][0] for k in ("o", "o (forward only)")),
+               "fastmax_bwd": max(train_errs[k][0] for k in ("dq", "dk", "dv"))}
+    pair = fastmax_pair_terms(torch, gen, train_shape, 128)
+    log(f"  fastmax {train_shape} degree-2 terms (p=2 - p=1, q/k std 1) kernels vs plain, of "
+        f"the largest value (tolerance {FASTMAX_PAIR_REL}): "
+        + ", ".join(f"{k} {r:.2e}" for k, (r, _) in pair.items())
+        + "; their share of the p=2 output: "
+        + ", ".join(f"{k} {s:.2e}" for k, (_, s) in pair.items()))
+    fastmax_repeats(torch, gen, train_shape, 128)
+    log(f"  fastmax {train_shape} p=2 f32: o, dq, dk, dv equal bit for bit over 3 calls")
     # a ragged N = 200 through fastmax(): padded to 256 at the tail; output and
     # gradients, kernels against plain
-    base = [torch.randn((4, 8, 200, 64), generator=gen, device=dev) * 0.5 for _ in range(4)]
+    q, k, v, do = fastmax_qkv(torch, gen, (4, 8, 200, 64), 2, f32)
     got = {}
     for plain in (False, True):
-        ts = [x.clone().requires_grad_(True) for x in base[:3]]
+        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
         o = tfm.fastmax(*ts, p=2, plain=plain)
-        (o * base[3]).sum().backward()
+        o.backward(do)
         got[plain] = [o.detach()] + [t.grad for t in ts]
-    errs = [close("fastmax() N=200 o", got[False][0], got[True][0], "fwd", f32)]
-    errs += [close(f"fastmax() N=200 {n}", a, b, "grad", f32)
-             for n, a, b in zip(("dq", "dk", "dv"), got[False][1:], got[True][1:])]
-    log(f"  fastmax() B=4 H=8 N=200 (padded to 256) D=64 p=2 f32: ok, max abs err "
-        f"{max(errs):.2e}")
+    ragged = {n: fastmax_close(torch, f"fastmax() N=200 {n}", a, b,
+                               "fwd" if n == "o" else "grad", f32)
+              for n, a, b in zip(("o", "dq", "dk", "dv"), got[False], got[True])}
+    log("  fastmax() B=4 H=8 N=200 (padded to 256) D=64 p=2 f32: ok, max abs err (of the "
+        "largest value) " + ", ".join(f"{k} {a:.2e} ({r:.1e})" for k, (a, r) in ragged.items()))
+    results["fastmax_checks"] = {"cases": checks, "degree2_terms": pair, "ragged_n200": ragged,
+                                 "repeat_bitwise": True}
 
     # device time at the training shape, inputs cold: four input sets (67 MB f32)
     rows = []
@@ -992,8 +1117,7 @@ def check_fastmax(torch, gen, results):
             f"{b_b['bound_f32_ms'] * 1e3:6.1f} at the f32 rate)")
         del sets, fwd_out
     results["fastmax_times"] = rows
-    results["fastmax_max_abs_err"] = worst
-    return worst, rows
+    return own_err, rows
 
 
 def repo_text_tokens(np):
@@ -1054,13 +1178,42 @@ def training_run(torch, pretrain, build, data, out, model_name, card):
     return state, run
 
 
+def step_kernels_vs_plain(torch, cfg, batch, seed: int = 1337) -> dict:
+    """One training step's loss and every gradient, kernels against
+    ``plain=True``, f32, from ``init_params(seed)`` with the qkv weights scaled
+    to a standard deviation of sqrt(8 / n_embd): q and k then have one of about
+    sqrt(8) and s = q.k / z one of about 1 (at the init std 0.02 it is about
+    0.025, where the degree-2 terms would hardly show). Raises past
+    TRAIN_LOSS_REL or TRAIN_GRAD_REL."""
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.training.step import make_loss_fn, tree_leaves
+
+    params0 = gpt.init_params(cfg, seed=seed, device="cuda")
+    qkv = params0["blocks"]["attn"]["attn"]["kernel"]
+    qkv.mul_(math.sqrt(8.0 / cfg.n_embd) / float(qkv.std()))
+    res = {}
+    for plain in (False, True):
+        ps = clone_tree(params0, True)
+        loss = make_loss_fn(cfg, remat=True, plain=plain)(ps, batch)
+        loss.backward()
+        res[plain] = (float(loss.detach()), [p.grad for p in tree_leaves(ps)])
+    loss_rel = abs(res[False][0] - res[True][0]) / abs(res[True][0])
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(res[False][1], res[True][1]))
+    log(f"  one step, kernels vs plain (qkv std sqrt(8/n_embd)): loss {res[False][0]:.6f} vs "
+        f"{res[True][0]:.6f} (rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_REL}); worst gradient "
+        f"leaf max|diff|/max|plain| {grad_rel:.2e} (tolerance {TRAIN_GRAD_REL})")
+    if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL):
+        raise AssertionError(f"kernels vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
+    return {"loss": [res[False][0], res[True][0]], "loss_rel": loss_rel, "worst_grad_rel": grad_rel}
+
+
 def training_path(torch, results, card):
     import tempfile
 
     import numpy as np
 
     from fastmax_tpu_torch.kernels import build
-    from fastmax_tpu_torch.models import gpt
     from fastmax_tpu_torch.models.config import Config
     from fastmax_tpu_torch.training import pretrain
     from fastmax_tpu_torch.training.fit import build_optimizer
@@ -1124,24 +1277,7 @@ def training_path(torch, results, card):
         out["fastmax"] = run
 
         # one step's loss and every gradient: kernels against plain=True
-        params0 = gpt.init_params(cfg, seed=1337, device="cuda")
-        res = {}
-        for plain in (False, True):
-            ps = clone_tree(params0, True)
-            loss = make_loss_fn(cfg, remat=True, plain=plain)(ps, batches[0])
-            loss.backward()
-            res[plain] = (float(loss.detach()), [p.grad for p in tree_leaves(ps)])
-        loss_rel = abs(res[False][0] - res[True][0]) / abs(res[True][0])
-        grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                       for a, b in zip(res[False][1], res[True][1]))
-        log(f"  one step, kernels vs plain: loss {res[False][0]:.6f} vs {res[True][0]:.6f} "
-            f"(rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_REL}); worst gradient leaf "
-            f"max|diff|/max|plain| {grad_rel:.2e} (tolerance {TRAIN_GRAD_REL})")
-        if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL):
-            raise AssertionError(f"kernels vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
-        out["kernels_vs_plain"] = {"loss": [res[False][0], res[True][0]], "loss_rel": loss_rel,
-                                   "worst_grad_rel": grad_rel}
-        del res, params0
+        out["kernels_vs_plain"] = step_kernels_vs_plain(torch, cfg, batches[0])
 
         # the yardstick: the same 40 steps with quadratic attention
         _, quad = training_run(torch, pretrain, build, data, Path(tmp) / "quad",
@@ -1209,9 +1345,9 @@ def main() -> int:
 
     # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
     # K3: the five timed 7B calls of phase 6; K4, K5: one call at the training
-    # shape (p=2, f32). Launches: the serving path (K1-K3), the training path
-    # (K4, K5). The
-    # bound of several calls is the sum of theirs, bound by the term that
+    # shape (p=2, f32), with each one's own max abs error there (K4: o, K5: dq,
+    # dk, dv). Launches: the serving path (K1-K3), the training path (K4, K5).
+    # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
     att = next(r for r in attn_rows if r["pos"] == 191)
@@ -1248,7 +1384,7 @@ def main() -> int:
              train_row["bwd_bound"])):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_train[kern.name], "max_abs_err": fm_err["f32"],
+                        "launches": counts_train[kern.name], "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
                         "bound_by": bnd["bound_by"], "library_ms": None})
     results["kernels"] = kernels

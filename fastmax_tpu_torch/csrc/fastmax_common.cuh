@@ -189,8 +189,10 @@ __device__ void pair_update(float* s, const float* x, const float* y, int d, int
 // The pair-basis fold-back: t[r, p] = w_p sum_c rnd(y[r, c]) rnd(s[p, c]), then
 // out[r, m_p] += rnd(t x[r, j_p]) and out[r, j_p] += rnd(t x[r, m_p]) (both land on m
 // for a diagonal pair), the reference's (dq2 * qb) @ E^T + (dq2 * qa) @ F^T with
-// dq2 = (df @ S3^T) w, and its dk2 twin over v and dS3, over the pairs [lo, hi). out is a shared tile, added
-// to with shared-memory atomics. Uses the tiles bt and t2; ends synchronised.
+// dq2 = (df @ S3^T) w, and its dk2 twin over v and dS3, over the pairs [lo, hi). out is a
+// shared tile; thread (r, g) owns its row r's columns c = g (mod 4) and adds the pairs in
+// their order, so every sum has a fixed order and the result repeats bit for bit. Uses
+// the tiles bt and t2; ends synchronised.
 template <typename T>
 __device__ void pair_fold(float* out, const float* x, const float* y, const float* s, int d,
                           int lo, int hi, bool weighted, float* bt, float* t2, const uint8_t* pm,
@@ -220,13 +222,15 @@ __device__ void pair_fold(float* out, const float* x, const float* y, const floa
       for (int i = 0; i < 4; ++i) t2[(ty + 16 * i) * kLD + tx + 16 * j] = acc[i][j] * w;
     }
     __syncthreads();
+    // a warp is 32 rows of one column class: the branches below are uniform over it
     const int np = min(kPT, hi - p0);
-    const int r = threadIdx.x % kR;
-    for (int pp = threadIdx.x / kR; pp < np; pp += kThreads / kR) {
+    const int r = threadIdx.x % kR, own = threadIdx.x / kR;
+    static_assert(kThreads / kR == 4, "four column classes");
+    for (int pp = 0; pp < np; ++pp) {
       const int p = p0 + pp, m = pm[p], j = pj[p];
       const float t = t2[r * kLD + pp];
-      atomicAdd(&out[r * kLD + m], rnd<T>(t * x[r * kLD + j]));
-      atomicAdd(&out[r * kLD + j], rnd<T>(t * x[r * kLD + m]));
+      if ((m & 3) == own) out[r * kLD + m] += rnd<T>(t * x[r * kLD + j]);
+      if ((j & 3) == own) out[r * kLD + j] += rnd<T>(t * x[r * kLD + m]);
     }
   }
   __syncthreads();

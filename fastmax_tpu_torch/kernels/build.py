@@ -48,8 +48,8 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        # the shared headers of csrc/ are part of every source's build
-        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        # the shared headers beside the source are part of its build
+        headers = b"".join(h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
         digest = hashlib.sha1(self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:12]}.so"
 

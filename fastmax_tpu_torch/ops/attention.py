@@ -115,23 +115,21 @@ def attention(
     *,
     attn_alg: str,
     head_size: int,
-    mask: Optional[torch.Tensor] = None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Dispatch on ``attn_alg`` for the full-sequence forward. q: (B, Hq, T, D);
-    k, v: (B, G, S, D). For the linear algorithms the grouped KV heads are
-    repeated to the full head count first. The reference's ``is_decode`` (the
-    linear algorithms unmasked over a KV cache) comes with the fastmax
-    linear-cache slice."""
-    scale = 1.0 / head_size ** 0.5
+    """Dispatch on ``attn_alg`` for the causal full-sequence forward (the
+    reference's ``mask=None``). q: (B, Hq, T, D); k, v: (B, G, T, D). For the
+    linear algorithms the grouped KV heads are repeated to the full head count
+    first. An explicit mask and the reference's ``is_decode`` (the linear
+    algorithms unmasked over a KV cache) come with the slices that need them."""
     if attn_alg == "quadratic":
-        t, s = q.shape[2], k.shape[2]
-        if mask is None and t == s and t >= BLOCKWISE_MIN_T:
+        t = q.shape[2]
+        if t >= BLOCKWISE_MIN_T:
             raise NotImplementedError(
                 f"quadratic attention without a mask at T={t} >= {BLOCKWISE_MIN_T} takes the "
                 "trainable flash kernels B8/B9, which are not ported yet (ROADMAP queue A)")
-        return scaled_dot_product_attention(q, k, v, mask=mask, scale=scale,
-                                            is_causal=mask is None)
+        return scaled_dot_product_attention(q, k, v, scale=1.0 / head_size ** 0.5,
+                                            is_causal=True)
     n_head = q.shape[1]
     k = repeat_kv_heads(k, n_head)
     v = repeat_kv_heads(v, n_head)

@@ -39,10 +39,9 @@ def build_optimizer(train: TrainArgs) -> AdamW:
     schedule = warmup_cosine_decay_schedule(
         0.0, train.learning_rate, train.lr_warmup_steps,
         max(train.max_iters, train.lr_warmup_steps + 1), train.min_lr)
-    name = getattr(train, "optimizer", "adamw")
-    if name != "adamw":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (ROADMAP queue A): "
-                                  "the port has 'adamw'")
+    if train.optimizer != "adamw":
+        raise NotImplementedError(f"optimizer {train.optimizer!r} is not ported yet "
+                                  "(ROADMAP queue A): the port has 'adamw'")
     return AdamW(schedule, train.beta1, train.beta2, weight_decay=train.weight_decay,
                  max_norm=train.max_norm)
 

@@ -6,7 +6,11 @@ and the gradients of the reverse walk.
 Tolerances are the reference's own (tests/test_fastmax_pallas.py): forward
 atol 2e-4, rtol 1e-3; gradients atol 5e-4, rtol 2e-3; the 16-chunk walk 5e-3
 of the largest gradient; bfloat16 4e-2 (forward) and 6e-2 (gradients) of the
-largest value. The card-only tests hold K4 and K5 against the plain walks."""
+largest value. The card-only tests hold K4 and K5 against the plain walks,
+check that they repeat bit for bit, and plant faults in a copy of the kernels'
+sources to show that chip_smoke.py's checks catch them."""
+
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from fastmax_tpu.ops import fastmax as jfm
 from fastmax_tpu.ops.fastmax_pallas import (_train_fwd_call, fastmax_pallas,
                                              fastmax_pallas_trainable)
@@ -156,6 +161,11 @@ def test_where_this_slice_stops():
                        64.0, 128)
 
 
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,chunk", [((2, 4, 512, 64), 128), ((1, 3, 256, 48), 64),
                                          ((1, 2, 384, 32), 128)])
@@ -164,12 +174,17 @@ def test_where_this_slice_stops():
 def test_kernels_match_plain_on_the_card(p, dtype, shape, chunk):
     """K4 (both modes) and K5 against the plain walks: head sizes whose pair
     count is not a whole number of tiles (48: 1176 pairs, split four ways),
-    64-row chunks, chunk counts that are not powers of two."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    64-row chunks, chunk counts that are not powers of two. q and k as in
+    chip_smoke.py: s = q.k / z of order 1 at p = 2, so the degree-2 terms
+    weigh as much as the others. Each output within chip_smoke.py's
+    tolerances of its largest value (f32: 1e-5 forward, 1e-4 gradients; bf16:
+    the reference's 4e-2 and 6e-2)."""
+    _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(p)
-    q, k, v, w = (torch.randn(shape, generator=gen, device="cuda") * 0.5 for _ in range(4))
-    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    std = chip_smoke.FASTMAX_QK_STD[p]
+    q, k, v, w = (torch.randn(shape, generator=gen, device="cuda") * s
+                  for s in (std, std, 1.0, 1.0))
+    tol = chip_smoke.FASTMAX_F32_REL if dtype == torch.float32 else chip_smoke.FASTMAX_BF16_REL
     outs = {}
     for plain in (False, True):
         ts = [x.to(dtype).requires_grad_(True) for x in (q, k, v)]
@@ -182,6 +197,70 @@ def test_kernels_match_plain_on_the_card(p, dtype, shape, chunk):
         assert after["fastmax_fwd"] - before["fastmax_fwd"] == (0 if plain else 2)
         assert after["fastmax_bwd"] - before["fastmax_bwd"] == (0 if plain else 1)
         outs[plain] = [o, only] + [t.grad for t in ts]
-    for a, b in zip(outs[False], outs[True]):
+    for i, (a, b) in enumerate(zip(outs[False], outs[True])):
         err = (a.float() - b.float()).abs().max() / b.float().abs().max()
-        assert err < tol, err
+        assert err <= tol["fwd" if i < 2 else "grad"], (i, err)
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_for_bit():
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    chip_smoke.fastmax_repeats(torch, gen, (2, 4, 512, 64), 128)
+
+
+# faults planted in a copy of csrc/: (kernel, file, the call as written, as planted).
+# An empty pair range [lo, lo) drops a degree-2 term; alpha 0 drops the rewind.
+FAULTS = {
+    "K4 f2 = (Q2 w) S3": ("fastmax_fwd", "fastmax_fwd.cu",
+                          "pair_out<T>(f2, qs, s3, d, lo, hi,", "pair_out<T>(f2, qs, s3, d, lo, lo,"),
+    "K5 dq fold over S3": ("fastmax_bwd", "fastmax_bwd.cu",
+                           "pair_fold<T>(acc_t, qs, df, s3, d, lo, hi,",
+                           "pair_fold<T>(acc_t, qs, df, s3, d, lo, lo,"),
+    "K5 dk fold over dS3": ("fastmax_bwd", "fastmax_bwd.cu",
+                            "pair_fold<T>(acc_t, ks, vs, ds3, d, lo, hi,",
+                            "pair_fold<T>(acc_t, ks, vs, ds3, d, lo, lo,"),
+    "K5 dv += K2 dS3": ("fastmax_bwd", "fastmax_bwd.cu",
+                        "pair_out<T>(gv, ks, ds3, d, lo, hi,", "pair_out<T>(gv, ks, ds3, d, lo, lo,"),
+    "K5 S3 rewind": ("fastmax_bwd", "fastmax_bwd.cu",
+                     "pair_update<T>(s3, ks, vs, d, lo, hi, false, -1.f,",
+                     "pair_update<T>(s3, ks, vs, d, lo, hi, false, 0.f,"),
+    "K5 dS3 update": ("fastmax_bwd", "fastmax_bwd.cu",
+                      "pair_update<T>(ds3, qs, df, d, lo, hi,",
+                      "pair_update<T>(ds3, qs, df, d, lo, lo,"),
+}
+
+
+def _planted(tmp_path, fault):
+    name, source, written, planted = FAULTS[fault]
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, src)
+    text = (src / source).read_text()
+    assert text.count(written) == 1, f"{written!r} is not in {source} once"
+    (src / source).write_text(text.replace(written, planted))
+    real = build.KERNELS[name]
+    return name, build.Kernel(name, str(src / source), real.replaces, real.entry, real.argtypes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_checks_catch_a_dropped_degree2_term(fault, tmp_path, monkeypatch):
+    """chip_smoke.py's kernel check fails for a kernel built with one of its
+    degree-2 terms (or K5's rewind of S3) left out; for K4's f2 and K5's dq
+    fold, so does its one-step check of the model's loss and gradients."""
+    _needs_card()
+    from fastmax_tpu_torch.models.config import Config
+
+    name, faulty = _planted(tmp_path, fault)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    chip_smoke.fastmax_case(torch, gen, (2, 4, 512, 64), 2, 128, torch.float32)  # sound
+    monkeypatch.setitem(build.KERNELS, name, faulty)
+    with pytest.raises(AssertionError, match=fault[:2]) as caught:
+        chip_smoke.fastmax_case(torch, gen, (2, 4, 512, 64), 2, 128, torch.float32)
+    print(f"{fault}: {caught.value}")
+    if fault in ("K4 f2 = (Q2 w) S3", "K5 dq fold over S3"):
+        cfg = Config.from_name("easy-transformer-fastmax", n_layer=2)
+        batch = torch.randint(0, 205, (2, 513), generator=gen, device="cuda")
+        with pytest.raises(AssertionError, match="kernels vs plain") as caught:
+            chip_smoke.step_kernels_vs_plain(torch, cfg, batch)
+        print(f"{fault}, one step: {caught.value}")
