@@ -56,7 +56,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    per layer per micro-batch under remat), a profile of one step; one step's
    loss and every gradient with the kernels against ``plain=True`` (qkv
    weights scaled so that s is of order 1); and the
-   same 40 steps of easy-transformer (quadratic attention) as a yardstick.
+   same 40 steps of easy-transformer (quadratic attention) as a yardstick;
+9. finetuning: the trainable flash kernels K6 (forward: out and lse) and K7
+   (backward: dq, dk, dv), through ``flash_attention_fused``,
+   ``flash_attention_trainable`` and ``attention()`` (T=1088, padded to 1536),
+   against ``plain=True`` at the finetune shape (B=2, H=32, T=2048, D=128,
+   bf16 and f32), at D=64, 192 and 256, on inputs whose scores have a
+   standard deviation of about 3, with a float64 yardstick; K6/K7 repeating
+   bit for bit; device times in a CUDA graph (inputs cold), bounds, the plain
+   versions and ``scaled_dot_product_attention`` (forward; forward and
+   backward); then ``finetune.setup`` itself: QLoRA (LoRA r 8, alpha 16 on
+   query and value) on an NF4 Llama-2-7B at full width, bf16, T up to 2048,
+   global batch 8, micro-batch 2, remat, over SFT examples of 1100-2600
+   tokens made from the repository's own text: step time, tokens/s, peak
+   memory, the loss, lora_B moved off zero, K6/K7 launches (exactly 2 and 1
+   per layer per micro-batch), the written lora_weights.safetensors read
+   back, a profile of one step; and one step of the same model cut to 4
+   layers, kernels against plain (bf16 and f32), loss and every LoRA
+   gradient.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -349,6 +366,8 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel
                  ("K3 flash_attention", ("flash_attention_kernel",)),
                  ("K4 fastmax_fwd", ("fastmax_fwd_kernel",)),
                  ("K5 fastmax_bwd", ("fastmax_bwd_kernel",)),
+                 ("K6 flash_train_fwd", ("flash_train_fwd_kernel",)),
+                 ("K7 flash_train_bwd", ("flash_train_bwd_kernel",)),
                  ("gemm (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")))
 
 
@@ -501,13 +520,13 @@ def flash_bound(b, hq, g, t, d, pos0, kv_len, bf16: bool) -> dict:
     return bound(nbytes, 4 * b * hq * d * visible, bf16)
 
 
-def sdpa_backend(torch, q, k, v, mask, scale) -> str:
+def sdpa_backend(torch, q, k, v, mask, scale, is_causal: bool = False) -> str:
     """Name of the backend scaled_dot_product_attention picks for these inputs."""
     from torch.nn.attention import SDPBackend
 
     names = {int(val): name for name, val in SDPBackend.__members__.items()}
     try:  # a private function: the name is a label, not a result, so a miss is reported
-        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=scale)
+        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, is_causal, scale=scale)
     except (AttributeError, RuntimeError, TypeError) as e:
         return f"not determined ({type(e).__name__})"
     return names.get(int(choice), str(choice))
@@ -1289,6 +1308,416 @@ def training_path(torch, results, card):
     return run["launches"]
 
 
+# ----------------------------------------------------------------- phase 9
+# K6/K7 against the plain versions. q and k are drawn at std sqrt(3), so the
+# scores q.k / sqrt(D) have a standard deviation of about 3: rows put most of
+# their weight on a few keys, where a missing mask, delta or rounding shows.
+# v and the output cotangent have std 1. Each output is held by max|kernel -
+# plain| over its largest value: float32 1e-5 (out, lse) and 1e-4 (dq, dk, dv,
+# whose ds terms cancel); bfloat16 2^-7, one bf16 ulp of any element (the
+# outputs are rounded values, and two f32 sums in other orders round to
+# neighbours now and then), and, since such a flip is rare where a rounding
+# step is missing it is not, also by mean|kernel - plain| over mean|plain| at
+# FLASH_TRAIN_BF16_MEAN (a missing rounding of p moves dv by about 2^-9 of a
+# term: ~1e-3 of the mean). lse is f32 in both: 1e-5.
+FLASH_TRAIN_QK_STD = 3.0 ** 0.5
+FLASH_TRAIN_REL = {"float32": {"out": 1e-5, "grad": 1e-4}, "bfloat16": {"out": 2.0 ** -7,
+                                                                        "grad": 2.0 ** -7}}
+FLASH_TRAIN_LSE_REL = 1e-5
+FLASH_TRAIN_BF16_MEAN = 5e-5
+FT_SHAPE = (2, 32, 2048, 128)   # micro-batch 2 of Llama-2-7B at T = 2048
+FT_STEPS = 4
+# one step of the 4-layer QLoRA model, kernels against plain=True: the loss
+# (relative) and each LoRA gradient leaf (of its largest entry). f32: sums in
+# other orders; bf16: every activation is rounded, and a flipped attention
+# output element moves what follows by a bf16 ulp.
+FT_STEP_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (5e-3, 5e-2)}
+K6_K7 = {"out": "K6", "lse": "K6", "dq": "K7", "dk": "K7", "dv": "K7"}
+
+
+def flash_train_fn(entry: str, d: int, plain: bool):
+    from fastmax_tpu_torch.ops import flash_attention as fa
+    from fastmax_tpu_torch.ops.attention import attention
+
+    if entry == "fused":
+        return lambda q, k, v: fa.flash_attention_fused(q, k, v, plain=plain)
+    if entry == "trainable":
+        return lambda q, k, v: fa.flash_attention_trainable(q, k, v, plain=plain)
+    return lambda q, k, v: attention(q, k, v, attn_alg="quadratic", head_size=d, plain=plain)
+
+
+def flash_train_run(fn, q, k, v, w) -> dict:
+    ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = fn(*ts)
+    o.backward(w)
+    return {"out": o.detach(), "dq": ts[0].grad, "dk": ts[1].grad, "dv": ts[2].grad}
+
+
+def flash_train_inputs(torch, gen, shape, dtype):
+    s = FLASH_TRAIN_QK_STD
+    return [(torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+            for std in (s, s, 1.0, 1.0)]
+
+
+def flash_train_f64(torch, q, k, v, w, res) -> dict:
+    """Each route's distance from dense causal softmax attention in float64 on
+    the same inputs, of the reference's largest value: {output: (kernels,
+    plain)}. A yardstick, not a check."""
+    t, d = q.shape[2], q.shape[3]
+    ts = [x.double().requires_grad_(True) for x in (q, k, v)]
+    s = torch.einsum("bhid,bhjd->bhij", ts[0], ts[1]) * d ** -0.5
+    s = s.masked_fill(~torch.ones((t, t), dtype=torch.bool, device=q.device).tril(), float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bhij,bhjd->bhid", torch.exp(s - lse[..., None]), ts[2])
+    o.backward(w.double())
+    ref = {"out": o.detach(), "lse": lse.detach(), "dq": ts[0].grad, "dk": ts[1].grad,
+           "dv": ts[2].grad}
+    del s, o
+    return {name: tuple(float((res[plain][name].double() - r).abs().max() / r.abs().max())
+                        for plain in (False, True))
+            for name, r in ref.items() if name in res[False]}
+
+
+def flash_train_case(torch, gen, entry, shape, dtype, f64: bool = True) -> dict:
+    """K6 and K7 through ``entry`` ("fused", "trainable" or "attention": the
+    dispatch, which pads T) against plain=True on one random input: out,
+    dq, dk, dv (the autograd backward) and, for the entries, lse (K6 launched
+    once more by itself). Raises on a mismatch; returns {output: (max abs
+    err, that of the largest value, mean err of the mean)} and the float64
+    yardstick."""
+    from fastmax_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, w = flash_train_inputs(torch, gen, shape, dtype)
+    d = shape[3]
+    res = {plain: flash_train_run(flash_train_fn(entry, d, plain), q, k, v, w)
+           for plain in (False, True)}
+    if entry != "attention":
+        block = fa._fused_block(shape[2]) if entry == "fused" else fa.DEFAULT_BLOCK_K
+        res[False]["lse"] = fa._train_fwd(q, k, v, d ** -0.5, block, False)[1]
+        res[True]["lse"] = fa.flash_train_fwd_plain(q, k, v, d ** -0.5, block)[1]
+    torch.cuda.synchronize()
+    dt = str(dtype)[6:]
+    tag = f"{entry} B={shape[0]} H={shape[1]} T={shape[2]} D={d} {dt}"
+    errs = {}
+    for name, ref in res[True].items():
+        got = res[False][name]
+        err = (got.float() - ref.float()).abs()
+        max_abs = float(err.max())
+        rel = max_abs / max(float(ref.float().abs().max()), 1e-30)
+        mean = float(err.mean()) / max(float(ref.float().abs().mean()), 1e-30)
+        tol = FLASH_TRAIN_LSE_REL if name == "lse" else \
+            FLASH_TRAIN_REL[dt]["out" if name == "out" else "grad"]
+        bad = (got.shape != ref.shape or got.dtype != ref.dtype
+               or not bool(torch.isfinite(got).all()) or not rel <= tol)
+        if dtype == torch.bfloat16 and name != "lse" and not mean <= FLASH_TRAIN_BF16_MEAN:
+            bad = True
+        if bad:
+            raise AssertionError(
+                f"{K6_K7[name]} {name} {tag}: max abs err {max_abs:.3e}, {rel:.3e} of the largest "
+                f"value (tolerance {tol}), mean err {mean:.3e} of the mean")
+        errs[name] = (max_abs, rel, mean)
+    yard = flash_train_f64(torch, q, k, v, w, res) if f64 else None
+    del res
+    return {"case": tag, "errors": errs, "from_f64_kernels_plain": yard}
+
+
+def flash_train_repeats(torch, gen, shape, dtype, runs: int = 3) -> None:
+    """K6 and K7 give the same bits on every call (no atomics); raises otherwise."""
+    q, k, v, w = flash_train_inputs(torch, gen, shape, dtype)
+    fn = flash_train_fn("fused", shape[3], False)
+    outs = [flash_train_run(fn, q, k, v, w) for _ in range(runs)]
+    for other in outs[1:]:
+        for name in outs[0]:
+            if not torch.equal(outs[0][name], other[name]):
+                raise AssertionError(f"{K6_K7[name]} {name} differs between two calls on the "
+                                     "same inputs")
+
+
+def flash_train_work(b, h, t, d, elem, backward: bool) -> tuple:
+    """(bytes, operations) of one call: 4 D (forward) or 10 D (backward: s, dp,
+    dv, dk, dq) flops per visible (row, key) pair; each input read once and
+    each output written once (lse and delta f32)."""
+    pairs = b * h * t * (t + 1) // 2
+    n = b * h * t * d
+    if backward:
+        return elem * 7 * n + 4 * 2 * b * h * t, 10 * d * pairs
+    return elem * 4 * n + 4 * b * h * t, 4 * d * pairs
+
+
+def flash_train_times(torch, gen, dtype, n_sets: int = 4) -> dict:
+    """Device time per call in a CUDA graph, inputs cold (n_sets input sets,
+    128 MB in bf16), at the finetune shape: K6 (the fused entry's block, and
+    the other entry's 128-key block), K7, their plain versions, and SDPA's
+    causal forward and forward + backward (autograd captured in the graph)."""
+    from fastmax_tpu_torch.ops import flash_attention as fa
+
+    b, h, t, d = FT_SHAPE
+    scale, blk = d ** -0.5, fa._fused_block(t)
+    sets = []
+    for _ in range(n_sets):
+        q, k, v, w = flash_train_inputs(torch, gen, FT_SHAPE, dtype)
+        out, lse = fa._train_fwd(q, k, v, scale, blk, False)
+        sets.append((q, k, v, w, lse, torch.sum(w.float() * out.float(), dim=-1)))
+    it = iter(range(10**9))
+
+    def fwd(plain=False, block=blk):
+        q, k, v, *_ = sets[next(it) % n_sets]
+        return fa._train_fwd(q, k, v, scale, block, plain)
+
+    def bwd(plain=False):
+        q, k, v, w, lse, delta = sets[next(it) % n_sets]
+        return fa._train_bwd(q, k, v, w, lse, delta, scale, plain)
+
+    def lib_fwd():
+        q, k, v, *_ = sets[next(it) % n_sets]
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                scale=scale)
+
+    def lib_fwd_bwd():
+        q, k, v, w, *_ = sets[next(it) % n_sets]
+        ts = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        torch.nn.functional.scaled_dot_product_attention(*ts, is_causal=True,
+                                                         scale=scale).backward(w)
+
+    elem = 2 if dtype == torch.bfloat16 else 4
+    row = {"dtype": str(dtype)[6:], "shape": FT_SHAPE,
+           "k6_ms": graph_ms(fwd, calls=2 * n_sets),
+           "k6_block128_ms": graph_ms(lambda: fwd(block=fa.DEFAULT_BLOCK_K), calls=2 * n_sets),
+           "plain_fwd_ms": graph_ms(lambda: fwd(plain=True), calls=n_sets, reps=1),
+           "k7_ms": graph_ms(bwd, calls=2 * n_sets),
+           "plain_bwd_ms": graph_ms(lambda: bwd(plain=True), calls=n_sets, reps=1),
+           "sdpa_fwd_ms": graph_ms(lib_fwd, calls=2 * n_sets),
+           "sdpa_fwd_bwd_ms": graph_ms(lib_fwd_bwd, calls=2 * n_sets),
+           "sdpa_backend": sdpa_backend(torch, *sets[0][:3], None, scale, is_causal=True),
+           "fwd_bound": bound(*flash_train_work(b, h, t, d, elem, False), bf16=elem == 2),
+           "bwd_bound": bound(*flash_train_work(b, h, t, d, elem, True), bf16=elem == 2)}
+    del sets
+    return row
+
+
+def check_flash_train(torch, gen, results):
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (entry, (B, H, T, D), dtype): the finetune shape through both entries in
+    # both types; T=1088 through attention() (padded to 1536); D=64; 192, 256
+    cases = [("fused", FT_SHAPE, bf16), ("fused", FT_SHAPE, f32),
+             ("trainable", FT_SHAPE, bf16), ("trainable", FT_SHAPE, f32),
+             ("attention", (2, 32, 1088, 128), bf16), ("fused", (4, 32, 2048, 64), bf16),
+             ("fused", (1, 8, 1024, 256), bf16), ("trainable", (1, 8, 640, 192), f32)]
+    checks = []
+    for entry, shape, dt in cases:
+        c = flash_train_case(torch, gen, entry, shape, dt, f64=entry != "attention")
+        checks.append(c)
+        log(f"  {c['case']}: ok; max abs err (of the largest; mean of the mean) "
+            + ", ".join(f"{k} {a:.2e} ({r:.1e}; {m:.1e})" for k, (a, r, m) in c["errors"].items()))
+        if c["from_f64_kernels_plain"]:
+            log("    from float64 dense attention, of its largest value, kernels / plain: "
+                + ", ".join(f"{k} {a:.1e} / {b:.1e}"
+                            for k, (a, b) in c["from_f64_kernels_plain"].items()))
+    flash_train_repeats(torch, gen, FT_SHAPE, bf16)
+    log(f"  fused {FT_SHAPE} bf16: out, dq, dk, dv equal bit for bit over 3 calls")
+    rows = []
+    for dt in (bf16, f32):
+        r = flash_train_times(torch, gen, dt)
+        rows.append(r)
+        fb, bb = r["fwd_bound"], r["bwd_bound"]
+        log(f"  {FT_SHAPE} {r['dtype']:8s}: K6 {r['k6_ms'] * 1e3:9.1f} us (128-key blocks "
+            f"{r['k6_block128_ms'] * 1e3:9.1f})  plain "
+            f"{r['plain_fwd_ms'] * 1e3:9.1f}  SDPA ({r['sdpa_backend']}) "
+            f"{r['sdpa_fwd_ms'] * 1e3:8.1f}  bound {fb['bound_ms'] * 1e3:7.1f} ({fb['bound_by']}; "
+            f"{fb['bound_f32_ms'] * 1e3:7.1f} at the f32 rate);  K7 {r['k7_ms'] * 1e3:9.1f} us  "
+            f"plain {r['plain_bwd_ms'] * 1e3:9.1f}  SDPA forward+backward "
+            f"{r['sdpa_fwd_bwd_ms'] * 1e3:8.1f}  bound {bb['bound_ms'] * 1e3:7.1f} "
+            f"({bb['bound_by']}; {bb['bound_f32_ms'] * 1e3:7.1f} at the f32 rate)")
+    results["flash_train_checks"] = {"cases": checks, "repeat_bitwise": True}
+    results["flash_train_times"] = rows
+    main = checks[0]["errors"]  # the finetune shape, bf16, fused: the path's
+    own = {"flash_train_fwd": max(main[k][0] for k in ("out", "lse")),
+           "flash_train_bwd": max(main[k][0] for k in ("dq", "dk", "dv"))}
+    return own, rows
+
+
+def sft_examples(np, n: int = 48, seed: int = 0):
+    """SFT examples from the repository's own text (``repo_text_tokens``) as
+    Llama's byte-fallback ids (byte + 3): lengths drawn from 1100..2600, the
+    first quarter of each example's labels masked (-1)."""
+    tokens, _ = repo_text_tokens(np)
+    ids = tokens.astype(np.int64) + 3
+    rng = np.random.default_rng(seed)
+    examples, off = [], 0
+    for _ in range(n):
+        length = int(rng.integers(1100, 2601))
+        if off + length > ids.size:
+            off = 0
+        x = ids[off:off + length]
+        off += length
+        labels = x.copy()
+        labels[: length // 4] = -1
+        examples.append({"input_ids": x, "labels": labels})
+    return examples, ids.size
+
+
+def finetune_step_vs_plain(torch, batch, dtype, seed: int = 1337) -> dict:
+    """One step of the QLoRA model cut to 4 layers, kernels against plain=True:
+    the loss and every LoRA gradient. lora_B is drawn (std 0.02) so that the
+    deltas reach the output and lora_A gets a gradient; the NF4 absmax of the
+    qkv weights is scaled so that the dequantized weights have a standard
+    deviation of 1/sqrt(n_embd): q and k then have one of about 1 and the
+    scores one of about 1."""
+    from fastmax_tpu_torch.models import gpt, lora
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops.quant import dequantize, quantize_model
+    from fastmax_tpu_torch.training.finetune import sft_loss_fn
+    from fastmax_tpu_torch.training.step import tree_leaves
+
+    cfg = Config.from_name("Llama-2-7b-hf", n_layer=4, attn_alg="quadratic")
+    params = quantize_model(gpt.init_params(cfg, seed, dtype, "cuda"), "bnb.nf4")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    params = lora.add_lora_params(params, cfg, lora.LoRAConfig(r=8, alpha=16.0), gen, dtype)
+    qkv = params["blocks"]["attn"]["attn"]
+    w_std = float(dequantize({k: v[0] for k, v in qkv.items() if not k.startswith("lora")}).std())
+    qkv["absmax"] = qkv["absmax"] * (cfg.n_embd ** -0.5 / w_std)
+    qkv["lora_B"] = (torch.randn(qkv["lora_B"].shape, generator=gen, device="cuda")
+                     * 0.02).to(dtype)
+    mask = tree_leaves(lora.trainable_mask(params))
+    res = {}
+    for plain in (False, True):
+        ps = clone_tree(params, False)
+        leaves = tree_leaves(ps)
+        for p, m in zip(leaves, mask):
+            p.requires_grad_(m)
+        loss = sft_loss_fn(cfg, plain=plain)(ps, batch)
+        loss.backward()
+        res[plain] = (float(loss.detach()), [p.grad for p, m in zip(leaves, mask) if m])
+    loss_tol, grad_tol = FT_STEP_TOL[str(dtype)[6:]]
+    loss_rel = abs(res[False][0] - res[True][0]) / abs(res[True][0])
+    grad_rel = max(float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                   1e-30)
+                   for a, b in zip(res[False][1], res[True][1]))
+    log(f"  one step, 4 layers, {str(dtype)[6:]}, kernels vs plain: loss {res[False][0]:.6f} vs "
+        f"{res[True][0]:.6f} (rel {loss_rel:.2e}, tolerance {loss_tol}); worst LoRA gradient "
+        f"leaf max|diff|/max|plain| {grad_rel:.2e} (tolerance {grad_tol})")
+    if not (math.isfinite(res[False][0]) and loss_rel <= loss_tol and grad_rel <= grad_tol):
+        raise AssertionError(f"kernels vs plain: loss rel {loss_rel}, grad rel {grad_rel}")
+    return {"loss": [res[False][0], res[True][0]], "loss_rel": loss_rel,
+            "worst_grad_rel": grad_rel, "qkv_weight_std_before": w_std}
+
+
+def finetune_path(torch, results, card):
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from fastmax_tpu_torch.data.lm_datasets import SFTDataset
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import lora
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.training.fit import build_optimizer
+    from fastmax_tpu_torch.training.step import tree_leaves
+    from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
+    from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint
+
+    cfg = Config.from_name("Llama-2-7b-hf")
+    examples, n_tokens = sft_examples(np)
+    train = TrainArgs(global_batch_size=8, micro_batch_size=2, max_iters=FT_STEPS,
+                      learning_rate=3e-4, save_interval=1000, log_interval=1,
+                      max_seq_length=2048)
+    run = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "sft.npz"
+        np.savez(data, examples=np.array(examples, dtype=object))
+        log(f"  sft.npz: {len(examples)} examples of 1100-2600 tokens from {n_tokens} bytes of the "
+            "repository's *.md/*.py files (those below 205)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        out = Path(tmp) / "ft"
+        t0 = time.perf_counter()
+        state = finetune.setup(method="lora", model_name="Llama-2-7b-hf", data_path=data,
+                               quantize="bnb.nf4", attn_alg="quadratic", precision="bfloat16",
+                               lora_r=8, lora_alpha=16.0, lora_query=True, lora_value=True,
+                               train=train, io=IOArgs(out_dir=out))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        with open(out / "metrics.csv", newline="") as f:
+            steps = {int(r["step"]): r for r in csv.DictReader(f)}
+        losses = [float(steps[s]["loss"]) for s in sorted(steps)]
+        dt = float(steps[FT_STEPS]["time"]) - float(steps[1]["time"])
+        toks = float(steps[FT_STEPS]["tokens"]) - float(steps[1]["tokens"])
+        step_s, tok_s = dt / (FT_STEPS - 1), toks / dt
+        mb = FT_STEPS * train.gradient_accumulation_iters()
+        want = {"flash_train_fwd": 2 * cfg.n_layer * mb, "flash_train_bwd": cfg.n_layer * mb}
+        lora_b = state.params["blocks"]["attn"]["attn"]["lora_B"]
+        moved = float(lora_b.detach().float().abs().max())
+        _, delta = lora.split_lora_state(state.params)
+        back = load_flat_checkpoint(out / "lora_weights.safetensors")
+        flat = finetune._flatten(delta)
+        same = sorted(back) == sorted(flat) and all(
+            torch.equal(back[n], flat[n].detach().cpu()) for n in flat)
+        log(f"  finetune.setup: {state.step} steps in {wall:.2f} s (setup included); steps 2-"
+            f"{FT_STEPS}: {step_s * 1e3:.1f} ms a step, {tok_s:.1f} tokens/s; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak_gb:.3f} GB; max|lora_B| {moved:.3e}; "
+            f"launches {counts} (want {want}); lora_weights.safetensors: {len(back)} tensors "
+            f"read back {'equal' if same else 'DIFFERENT'}   [{card}]")
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"K6/K7 launches {counts} != {want}")
+        if not all(math.isfinite(x) for x in losses) or not moved > 0 or not same:
+            raise AssertionError(f"finetune: losses {losses}, max|lora_B| {moved}, "
+                                 f"checkpoint read back {same}")
+        run.update({"model": "Llama-2-7b-hf (random weights, seed 1337), bnb.nf4, bf16",
+                    "lora": {"r": 8, "alpha": 16.0, "query": True, "value": True},
+                    "steps": state.step, "wall_s": wall, "step_s": step_s,
+                    "tokens_per_s": tok_s, "peak_gb": peak_gb, "held_before_gb": held / 1e9,
+                    "launches": counts, "losses": losses, "lora_b_max": moved,
+                    "checkpoint_read_back": same, "card": card})
+
+        # one step's device time by kernel group, and the busy share
+        trainable = lora.trainable_mask(state.params)
+        ds = SFTDataset.load(data, 7)
+        batches = [tuple(torch.as_tensor(x, device="cuda") for x in ds.sample_batch(2, 2048))
+                   for _ in range(train.gradient_accumulation_iters())]
+        loss_fn = finetune.sft_loss_fn(cfg)
+        optimizer = build_optimizer(train, trainable)
+        leaves = tree_leaves(state.params)
+        mask = tree_leaves(trainable)
+
+        def one_step():
+            for p in leaves:
+                p.grad = None
+            for b in batches:
+                loss_fn(state.params, b).backward()
+            optimizer.update(state.params, [p.grad / len(batches) if m else None
+                                            for p, m in zip(leaves, mask)], state.opt_state)
+
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof = profile_device(torch, one_step, "one finetune step (4 micro-batches)")
+        prof["wall_ms"] = wall_ms
+        prof["batch_t"] = [int(b[0].shape[1]) for b in batches]
+        if prof["device_us"]:
+            prof["busy_share"] = prof["device_us"] / 1e3 / wall_ms
+        log(f"  one step (T {prof['batch_t']}): {wall_ms:.1f} ms on the host clock, device busy "
+            f"share {prof.get('busy_share', 'not measured')}   [{card}]")
+        run["profile_step"] = prof
+        del state, leaves, optimizer, trainable
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = batches[0]
+        run["step_vs_plain"] = {str(dt)[6:]: finetune_step_vs_plain(torch, batch, dt)
+                                for dt in (torch.bfloat16, torch.float32)}
+    results["finetune"] = run
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1340,13 +1769,20 @@ def main() -> int:
     log("[8] training: fastmax kernels vs plain, then pretrain.setup on easy-transformer-fastmax")
     fm_err, fm_rows = check_fastmax(torch, gen, results)
     counts_train = training_path(torch, results, card)
+    log("[9] finetuning: trainable flash kernels K6/K7 vs plain, then finetune.setup on a QLoRA "
+        "Llama-2-7B")
+    ft_err, ft_rows = check_flash_train(torch, gen, results)
+    counts_ft = finetune_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
-                           "training_path": counts_train}
+                           "training_path": counts_train, "finetune_path": counts_ft}
 
     # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
     # K3: the five timed 7B calls of phase 6; K4, K5: one call at the training
     # shape (p=2, f32), with each one's own max abs error there (K4: o, K5: dq,
-    # dk, dv). Launches: the serving path (K1-K3), the training path (K4, K5).
+    # dk, dv); K6, K7: one call at the finetune shape (bf16, the path's type), with their
+    # own max abs errors there (K6: out, lse; K7: dq, dk, dv); their library time is SDPA's
+    # causal forward, and for K7 its forward + backward less that forward. Launches: the
+    # serving path (K1-K3), the training path (K4, K5), the finetune path (K6, K7).
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
@@ -1387,6 +1823,17 @@ def main() -> int:
                         "launches": counts_train[kern.name], "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
                         "bound_by": bnd["bound_by"], "library_ms": None})
+    ft = next(r for r in ft_rows if r["dtype"] == "bfloat16")
+    for kern, ms, plain_ms, bnd, lib in (
+            (build.KERNELS["flash_train_fwd"], ft["k6_ms"], ft["plain_fwd_ms"], ft["fwd_bound"],
+             ft["sdpa_fwd_ms"]),
+            (build.KERNELS["flash_train_bwd"], ft["k7_ms"], ft["plain_bwd_ms"], ft["bwd_bound"],
+             ft["sdpa_fwd_bwd_ms"] - ft["sdpa_fwd_ms"])):
+        kernels.append({"name": kern.name, "route": "cuda",
+                        "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
+                        "launches": counts_ft[kern.name], "max_abs_err": ft_err[kern.name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+                        "bound_by": bnd["bound_by"], "library_ms": lib})
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

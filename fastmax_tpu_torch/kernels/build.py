@@ -136,6 +136,18 @@ KERNELS = {
         # q, k, v, dout, o, bf16, g, skv, sk, skk, s3, ds3, part, dq, dk, dv, bh, n, d, chunk,
         # p2, z, s3_rows, nsplit, stream
         [_P] * 5 + [_I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
+    "flash_train_fwd": Kernel(
+        "flash_train_fwd", "flash_train_fwd.cu",
+        "fastmax_tpu/ops/flash_attention.py:561",  # and flash_attention_trainable's at :230
+        "fm_flash_train_fwd",
+        # q, k, v, out, lse, bf16, bh, t, d, online block, scale, stream
+        [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]),
+    "flash_train_bwd": Kernel(
+        "flash_train_bwd", "flash_train_bwd.cu",
+        "fastmax_tpu/ops/flash_attention.py:588",  # and flash_attention_trainable's at :358, :380
+        "fm_flash_train_bwd",
+        # q, k, v, dout, lse, delta, dq, dk, dv, bf16, bh, t, d, scale, stream
+        [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P]),
 }
 
 

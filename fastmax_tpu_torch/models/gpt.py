@@ -13,14 +13,16 @@ fused-QKV grouped attention with (partial) RoPE, the flash prefill route
 over the cache (``ops/flash_attention.py``), ``logits_at``, the LLaMA
 SwiGLU MLP (split or fused ``fc_12``), sequential and parallel residual.
 
-The no-cache forward (``kv_cache=None``: training and evaluation) runs every
-block over the whole sequence with ``ops/attention.attention``, so
+The no-cache forward (``kv_cache=None``: training and evaluation; and
+``forward_hidden``, the same without the lm_head) runs every block over the
+whole sequence with ``ops/attention.attention``, so
 ``attn_alg="fastmax"``/``"fastmax_cuda"`` goes through the fastmax kernels K4
-(forward) and K5 (backward); ``remat=True`` recomputes each block in the
-backward (``torch.utils.checkpoint``). ``init_params`` gives the GPT-NeoX
-initialisation from a seed; the GPT-NeoX MLP (exact or tanh GELU) and bias
-leaves are ported. The linear-attention cache, MoE and the XLA remat policies
-come in later slices.
+(forward) and K5 (backward) and ``quadratic`` at T >= 1024 through the
+trainable flash kernels K6 (forward) and K7 (backward); ``remat=True``
+recomputes each block in the backward (``torch.utils.checkpoint``).
+``init_params`` gives the GPT-NeoX initialisation from a seed; the GPT-NeoX
+MLP (exact or tanh GELU) and bias leaves are ported. The linear-attention
+cache, MoE and the XLA remat policies come in later slices.
 """
 
 from __future__ import annotations
@@ -41,16 +43,17 @@ from .config import Config
 
 
 def _init_linear(gen, n_in, n_out, bias, dtype, std=0.02):
-    p = {"kernel": (torch.randn((n_in, n_out), generator=gen) * std).to(dtype)}
+    dev = gen.device
+    p = {"kernel": (torch.randn((n_in, n_out), generator=gen, device=dev) * std).to(dtype)}
     if bias:
-        p["bias"] = torch.zeros((n_out,), dtype=dtype)
+        p["bias"] = torch.zeros((n_out,), dtype=dtype, device=dev)
     return p
 
 
-def _init_norm(cfg: Config, dtype):
-    p = {"weight": torch.ones((cfg.n_embd,), dtype=dtype)}
+def _init_norm(cfg: Config, dtype, dev):
+    p = {"weight": torch.ones((cfg.n_embd,), dtype=dtype, device=dev)}
     if cfg.norm_class_name == "LayerNorm":
-        p["bias"] = torch.zeros((cfg.n_embd,), dtype=dtype)
+        p["bias"] = torch.zeros((cfg.n_embd,), dtype=dtype, device=dev)
     return p
 
 
@@ -66,13 +69,13 @@ def _init_block(gen, cfg: Config, dtype) -> dict:
     else:
         raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet")
     block = {
-        "norm_1": _init_norm(cfg, dtype),
+        "norm_1": _init_norm(cfg, dtype, gen.device),
         "attn": {"attn": _init_linear(gen, e, cfg.qkv_shape, cfg.bias, dtype),
                  "proj": _init_linear(gen, cfg.head_size * cfg.n_head, e, cfg.bias, dtype)},
         "mlp": mlp,
     }
     if not cfg.shared_attention_norm:
-        block["norm_2"] = _init_norm(cfg, dtype)
+        block["norm_2"] = _init_norm(cfg, dtype, gen.device)
     return block
 
 
@@ -84,26 +87,23 @@ def _stack(trees: list) -> dict:
 
 def init_params(cfg: Config, seed: int = 0, dtype=torch.float32, device=None) -> dict:
     """GPT-NeoX initialisation (normal, std 0.02; zero biases, unit norms) from
-    a ``torch.Generator`` seeded with ``seed``, made on the CPU and moved to
-    ``device`` (default: the card), with the block leaves stacked on a leading
-    (n_layer,) axis. The numbers differ from the JAX package's (another
-    generator); the layout is the same."""
+    a ``torch.Generator`` seeded with ``seed`` on ``device`` (default: the
+    card), drawn there (a 7B model is drawn in seconds on the card, minutes on
+    the host), with the block leaves stacked on a leading (n_layer,) axis. The
+    numbers differ from the JAX package's (another generator), and between
+    devices; the layout is the same."""
     from ..inference.engine import default_device
 
     device = default_device(device)
-    gen = torch.Generator().manual_seed(seed)
-    wte = (torch.randn((cfg.padded_vocab_size, cfg.n_embd), generator=gen) * 0.02).to(dtype)
-    params = {
+    gen = torch.Generator(device=device).manual_seed(seed)
+    wte = (torch.randn((cfg.padded_vocab_size, cfg.n_embd), generator=gen, device=device)
+           * 0.02).to(dtype)
+    return {
         "wte": wte,
         "lm_head": _init_linear(gen, cfg.n_embd, cfg.padded_vocab_size, cfg.lm_head_bias, dtype),
-        "ln_f": _init_norm(cfg, dtype),
+        "ln_f": _init_norm(cfg, dtype, device),
         "blocks": _stack([_init_block(gen, cfg, dtype) for _ in range(cfg.n_layer)]),
     }
-
-    def move(node):
-        return {k: move(v) for k, v in node.items()} if isinstance(node, dict) else node.to(device)
-
-    return move(params)
 
 
 def init_kv_cache(cfg: Config, batch_size: int, max_seq_length: int,
@@ -294,8 +294,17 @@ def _check_remat(remat) -> bool:
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def _forward_nocache(params, cfg, idx, rope_cache, remat, plain):
+def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
+                   rope_cache: Optional[tuple] = None, plain: bool = False) -> torch.Tensor:
+    """Full-sequence forward to the final hidden states (after ``ln_f``),
+    without the lm_head: the training forward that ``utils/loss.
+    chunked_cross_entropy`` pairs with. ``remat`` True or "full" recomputes
+    each block in the backward. The RoPE cache defaults to ``cfg.block_size``
+    rows, as the reference's."""
     t = idx.shape[1]
+    if rope_cache is None:
+        rope_cache = build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base,
+                                      cfg.rope_condense_ratio, device=idx.device)
     cos, sin = rope_cache[0][:t], rope_cache[1][:t]
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
@@ -309,8 +318,12 @@ def _forward_nocache(params, cfg, idx, rope_cache, remat, plain):
         def body(h, bp=bp):
             return apply_block(bp, h, cfg, None, attn_fn, plain=plain)
         x = checkpoint(body, x, use_reentrant=False) if use_remat else body(x)
-    x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
-    return linear(params["lm_head"], x)
+    return apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
+
+
+def _forward_nocache(params, cfg, idx, rope_cache, remat, plain):
+    return linear(params["lm_head"], forward_hidden(params, cfg, idx, remat=remat,
+                                                    rope_cache=rope_cache, plain=plain))
 
 
 def forward(

@@ -3,9 +3,11 @@
 ``from_numpy_params`` takes the tree as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``) and returns the same keys and layouts
 as torch tensors: dense kernels stay (in, out), biases and norm weights stay
-vectors, stacked block leaves keep their leading (n_layer,) axis and q4r1
-int32 words are kept as they are. ``to_numpy_params`` gives a port tree back
-as numpy arrays in the same layout (bfloat16 leaves as float32 values).
+vectors, stacked block leaves keep their leading (n_layer,) axis, and the
+other leaves keep their dtype and bits: q4r1 int32 words, NF4 uint8 codes
+(``q4``), int8 double-quantized scales (``absmax_q``), f32 ``absmax``/``code``
+and the LoRA leaves. ``to_numpy_params`` gives a port tree back as numpy
+arrays in the same layout (bfloat16 leaves as float32 values).
 """
 
 from __future__ import annotations

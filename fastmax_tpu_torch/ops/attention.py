@@ -3,25 +3,43 @@
 
 Softmax attention runs on grouped shapes: q (B, Hq, T, D) is viewed as
 (B, G, Hq/G, T, D) against un-expanded k/v (B, G, S, D). The dispatch
-``attention`` is ported for ``quadratic`` below ``BLOCKWISE_MIN_T`` and for
-``fastmax``/``fastmax_cuda`` (degree 2, ops/fastmax.py); the trainable
-long-context kernels (B8/B9), ``performer`` and ``linearmax`` come in later
-slices.
+``attention`` is ported for ``quadratic`` and for ``fastmax``/``fastmax_cuda``
+(degree 2, ops/fastmax.py); ``performer`` and ``linearmax`` come in a later
+slice.
+
+Quadratic attention at T >= ``BLOCKWISE_MIN_T`` takes the reference's
+trainable route (``fastmax_tpu/ops/attention.py:289-347``) with its constants
+and ``FASTMAX_TPU_*`` environment names: the KV heads are repeated, then
+``FASTMAX_TPU_TRAIN_ATTN`` picks ``flash2`` (the fused entry, padded to its
+block), ``flash`` (the split entry, padded to lcm(128, 128)) or
+``blockwise``; flash needs a head size divisible by 64 and flash2 also
+``_fused_eligible``, else blockwise takes it. The port routes as the reference
+does on its chip, flash2 by default, on every device: on the card the flash
+entries launch K6/K7, on the CPU they run their plain versions. ``auto`` (the
+reference's timing probe) is not ported.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Optional
 
 import torch
 
+from .blockwise_attention import blockwise_attention
 from .fastmax import fastmax
+from .flash_attention import (DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q, _fused_block, _fused_eligible,
+                              flash_attention_fused, flash_attention_trainable)
 
 NEG_INF = float("-inf")
 
-# full-sequence quadratic forwards at T >= this take the reference's trainable
-# flash/blockwise kernels (B8/B9), not ported yet
-BLOCKWISE_MIN_T = 1024
+# full-sequence quadratic forwards at T >= this take the trainable route
+BLOCKWISE_MIN_T = int(os.environ.get("FASTMAX_TPU_BLOCKWISE_MIN_T", 1024))
+# the blockwise query block; 0 sizes it so one (B, H, block, T) f32 transient stays near 512 MB
+BLOCKWISE_BLOCK = int(os.environ.get("FASTMAX_TPU_BLOCKWISE_BLOCK", 0))
+# the trainable kernel: "flash2" (fused entry), "flash" (split entry) or "blockwise"
+TRAIN_ATTN = os.environ.get("FASTMAX_TPU_TRAIN_ATTN", "flash2")
 
 
 def repeat_kv_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -123,11 +141,8 @@ def attention(
     first. An explicit mask and the reference's ``is_decode`` (the linear
     algorithms unmasked over a KV cache) come with the slices that need them."""
     if attn_alg == "quadratic":
-        t = q.shape[2]
-        if t >= BLOCKWISE_MIN_T:
-            raise NotImplementedError(
-                f"quadratic attention without a mask at T={t} >= {BLOCKWISE_MIN_T} takes the "
-                "trainable flash kernels B8/B9, which are not ported yet (ROADMAP queue A)")
+        if q.shape[2] >= BLOCKWISE_MIN_T:
+            return _long_causal(q, k, v, head_size, plain)
         return scaled_dot_product_attention(q, k, v, scale=1.0 / head_size ** 0.5,
                                             is_causal=True)
     n_head = q.shape[1]
@@ -139,3 +154,44 @@ def attention(
         raise NotImplementedError(f"attn_alg {attn_alg!r} comes with the fastmax linear-cache "
                                   "slice (ROADMAP queue A, item 4)")
     raise ValueError(f"Attention algorithm {attn_alg} not supported")
+
+
+def _auto_block(b: int, h: int, t: int) -> int:
+    limit = 512 * 2**20
+    blk = limit // max(b * h * t * 4, 1)
+    return int(max(128, min(512, (blk // 128) * 128)))
+
+
+def _long_causal(q, k, v, head_size: int, plain: bool) -> torch.Tensor:
+    """The reference's trainable route for causal quadratic attention at
+    T >= BLOCKWISE_MIN_T. Padded tail rows, being causal, never reach a real
+    row; they are cut off."""
+    if TRAIN_ATTN == "auto":
+        raise NotImplementedError(
+            "FASTMAX_TPU_TRAIN_ATTN=auto (the reference's timing probe) is not ported yet "
+            "(ROADMAP queue A, item 4): set flash2, flash or blockwise")
+    b, h, t, _ = q.shape
+    scale = 1.0 / head_size ** 0.5
+    kf, vf = repeat_kv_heads(k, h), repeat_kv_heads(v, h)
+    kern = TRAIN_ATTN
+    if kern in ("flash", "flash2") and head_size % 64 == 0:
+        if kern == "flash2" and not _fused_eligible(t, head_size):
+            kern = "blockwise"
+    else:
+        kern = "blockwise"
+    if kern == "flash2":
+        blk = max(_fused_block(t) if t % 512 == 0 or t <= 512 else 512, 128)
+    elif kern == "flash":
+        blk = math.lcm(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)
+    else:
+        blk = BLOCKWISE_BLOCK or _auto_block(b, h, t)
+    pad = (-t) % blk
+    if pad:
+        q, kf, vf = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, kf, vf))
+    if kern == "flash2":
+        out = flash_attention_fused(q, kf, vf, scale, plain=plain)
+    elif kern == "flash":
+        out = flash_attention_trainable(q, kf, vf, scale, plain=plain)
+    else:
+        out = blockwise_attention(q, kf, vf, scale, blk)
+    return out[:, :, :t] if pad else out

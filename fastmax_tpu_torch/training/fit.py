@@ -6,8 +6,15 @@ one optimizer update, as the reference's accumulate/apply pair does. Logging,
 periodic evaluation, checkpoints and ``max_tokens`` follow the reference.
 The train state is saved with ``torch.save``.
 
-Ported: the ``adamw`` optimizer. ``adamw8bit``, ``adafactor`` and ``lion``,
-masked (PEFT) optimizers and a device mesh are not ported yet.
+A ``trainable`` mask tree (PEFT) leaves ``requires_grad`` on its True
+leaves only, so no gradient of a frozen base is ever formed (the reference
+forms every float gradient and its masked optimizer drops the frozen ones:
+the updates are the same), and ``build_optimizer(train, trainable)`` wraps
+the optimizer in ``MaskedOptimizer``. Batches are (B, T+1) token matrices
+or (inputs, labels) tuples (SFT).
+
+Ported: the ``adamw`` optimizer. ``adamw8bit``, ``adafactor`` and ``lion``
+and a device mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 from ..models.config import Config
 from ..utils.args import EvalArgs, TrainArgs
 from ..utils.flops import mfu
-from .step import AdamW, make_loss_fn, tree_leaves, warmup_cosine_decay_schedule
+from .step import AdamW, MaskedOptimizer, make_loss_fn, tree_leaves, warmup_cosine_decay_schedule
 
 STATE_FILE = "train_state.pt"
 
@@ -35,15 +42,18 @@ class TrainState:
         self.step = step
 
 
-def build_optimizer(train: TrainArgs) -> AdamW:
+def build_optimizer(train: TrainArgs, trainable: Optional[dict] = None):
+    """AdamW with the clip and the warmup-cosine schedule of ``train``; with a
+    ``trainable`` mask tree, only its True leaves are optimized."""
     schedule = warmup_cosine_decay_schedule(
         0.0, train.learning_rate, train.lr_warmup_steps,
         max(train.max_iters, train.lr_warmup_steps + 1), train.min_lr)
     if train.optimizer != "adamw":
         raise NotImplementedError(f"optimizer {train.optimizer!r} is not ported yet "
                                   "(ROADMAP queue A): the port has 'adamw'")
-    return AdamW(schedule, train.beta1, train.beta2, weight_decay=train.weight_decay,
-                 max_norm=train.max_norm)
+    opt = AdamW(schedule, train.beta1, train.beta2, weight_decay=train.weight_decay,
+                max_norm=train.max_norm)
+    return opt if trainable is None else MaskedOptimizer(opt, trainable)
 
 
 def fit(
@@ -60,22 +70,30 @@ def fit(
     checkpoint_fn: Optional[Callable] = None,
     remat=True,
     plain: bool = False,
+    trainable: Optional[dict] = None,
 ) -> TrainState:
     """Run the training loop; batches from ``train_iter`` are (B, T+1) integer
-    token matrices (inputs [:, :-1], targets [:, 1:]), moved to the
-    parameters' device. ``plain=True`` sends the kernels' calls to their plain
-    versions (a test hook)."""
+    token matrices (inputs [:, :-1], targets [:, 1:]) or (inputs, labels)
+    tuples for ``loss_fn``, moved to the parameters' device. ``trainable``
+    (a mask tree like the params) names the leaves that train, all of them
+    by default; ``optimizer`` must then be built with the same mask.
+    ``plain=True`` sends the kernels' calls to their plain versions (a test
+    hook)."""
     loss_fn = loss_fn or make_loss_fn(cfg, remat=remat, plain=plain)
     grad_accum = train.gradient_accumulation_iters()
     leaves = tree_leaves(state.params)
-    for p in leaves:
-        p.requires_grad_(True)
+    train_mask = [True] * len(leaves) if trainable is None else \
+        [bool(m) for m in tree_leaves(trainable)]
+    for p, m in zip(leaves, train_mask):
+        p.requires_grad_(m)
     device = leaves[0].device
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
     dtype = str(leaves[0].dtype).removeprefix("torch.")
     n_params = sum(p.numel() for p in leaves)
 
     def place(batch):
+        if isinstance(batch, tuple):
+            return tuple(place(b) for b in batch)
         return torch.as_tensor(np.asarray(batch), dtype=torch.long).to(device)
 
     t_start = time.perf_counter()
@@ -89,8 +107,10 @@ def fit(
             loss = loss_fn(state.params, batch)
             loss.backward()
             losses.append(loss.detach())
-            tokens_seen += batch.shape[0] * (batch.shape[1] - 1)
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad / grad_accum for p in leaves]
+            first = batch[0] if isinstance(batch, tuple) else batch
+            tokens_seen += first.shape[0] * (first.shape[1] - 1)
+        grads = [None if not m else torch.zeros_like(p) if p.grad is None else p.grad / grad_accum
+                 for p, m in zip(leaves, train_mask)]
         optimizer.update(state.params, grads, state.opt_state)
         state.step += 1
         loss_val = float(torch.stack(losses).mean())
@@ -99,7 +119,7 @@ def fit(
             dt = time.perf_counter() - t_start
             tps = tokens_seen / max(dt, 1e-9)
             metrics = {"loss": loss_val, "tokens": tokens_seen, "tokens_per_sec": tps}
-            est = mfu(tps, cfg, n_params, batch.shape[1] - 1, kind, dtype)
+            est = mfu(tps, cfg, n_params, first.shape[1] - 1, kind, dtype)
             if est is not None:
                 metrics["est_mfu"] = est
             logger.log_dict(metrics, state.step)

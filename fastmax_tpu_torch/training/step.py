@@ -10,7 +10,9 @@ optax's, not ``torch.optim``'s defaults:
 - ``clip_by_global_norm`` scales by ``max_norm / norm`` only when
   ``norm >= max_norm``, with no epsilon (``clip_grad_norm_`` adds 1e-6);
 - ``adamw`` (eps 1e-8, eps_root 0) adds ``weight_decay * p`` to the Adam
-  update of every leaf before the learning rate scales it.
+  update of every leaf before the learning rate scales it;
+- ``MaskedOptimizer`` (PEFT) hands only the trainable leaves to it, so the
+  frozen ones have no state and the clip's norm is theirs alone.
 """
 
 from __future__ import annotations
@@ -88,6 +90,31 @@ class AdamW:
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             u = u + self.weight_decay * p
             p.add_(-lr * u)
+
+
+class MaskedOptimizer:
+    """The reference's ``masked_optimizer``, ``optax.multi_transform({"train":
+    inner, "freeze": set_to_zero()})`` over a mask tree: only the leaves
+    where ``mask`` is True get optimizer state and updates, and the inner
+    chain's global-norm clip is taken over them alone. ``update`` takes the
+    gradients of every leaf in ``tree_leaves`` order (None for a frozen one)."""
+
+    def __init__(self, inner: AdamW, mask: dict):
+        self.inner = inner
+        self.mask = [bool(m) for m in tree_leaves(mask)]
+
+    def _select(self, items: list) -> dict:
+        if len(items) != len(self.mask):
+            raise ValueError(f"{len(items)} leaves against a mask of {len(self.mask)}")
+        return {i: x for i, (x, m) in enumerate(zip(items, self.mask)) if m}
+
+    def init(self, params: dict) -> dict:
+        return self.inner.init(self._select(tree_leaves(params)))
+
+    def update(self, params: dict, grads: list, state: dict) -> None:
+        self.inner.update(self._select(tree_leaves(params)),
+                          list(self._select(grads).values()), state)
+
 
 
 def make_loss_fn(cfg: Config, remat=True, plain: bool = False) -> Callable:

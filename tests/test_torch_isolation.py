@@ -18,7 +18,7 @@ from fastmax_tpu_torch.models.config import Config
 from fastmax_tpu_torch.models import gpt
 from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
 from fastmax_tpu_torch.models.weights import from_numpy_params
-from fastmax_tpu_torch.training import pretrain
+from fastmax_tpu_torch.training import finetune, pretrain
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -46,7 +46,8 @@ def test_no_jax_and_no_reference_package_imported():
         "assert len(names) >= 15, names\n"
         "for sub in ('training.pretrain', 'training.fit', 'training.step', 'data.lm_datasets',\n"
         "            'data.packed_dataset', 'utils.args', 'utils.flops', 'utils.logging',\n"
-        "            'utils.loss', 'ops.fastmax', 'ops.fastmax_kernels'):\n"
+        "            'utils.loss', 'ops.fastmax', 'ops.fastmax_kernels', 'training.finetune',\n"
+        "            'models.lora', 'ops.blockwise_attention', 'utils.checkpoint'):\n"
         "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -73,6 +74,8 @@ def test_entry_points_default_to_cuda():
         gpt.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.setup(model_name="easy-transformer-fastmax")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.setup(model_name="Llama-2-7b-hf", quantize="bnb.nf4", data_path="unused.npz")
 
 
 def test_cuda_tensor_never_takes_the_plain_version():

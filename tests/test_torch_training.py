@@ -129,10 +129,24 @@ def test_remat_gives_the_same_gradients():
             gpt.forward(from_numpy_params(jp, "cpu"), cfg, tb[:, :-1], remat=policy)
 
 
-def test_quadratic_without_mask_stops_at_blockwise_length():
-    x = torch.zeros((1, 2, 1024, 64))
-    with pytest.raises(NotImplementedError, match="B8/B9"):
-        attention(x, x, x, attn_alg="quadratic", head_size=64)
+def test_quadratic_without_mask_stops_at_blockwise_length(monkeypatch):
+    """At T >= BLOCKWISE_MIN_T the quadratic route leaves the dense softmax for
+    the trainable flash route (the fused entry; its plain version on the
+    CPU), which gives the dense softmax's output (f32, atol 2e-5 / rtol
+    1e-4, the reference's flash tolerance)."""
+    from fastmax_tpu_torch.ops import attention as tattn
+    from fastmax_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    fused, calls = tattn.flash_attention_fused, []
+    monkeypatch.setattr(tattn, "flash_attention_fused",
+                        lambda *a, **k: calls.append(a[0].shape) or fused(*a, **k))
+    x = torch.randn((1, 2, 1024, 64), generator=torch.Generator().manual_seed(0))
+    out = attention(x, x, x, attn_alg="quadratic", head_size=64)
+    assert calls == [(1, 2, 1024, 64)]
+    torch.testing.assert_close(out, scaled_dot_product_attention(x, x, x, is_causal=True),
+                               atol=2e-5, rtol=1e-4)
+    attention(x[:, :, :1023], x[:, :, :1023], x[:, :, :1023], attn_alg="quadratic", head_size=64)
+    assert len(calls) == 1
 
 
 class _Losses:
