@@ -73,7 +73,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    per layer per micro-batch), the written lora_weights.safetensors read
    back, a profile of one step; and one step of the same model cut to 4
    layers, kernels against plain (bf16 and f32), loss and every LoRA
-   gradient.
+   gradient;
+10. quantized serving: the exact 4-bit codebook kernel K8 against its plain
+   version at the three Llama-2-7B linears it takes (m in {1, 8, 64, 512},
+   f32 and bf16 x, a double-quant and two FP4 cases), the model's route at
+   mlp.proj (k = 11008: dequantize + matmul), and the blockwise int4 kernel
+   K9 at the four linears (m in {1, 8, 64, 128}, f32 and bf16, and its raw
+   nibble mode), inputs with a non-zero mean; device times in a CUDA graph,
+   weights cold, beside the bound, the plain version and dequantize +
+   ``torch.matmul``; then a random bf16 Llama-2-7B (seed 0, full width, all
+   32 layers) quantized to bnb.nf4 on the card and served by
+   ``InferenceEngine.generate`` (int8 KV cache, block_size 1024, 64-token
+   prompt) in each weights mode: "quantized" (autotune's choice and times
+   printed, then the "pallas" backend set so that K8 is on the path),
+   "preload_int4_block" (K9), "preload_int4" and "auto" (K1),
+   "preload_int8", "preload"; exact K8/K9/K1 launch counts, TTFT, decode
+   tok/s, peak memory, prefill and first-step logits kernels against plain
+   (gated with float32 activations, reported in bf16);
+   each mode against "quantized" on layer 0's four linears ("preload" within
+   LOGITS_REL_TOL, the int4/int8 re-representations at a correlation above
+   0.95) and on the 32-layer logits (error, correlation, top-1 agreement);
+   last an 8-slot ``ContinuousBatcher`` in "quantized" and in
+   "preload_int4_block" serving 8 requests of 256 tokens (K8/K9 at m = 8)
+   with float32 activations and a dense cache, its first-token logits and
+   greedy tokens against the engine's.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -368,6 +391,10 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel
                  ("K5 fastmax_bwd", ("fastmax_bwd_kernel",)),
                  ("K6 flash_train_fwd", ("flash_train_fwd_kernel",)),
                  ("K7 flash_train_bwd", ("flash_train_bwd_kernel",)),
+                 ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_gemm_kernel",
+                                    "nf4_splitk_reduce_kernel")),
+                 ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_gemm_kernel",
+                                           "int4_block_reduce_kernel")),
                  ("gemm (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")))
 
 
@@ -1718,6 +1745,449 @@ def finetune_path(torch, results, card):
     return counts
 
 
+
+# ----------------------------------------------------------------- phase 10
+NF4_ATOL, NF4_RTOL = 2e-4, 1e-4   # f32 x: the reference's own (test_quant_pallas.py:25)
+# raw nibbles (s_t None) sum codes in [-8, 7] where the scaled path sums q * s / 8
+# with s ~ 0.15: 64x the absolute rounding, so 64x the absolute tolerance
+INT4_RAW_ATOL = 64 * INT4_ATOL
+QSERVE_MODES = ("quantized", "preload_int4_block", "preload_int4", "preload_int8", "preload",
+                "auto")
+QSERVE_KERNELS = {"quantized": ("nf4_matmul", 3), "preload_int4_block": ("int4_block_matmul", 4),
+                  "preload_int4": ("int4_rank1_matmul", 4), "auto": ("int4_rank1_matmul", 4)}
+CORR_MIN = 0.95                   # re-representations vs quantized (test_quant_pallas.py:134)
+# the linears of one block by (module, linear) path, and the config field of their input width
+BLOCK_LINEARS = (("qkv", "attn", "attn", "n_embd"), ("attn_proj", "attn", "proj", "n_embd"),
+                 ("fc_12", "mlp", "fc_12", "n_embd"), ("mlp_proj", "mlp", "proj",
+                                                       "intermediate_size"))
+
+
+def held(torch, what, got, ref, atol, rtol) -> float:
+    """max|got - ref|; raises unless every element is within atol + rtol |ref|."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if (got.shape != ref.shape or not bool(torch.isfinite(got).all())
+            or bool((err > atol + rtol * ref.abs()).any())):
+        raise AssertionError(f"{what}: max abs err {float(err.max()):.3e} (atol {atol}, rtol "
+                             f"{rtol})")
+    return float(err.max())
+
+
+def nf4_case(torch, gen, k, n, m, dtype, kind="nf4", dq=False) -> float:
+    """K8 against ``nf4_matmul_plain`` through ``quantized_matmul_pallas``
+    on a random (k, n) kernel quantized on the card, x with mean 0.5."""
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    p = quant.quantize_4bit(torch.randn((k, n), generator=gen, device="cuda") * 0.05, kind,
+                            double_quant=dq)
+    x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dtype)
+    got = qk.quantized_matmul_pallas(x, p)
+    ref = qk.quantized_matmul_pallas(x, p, plain=True)
+    torch.cuda.synchronize()
+    rtol = NF4_RTOL if dtype == torch.float32 else INT4_BF16_RTOL
+    return held(torch, f"K8 {kind}{'-dq' if dq else ''} k={k} n={n} m={m} {str(dtype)[6:]}",
+                got, ref, NF4_ATOL, rtol)
+
+
+def int4_block_case(torch, gen, k, n, m, dtype, raw=False) -> float:
+    """K9 against ``int4_matmul_tiled_plain``: blockwise int4 of a random
+    (k, n) kernel quantized on the card, x with mean 0.5; ``raw`` takes the
+    raw nibbles of the same words (x padded to k_pad)."""
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    p = quant.quantize_int4_tiled(torch.randn((k, n), generator=gen, device="cuda") * 0.05,
+                                  "block")
+    x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dtype)
+    rtol = INT4_RTOL if dtype == torch.float32 else INT4_BF16_RTOL
+    if raw:
+        xs = torch.nn.functional.pad(x, (0, p["q4b"].shape[0] * p["q4b"].shape[2] - k))
+        got = qk.int4_matmul_tiled(xs, p["q4b"])
+        ref = qk.int4_matmul_tiled(xs, p["q4b"], plain=True)
+        atol, what = INT4_RAW_ATOL, "raw"
+    else:
+        got, ref = qk.int4_matmul_block(x, p), qk.int4_matmul_block(x, p, plain=True)
+        atol, what = INT4_ATOL, "block"
+    torch.cuda.synchronize()
+    return held(torch, f"K9 {what} k={k} n={n} m={m} {str(dtype)[6:]}", got, ref, atol, rtol)
+
+
+def quant_times(torch, gen, kind, k, n, ms):
+    """Device time a call (CUDA graph, weights cold: enough copies to exceed
+    the 50 MB L2) of K8 or K9 at bf16 x, its plain version and dequantize +
+    torch.matmul, with the call's bound; one row per m."""
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.05
+    if kind == "K8":
+        p = quant.quantize_4bit(w)
+        nbytes_w = k * n // 2 + k // 64 * n * 4 + 64
+        fns = (qk.quantized_matmul_pallas,
+               lambda x, p: qk.quantized_matmul_pallas(x, p, plain=True))
+    else:
+        p = quant.quantize_int4_tiled(w, "block")
+        nbytes_w = p["q4b"].numel() * 4 + p["scale4"].numel() * 4
+        fns = (qk.int4_matmul_block, lambda x, p: qk.int4_matmul_block(x, p, plain=True))
+    del w
+    copies = [p] + [{key: v.clone() for key, v in p.items()}
+                    for _ in range(max(1, math.ceil(160e6 / nbytes_w)) - 1)]
+    rows = []
+    for m in ms:
+        x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        it = iter(range(10**9))
+
+        def call(fn):
+            return lambda: fn(x, copies[next(it) % len(copies)])
+
+        kern_ms = graph_ms(call(fns[0]), calls=2 * len(copies))
+        plain_ms = graph_ms(call(fns[1]), calls=len(copies), reps=1)
+        deq_ms = graph_ms(call(lambda x, p: torch.matmul(x, quant.dequantize(p, x.dtype))),
+                          calls=len(copies), reps=1)
+        rows.append({"kernel": kind, "k": k, "n": n, "m": m, "x_dtype": "bf16", "ms": kern_ms,
+                     "plain_ms": plain_ms, "dequant_matmul_ms": deq_ms,
+                     **bound(nbytes_w + m * k * 2 + m * n * 2, 2 * m * k * n, bf16=True)})
+        r = rows[-1]
+        log(f"  {kind} k={k:5d} n={n:5d} m={m:3d} bf16: kernel {kern_ms * 1e3:8.1f} us  plain "
+            f"{plain_ms * 1e3:8.1f} us  dequantize + matmul {deq_ms * 1e3:8.1f} us  bound "
+            f"{r['bound_ms'] * 1e3:6.1f} us ({r['bound_by']}; {r['bound_f32_ms'] * 1e3:6.1f} us "
+            "at the f32 rate)")
+    return rows
+
+
+def check_quant_kernels(torch, gen, results):
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.ops import quant
+
+    worst = {"nf4_matmul": 0.0, "int4_block_matmul": 0.0}
+    for name, k, n in LLAMA7B_LINEARS[:3]:  # mlp.proj (k = 11008) is not K8's: below
+        for m in (1, N_SLOTS, 64, 512):
+            errs = [nf4_case(torch, gen, k, n, m, dt) for dt in (torch.float32, torch.bfloat16)]
+            worst["nf4_matmul"] = max(worst["nf4_matmul"], *errs)
+            log(f"  K8 {name:9s} k={k:5d} n={n:5d} m={m:3d}: ok, max abs err f32 {errs[0]:.3e} "
+                f"bf16 {errs[1]:.3e}")
+    for args, label in (((4096, 12288, N_SLOTS, torch.float32), "nf4 double-quant"),
+                        ((4096, 12288, 1, torch.float32), "fp4"),
+                        ((4096, 4096, 64, torch.bfloat16), "fp4")):
+        err = nf4_case(torch, gen, *args, kind="fp4" if label == "fp4" else "nf4",
+                       dq=label.endswith("quant"))
+        worst["nf4_matmul"] = max(worst["nf4_matmul"], err)
+        log(f"  K8 {label} k={args[0]} n={args[1]} m={args[2]} {str(args[3])[6:]}: ok, max abs "
+            f"err {err:.3e}")
+    # the model's route at mlp.proj (k = 11008): not pallas_eligible, so dequantize + matmul
+    quant.set_quant_backend("pallas")
+    p = quant.quantize_4bit(torch.randn((11008, 4096), generator=gen, device="cuda") * 0.05)
+    x = (torch.randn((1, 11008), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    before = build.KERNELS["nf4_matmul"].launches
+    got = quant.quantized_matmul(x, p)
+    if build.KERNELS["nf4_matmul"].launches != before or logits_rel(
+            torch, got.float(), torch.matmul(x, quant.dequantize(p, x.dtype)).float()) > 1e-3:
+        raise AssertionError("K8 route: mlp.proj (k = 11008) did not take dequantize + matmul")
+    log("  K8 route at mlp.proj (k=11008 n=4096): dequantize + matmul, no launch, as the "
+        "reference")
+    for name, k, n in LLAMA7B_LINEARS:
+        for m in (1, N_SLOTS, 64, 128):
+            errs = [int4_block_case(torch, gen, k, n, m, dt)
+                    for dt in (torch.float32, torch.bfloat16)]
+            worst["int4_block_matmul"] = max(worst["int4_block_matmul"], *errs)
+            log(f"  K9 {name:9s} k={k:5d} n={n:5d} m={m:3d}: ok, max abs err f32 {errs[0]:.3e} "
+                f"bf16 {errs[1]:.3e}")
+    for m in (1, 64):
+        err = int4_block_case(torch, gen, 4096, 4096, m, torch.float32, raw=True)
+        log(f"  K9 raw nibbles (s_t None) k=4096 n=4096 m={m}: ok, max abs err {err:.3e}")
+    rows = []
+    for name, k, n in LLAMA7B_LINEARS[:3]:
+        rows += [dict(r, shape=name) for r in quant_times(torch, gen, "K8", k, n,
+                                                          (1, N_SLOTS, 64, 512))]
+    for name, k, n in LLAMA7B_LINEARS:
+        rows += [dict(r, shape=name) for r in quant_times(torch, gen, "K9", k, n,
+                                                          (1, N_SLOTS, 64, 128))]
+    results["quant_kernel_times"] = rows
+    results["quant_kernel_max_abs_err"] = worst
+    return worst, rows
+
+
+def logits_rel(torch, a, b) -> float:
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise AssertionError("non-finite logits")
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def with_f32_activations(torch, params: dict) -> dict:
+    """The tree with its bf16 embedding, lm_head and norm weights in float32, so
+    that the forward's activations are float32; the block linears are the same
+    tensors."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if node.dtype == torch.bfloat16 and not (path[0] == "blocks" and path[-1] == "kernel"):
+            return node.float()
+        return node
+
+    return walk(params, ())
+
+
+def kernels_vs_plain(torch, engine, prompt, step_token):
+    """The engine's prefill logits and first decode step's, kernels against
+    plain=True, both steps on the same token (``step_token``, else the kernel
+    route's first token). Returns ({step: max|diff|/max|plain|}, the kernel
+    route's (prefill logits, step logits, token))."""
+    from fastmax_tpu_torch.ops.sampling import sample
+
+    cmp, tok = {}, step_token
+    for plain in (False, True):
+        cache = engine.new_cache()
+        logits, cache = engine.prefill(prompt[None].cuda(), cache, plain=plain)
+        tok = sample(logits) if tok is None else tok
+        with torch.inference_mode():
+            step, _ = engine._forward(tok[:, None], cache, 64, plain=plain)
+        cmp[plain] = (logits.float(), step[:, -1].float(), tok)
+    rel = {name: logits_rel(torch, cmp[False][i], cmp[True][i])
+           for i, name in enumerate(("prefill", "decode_step"))}
+    return rel, cmp[False]
+
+
+def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
+    """``InferenceEngine`` over the NF4 tree in ``mode``: generate with exact
+    launch counts, TTFT, decode tok/s, peak memory; prefill and first decode
+    step logits, kernels against plain=True. Returns the measures, the
+    kernels' logits (the decode step takes ``step_token`` where given) and
+    layer 0's four linears applied to ``probe`` (inputs by width)."""
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.ops.linear import linear
+    from fastmax_tpu_torch.ops.sampling import sample
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    quant.LAST_AUTOTUNE.clear()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, nf4, max_seq_length=1024, weights_mode=mode,
+                             cache_dtype=torch.int8)
+    torch.cuda.synchronize()
+    out = {"mode": mode, "prepare_s": time.perf_counter() - t0}
+    if mode == "quantized":
+        if not quant.LAST_AUTOTUNE:
+            raise AssertionError("the engine ran no autotune on the card")
+        tune = dict(quant.LAST_AUTOTUNE, choice=quant.get_quant_backend())
+        log(f"  autotune on the largest linear (k={tune['k']}, n={tune['n']}, m=1, {tune['iters']} "
+            f"calls each): K8 {tune['pallas_s'] * 1e3:.3f} ms, dequantize + matmul "
+            f"{tune['xla_s'] * 1e3:.3f} ms -> {tune['choice']!r}   [{card}]")
+        log("  backend set to 'pallas' for the timed run, so that K8 is on the path")
+        quant.set_quant_backend("pallas")
+        out["autotune"] = tune
+    n_new = 128 if mode in ("quantized", "preload_int4_block") else 32
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen = engine.generate(prompt, 64 + n_new)
+    torch.cuda.synchronize()
+    out["generate_s"] = time.perf_counter() - t0
+    counts = build.launch_counts()
+    if tuple(gen.shape) != (1, 64 + n_new):
+        raise AssertionError(f"{mode}: generate returned shape {tuple(gen.shape)}")
+    if counts["int8_decode_attention"] <= 0:
+        raise AssertionError(f"{mode}: K2 was never launched: {counts}")
+    if mode in QSERVE_KERNELS:  # one prefill forward and n_new - 1 decode steps
+        name, per_layer = QSERVE_KERNELS[mode]
+        want = per_layer * cfg.n_layer * n_new
+        if counts[name] != want:
+            raise AssertionError(f"{mode}: {name} launched {counts[name]} times, not {want}")
+    ttft = []
+    for _ in range(3):
+        cache = engine.new_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(prompt[None].cuda(), cache)
+        first = sample(logits)
+        first.cpu()
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, _ = engine.decode(cache, first, 64, n_new)
+    dec.cpu()
+    tok_s = (dec.shape[1] - 1) / (time.perf_counter() - t0)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # kernels vs plain: in the path's bf16, reported (a random 32-layer model carries a
+    # one-ulp difference of a linear's output into the logits with a gain of ~15), and
+    # gated with float32 activations, where both routes differ by their sums' order only
+    rel, kern = kernels_vs_plain(torch, engine, prompt, step_token)
+    saved, engine.params = engine.params, with_f32_activations(torch, engine.params)
+    rel32, _ = kernels_vs_plain(torch, engine, prompt, kern[2])
+    engine.params = saved
+    if max(rel32.values()) > LOGITS_REL_TOL:
+        raise AssertionError(f"{mode}: f32 logits kernels vs plain differ beyond "
+                             f"{LOGITS_REL_TOL}: {rel32} (bf16: {rel})")
+    out.update(new_tokens=n_new, launches=counts, ttft_ms=min(ttft), ttft_ms_all=ttft,
+               decode_tok_s=tok_s, peak_gb=peak_gb, held_before_gb=base / 1e9,
+               logits_kernels_vs_plain={"bf16": rel, "f32": rel32},
+               first16=gen[0, 64:80].tolist(), card=card)
+    log(f"  {mode:18s}: prepare {out['prepare_s']:.2f} s; generate(64 + {n_new}) "
+        f"{out['generate_s']:.2f} s; TTFT {min(ttft):.2f} ms; decode {tok_s:.2f} tok/s; peak "
+        f"{peak_gb:.3f} GB above {base / 1e9:.3f} held; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; logits kernels vs plain, max|diff|/"
+        f"max|plain|: f32 prefill {rel32['prefill']:.3e}, decode step "
+        f"{rel32['decode_step']:.3e} (tolerance {LOGITS_REL_TOL}); bf16 {rel['prefill']:.3e}, "
+        f"{rel['decode_step']:.3e}   [{card}]")
+    if mode in ("quantized", "preload_int4_block"):
+        out["profile_decode"] = profile_decode(torch, engine, first, tok_s)
+    with torch.inference_mode():
+        lin = {name: linear(engine.params["blocks"][mod][sub], probe[width], 0).float()
+               for name, mod, sub, width in BLOCK_LINEARS}
+    del engine, cache
+    return out, kern, lin
+
+
+def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card) -> dict:
+    """An 8-slot ``ContinuousBatcher`` over the NF4 tree (float32
+    activations, dense cache) in ``mode`` serving ``prompts`` (one batched
+    admission wave, then decode at m = 8); its first-token logits and greedy
+    tokens against ``InferenceEngine``'s on the same weights."""
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.ops import quant
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batcher = ContinuousBatcher(cfg, nf4, n_slots=N_SLOTS, max_seq_length=1024,
+                                weights_mode=mode)
+    if mode == "quantized":
+        quant.set_quant_backend("pallas")
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [batcher.submit(p, n_new) for p in prompts]
+    res = batcher.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    name = QSERVE_KERNELS[mode][0]
+    if counts[name] <= 0:
+        raise AssertionError(f"batcher {mode}: {name} was never launched: {counts}")
+    engine = InferenceEngine(cfg, batcher.params, max_seq_length=1024, weights_mode="quantized")
+    quant.set_quant_backend("pallas")  # the engine's autotune may have picked "xla"
+    with torch.inference_mode():  # a whole-prompt prefill's first-token logits, vs the engine's
+        seq = torch.as_tensor(prompts[0], dtype=torch.int32, device="cuda")[None]
+        eng_logits = engine.prefill(seq, engine.new_cache())[0][0].float()
+        bat_logits = batcher_prefill(torch, gpt, batcher, seq, 0, fresh_row(torch, batcher),
+                                     plain=False)[0].float()
+    first_rel = logits_rel(torch, bat_logits, eng_logits)
+    if first_rel > LOGITS_REL_TOL:
+        raise AssertionError(f"batcher {mode}: first-token logits differ from the engine's by "
+                             f"{first_rel}")
+    checks = []
+    for rid, p in zip(rids, prompts):
+        want = engine.generate(torch.as_tensor(p), len(p) + n_new)[0, len(p):].tolist()
+        div = first_divergence(torch, engine, p, want, res[rid])
+        checks.append(div)
+        if div is not None and not div[1] <= NEAR_TIE_REL * div[2]:
+            raise AssertionError(f"batcher {mode}: request {rid} diverges from the engine "
+                                 f"beyond a near-tie: {div}")
+    tok_s = len(prompts) * n_new / wall
+    log(f"  batcher {mode:18s} (f32, dense cache): {len(prompts)} requests x {n_new} new "
+        f"tokens in {wall:.2f} s "
+        f"({tok_s:.1f} tok/s, prefill included; {batcher.batched_admissions} admitted in "
+        f"batched waves); launches { {k: v for k, v in counts.items() if v} }; first-token "
+        f"logits vs the engine's {first_rel:.3e}; tokens == engine's for "
+        f"{sum(d is None for d in checks)} of {len(checks)}, the rest near-ties "
+        f"{[d for d in checks if d is not None]}   [{card}]")
+    del batcher, engine
+    return {"mode": mode, "wall_s": wall, "tok_s": tok_s, "launches": counts,
+            "first_logits_rel": first_rel, "divergences": checks, "card": card}
+
+
+def quant_serving_path(torch, results, card):
+    import numpy as np
+
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops import quant
+
+    cfg = Config.from_name("Llama-2-7b-hf")
+    cfg.block_size = 1024
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dense = gpt.init_params(cfg, 0, torch.bfloat16, "cuda")
+    nf4 = quant.quantize_model(dense, "bnb.nf4")
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"  random bf16 Llama-2-7B (seed 0) quantized to bnb.nf4 on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    probe = {w: (torch.randn((N_SLOTS, getattr(cfg, w)), generator=gen, device="cuda")
+                 + 0.5).to(torch.bfloat16) for w in ("n_embd", "intermediate_size")}
+    modes, logits, lin = {}, {}, {}
+    counts = {}
+    step_token = None
+    for mode in QSERVE_MODES:
+        modes[mode], logits[mode], lin[mode] = serve_mode(torch, cfg, nf4, mode, prompt,
+                                                          step_token, probe, card)
+        step_token = logits["quantized"][2]
+        for k, v in modes[mode]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+
+    # Each mode against "quantized": layer 0's linears on the probe (gated: preload within
+    # LOGITS_REL_TOL, the re-representations at a correlation above CORR_MIN) and the
+    # 32-layer logits (reported: a random model carries a weight error into them with a
+    # gain that grows with depth; on the CPU at width 512, block int4 fell from a
+    # correlation of 0.95 at 2 layers to 0.09 at 32)
+    def compare(mode):
+        row = {}
+        pairs = [(name, lin[mode][name], lin["quantized"][name]) for name, *_ in BLOCK_LINEARS]
+        pairs += [(f"logits {name}", logits[mode][i], logits["quantized"][i])
+                  for i, name in enumerate(("prefill", "decode_step"))]
+        for name, a, b in pairs:
+            corr = float(torch.corrcoef(torch.stack([a.reshape(-1), b.reshape(-1)]))[0, 1])
+            row[name] = {"rel": logits_rel(torch, a, b), "corr": corr}
+            if name.startswith("logits"):
+                row[name]["top1_agree"] = bool(a.argmax() == b.argmax())
+        return row
+
+    rerep = {mode: compare(mode) for mode in ("preload", "preload_int4", "preload_int4_block",
+                                              "preload_int8")}
+    for mode, row in rerep.items():
+        log(f"  {mode} vs quantized, max|diff|/max|quantized| and correlation: " + "; ".join(
+            f"{n} {r['rel']:.3e} {r['corr']:.6f}"
+            + (f" top-1 {'same' if r['top1_agree'] else 'different'}" if "top1_agree" in r
+               else "") for n, r in row.items()))
+        layer0 = [r for n, r in row.items() if not n.startswith("logits")]
+        if mode == "preload" and max(r["rel"] for r in layer0) > LOGITS_REL_TOL:
+            raise AssertionError(f"preload and quantized differ beyond {LOGITS_REL_TOL}: {row}")
+        if min(r["corr"] for r in layer0) <= CORR_MIN:
+            raise AssertionError(f"{mode} correlates with quantized at {row}")
+    rel = {n: rerep["preload"][f"logits {n}"]["rel"] for n in ("prefill", "decode_step")}
+    # the batcher with float32 activations and a dense cache: its greedy tokens are held to
+    # the engine's, and a one-ulp bf16 difference between their routes (m = 8 against m = 1,
+    # a wave prefill against one prompt), or an int8 cache code it flips, moves a random
+    # 7B's logits by several per cent
+    batch_prompts = [rng.integers(1, 32000, 256).astype(np.int32) for _ in range(N_SLOTS)]
+    nf4_f32 = with_f32_activations(torch, nf4)
+    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card)
+                for mode in ("quantized", "preload_int4_block")]
+    del nf4_f32
+    for b in batchers:
+        for k, v in b["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    results["quant_serving"] = {
+        "model": "Llama-2-7b-hf (random bf16 weights, seed 0) quantized to bnb.nf4, int8 KV "
+                 "cache, block_size 1024, 64-token prompt",
+        "modes": modes, "preload_vs_quantized": rel, "rerep_vs_quantized": rerep,
+        "batchers": batchers, "launches": counts, "card": card}
+    del nf4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1773,8 +2243,13 @@ def main() -> int:
         "Llama-2-7B")
     ft_err, ft_rows = check_flash_train(torch, gen, results)
     counts_ft = finetune_path(torch, results, card)
+    log("[10] quantized serving: K8/K9 kernels vs plain, then an NF4 Llama-2-7B in every "
+        "weights mode (engine and batcher)")
+    q_err, q_rows = check_quant_kernels(torch, gen, results)
+    counts_q = quant_serving_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
-                           "training_path": counts_train, "finetune_path": counts_ft}
+                           "training_path": counts_train, "finetune_path": counts_ft,
+                           "quant_serving_path": counts_q}
 
     # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
     # K3: the five timed 7B calls of phase 6; K4, K5: one call at the training
@@ -1834,6 +2309,17 @@ def main() -> int:
                         "launches": counts_ft[kern.name], "max_abs_err": ft_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
                         "bound_by": bnd["bound_by"], "library_ms": lib})
+    # K8, K9: one decode step of one layer at m=1, bf16 x (K8: qkv, attn.proj and fc_12,
+    # since mlp.proj dequantizes; K9: the four linears); launches over phase 10's paths
+    for kern in (build.KERNELS["nf4_matmul"], build.KERNELS["int4_block_matmul"]):
+        dec = [r for r in q_rows if r["m"] == 1 and r["kernel"] == (
+            "K8" if kern.name == "nf4_matmul" else "K9")]
+        kernels.append({"name": kern.name, "route": "cuda",
+                        "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
+                        "launches": counts_q[kern.name], "max_abs_err": q_err[kern.name],
+                        "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
+                        "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
+                        "library_ms": None})
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

@@ -95,8 +95,8 @@ class ContinuousBatcher:
                 "A, item 4)")
         self.cfg = cfg
         self.device = default_device(device)
-        self.params = _to_device(InferenceEngine.prepare_params(params, weights_mode),
-                                 self.device)
+        self.params = InferenceEngine.prepare_params(_to_device(params, self.device),
+                                                     weights_mode)
         self.n_slots = n_slots
         self.max_seq_length = min(max_seq_length or cfg.block_size, cfg.block_size)
         self.prefill_bucket = prefill_bucket

@@ -18,6 +18,7 @@ import torch
 
 from ..models import gpt
 from ..models.config import Config
+from ..ops import quant
 from ..ops.rope import build_rope_cache
 from ..ops.sampling import sample
 
@@ -37,21 +38,32 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+WEIGHTS_MODES = ("auto", "quantized", "preload", "preload_int8", "preload_int4",
+                 "preload_int4_block")
+# leaves whose arrays concatenate along the output axis; the codebook is shared
+_FUSABLE_AXES = ("kernel", "q8", "scale8", "q4", "absmax", "bias")
+
+
 def _fuse_mlp_gates(params: dict) -> dict:
-    """Concatenate the SwiGLU gate+up kernels ([fc_1 | fc_2] along the output
-    axis) into one ``fc_12`` matmul, for dense ``kernel`` leaves. As in the
-    reference, other formats are left as they are: a q4r1 tree arrives with
-    ``fc_12`` already fused (InferenceEngine.prepare_params of the JAX
-    package, or models/synthetic.py)."""
+    """Concatenate the SwiGLU gate+up linears ([fc_1 | fc_2] along the output
+    axis) into one ``fc_12`` matmul, as the reference does: dense kernels,
+    int8 (``q8``/``scale8``), 4-bit (``q4``/``absmax``, one shared ``code``)
+    and biases. Skipped when the two differ in their leaves or carry others:
+    double-quantized scales (``absmax_q``: their flat blocks do not
+    concatenate along the output axis), LoRA or adapter terms, and the
+    tiled int4 formats (a q4r1/q4b tree arrives with ``fc_12`` fused)."""
     blocks = params.get("blocks")
     mlp = blocks.get("mlp") if isinstance(blocks, dict) else None
     if not isinstance(mlp, dict) or "fc_1" not in mlp or "fc_2" not in mlp:
         return params
     fc1, fc2 = mlp["fc_1"], mlp["fc_2"]
-    if set(fc1) != {"kernel"} or set(fc2) != {"kernel"}:
+    if set(fc1) != set(fc2) or any(k != "code" and k not in _FUSABLE_AXES for k in fc1):
         return params
+    fused = {k: torch.cat([fc1[k], fc2[k]], dim=-1) for k in fc1 if k != "code"}
+    if "code" in fc1:
+        fused["code"] = fc1["code"]
     new_mlp = {k: v for k, v in mlp.items() if k not in ("fc_1", "fc_2")}
-    new_mlp["fc_12"] = {"kernel": torch.cat([fc1["kernel"], fc2["kernel"]], dim=-1)}
+    new_mlp["fc_12"] = fused
     return {**params, "blocks": {**blocks, "mlp": new_mlp}}
 
 
@@ -61,6 +73,29 @@ def _leaf_names(tree, prefix=()):
             yield from _leaf_names(v, prefix + (k,))
         else:
             yield prefix + (k,)
+
+
+def _largest_q4(params: dict) -> Optional[dict]:
+    """The largest 4-bit linear of the tree (its first layer when stacked,
+    without its bias), for autotuning."""
+    best, best_size = None, -1
+
+    def walk(node):
+        nonlocal best, best_size
+        if "q4" in node:
+            arr = node["q4"]
+            if arr.numel() > best_size:
+                idx = (0,) * (arr.dim() - 2)
+                best = {k: v[idx] if v.dim() > quant._RANK.get(k, 0) else v
+                        for k, v in node.items() if k != "bias"}
+                best_size = arr.numel()
+            return
+        for v in node.values():
+            if isinstance(v, dict):
+                walk(v)
+
+    walk(params)
+    return best
 
 
 class InferenceEngine:
@@ -73,13 +108,22 @@ class InferenceEngine:
     def __init__(self, cfg: Config, params: dict, *, max_seq_length: Optional[int] = None,
                  batch_size: int = 1, cache_dtype=None, weights_mode: str = "auto",
                  device=None):
-        """weights_mode: "quantized" and "auto" keep q4r1 and dense weights
-        as they are; the re-representing modes of the reference ("preload",
-        "preload_int8", "preload_int4", "preload_int4_block") are not ported
-        yet."""
+        """weights_mode, for quantized params (the reference's):
+        "quantized"     keep the packed weights; a 4-bit linear dequantizes
+                        inside its matmul (K8 or dequantize + matmul, picked
+                        by ``quant.autotune_quant_backend`` on the card);
+        "preload"       dequantize once to the activation dtype;
+        "preload_int8"  re-represent 4-bit linears as per-channel int8;
+        "preload_int4"  re-represent 4-bit and int8 linears as rank-1 tiled
+                        int4 (K1);
+        "preload_int4_block" the same with per-64-block scales (K9);
+        "auto"          int8 and tiled int4 stay as they are; packed 4-bit
+                        takes the reference's chip branch, "preload_int4".
+        The params are moved to ``device`` first, so the conversions and
+        the autotune run there."""
         self.cfg = cfg
         self.device = default_device(device)
-        self.params = _to_device(self.prepare_params(params, weights_mode), self.device)
+        self.params = self.prepare_params(_to_device(params, self.device), weights_mode)
         self.max_seq_length = min(max_seq_length or cfg.block_size, cfg.block_size)
         self.batch_size = batch_size
         self.cache_dtype = cache_dtype or self.params["wte"].dtype
@@ -88,18 +132,40 @@ class InferenceEngine:
 
     @staticmethod
     def prepare_params(params: dict, mode: str) -> dict:
-        if mode not in ("quantized", "auto"):
-            raise NotImplementedError(
-                f"weights_mode {mode!r} is not ported yet: it comes with the slice that ports "
-                "the quantizers (ROADMAP.md queue A, item 3)")
-        params = _fuse_mlp_gates(params)
-        unported = [n for n in _leaf_names(params)
-                    if n[-1] in ("q4", "q8", "q4b", "absmax", "lora_A", "adapter_scale")]
-        if unported:
-            raise NotImplementedError(
-                f"weight formats of {'.'.join(unported[0])} are not ported yet (q4r1 and "
-                "dense only)")
-        return params
+        """The serving layout (fused gate+up) first, then the weights mode,
+        so that the re-representations cover the fused ``fc_12`` too."""
+        return InferenceEngine._resolve_weights(_fuse_mlp_gates(params), mode)
+
+    @staticmethod
+    def _resolve_weights(params: dict, mode: str) -> dict:
+        if mode not in WEIGHTS_MODES:
+            raise ValueError(f"unknown weights_mode {mode!r}; expected one of {WEIGHTS_MODES}")
+        names = {n[-1] for n in _leaf_names(params)}
+        has_q4 = any("q4" in n for n in names)
+        has_q8 = any("q8" in n for n in names)
+        if not (has_q4 or has_q8) or mode == "quantized":
+            sample = _largest_q4(params) if has_q4 else None
+            if sample is not None and sample["q4"].is_cuda:
+                # pick the faster 4-bit route on this card, as the reference on its chip
+                x = torch.zeros((1, sample["q4"].shape[0] * 2), dtype=params["wte"].dtype,
+                                device=sample["q4"].device)
+                quant.autotune_quant_backend(sample, x)
+            return params
+        if mode == "preload":
+            return quant.dequantize_model(params, params["wte"].dtype)
+        if mode == "preload_int8":
+            return quant.requantize_int8_model(params)
+        if mode == "preload_int4":
+            return quant.requantize_int4_model(params, "rank1")
+        if mode == "preload_int4_block":
+            return quant.requantize_int4_model(params, "block")
+        # auto: int8 and tiled int4 weights are the fast paths and stay; packed
+        # 4-bit takes the reference's chip branch (rank-1 int4) on every device,
+        # as the card plays the TPU's part (ROADMAP.md C: the reference picks
+        # int8 off its chip when that fits)
+        if not has_q4 or names & {"q4r1", "q4b"}:
+            return params
+        return quant.requantize_int4_model(params, "rank1")
 
     def new_cache(self) -> dict:
         if self.cfg.attn_alg != "quadratic":

@@ -148,6 +148,19 @@ KERNELS = {
         "fm_flash_train_bwd",
         # q, k, v, dout, lse, delta, dq, dk, dv, bf16, bh, t, d, scale, stream
         [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P]),
+    "nf4_matmul": Kernel(
+        "nf4_matmul", "nf4_matmul.cu",
+        "fastmax_tpu/ops/quant_pallas.py:131",
+        "fm_nf4_matmul",
+        # x, x_bf16, m, k, packed, absmax, code, n, y, y_bf16, part, splits,
+        # blocks_per_split, stream
+        [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P]),
+    "int4_block_matmul": Kernel(
+        "int4_block_matmul", "int4_block_matmul.cu",
+        "fastmax_tpu/ops/quant_pallas.py:282",
+        "fm_int4_block_matmul",
+        # x, x_bf16, m, k, w, s, gk, gn, tk, n, y, y_bf16, part, splits, rows_per_split, stream
+        [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P]),
 }
 
 

@@ -4,10 +4,12 @@
 ``jax.tree.map(np.asarray, params)``) and returns the same keys and layouts
 as torch tensors: dense kernels stay (in, out), biases and norm weights stay
 vectors, stacked block leaves keep their leading (n_layer,) axis, and the
-other leaves keep their dtype and bits: q4r1 int32 words, NF4 uint8 codes
-(``q4``), int8 double-quantized scales (``absmax_q``), f32 ``absmax``/``code``
-and the LoRA leaves. ``to_numpy_params`` gives a port tree back as numpy
-arrays in the same layout (bfloat16 leaves as float32 values).
+other leaves keep their dtype, bits and shape: q4r1 and q4b int32 words,
+4-bit uint8 codes (``q4``), int8 codes (``q8``) and double-quantized scales
+(``absmax_q``), f32 ``absmax``/``code``/``scale8``/``scale4``, the zero-size
+uint8 ``n4``/``k4`` markers, whose shapes carry a linear's true widths, and
+the LoRA leaves. ``to_numpy_params`` gives a port tree back as numpy arrays
+in the same layout (bfloat16 leaves as float32 values).
 """
 
 from __future__ import annotations

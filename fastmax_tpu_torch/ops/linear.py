@@ -1,52 +1,48 @@
 """Linear and embedding application (counterpart of
-``fastmax_tpu/ops/linear.py``), for the weight formats of the ported path.
+``fastmax_tpu/ops/linear.py``).
 
-A linear's parameters are dense ``{"kernel": (in, out)}``, rank-1 int4
-``{"q4r1", "u4", "v4"}`` or NF4 ``{"q4", "code", "absmax" | "absmax_q",
-"absmax_scale", "absmax_offset"}`` (ops/quant.py), with an optional
-``"bias"`` (out,) added in the output's dtype and optional LoRA leaves
-``{"lora_A": (in, r), "lora_B": (r, out), "lora_scale": (), ["lora_mask":
-(out,)]}`` (models/lora.py), which add ``((x @ A) @ B) * scale * mask`` to
-the base output before the bias. NF4 takes the reference's ``"xla"``
-backend: dequantize, then ``torch.matmul`` (its Pallas kernel B7 serves
-inference only and has no gradient). With ``layer`` given, every leaf
-carries a leading (n_layer,) axis and the call computes that layer: dense
-leaves are indexed (a view), q4r1 leaves go to the stacked int4 kernel,
-which reads the stack in place. Adapter leaves and the q8/q4b formats are
-not ported yet.
+A linear's parameters are dense ``{"kernel": (in, out)}`` or one of the
+quantized formats of ops/quant.py (4-bit ``q4``, int8 ``q8``, rank-1 int4
+``q4r1``, blockwise int4 ``q4b``), with an optional ``"bias"`` (out,) added
+in the output's dtype and optional LoRA leaves ``{"lora_A": (in, r),
+"lora_B": (r, out), "lora_scale": (), ["lora_mask": (out,)]}``
+(models/lora.py), which add ``((x @ A) @ B) * scale * mask`` to the base
+output before the bias. Quantized linears go through
+``quant.quantized_matmul``, as the reference's do. With ``layer`` given,
+every leaf carries a leading (n_layer,) axis and the call computes that
+layer: a q4r1 linear without LoRA goes to the stacked int4 kernel, which
+reads the stack in place; every other linear takes per-layer views of its
+leaves (which cost nothing). Adapter leaves are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .quant import dequantize
-from .quant_kernels import int4_matmul_rank1, int4_matmul_rank1_stacked
+from . import quant
+from .quant_kernels import int4_matmul_rank1_stacked
 
-_NF4 = {"q4", "code", "absmax", "absmax_q", "absmax_scale", "absmax_offset"}
+_QUANT = {"q4", "code", "absmax", "absmax_q", "absmax_scale", "absmax_offset", "q8", "scale8",
+          "q4r1", "u4", "v4", "q4b", "scale4", "n4", "k4"}
 _LORA = {"lora_A", "lora_B", "lora_scale", "lora_mask"}
-_PORTED = {"kernel", "q4r1", "u4", "v4", "bias"} | _NF4 | _LORA
+_PORTED = {"kernel", "bias"} | _QUANT | _LORA
 
 
 def linear(p: dict, x: torch.Tensor, layer=None, *, plain: bool = False) -> torch.Tensor:
     extra = set(p) - _PORTED
     if extra:
         raise NotImplementedError(
-            f"linear: leaves {sorted(extra)} are not ported yet (adapter and the q8/q4b "
-            "formats come in later slices)")
-    if layer is not None and (p.keys() & (_NF4 | _LORA)):
+            f"linear: leaves {sorted(extra)} are not ported yet (the adapter terms come with "
+            "models/adapter.py)")
+    if layer is not None and not ("q4r1" in p and not p.keys() & _LORA):
         p = {k: a[layer] for k, a in p.items()}
         layer = None
-    if "q4r1" in p:
-        if layer is not None:
-            y = int4_matmul_rank1_stacked(x, p, layer, plain=plain)
-        else:
-            y = int4_matmul_rank1(x, p, plain=plain)
-    elif "kernel" in p:
-        w = p["kernel"] if layer is None else p["kernel"][layer]
-        y = torch.matmul(x, w.to(x.dtype))
-    elif "q4" in p:
-        y = torch.matmul(x, dequantize(p, x.dtype))
+    if "kernel" in p:
+        y = torch.matmul(x, p["kernel"].to(x.dtype))
+    elif "q4r1" in p and layer is not None:
+        y = int4_matmul_rank1_stacked(x, p, layer, plain=plain)
+    elif p.keys() & {"q4", "q8", "q4r1", "q4b"}:
+        y = quant.quantized_matmul(x, p, plain=plain)
     else:
         raise KeyError(f"linear params missing weight: keys={list(p)}")
     if "lora_A" in p:

@@ -1,7 +1,7 @@
 """Finetuning recipe (counterpart of ``fastmax_tpu/training/finetune.py``):
-``method`` "lora" or "full", on a dense base or, with ``quantize`` "bnb.nf4"
-or "bnb.nf4-dq", on an NF4 base that stays frozen (QLoRA: the reference's
-finetune/lora.py flow).
+``method`` "lora" or "full", on a dense base or, with ``quantize`` one of
+``ops.quant.QUANT_MODES`` ("bnb.nf4", "bnb.nf4-dq", ...), on a quantized base
+that stays frozen (QLoRA: the reference's finetune/lora.py flow).
 
 ``setup`` builds the model from the registry (random weights from ``seed``),
 quantizes it, adds the LoRA leaves, and trains with ``sft_loss_fn``
@@ -16,8 +16,8 @@ waits for ROADMAP item 7).
 
 Not ported yet, each raising ``NotImplementedError``: ``checkpoint_dir``
 (the lit-format loader, ROADMAP queue A item 7), ``adapter``/``adapter_v2``
-(item 4), ``gptq_calib`` and the quantize modes other than bnb.nf4 and
-bnb.nf4-dq (item 3), ``dp``/``fsdp``/``tp`` above 1 (item 8).
+(item 4), ``gptq_calib`` (item 3: gptq.int4 quantizes by rounding to
+nearest), ``dp``/``fsdp``/``tp`` above 1 (item 8).
 
 Example (the card; pass device="cpu" to run on the CPU):
 

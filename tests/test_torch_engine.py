@@ -88,10 +88,11 @@ def test_eos_truncates():
 
 
 def test_unported_modes_raise():
+    """Every weights mode of the reference is ported (tests/test_torch_quant_serving.py);
+    an unknown one raises, and so does the linear-attention cache."""
     _, tp = _params()
-    for mode in ("preload", "preload_int8", "preload_int4", "preload_int4_block"):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(Config(**TINY), tp, weights_mode=mode, device="cpu")
+    with pytest.raises(ValueError, match="weights_mode"):
+        InferenceEngine(Config(**TINY), tp, weights_mode="preload_int3", device="cpu")
     teng = InferenceEngine(Config(**TINY, attn_alg="fastmax"), tp, device="cpu")
     with pytest.raises(NotImplementedError):
         teng.generate(torch.arange(1, 5), 8)

@@ -116,9 +116,9 @@ def test_quantize_model_keeps_embeddings_dense_and_refuses_other_modes():
     q = quant.quantize_model(params, "bnb.nf4")
     assert "kernel" in q["lm_head"] and q["wte"] is params["wte"]
     assert q["blocks"]["attn"]["attn"]["q4"].shape == (2, 64, cfg.qkv_shape)
-    for mode in ("bnb.fp4", "bnb.int8", "gptq.int4"):
-        with pytest.raises(NotImplementedError):
-            quant.quantize_model(params, mode)
+    # the other modes are ported (tests/test_torch_quant_serving.py); unknown ones raise
+    for mode, key in (("bnb.fp4", "q4"), ("bnb.int8", "q8"), ("gptq.int4", "q4")):
+        assert key in quant.quantize_model(params, mode)["blocks"]["mlp"]["proj"]
     with pytest.raises(ValueError):
         quant.quantize_model(params, "nf5")
 
@@ -366,8 +366,7 @@ def test_setup_refuses_what_is_not_ported(tmp_path, tiny_registry):
     base = dict(model_name="tiny-llama", data_path=tmp_path / "x.npz", device="cpu",
                 io=IOArgs(out_dir=tmp_path))
     for kw, match in (({"method": "adapter"}, "adapter"), ({"checkpoint_dir": Path(".")}, "lit"),
-                      ({"gptq_calib": True}, "gptq"), ({"dp": 2}, "dp"),
-                      ({"quantize": "bnb.fp4"}, "bnb.fp4")):
+                      ({"gptq_calib": True}, "gptq"), ({"dp": 2}, "dp")):
         with pytest.raises(NotImplementedError, match=match):
             finetune.setup(**{**base, **kw})
     with pytest.raises(ValueError):
