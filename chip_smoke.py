@@ -96,7 +96,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    last an 8-slot ``ContinuousBatcher`` in "quantized" and in
    "preload_int4_block" serving 8 requests of 256 tokens (K8/K9 at m = 8)
    with float32 activations and a dense cache, its first-token logits and
-   greedy tokens against the engine's.
+   greedy tokens against the engine's; and in "preload_int4_block" under the
+   int8 cache, through the kernels held to the same batcher through the
+   plain versions (near-tie rule), each one's divergence from the engine
+   (m = 1) reported;
+11. the int4/NF4 kernel labs (``fastmax_tpu_torch/tools/``): K10 (raw int4
+   nibbles with bf16 x on the tensor cores), K11 (the q4 byte layout: NF4 and
+   linear int4, scaled before the product or per block), K12 (the
+   column-nibble layout, v8-v11) and K13 (the read-rate probes) against their
+   plain versions at the four Llama-2-7B linears, m in {1, 8}, every mode,
+   with a float64 yardstick for the f32 modes; device times (weights cold),
+   bounds and the probes' read rates (above 105 % of the data-sheet rate
+   fails), also over 512 MB; the lab functions that equal K1, K8 or K9
+   launching them; then the three lab mains end to end (``int4_opt_r04``,
+   ``int4_opt_r05``, ``nf4_lab_r04`` with every impl at m = 1 and 8), every
+   line checked, with the launch counts of the phase.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -2041,11 +2055,18 @@ def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
     return out, kern, lin
 
 
-def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card) -> dict:
+def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card, cache_dtype=None,
+                 plain: bool = False, against: dict | None = None,
+                 held: bool = True) -> dict:
     """An 8-slot ``ContinuousBatcher`` over the NF4 tree (float32
-    activations, dense cache) in ``mode`` serving ``prompts`` (one batched
-    admission wave, then decode at m = 8); its first-token logits and greedy
-    tokens against ``InferenceEngine``'s on the same weights."""
+    activations; a dense cache, or ``cache_dtype``) in ``mode`` serving
+    ``prompts`` (one batched admission wave, then decode at m = 8), through
+    the kernels or, with ``plain``, their plain versions; its first-token
+    logits and greedy tokens against ``InferenceEngine``'s (the kernels, m =
+    1, the same cache type) on the same weights: a divergence beyond a
+    near-tie raises. With ``against`` (another run's tokens by request id),
+    the tokens are held to those under the near-tie rule instead, and the
+    engine's are only reported; ``held=False`` only reports."""
     from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
     from fastmax_tpu_torch.inference.engine import InferenceEngine
     from fastmax_tpu_torch.kernels import build
@@ -2055,7 +2076,7 @@ def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     batcher = ContinuousBatcher(cfg, nf4, n_slots=N_SLOTS, max_seq_length=1024,
-                                weights_mode=mode)
+                                weights_mode=mode, cache_dtype=cache_dtype, plain=plain)
     if mode == "quantized":
         quant.set_quant_backend("pallas")
     build.reset_launch_counts()
@@ -2066,38 +2087,51 @@ def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card) -> dict:
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
     name = QSERVE_KERNELS[mode][0]
-    if counts[name] <= 0:
+    route = (f"f32, {'int8' if cache_dtype == torch.int8 else 'dense'} cache"
+             + (", plain versions" if plain else ""))
+    if plain and any(counts.values()):
+        raise AssertionError(f"batcher {mode}, plain: kernels were launched: {counts}")
+    if not plain and counts[name] <= 0:
         raise AssertionError(f"batcher {mode}: {name} was never launched: {counts}")
-    engine = InferenceEngine(cfg, batcher.params, max_seq_length=1024, weights_mode="quantized")
+    engine = InferenceEngine(cfg, batcher.params, max_seq_length=1024, weights_mode="quantized",
+                             cache_dtype=cache_dtype)
     quant.set_quant_backend("pallas")  # the engine's autotune may have picked "xla"
     with torch.inference_mode():  # a whole-prompt prefill's first-token logits, vs the engine's
         seq = torch.as_tensor(prompts[0], dtype=torch.int32, device="cuda")[None]
         eng_logits = engine.prefill(seq, engine.new_cache())[0][0].float()
         bat_logits = batcher_prefill(torch, gpt, batcher, seq, 0, fresh_row(torch, batcher),
-                                     plain=False)[0].float()
+                                     plain=plain)[0].float()
     first_rel = logits_rel(torch, bat_logits, eng_logits)
     if first_rel > LOGITS_REL_TOL:
         raise AssertionError(f"batcher {mode}: first-token logits differ from the engine's by "
                              f"{first_rel}")
-    checks = []
+    checks, vs_other = [], []
     for rid, p in zip(rids, prompts):
         want = engine.generate(torch.as_tensor(p), len(p) + n_new)[0, len(p):].tolist()
         div = first_divergence(torch, engine, p, want, res[rid])
         checks.append(div)
-        if div is not None and not div[1] <= NEAR_TIE_REL * div[2]:
-            raise AssertionError(f"batcher {mode}: request {rid} diverges from the engine "
-                                 f"beyond a near-tie: {div}")
+        if against is not None:
+            div = first_divergence(torch, engine, p, against[rid], res[rid])
+            vs_other.append(div)
+        if held and div is not None and not div[1] <= NEAR_TIE_REL * div[2]:
+            raise AssertionError(f"batcher {mode} ({route}), against "
+                                 f"{'the other run' if against else 'the engine'}: request "
+                                 f"{rid} diverges beyond a near-tie: {div}")
     tok_s = len(prompts) * n_new / wall
-    log(f"  batcher {mode:18s} (f32, dense cache): {len(prompts)} requests x {n_new} new "
+    log(f"  batcher {mode:18s} ({route}): {len(prompts)} requests x {n_new} new "
         f"tokens in {wall:.2f} s "
         f"({tok_s:.1f} tok/s, prefill included; {batcher.batched_admissions} admitted in "
         f"batched waves); launches { {k: v for k, v in counts.items() if v} }; first-token "
         f"logits vs the engine's {first_rel:.3e}; tokens == engine's for "
-        f"{sum(d is None for d in checks)} of {len(checks)}, the rest near-ties "
-        f"{[d for d in checks if d is not None]}   [{card}]")
+        f"{sum(d is None for d in checks)} of {len(checks)}; the rest (step, top-2 margin, "
+        f"max|logit|): {[d for d in checks if d is not None]}"
+        + (f"; tokens == the other run's for {sum(d is None for d in vs_other)} of "
+           f"{len(vs_other)} {[d for d in vs_other if d is not None]}" if against else "")
+        + f"   [{card}]")
     del batcher, engine
-    return {"mode": mode, "wall_s": wall, "tok_s": tok_s, "launches": counts,
-            "first_logits_rel": first_rel, "divergences": checks, "card": card}
+    return {"mode": mode, "route": route, "wall_s": wall, "tok_s": tok_s, "launches": counts,
+            "first_logits_rel": first_rel, "divergences": checks, "vs_other": vs_other,
+            "tokens": res, "card": card}
 
 
 def quant_serving_path(torch, results, card):
@@ -2173,6 +2207,15 @@ def quant_serving_path(torch, results, card):
     nf4_f32 = with_f32_activations(torch, nf4)
     batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card)
                 for mode in ("quantized", "preload_int4_block")]
+    # the blockwise-int4 batcher under the int8 cache: the kernels against the plain versions
+    # (the same m = 8 route) under the near-tie rule; against the engine (m = 1) reported: an
+    # f32 rounding difference there flips an int8 cache code now and then, and a random 7B
+    # carries it to another token (a reference hazard, ROADMAP.md)
+    plain_int8 = batcher_mode(torch, cfg, nf4_f32, "preload_int4_block", batch_prompts, 32, card,
+                              cache_dtype=torch.int8, plain=True, held=False)
+    batchers += [plain_int8, batcher_mode(torch, cfg, nf4_f32, "preload_int4_block",
+                                          batch_prompts, 32, card, cache_dtype=torch.int8,
+                                          against=plain_int8["tokens"])]
     del nf4_f32
     for b in batchers:
         for k, v in b["launches"].items():
@@ -2186,6 +2229,360 @@ def quant_serving_path(torch, results, card):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ----------------------------------------------------------------- phase 11
+# K10-K13 against their plain versions. Both round where the reference rounds
+# (x, code values and v10's weights to bf16; each weight's scale in f32), and
+# every product of bf16 operands is exact in f32, so they differ by the order
+# of f32 sums alone: each output within 2e-5 of the largest |plain| plus 2e-4
+# of its own (on the H100: at most 2e-6 of the largest; a v10 that skips its
+# product's rounding lies 4e-4 of the largest off, inside the CPU tests'
+# reference tolerance of 2e-4 / 2e-3). The probes bit for bit. A probe that
+# reads faster than 105 % of the data-sheet memory rate did not read what it
+# claims.
+LAB_ATOL, LAB_RTOL = 2e-5, 2e-4
+PROBE_RATE_MAX = 1.05 * HBM_BYTES_PER_S
+LAB_MODES = {"K10": ("raw",), "K11": ("v1", "v5", "v6", "v7"),
+             "K12": ("v8", "v9", "v10", "v11"), "K13": ("stream_ref", "stream_bytes")}
+LAB_KERNEL = {"K10": "int4_tiled_bf16", "K11": "q4_byte_matmul",
+              "K12": "int4_colnibble_matmul", "K13": "stream_probe"}
+LAB_BF16 = {"raw", "v5", "v7", "v10", "v11"}  # bf16 operands: the tensor-core rate bounds them
+# error lines a lab main prints where the reference itself fails on the shape (an assert, a
+# packer's tile that does not divide k_pad, v wider than the words' column tiles), or where
+# the weights it draws have another k tile than the call halves to (k = 11008, a reference
+# hazard: the port checks the shapes)
+LAB_REFERENCE_ERRORS = {
+    "int4_opt_r04": {("tk2048", 11008, 4096)},
+    "int4_opt_r05": {("tk2048", 11008, 4096)},
+    "nf4_lab_r04": {(v, 4096, 22016) for v in ("v8", "v9", "v10", "v11", "v12", "v12b")}
+    | {(v, 11008, 4096) for v in ("v9t", "v12", "v12b")},
+}
+LAB_PLAIN_IMPLS = {"xla", "bf16", "int8", "int4", "nf4_xla"}
+
+
+def lab_setup(torch, gen, kernel, variant, k, n, m) -> dict:
+    """Inputs of one lab kernel mode at (k, n, m) on the card, x with mean 0.5,
+    codes uniform, absmax 0.01-0.03: {"w": weights, "x", "call": (x, w, plain)
+    -> output, "f64": (x, w) -> float64 yardstick or None, bytes of w, bytes
+    of x and the output, flops, bf16, exact}."""
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.tools import int4_opt_r05 as t05
+    from fastmax_tpu_torch.tools import lab_kernels as lk
+    from fastmax_tpu_torch.tools import nf4_lab_r04 as tlab
+    from fastmax_tpu_torch.tools import nf4_variants_r04 as tv
+
+    dev = "cuda"
+
+    def absmax(rows, cols):
+        return torch.rand((rows, cols), generator=gen, device=dev) * 0.02 + 0.01
+
+    def xin(cols):
+        return torch.randn((m, cols), generator=gen, device=dev) + 0.5
+
+    out = {"bf16": variant in LAB_BF16, "exact": kernel == "K13", "f64": None}
+    if kernel == "K10":
+        codes = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        w = {"pw": quant.pack_int4_tiled(codes)}
+        k_pad, n_pad = w["pw"].shape[0] * w["pw"].shape[2], w["pw"].shape[1] * 1024
+        x = torch.nn.functional.pad(xin(k), (0, k_pad - k))
+        out.update(call=lambda x, w, plain: lk.int4_tiled_bf16(x, w["pw"], plain=plain),
+                   f64=lambda x, w: x.to(torch.bfloat16).double() @ quant._unpack_int4_tiled(
+                       w["pw"]).double(),
+                   io=m * k_pad * 2 + m * n_pad * 4, flops=2 * m * k_pad * n_pad)
+    elif kernel == "K11":
+        w = {"q4": torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.uint8), "absmax": absmax(k // 64, n)}
+        x = xin(k)
+        getter = tv.get_int4 if variant in ("v6", "v7") else tv.get
+        out.update(call=lambda x, w, plain: getter(variant, k, n, tk=512, tn=256, plain=plain)(
+            x, w), io=m * k * 4 + m * n * 4, flops=2 * m * k * n)
+        if variant in ("v1", "v6"):
+            table = (torch.as_tensor(quant.NF4_CODE, device=dev) if variant == "v1"
+                     else torch.arange(-8, 8, device=dev).float())
+            mul = 1.0 if variant == "v1" else 0.125
+            xr = (lambda x: x) if variant == "v1" else (lambda x: x.to(torch.bfloat16).float())
+            out["f64"] = lambda x, w: xr(x).double() @ (
+                lk._q4_values(w["q4"], table).double()
+                * (w["absmax"].double() * mul).repeat_interleave(64, 0))
+    elif kernel == "K12":
+        w = {"pw": torch.randint(0, 2**31 - 1, (k, n // 8), generator=gen, device=dev,
+                                 dtype=torch.int32), "s": absmax(k // 64, n)}
+        x = xin(k)
+        get = {"v8": lambda p: tv.get_v8(k, n, tk=512, plain=p),
+               "v9": lambda p: tv.get_v9(k, n, tk=512, plain=p)}.get(
+            variant, lambda p: tv.get_v10(variant, k, n, tk=512, plain=p))
+        out.update(call=lambda x, w, plain: get(plain)(x, w), io=m * k * 4 + m * n * 4,
+                   flops=2 * m * k * n)
+        if variant in ("v8", "v9"):
+            out["f64"] = lambda x, w: x.double() @ (
+                lk._colnibble_codes(w["pw"], variant == "v8").double()
+                * (w["s"].double() * 0.125).repeat_interleave(64, 0))
+    elif variant == "stream_ref":
+        k_pad, gn = k + (-k) % 512, -(-n // 1024)
+        w = {"pw": torch.randint(-2**31, 2**31 - 1, (1, gn, k_pad, 128), generator=gen,
+                                 device=dev, dtype=torch.int32)}
+        x = xin(1)
+        out.update(call=lambda x, w, plain: t05.stream_ref(w["pw"], plain=plain),
+                   io=gn * 1024 * 4, flops=0)
+    else:  # stream_bytes, the lab's tk 512 and tn 256
+        w = {"q4": torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.uint8), "absmax": absmax(k // 64, n)}
+        x = xin(1)
+        out.update(call=lambda x, w, plain: tlab.stream_bytes(w["q4"], w["absmax"], 512, 256,
+                                                              plain=plain), io=n * 4, flops=0)
+    if variant == "stream_bytes":  # the tiles the Pallas grid covers
+        tiles = k // 512
+        out["bytes_w"] = tiles * 256 * n + tiles * 8 * n * 4
+    else:
+        out["bytes_w"] = sum(t.numel() * t.element_size() for t in w.values())
+    out.update(w=w, x=x)
+    return out
+
+
+def lab_cases(k, n, m) -> list:
+    """Every (kernel, mode, k, n, m) of K10-K13 that the shape takes (K12 only
+    whole 1024-column tiles; the probes at m = 1)."""
+    return [(kern, v, k, n, 1 if kern == "K13" else m) for kern, modes in LAB_MODES.items()
+            for v in modes if not (kern == "K12" and n % 1024)]
+
+
+def lab_case(torch, gen, kernel, variant, k, n, m) -> dict:
+    """One lab kernel mode against its plain version (the probes bit for bit),
+    with the float64 yardstick where the mode's operands are f32; raises with
+    the kernel's name on a miss."""
+    s = lab_setup(torch, gen, kernel, variant, k, n, m)
+    got = s["call"](s["x"], s["w"], False)
+    ref = s["call"](s["x"], s["w"], True)
+    torch.cuda.synchronize()
+    what = f"{kernel} {variant} k={k} n={n} m={m}"
+    if s["exact"]:
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"{what}: not bit for bit (max abs err "
+                                 f"{float((got - ref).abs().max()):.3e})")
+        return {"err": 0.0}
+    r = {"err": held(torch, what, got, ref, LAB_ATOL * float(ref.abs().max()), LAB_RTOL)}
+    if s["f64"] is not None:
+        exact = s["f64"](s["x"], s["w"])
+        r["f64_kernel"] = float((got.double() - exact).abs().max())
+        r["f64_plain"] = float((ref.double() - exact).abs().max())
+    return r
+
+
+def lab_time(torch, gen, kernel, variant, k, n, m, plain: bool = True) -> dict:
+    """Device time a call (CUDA graph, weights cold: enough copies to exceed
+    the 50 MB L2) of one lab kernel mode and, with ``plain``, of its plain
+    version, beside the call's bound."""
+    s = lab_setup(torch, gen, kernel, variant, k, n, m)
+    copies = [s["w"]] + [{key: v.clone() for key, v in s["w"].items()}
+                         for _ in range(max(1, math.ceil(160e6 / s["bytes_w"])) - 1)]
+    it = iter(range(10**9))
+
+    def call(p):
+        return lambda: s["call"](s["x"], copies[next(it) % len(copies)], p)
+
+    row = {"kernel": kernel, "variant": variant, "k": k, "n": n, "m": m,
+           "ms": graph_ms(call(False), calls=2 * len(copies)),
+           **bound(s["bytes_w"] + s["io"], s["flops"], bf16=s["bf16"])}
+    row["gbps"] = s["bytes_w"] / (row["ms"] * 1e-3) / 1e9
+    if plain:
+        row["plain_ms"] = graph_ms(call(True), calls=len(copies), reps=1)
+    return row
+
+
+def probe_rate(torch, gen, which, k, n) -> dict:
+    """K13's read rate at (k, n), weights cold; fails above PROBE_RATE_MAX."""
+    row = lab_time(torch, gen, "K13", which, k, n, 1, plain=False)
+    if row["gbps"] * 1e9 > PROBE_RATE_MAX:
+        raise AssertionError(f"K13 {which} k={k} n={n}: reads {row['gbps']:.1f} GB/s, above "
+                             f"105 % of {HBM_BYTES_PER_S / 1e9:.0f} GB/s: it did not read what "
+                             "it claims")
+    return row
+
+
+def lab_routes(torch, gen) -> dict:
+    """The lab functions that equal an already ported kernel launch it, once a
+    call, and agree with its plain version: onedot, sem and the f32 m8 go to
+    K9's raw mode, v9t to K9 with scales, v3/v4 to K8 (mlp.proj's k = 11008
+    too), the f32 v12 to K1. Returns {kernel: [{"route", "shape", bound of
+    the call's inputs}]}."""
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.tools import int4_opt_r04 as t04
+    from fastmax_tpu_torch.tools import int4_opt_r05 as t05
+    from fastmax_tpu_torch.tools import nf4_variants_r04 as tv
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    seen = {}
+    for name, k, n in LLAMA7B_LINEARS:
+        codes = torch.randint(-8, 8, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        pw, pw1024 = quant.pack_int4_tiled(codes), quant.pack_int4_tiled(codes, 1024)
+        k_pad, n_pad = pw.shape[0] * pw.shape[2], pw.shape[1] * 1024
+        x1 = torch.nn.functional.pad(torch.randn((1, k), generator=gen, device="cuda") + 0.5,
+                                     (0, k_pad - k))
+        x8 = x1.repeat(8, 1)
+        q4 = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+        am = torch.rand((k // 64, n), generator=gen, device="cuda") * 0.02 + 0.01
+        raw = 2 * k_pad * n_pad
+        # (route, kernel, call, bytes of its inputs and output, operations at m = rows of x)
+        cases = [("onedot", "int4_block_matmul", lambda p: t04.onedot_matmul(x1, pw1024, plain=p),
+                  nbytes(x1, pw1024) + n_pad * 4, raw),
+                 ("sem", "int4_block_matmul", lambda p: t05.sem_matmul(x1, pw, plain=p),
+                  nbytes(x1, pw) + n_pad * 4, raw),
+                 ("m8 f32", "int4_block_matmul", lambda p: t04.m8_matmul(x8, pw, plain=p),
+                  nbytes(x8, pw) + 8 * n_pad * 4, 8 * raw)]
+        for v in ("v3", "v4"):
+            for xm in (x1, x8):
+                cases.append((f"{v} m={xm.shape[0]}", "nf4_matmul",
+                              lambda p, v=v, xm=xm: tv.get(v, k, n, plain=p)(
+                                  xm[:, :k], {"q4": q4, "absmax": am}),
+                              nbytes(xm[:, :k], q4, am) + xm.shape[0] * n * 4,
+                              2 * xm.shape[0] * k * n))
+        if k % 512 == 0:  # pack_v9t's tiles (512 rows) cover k
+            s_t = quant.tile_scales(am, 512, n_pad)
+            pw_t = quant.pack_int4_tiled(codes, 512)
+            cases.append(("v9t", "int4_block_matmul", lambda p: tv.get_v9t(
+                k, n_pad, tk=512, plain=p)(x1[:, :k], {"pw": pw_t, "s": s_t}),
+                nbytes(x1, pw_t, s_t) + n_pad * 4, raw))
+            u = torch.rand(k, generator=gen, device="cuda") + 0.5
+            v_ = torch.rand(n_pad, generator=gen, device="cuda") + 0.5
+            cases.append(("v12 f32", "int4_rank1_matmul", lambda p: tv.get_v12(
+                k, n_pad, tk=k, plain=p)(x1[:, :k], {"pw": pw, "u": u, "v": v_}),
+                nbytes(x1, pw, u, v_) + n_pad * 4, raw))
+        for what, kern, fn, nb, flops in cases:
+            before = build.launch_counts()[kern]
+            got = fn(False)
+            launched = build.launch_counts()[kern] - before
+            ref = fn(True)
+            torch.cuda.synchronize()
+            if launched != 1:
+                raise AssertionError(f"route {what} at {name}: {launched} launches of {kern}")
+            held(torch, f"route {what} ({kern}) k={k} n={n}", got, ref,
+                 LAB_ATOL * float(ref.abs().max()), LAB_RTOL)
+            seen.setdefault(kern, []).append({"route": what, "shape": name,
+                                              **bound(nb, flops, bf16=False)})
+    return seen
+
+
+def run_lab_main(module, argv) -> list:
+    """A lab's main in this process with its standard output captured; its
+    JSON lines."""
+    import contextlib
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        importlib.import_module(f"fastmax_tpu_torch.tools.{module}").main(argv)
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def check_lab_lines(script, lines, expected: int) -> list:
+    """Every line of a variant that runs a kernel carries ``us`` and launches
+    equal to the timer's calls; the only error lines are the reference's own
+    (LAB_REFERENCE_ERRORS)."""
+    if len(lines) != expected:
+        raise AssertionError(f"{script}: {len(lines)} lines, expected {expected}")
+    bad, errors = [], []
+    for r in lines:
+        name = r.get("variant", r.get("impl"))
+        if "error" in r:
+            errors.append((name, r["k"], r["n"]))
+            if (name, r["k"], r["n"]) not in LAB_REFERENCE_ERRORS[script]:
+                bad.append(r)
+        elif "skip" in r:
+            if not (name == "nf4_v0" and r["k"] % 512):
+                bad.append(r)
+        elif not (r["us"] > 0 and (name in LAB_PLAIN_IMPLS or r["launches"] == r["calls"] > 0)):
+            bad.append(r)
+    if bad:
+        raise AssertionError(f"{script}: lines out of order: {bad[:4]}")
+    log(f"  {script}: {len(lines)} lines, each in order; the reference's own errors at "
+        f"{sorted(set(errors))}")
+    return lines
+
+
+LAB_IMPLS = ("bf16", "int8", "int4", "nf4_xla", "nf4_v0", "stream", "v1", "v2", "v3", "v4", "v5",
+             "v6", "v7", "v8", "v9", "v10", "v11", "v9t", "v12", "v12b")
+
+
+def lab_path(torch, results, card):
+    """Phase 11: K10-K13 against plain at the 7B shapes, their times and the
+    probes' read rates, the routes onto K1/K8/K9, then the three lab mains end
+    to end (the slice's main path: the launch counts are theirs)."""
+    from fastmax_tpu_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {name: 0.0 for name in LAB_KERNEL.values()}
+    f64 = []
+    for name, k, n in LLAMA7B_LINEARS:
+        for m in (1, N_SLOTS):
+            for case in lab_cases(k, n, m):
+                if case[0] == "K13" and m != 1:
+                    continue
+                r = lab_case(torch, gen, *case)
+                kern = LAB_KERNEL[case[0]]
+                worst[kern] = max(worst[kern], r["err"])
+                if "f64_kernel" in r:
+                    f64.append({"case": case, **r})
+        log(f"  K10-K13 {name:9s} k={k:5d} n={n:5d} m=1,{N_SLOTS}: every mode ok")
+    log(f"  max abs err vs plain: {worst}; f32 modes against float64, kernel / plain: max "
+        f"{max(r['f64_kernel'] for r in f64):.3e} / {max(r['f64_plain'] for r in f64):.3e}")
+    rows = []
+    for name, k, n in LLAMA7B_LINEARS:
+        for kernel, modes in LAB_MODES.items():
+            for v in modes:
+                if kernel == "K12" and n % 1024:
+                    continue
+                for m in ((1,) if kernel == "K13" else (1, N_SLOTS)):
+                    row = (probe_rate(torch, gen, v, k, n) if kernel == "K13"
+                           else lab_time(torch, gen, kernel, v, k, n, m, plain=m == 1))
+                    if kernel == "K13":
+                        row["plain_ms"] = lab_time(torch, gen, kernel, v, k, n, 1)["plain_ms"]
+                    rows.append(dict(row, shape=name))
+                    log(f"  {kernel} {v:12s} {name:9s} m={m}: {row['ms'] * 1e3:8.1f} us "
+                        f"({row['gbps']:7.1f} GB/s of weights) bound {row['bound_ms'] * 1e3:6.1f}"
+                        f" us ({row['bound_by']})"
+                        + (f" plain {row['plain_ms'] * 1e3:8.1f} us" if "plain_ms" in row
+                           else "") + f"   [{card}]")
+    big = probe_rate(torch, gen, "stream_ref", 16384, 65536)  # 512 MB of words, one copy
+    log(f"  K13 stream_ref over 512 MB: {big['ms'] * 1e3:.1f} us, {big['gbps']:.1f} GB/s   "
+        f"[{card}]")
+    routes = lab_routes(torch, gen)
+    per_route = {}
+    for x in (x for v in routes.values() for x in v):
+        per_route[x["route"]] = per_route.get(x["route"], 0.0) + x["bound_ms"]
+    log(f"  routes onto ported kernels: { {k: len(v) for k, v in routes.items()} } calls, each "
+        "one launch, each within tolerance of its plain version; bounds (us, the linears "
+        "summed): " + "; ".join(f"{r} {ms * 1e3:.1f}" for r, ms in sorted(per_route.items())))
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    mains = {
+        "int4_opt_r04": check_lab_lines("int4_opt_r04", run_lab_main("int4_opt_r04", []), 32),
+        "int4_opt_r05": check_lab_lines("int4_opt_r05", run_lab_main(
+            "int4_opt_r05", ["--iters-lo", "10", "--iters-hi", "50"]), 36),
+        "nf4_lab_r04": check_lab_lines("nf4_lab_r04", run_lab_main(
+            "nf4_lab_r04", [*LAB_IMPLS, "--m", "1,8", "--iters", "2", "--reps", "64"]),
+            4 * 2 * len(LAB_IMPLS)),
+    }
+    counts = build.launch_counts()
+    mains_s = time.perf_counter() - t0
+    missing = [k for k in LAB_KERNEL.values() if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the lab mains never launched {missing}: {counts}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  the three lab mains in {mains_s:.1f} s, the phase in {phase_s:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    results["lab"] = {"max_abs_err": worst, "f64": f64, "times": rows, "probe_512mb": big,
+                      "routes": routes, "mains": mains, "mains_s": mains_s, "phase_s": phase_s,
+                      "launches": counts, "card": card}
+    return worst, rows, counts
 
 
 def main() -> int:
@@ -2247,9 +2644,12 @@ def main() -> int:
         "weights mode (engine and batcher)")
     q_err, q_rows = check_quant_kernels(torch, gen, results)
     counts_q = quant_serving_path(torch, results, card)
+    log("[11] int4/NF4 kernel labs: K10-K13 vs plain at the 7B shapes, the probes' read rates, "
+        "the routes onto K1/K8/K9, then the three lab mains")
+    lab_err, lab_rows, counts_lab = lab_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
-                           "quant_serving_path": counts_q}
+                           "quant_serving_path": counts_q, "lab_path": counts_lab}
 
     # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
     # K3: the five timed 7B calls of phase 6; K4, K5: one call at the training
@@ -2318,6 +2718,20 @@ def main() -> int:
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
                         "launches": counts_q[kern.name], "max_abs_err": q_err[kern.name],
                         "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
+                        "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
+                        "library_ms": None})
+    # K10-K13: one call at each of the four 7B linears at m = 1 (K12 the three whose n is whole
+    # 1024-column tiles) in their first mode (K10 raw bf16, K11 v1, K12 v8, K13 stream_ref);
+    # launches over the three lab mains; no single PyTorch call computes a packed-format product
+    for short, modes in LAB_MODES.items():
+        kern = build.TOOL_KERNELS[LAB_KERNEL[short]]
+        dec = [r for r in lab_rows if r["kernel"] == short and r["variant"] == modes[0]
+               and r["m"] == 1]
+        kernels.append({"name": kern.name, "route": "cuda",
+                        "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
+                        "launches": counts_lab[kern.name], "max_abs_err": lab_err[kern.name],
+                        "ms": sum(r["ms"] for r in dec),
+                        "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
                         "library_ms": None})
     results["kernels"] = kernels

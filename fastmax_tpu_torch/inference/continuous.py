@@ -27,8 +27,8 @@ sampled on the device (``ops.sampling.sample_traced``); an all-greedy batch
 skips the sort and the noise, which the host knows from its requests, so
 no device value is read to decide it.
 
-Not ported yet: ``speculative_k > 0`` (ROADMAP.md queue A, item 1), the
-multi-GPU ``mesh`` (item 8) and the linear-attention slots (item 4) raise
+Not ported yet: ``speculative_k > 0`` (ROADMAP.md queue A, A1), the
+multi-GPU ``mesh`` (A8) and the linear-attention slots (A5) raise
 ``NotImplementedError``.
 """
 
@@ -79,21 +79,25 @@ class ContinuousBatcher:
         mesh=None,
         device=None,
         generator: Optional[torch.Generator] = None,
+        plain: bool = False,
     ):
-        """As the reference's batcher, plus ``device`` (default: the card)
-        and ``generator``, the source of sampling noise (default: one seeded
-        with 0, as the reference starts from PRNGKey(0))."""
+        """As the reference's batcher, plus ``device`` (default: the card),
+        ``generator``, the source of sampling noise (default: one seeded
+        with 0, as the reference starts from PRNGKey(0)), and ``plain``, a
+        test hook that sends every forward through the kernels' plain
+        PyTorch versions, as ``InferenceEngine._forward``'s."""
         if speculative_k:
             raise NotImplementedError(
-                "speculative continuous batching is not ported yet (ROADMAP.md queue A, item 1)")
+                "speculative continuous batching is not ported yet (ROADMAP.md queue A, A1)")
         if mesh is not None:
             raise NotImplementedError(
-                "multi-GPU serving is not ported yet (ROADMAP.md queue A, item 8)")
+                "multi-GPU serving is not ported yet (ROADMAP.md queue A, A8)")
         if cfg.attn_alg != "quadratic":
             raise NotImplementedError(
                 f"linear-attention slots ({cfg.attn_alg}) are not ported yet (ROADMAP.md queue "
-                "A, item 4)")
+                "A, A5)")
         self.cfg = cfg
+        self.plain = bool(plain)
         self.device = default_device(device)
         self.params = InferenceEngine.prepare_params(_to_device(params, self.device),
                                                      weights_mode)
@@ -164,7 +168,7 @@ class ContinuousBatcher:
         the last token for a chunk that ends before it, which nothing reads)."""
         idx = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)[None]
         logits, _ = gpt.forward(self.params, self.cfg, idx, input_pos=p0, kv_cache=row,
-                                rope_cache=self.rope)
+                                rope_cache=self.rope, plain=self.plain)
         return logits[:, min(n_valid - p0, idx.shape[1]) - 1]
 
     def _slot_row(self, slot: int) -> dict:
@@ -245,7 +249,7 @@ class ContinuousBatcher:
             dev = self._dev
             logits, _ = gpt.forward(self.params, self.cfg, dev(tokens), input_pos=0,
                                     kv_cache=rows, rope_cache=self.rope,
-                                    logits_at=dev(n_valid - 1))
+                                    logits_at=dev(n_valid - 1), plain=self.plain)
             first = sample_traced(logits[:, 0], dev(temps), dev(topk),
                                   generator=self.generator, hot=bool((temps > 0).any()))
             self.batched_admissions += p
@@ -376,7 +380,7 @@ class ContinuousBatcher:
         """One token for every slot: tokens, positions (n_slots,) on the
         device; returns the next tokens (n_slots,) int32 on the device."""
         logits, _ = gpt.forward(self.params, self.cfg, tokens[:, None], input_pos=positions,
-                                kv_cache=self.cache, rope_cache=self.rope)
+                                kv_cache=self.cache, rope_cache=self.rope, plain=self.plain)
         return sample_traced(logits[:, -1], temps, topk, generator=self.generator, hot=hot)
 
     def _slot_inputs(self, decodable):

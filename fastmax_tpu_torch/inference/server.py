@@ -26,7 +26,7 @@ watermarks, which also catch the first token, sampled at admission.
 
 The command-line entry (``main``/``cli`` in the reference) loads a
 checkpoint and a tokenizer, so it waits for the checkpoint tooling
-(ROADMAP.md queue A, item 7).
+(ROADMAP.md queue A, A7).
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ A library is named after a hash of its source and flags, so a changed
 source is rebuilt. A failed build raises: nothing falls back to a plain
 PyTorch version.
 
+``KERNELS`` holds the kernels of the JAX package's own Pallas kernels
+(``fastmax_tpu/ops/``); ``TOOL_KERNELS`` those of the Pallas kernels of the
+``tools/`` experiment scripts, which ``fastmax_tpu_torch/tools/`` ports.
+``build_all``, ``use_kernel`` and the launch counts cover both tables.
+
 Every kernel keeps ``launches``, the number of times its wrapper launched
 it; ``chip_smoke.py`` zeroes the counts before it drives the main path and
 reads them after.
@@ -164,6 +169,40 @@ KERNELS = {
 }
 
 
+TOOL_KERNELS = {
+    "int4_tiled_bf16": Kernel(
+        "int4_tiled_bf16", "int4_tiled_bf16.cu",
+        "tools/int4_opt_r05.py:158",  # and :145 (bf16), nf4_variants_r04.py:571 (bf16=True)
+        "fm_int4_tiled_bf16",
+        # x (bf16), m, w, gk, gn, tk, y, part, splits, rows_per_split, stream
+        [_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
+    "q4_byte_matmul": Kernel(
+        "q4_byte_matmul", "q4_byte_matmul.cu",
+        "tools/nf4_variants_r04.py:123",  # v1, v2, v5; and :208 (v6, v7)
+        "fm_q4_byte_matmul",
+        # x (f32), m, k, packed, absmax, table, scale_mul, per_block, n, y, part, splits,
+        # blocks_per_split, stream
+        [_P, _I, _I, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _I, _I, _P]),
+    "int4_colnibble_matmul": Kernel(
+        "int4_colnibble_matmul", "int4_colnibble_matmul.cu",
+        "tools/nf4_variants_r04.py:289",  # v8; and :355 (v9), :440 (v10, v11)
+        "fm_int4_colnibble_matmul",
+        # x (f32), m, k, pw, s, n, mode, y, part, splits, blocks_per_split, stream
+        [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]),
+    "stream_probe": Kernel(
+        "stream_probe", "stream_probe.cu",
+        "tools/nf4_lab_r04.py:159",  # and int4_opt_r05.py:188 (stream_ref)
+        "fm_stream_probe",
+        # mode, words, n_words, rows, cols, tiles, absmax, tk, tn, out, n_out, colsum,
+        # checksum, stream
+        [_I, _P, ctypes.c_longlong, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]),
+}
+
+
+def _all_kernels() -> dict:
+    return {**KERNELS, **TOOL_KERNELS}
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(nvcc).exists():
@@ -178,10 +217,11 @@ def _require_cuda() -> None:
 
 
 def build_all() -> dict:
-    """Build every kernel, one nvcc per source, all started together; load
-    them. Returns {name: build log}."""
+    """Build every kernel of both tables, one nvcc per source, all started
+    together; load them. Returns {name: build log}."""
     _require_cuda()
-    jobs = [(k, k._start_build()) for k in KERNELS.values()]
+    kernels = _all_kernels()
+    jobs = [(k, k._start_build()) for k in kernels.values()]
     errors = []
     for k, job in jobs:
         try:
@@ -190,18 +230,18 @@ def build_all() -> dict:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    for k in KERNELS.values():
+    for k in kernels.values():
         k.lib()
-    return {name: k.build_log for name, k in KERNELS.items()}
+    return {name: k.build_log for name, k in kernels.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
+    for k in _all_kernels().values():
         k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.launches for name, k in _all_kernels().items()}
 
 
 def use_kernel(*tensors, plain: bool = False) -> bool:

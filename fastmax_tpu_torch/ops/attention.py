@@ -152,7 +152,7 @@ def attention(
         return fastmax(q, k, v, p=2, mask=True, plain=plain)
     if attn_alg in ("performer", "linearmax"):
         raise NotImplementedError(f"attn_alg {attn_alg!r} comes with the fastmax linear-cache "
-                                  "slice (ROADMAP queue A, item 4)")
+                                  "slice (ROADMAP queue A, A5)")
     raise ValueError(f"Attention algorithm {attn_alg} not supported")
 
 
@@ -169,7 +169,7 @@ def _long_causal(q, k, v, head_size: int, plain: bool) -> torch.Tensor:
     if TRAIN_ATTN == "auto":
         raise NotImplementedError(
             "FASTMAX_TPU_TRAIN_ATTN=auto (the reference's timing probe) is not ported yet "
-            "(ROADMAP queue A, item 4): set flash2, flash or blockwise")
+            "(ROADMAP queue A, A4): set flash2, flash or blockwise")
     b, h, t, _ = q.shape
     scale = 1.0 / head_size ** 0.5
     kf, vf = repeat_kv_heads(k, h), repeat_kv_heads(v, h)

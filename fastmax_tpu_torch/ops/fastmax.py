@@ -12,7 +12,7 @@ Ported here: ``fastmax`` with the routing the reference takes on its chip
 clamped to a multiple of 128 and the tail padded), the unmasked formula,
 ``_auto_chunk`` and the O(N^2) ``polynomial_attention_reference``. The
 masked D > 64 scan, ``linearmax``, ``performer`` and the recurrent decode
-state come with the fastmax linear-cache slice (ROADMAP queue A, item 4).
+state come with the fastmax linear-cache slice (ROADMAP queue A, A5).
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def fastmax(q, k, v, mask: bool = True, normalize_term: float = 8.0,
             raise NotImplementedError(
                 f"masked fastmax at head size {d} > {MAX_D} takes the reference's scan "
                 "formulation, which comes with the fastmax linear-cache slice (ROADMAP queue "
-                "A, item 4)")
+                "A, A5)")
         return _masked_kernel(q, k, v, z, p, _auto_chunk(chunk, q.shape[-2]), plain)
     dtype = q.dtype
     o = _unmasked_linear(q.float(), k.float(), v.float(), z, p)

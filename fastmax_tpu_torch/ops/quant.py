@@ -177,11 +177,11 @@ def quantize_int8(kernel: torch.Tensor) -> dict:
 
 
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale8: torch.Tensor) -> torch.Tensor:
-    """x @ (q8 * scale8) with the per-channel scale applied to the output.
-    f32 x follows the reference exactly; bf16 x rounds the unscaled sum to
-    bf16 once before the scale, where the reference keeps it in f32."""
-    acc = torch.matmul(x, q8.to(x.dtype))
-    return (acc.float() * scale8).to(x.dtype)
+    """x @ (q8 * scale8) with the per-channel scale applied to the output, as
+    the reference: the unscaled sum in f32 (a bf16 x times an int8 code is
+    exact in f32), scaled, then cast to x's dtype once."""
+    acc = torch.matmul(x.float(), q8.float())
+    return (acc * scale8).to(x.dtype)
 
 
 # ------------------------------------------------------------- 4-bit codebooks

@@ -12,12 +12,12 @@ at T >= 1024 takes the trainable flash kernels K6/K7 on the card. LoRA runs
 save the LoRA leaves to ``out_dir/lora_weights.safetensors`` by their tree
 paths ("blocks.attn.attn.lora_A", ...), as the reference does; ``full``
 saves the torch train state in ``out_dir/state`` (the lit-format checkpoint
-waits for ROADMAP item 7).
+waits for ROADMAP A7).
 
 Not ported yet, each raising ``NotImplementedError``: ``checkpoint_dir``
-(the lit-format loader, ROADMAP queue A item 7), ``adapter``/``adapter_v2``
-(item 4), ``gptq_calib`` (item 3: gptq.int4 quantizes by rounding to
-nearest), ``dp``/``fsdp``/``tp`` above 1 (item 8).
+(the lit-format loader, ROADMAP queue A, A7), ``adapter``/``adapter_v2``
+(A4), ``gptq_calib`` (A3: gptq.int4 quantizes by rounding to
+nearest), ``dp``/``fsdp``/``tp`` above 1 (A8).
 
 Example (the card; pass device="cpu" to run on the CPU):
 
@@ -109,16 +109,16 @@ def setup(
         raise ValueError(f"method {method!r} not in {METHODS}")
     if method != "lora" and method != "full":
         raise NotImplementedError(f"method {method!r} (models/adapter.py) is not ported yet "
-                                  "(ROADMAP queue A, item 4)")
+                                  "(ROADMAP queue A, A4)")
     if checkpoint_dir is not None:
         raise NotImplementedError("checkpoint_dir: the lit-format checkpoint loader is not "
-                                  "ported yet (ROADMAP queue A, item 7); pass model_name")
+                                  "ported yet (ROADMAP queue A, A7); pass model_name")
     if gptq_calib:
         raise NotImplementedError("gptq_calib (ops/gptq.py) is not ported yet (ROADMAP queue "
-                                  "A, item 3)")
+                                  "A, A3)")
     if dp * fsdp * tp > 1:
         raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU item (ROADMAP "
-                                  "queue A, item 8)")
+                                  "queue A, A8)")
     if quantize is not None and method == "full":
         raise ValueError("full finetuning of quantized weights is not supported")
     device = default_device(device)

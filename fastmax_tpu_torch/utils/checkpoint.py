@@ -59,7 +59,7 @@ def save_flat_checkpoint(flat: Dict[str, object], path: Path) -> None:
         torch.save(tensors, tmp)
     else:
         raise NotImplementedError(f"checkpoint format of {path.name!r}: the port writes "
-                                  ".safetensors and .pth (ROADMAP queue A, item 7)")
+                                  ".safetensors and .pth (ROADMAP queue A, A7)")
     os.replace(tmp, path)
 
 

@@ -29,6 +29,10 @@ from fastmax_tpu_torch.models.config import Config
 from fastmax_tpu_torch.models.weights import from_numpy_params
 from fastmax_tpu_torch.ops import flash_attention as fa
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 TINY = dict(block_size=128, vocab_size=128, padded_vocab_size=128, n_layer=2, n_head=4,
             n_embd=128, n_query_groups=2, intermediate_size=256, _norm_class="RMSNorm",
@@ -291,12 +295,12 @@ def test_sampling_reproducible_from_a_seeded_generator(quantum):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="A1"):
         _make("torch", speculative_k=4)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="A8"):
         _make("torch", mesh=object())
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="A5"):
         ContinuousBatcher(Config(**TINY, attn_alg="fastmax"), tp, device="cpu")
     with pytest.raises(ValueError):
         _make("torch", decode_quantum=1, adaptive_quantum=True)

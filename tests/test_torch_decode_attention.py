@@ -13,6 +13,10 @@ import torch
 from fastmax_tpu.ops import decode_attention as jda
 from fastmax_tpu_torch.ops import attention, decode_attention as da
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 

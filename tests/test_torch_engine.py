@@ -23,6 +23,10 @@ from fastmax_tpu_torch.inference.engine import InferenceEngine
 from fastmax_tpu_torch.models.config import Config
 from fastmax_tpu_torch.models.weights import from_numpy_params
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 TINY = dict(block_size=64, vocab_size=128, padded_vocab_size=128, n_layer=2, n_head=4,
             n_embd=128, n_query_groups=2, intermediate_size=256, _norm_class="RMSNorm",

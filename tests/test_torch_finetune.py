@@ -50,6 +50,10 @@ from fastmax_tpu_torch.training.step import tree_leaves
 from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
 from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint, save_flat_checkpoint
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 TINY = dict(name="tiny-llama", block_size=1024, vocab_size=256, padded_vocab_size=256,
             n_layer=2, n_head=2, n_embd=128, n_query_groups=1, intermediate_size=256,

@@ -18,6 +18,10 @@ from fastmax_tpu.ops.flash_attention import flash_eligible as jax_eligible
 from fastmax_tpu_torch.kernels import build
 from fastmax_tpu_torch.ops import flash_attention as fa
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16_ATOL = 1e-2

@@ -20,6 +20,10 @@ from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
 from fastmax_tpu_torch.models.weights import from_numpy_params
 from fastmax_tpu_torch.training import finetune, pretrain
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(block_size=64, vocab_size=128, padded_vocab_size=128, n_layer=2, n_head=4,
@@ -41,13 +45,15 @@ def test_no_jax_and_no_reference_package_imported():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'fastmax_tpu'))\n"
+        "'fastmax_tpu', 'tools'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
         "for sub in ('training.pretrain', 'training.fit', 'training.step', 'data.lm_datasets',\n"
         "            'data.packed_dataset', 'utils.args', 'utils.flops', 'utils.logging',\n"
         "            'utils.loss', 'ops.fastmax', 'ops.fastmax_kernels', 'training.finetune',\n"
-        "            'models.lora', 'ops.blockwise_attention', 'utils.checkpoint'):\n"
+        "            'models.lora', 'ops.blockwise_attention', 'utils.checkpoint',\n"
+        "            'tools.int4_opt_r04', 'tools.int4_opt_r05', 'tools.nf4_variants_r04',\n"
+        "            'tools.nf4_lab_r04', 'tools.lab_kernels'):\n"
         "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -120,3 +126,27 @@ def test_chip_smoke_refuses_without_cuda(tmp_path, alone):
                          env=_clean_env(), cwd=script.parent, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_tool_kernels_replace_the_lab_pallas_calls():
+    """Every TOOL_KERNELS entry is a .cu under csrc/ whose ``replaces`` names a
+    file of tools/ and a line of it that holds ``pallas_call``; KERNELS keeps
+    to fastmax_tpu/ops/; the launch counts cover both tables."""
+    assert not set(build.TOOL_KERNELS) & set(build.KERNELS)
+    for k in build.TOOL_KERNELS.values():
+        assert k.source.is_file() and k.source.suffix == ".cu"
+        assert k.source.parent == build.CSRC_DIR
+        path, line = k.replaces.split(":")
+        assert path.startswith("tools/") and (REPO / path).is_file()
+        assert "pallas_call(" in (REPO / path).read_text().splitlines()[int(line) - 1], k.replaces
+    assert set(build.launch_counts()) == set(build.KERNELS) | set(build.TOOL_KERNELS)
+
+
+@pytest.mark.parametrize("script", ["int4_opt_r04", "int4_opt_r05", "nf4_lab_r04"])
+def test_lab_mains_refuse_without_cuda(script):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the mains run in chip_smoke.py")
+    out = subprocess.run([sys.executable, "-m", f"fastmax_tpu_torch.tools.{script}"],
+                         capture_output=True, text=True, env=_clean_env(), cwd=REPO, timeout=120)
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert not out.stdout.strip()

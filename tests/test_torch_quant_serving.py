@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
+from fastmax_tpu.inference.continuous import ContinuousBatcher as JaxBatcher
 from fastmax_tpu.inference.engine import InferenceEngine as JaxEngine
 from fastmax_tpu.inference.engine import _fuse_mlp_gates as jax_fuse
 from fastmax_tpu.models import gpt as jgpt
@@ -42,6 +43,10 @@ from fastmax_tpu_torch.models.config import Config
 from fastmax_tpu_torch.models.weights import from_numpy_params, to_numpy_params
 from fastmax_tpu_torch.ops import quant, quant_kernels
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 TINY = dict(block_size=64, vocab_size=128, padded_vocab_size=128, n_layer=2, n_head=4,
             n_embd=128, n_query_groups=2, intermediate_size=256, _norm_class="RMSNorm",
@@ -118,6 +123,27 @@ def test_quantize_int8_bit_for_bit():
     _assert_trees_equal(got, want)
     np.testing.assert_array_equal(quant.dequantize(got).numpy(),
                                   np.asarray(jquant.dequantize(want)))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_int8_matmul_matches_jax(dtype):
+    """The unscaled sum stays in f32 until after the scale, as the reference:
+    bf16 x gives the reference's bf16 output (one rounding), f32 x its f32."""
+    rng = np.random.default_rng(2)
+    w = (rng.standard_normal((512, 384)) * 0.05).astype(np.float32)
+    x = _x(rng, (5, 512))
+    jp = jquant.quantize_int8(w)
+    want = np.asarray(jquant.int8_matmul(jnp.asarray(x, dtype), jp["q8"], jp["scale8"]),
+                      np.float32)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    got = quant.int8_matmul(torch.from_numpy(x).to(tdt), torch.from_numpy(np.array(jp["q8"])),
+                            torch.from_numpy(np.array(jp["scale8"])))
+    assert got.dtype == tdt
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    else:  # f32 sums in two orders may round to neighbouring bf16 values now and then
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -8, atol=0)
+        assert float(np.mean(got.float().numpy() != want)) < 0.02
 
 
 @pytest.mark.parametrize("scheme", ["rank1", "block"])
@@ -415,6 +441,28 @@ def test_batcher_blockwise_int4_matches_engine():
     for rid, p in zip(rids, prompts):
         want = eng.generate(torch.from_numpy(p), len(p) + NEW)[0, len(p):].tolist()
         assert res[rid] == want
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_batcher_blockwise_int4_int8_cache_matches_jax(plain):
+    """The batcher in "preload_int4_block" with the int8 KV cache gives the
+    JAX batcher's greedy tokens on the same tree (its K9 in interpret mode):
+    four requests decoding together at m = 4, admitted as one batched wave.
+    ``plain`` only routes the port through its plain versions explicitly."""
+    jp, tp = _quantized("wide", "bnb.nf4")
+    prompts = [np.random.default_rng(s).integers(1, 128, (n,)).astype(np.int32)
+               for s, n in ((1, 9), (2, 14), (3, 5), (4, 11))]
+
+    def run(b):
+        rids = [b.submit(p, NEW) for p in prompts]
+        res = b.run_to_completion()
+        return [res[r] for r in rids], b.batched_admissions
+
+    got = run(ContinuousBatcher(Config(**WIDE), tp, n_slots=4, weights_mode="preload_int4_block",
+                                cache_dtype=torch.int8, device="cpu", plain=plain))
+    want = run(JaxBatcher(JaxConfig(**WIDE), jax.tree.map(jnp.asarray, jp), n_slots=4,
+                          weights_mode="preload_int4_block", cache_dtype=jnp.int8))
+    assert got == want and got[1] == 4
 
 
 # ------------------------------------------------------------------ on the card

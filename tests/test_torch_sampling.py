@@ -22,6 +22,10 @@ from fastmax_tpu_torch.models.config import Config
 from fastmax_tpu_torch.models.weights import from_numpy_params
 from fastmax_tpu_torch.ops import sampling
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 V = 16
 N_DRAWS = 20000

@@ -38,6 +38,10 @@ from fastmax_tpu_torch.training.step import (default_optimizer, make_loss_fn, ma
                                              tree_leaves, warmup_cosine_decay_schedule)
 from fastmax_tpu_torch.utils.args import EvalArgs, IOArgs, TrainArgs
 
+# A fresh process's first exp after a matmul, on two threads, now and then gives other
+# values than later calls; warming both up on one thread first avoids it.
+torch.set_num_threads(1)
+torch.exp(torch.ones(64, 64) @ torch.ones(64, 64))
 torch.set_num_threads(2)
 SMALL = dict(n_layer=2, n_embd=128, n_head=2, block_size=256)
 
