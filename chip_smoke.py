@@ -234,7 +234,7 @@ def bound(nbytes: int, flops: int, bf16: bool) -> dict:
     written once) over the memory rate, against its operations over the
     peak rate for its inputs' type (bf16: the tensor cores; f32: the f32
     units). ``bound_f32_ms`` takes the operations at the f32 rate, the rate
-    the present kernels compute at."""
+    the kernels that do not use the tensor cores compute at."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = flops / (BF16_TC_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S) * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(b_ms, o_ms),
@@ -403,7 +403,8 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel
                  ("K3 flash_attention", ("flash_attention_kernel",)),
                  ("K4 fastmax_fwd", ("fastmax_fwd_kernel",)),
                  ("K5 fastmax_bwd", ("fastmax_bwd_kernel",)),
-                 ("K6 flash_train_fwd", ("flash_train_fwd_kernel",)),
+                 ("K6 flash_train_fwd", ("flash_train_fwd_kernel",
+                                         "flash_train_fwd_tc_kernel")),
                  ("K7 flash_train_bwd", ("flash_train_bwd_kernel",)),
                  ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_gemm_kernel",
                                     "nf4_splitk_reduce_kernel")),
@@ -1539,11 +1540,14 @@ def flash_train_times(torch, gen, dtype, n_sets: int = 4) -> dict:
 def check_flash_train(torch, gen, results):
     f32, bf16 = torch.float32, torch.bfloat16
     # (entry, (B, H, T, D), dtype): the finetune shape through both entries in
-    # both types; T=1088 through attention() (padded to 1536); D=64; 192, 256
+    # both types; T=1088 through attention() (padded to 1536); D=64; 192, 256;
+    # a ragged T=200 in one whole-T block (the tensor-core K6's tile and block
+    # edges: 200 is no multiple of 64)
     cases = [("fused", FT_SHAPE, bf16), ("fused", FT_SHAPE, f32),
              ("trainable", FT_SHAPE, bf16), ("trainable", FT_SHAPE, f32),
              ("attention", (2, 32, 1088, 128), bf16), ("fused", (4, 32, 2048, 64), bf16),
-             ("fused", (1, 8, 1024, 256), bf16), ("trainable", (1, 8, 640, 192), f32)]
+             ("fused", (1, 8, 1024, 256), bf16), ("trainable", (1, 8, 640, 192), f32),
+             ("fused", (1, 4, 200, 128), bf16)]
     checks = []
     for entry, shape, dt in cases:
         c = flash_train_case(torch, gen, entry, shape, dt, f64=entry != "attention")
@@ -1561,8 +1565,11 @@ def check_flash_train(torch, gen, results):
         r = flash_train_times(torch, gen, dt)
         rows.append(r)
         fb, bb = r["fwd_bound"], r["bwd_bound"]
+        rate = ", ".join(f"{fb['flops'] / (r[key] * 1e-3) / 1e12:.1f} TFLOP/s, "
+                         f"{fb['bound_ms'] / r[key]:.3f} of the bound"
+                         for key in ("k6_ms", "k6_block128_ms"))
         log(f"  {FT_SHAPE} {r['dtype']:8s}: K6 {r['k6_ms'] * 1e3:9.1f} us (128-key blocks "
-            f"{r['k6_block128_ms'] * 1e3:9.1f})  plain "
+            f"{r['k6_block128_ms'] * 1e3:9.1f}; {rate})  plain "
             f"{r['plain_fwd_ms'] * 1e3:9.1f}  SDPA ({r['sdpa_backend']}) "
             f"{r['sdpa_fwd_ms'] * 1e3:8.1f}  bound {fb['bound_ms'] * 1e3:7.1f} ({fb['bound_by']}; "
             f"{fb['bound_f32_ms'] * 1e3:7.1f} at the f32 rate);  K7 {r['k7_ms'] * 1e3:9.1f} us  "

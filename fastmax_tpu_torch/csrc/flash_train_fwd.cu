@@ -17,17 +17,43 @@
 //     acc   = acc * alpha + round_to_v_type(p) . v  (f32 sums)
 //   out = acc / l in q's type;  lse = m + log(l).
 //
-// The TPU kernel walks a head's blocks in order on one core; here one CTA owns a tile of BQ
-// query rows of one head (BQ = 64, or 32 for D >= 192) and loops over the online blocks
-// itself, so a head's rows spread over T / BQ CTAs (2048 CTAs at B=2, H=32, T=2048). A
-// block's scores are kept whole in shared memory (BQ x ob f32) until its row max is known:
-// that is what lets p be rounded against the reference's running max. Keys are staged 64
-// at a time. Tiles are issued heaviest first (the last query tile sees the most keys).
+// Bound: operations, 4 D flops per visible (row, key) pair; at the finetune shape (B=2,
+// H=32, T=2048, D=128) 69.5 us on the bf16 tensor cores. Two kernels, chosen statically:
 //
-// Bound: operations, 4 D flops per visible (row, key) pair. This first version computes
-// both products with f32 FMAs from shared memory (bf16 inputs are widened on load); the
-// tensor-core (wgmma) and TMA version is later work. No atomics: every sum has one order,
-// so repeated calls give the same bits.
+// bf16 with D = 64 or 128 (the finetune's type and Llama-2-7B's head): the tensor cores.
+// A CTA of 4 warps owns 64 query rows of one head; a warp owns 16 whole rows, so a row's
+// max and sum need only the shuffles within a quad of the mma fragment layout. Q is staged
+// once in shared memory; K and V stream in 64-key tiles through a double-buffered ring
+// (cp.async, 16 B a thread, zero-filled past the block). Rows are stored in 16-byte chunks
+// XOR-swizzled by row, so ldmatrix reads are free of bank conflicts. Both products are
+// mma.sync m16n8k16 bf16 x bf16 -> f32; V is read with ldmatrix.trans. 167 registers a
+// thread at D = 128 let 3 CTAs share an SM. Holding Q's fragments in registers, or giving
+// a warp 32 rows (two m16 tiles: each K/V fragment read serves both), needs more registers
+// (both spill at D = 128) and measured no faster.
+//
+// p must be rounded to bf16 against the max of the whole online block (up to 512 keys),
+// not of a 64-key tile: the rounding of p is part of the reference's function, and a
+// tile's max moves the output by about 3e-4 of its mean, six times the check's gate. A
+// block's scores do not fit in registers, so each block takes two passes over its keys:
+// pass 1 runs the Q K^T products and keeps only the row max; pass 2 runs the very same mma
+// sequence again (so s has the same bits and s - m_new <= 0), forms p = exp(s - m_new)
+// with s already multiplied by scale (neither scale nor log2 e is folded into q or an
+// exp2: either would move the rounding of p), adds the unrounded p to l, and turns the f32
+// score fragment straight into the bf16 A fragment of P V (cvt.rn, round to nearest even,
+// as the reference's cast). acc is rescaled by alpha once a block. The second Q K^T costs
+// half the function's operations again. Keeping the block's f32 scores in shared memory
+// instead (64 x 512 x 4 = 128 KB a CTA) would leave one CTA of 4 warps an SM.
+//
+// f32, and bf16 with D = 192 or 256: f32 FMAs from shared memory (bf16 widened on load).
+// The reference multiplies f32 operands in f32 (TF32 would change the results). D = 192
+// and 256 in bf16 take it too, by a static choice: they are off the finetune's path, and
+// their accumulators (96 and 128 registers a thread for 16 rows) have not been fitted
+// beside the scores under the tensor-core kernel's launch bound. One CTA owns BQ query
+// rows (64, or 32 for D >= 192) and
+// keeps a block's scores whole in shared memory (BQ x ob f32) until its row max is known.
+//
+// Both issue tiles heaviest first (the last query tile sees the most keys). No atomics:
+// every sum has one order, so repeated calls give the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,6 +79,290 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
+
+// ------------------------------------------------------------------ bf16 on the tensor cores
+
+constexpr int kTcWarps = 4;                // warps of a CTA, 16 query rows each
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcRows = 16 * kTcWarps;     // query rows of a CTA
+constexpr int kStages = 2;                 // 64-key tiles of K or V in flight
+static_assert(kTcRows == kBK, "load_tile stages the Q tile");
+
+using bf16 = __nv_bfloat16;
+
+// shared memory: the CTA's Q tile, then the ring of K/V tiles
+template <int D> constexpr size_t tc_smem_bytes() {
+  return static_cast<size_t>(kTcRows + kStages * kBK) * D * sizeof(bf16);
+}
+
+// element offset of 16-byte chunk c of row r in a tile of rows of D bf16: chunks XORed
+// with the row's low 3 bits, so the 8 rows an ldmatrix phase reads hit 8 distinct chunk
+// columns (all 32 banks)
+template <int D> __device__ __forceinline__ int swz(int r, int c) {
+  return (r * (D / 8) + (c ^ (r & 7))) * 8;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// round to nearest even (cvt.rn.bf16x2.f32); lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + kBK) of a (T, D) head into a tile; rows at or past `rend` zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int rend,
+                                          int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = tid; i < kBK * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < rend;
+    cp_async16(dst + swz<D>(r, c), src + static_cast<size_t>(ok ? r0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+// The order in which a CTA reads 64-key tiles: per online block [k0, kend), pass 1's K
+// tiles, then pass 2's K and V tiles in turn.
+struct TileCursor {
+  int k0, kt, pass, is_v;
+  __device__ __forceinline__ void next(int ob, int kend) {
+    if (pass == 0) {
+      kt += kBK;
+      if (kt >= kend) pass = 1, kt = k0, is_v = 0;
+    } else if (!is_v) {
+      is_v = 1;
+    } else {
+      is_v = 0;
+      kt += kBK;
+      if (kt >= kend) k0 += ob, kt = k0, pass = 0;
+    }
+  }
+};
+
+// s (a warp's 16 rows x the tile's 64 keys, mma C fragments: s[j][e] is row w0 + g +
+// 8 (e >> 1), key kt + 8 j + 2 t + (e & 1)) = (q . k) * scale, masked with kNegInf where
+// key > row or key >= kend. Each d step loads the warp's Q fragment once and issues 8
+// independent mma. A tile past every row of the warp skips its products. Pass 1 and pass 2
+// call this alike, so both see the same bits.
+template <int D>
+__device__ __forceinline__ void tile_scores(float s[8][4], const bf16* qs, const bf16* ks,
+                                            int kt, int kend, int w0, float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = w0 % kTcRows + (lane & 15);  // this lane's ldmatrix rows
+  const int krow = (lane & 7) + (lane >> 4) * 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  if (kt <= min(w0 + 15, kend - 1)) {  // warp-uniform
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      ldsm_x4(qa, qs + swz<D>(qrow, 2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + swz<D>(16 * jp + krow, 2 * kk + ((lane >> 3) & 1)));
+        mma_bf16(s[2 * jp], qa, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+      }
+    }
+  }
+  const bool all_visible = kt + kBK - 1 <= min(w0, kend - 1);  // warp-uniform
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = __fmul_rn(s[j][e], scale);
+      if (!all_visible) {
+        const int key = kt + 8 * j + 2 * t + (e & 1);
+        const int row = w0 + g + 8 * (e >> 1);
+        const int lim = min(row, kend - 1);
+        if (key > lim) v = kNegInf;
+      }
+      s[j][e] = v;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 3) flash_train_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, float* __restrict__ lse, int t_len, int ob, float scale) {
+  constexpr int kTile = kBK * D;  // elements of one stage
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = qs + kTcRows * D;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest tiles first
+  const int last_row = min(q0 + kTcRows, t_len) - 1;
+  const size_t head = static_cast<size_t>(bh) * t_len * D;
+  const bf16* kb = k + head;
+  const bf16* vb = v + head;
+  const int w0 = q0 + 16 * warp;  // the warp's first row; this thread's are w0 + g (+ 8)
+
+  // the ring: item i in stage i % kStages; kStages - 1 items in flight ahead of use. The Q
+  // tile goes with the first group.
+  TileCursor cur{0, 0, 0, 0};
+  int issued = 0, used = 0;
+  auto issue = [&]() {
+    if (cur.k0 <= last_row) {
+      const int kend = min(cur.k0 + ob, last_row + 1);
+      load_tile<D>(ring + (issued % kStages) * kTile, cur.is_v ? vb : kb, cur.kt, kend, tid);
+      cur.next(ob, kend);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count of groups
+    ++issued;
+  };
+  auto acquire = [&]() -> const bf16* {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the item is everyone's; the stage read last is free
+    issue();
+    return ring + (used++ % kStages) * kTile;
+  };
+  load_tile<D>(qs, q + head, q0, t_len, tid);
+  for (int i = 0; i < kStages - 1; ++i) issue();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float s[8][4];
+
+  for (int k0 = 0; k0 <= last_row; k0 += ob) {
+    // keys past the tile's last row are masked for every row of it: leaving them out of
+    // the block changes neither its max nor its sums
+    const int kend = min(k0 + ob, last_row + 1);
+    // ---- pass 1: the block's row max
+    float m_new[2] = {kNegInf, kNegInf};
+    for (int kt = k0; kt < kend; kt += kBK) {
+      tile_scores<D>(s, qs, acquire(), kt, kend, w0, scale, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);
+    }
+    float alpha[2], bs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+      m_new[h] = fmaxf(m[h], m_new[h]);
+      alpha[h] = expf(m[h] - m_new[h]);
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    // ---- pass 2: p against the block's max; l += p; acc += bf16(p) . v
+    for (int kt = k0; kt < kend; kt += kBK) {
+      tile_scores<D>(s, qs, acquire(), kt, kend, w0, scale, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(__fsub_rn(s[j][e], m_new[e >> 1]));
+          bs[e >> 1] += p;
+          s[j][e] = p;
+        }
+      const bf16* vs = acquire();
+      const int klim = min(w0 + 15, kend - 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kt + 16 * kk > klim) continue;  // warp-uniform: p is 0 on these keys
+        const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const int key = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vs + swz<D>(key, 2 * np + (lane >> 4)));
+          mma_bf16(acc[2 * np], a, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bs[h] += __shfl_xor_sync(0xffffffffu, bs[h], 1);
+      bs[h] += __shfl_xor_sync(0xffffffffu, bs[h], 2);
+      l[h] = l[h] * alpha[h] + bs[h];
+      m[h] = m_new[h];
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* ob_out = out + head;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + g + 8 * h;
+    if (row >= t_len) continue;
+    bf16* orow = ob_out + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * h] / l[h], acc[n][2 * h + 1] / l[h]);
+    if (t == 0) lse[static_cast<size_t>(bh) * t_len + row] = m[h] + logf(l[h]);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int bh, int t_len, int ob, float scale, cudaStream_t stream) {
+  auto kernel = flash_train_fwd_tc_kernel<D>;
+  constexpr int kSmem = static_cast<int>(tc_smem_bytes<D>());
+  // set once, before any CUDA-graph capture of a launch
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(bh, (t_len + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, t_len, ob, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ f32 FMAs
 
 template <int D> __host__ __device__ constexpr int tile_rows() { return D <= 128 ? 64 : 32; }
 
@@ -227,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_train_fwd_kernel(
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                    int t_len, int ob, float scale, cudaStream_t stream) {
   auto kernel = flash_train_fwd_kernel<T, D>;
   // set once for the largest block, before any CUDA-graph capture of a launch
@@ -247,14 +557,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   return cudaGetLastError();
 }
 
+// The kernel for a type and head size, chosen statically: bf16 at D = 64 and 128 on the
+// tensor cores, everything else on the FMA kernel.
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-                     int t_len, int d, int ob, float scale, cudaStream_t stream) {
+                     int t_len, int d, int ob, float scale, cudaStream_t stream);
+
+template <>
+cudaError_t launch_d<bf16>(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int bh, int t_len, int d, int ob, float scale, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
-    case 192: return launch<T, 192>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 64: return launch_tc<64>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 128: return launch_tc<128>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 192: return launch_fma<bf16, 192>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 256: return launch_fma<bf16, 256>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <>
+cudaError_t launch_d<float>(const void* q, const void* k, const void* v, void* out, float* lse,
+                            int bh, int t_len, int d, int ob, float scale, cudaStream_t stream) {
+  switch (d) {
+    case 64: return launch_fma<float, 64>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 128: return launch_fma<float, 128>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 192: return launch_fma<float, 192>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 256: return launch_fma<float, 256>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
