@@ -401,11 +401,12 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel
                                              "int4_splitk_reduce_kernel")),
                  ("K2 int8_decode_attention", ("int8_decode_attention_kernel",)),
                  ("K3 flash_attention", ("flash_attention_kernel",)),
-                 ("K4 fastmax_fwd", ("fastmax_fwd_kernel",)),
-                 ("K5 fastmax_bwd", ("fastmax_bwd_kernel",)),
+                 ("K4 fastmax_fwd", ("fastmax_fwd_kernel", "fastmax_fwd_finish")),
+                 ("K5 fastmax_bwd", ("fastmax_bwd_kernel", "fastmax_bwd_finish")),
                  ("K6 flash_train_fwd", ("flash_train_fwd_kernel",
                                          "flash_train_fwd_tc_kernel")),
-                 ("K7 flash_train_bwd", ("flash_train_bwd_kernel",)),
+                 ("K7 flash_train_bwd", ("flash_train_bwd_kernel",
+                                         "flash_train_bwd_tc_kernel")),
                  ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_gemm_kernel",
                                     "nf4_splitk_reduce_kernel")),
                  ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_gemm_kernel",
@@ -1568,11 +1569,14 @@ def check_flash_train(torch, gen, results):
         rate = ", ".join(f"{fb['flops'] / (r[key] * 1e-3) / 1e12:.1f} TFLOP/s, "
                          f"{fb['bound_ms'] / r[key]:.3f} of the bound"
                          for key in ("k6_ms", "k6_block128_ms"))
+        rate7 = (f"{bb['flops'] / (r['k7_ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+                 f"{bb['bound_ms'] / r['k7_ms']:.3f} of the bound")
         log(f"  {FT_SHAPE} {r['dtype']:8s}: K6 {r['k6_ms'] * 1e3:9.1f} us (128-key blocks "
             f"{r['k6_block128_ms'] * 1e3:9.1f}; {rate})  plain "
             f"{r['plain_fwd_ms'] * 1e3:9.1f}  SDPA ({r['sdpa_backend']}) "
             f"{r['sdpa_fwd_ms'] * 1e3:8.1f}  bound {fb['bound_ms'] * 1e3:7.1f} ({fb['bound_by']}; "
-            f"{fb['bound_f32_ms'] * 1e3:7.1f} at the f32 rate);  K7 {r['k7_ms'] * 1e3:9.1f} us  "
+            f"{fb['bound_f32_ms'] * 1e3:7.1f} at the f32 rate);  K7 {r['k7_ms'] * 1e3:9.1f} us "
+            f"({rate7})  "
             f"plain {r['plain_bwd_ms'] * 1e3:9.1f}  SDPA forward+backward "
             f"{r['sdpa_fwd_bwd_ms'] * 1e3:8.1f}  bound {bb['bound_ms'] * 1e3:7.1f} "
             f"({bb['bound_by']}; {bb['bound_f32_ms'] * 1e3:7.1f} at the f32 rate)")

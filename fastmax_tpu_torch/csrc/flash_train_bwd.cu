@@ -16,22 +16,62 @@
 // The TPU's fused kernel adds each block pair into a dq scratch that one core owns; on the
 // card that sum would cross CTAs and need float atomics, whose order changes between runs.
 // So dq is a pass apart, as in _bwd: the launch's CTAs take one of two roles, interleaved
-// so the heaviest tiles of both start first. A dq CTA owns a tile of BT query rows of one
-// head and walks the key tiles at or below it; a dk/dv CTA owns a tile of BT keys and walks
+// so the heaviest tiles of both start first. A dq CTA owns a tile of query rows of one
+// head and walks the key tiles at or below it; a dk/dv CTA owns a tile of keys and walks
 // the query tiles at or above it. Each recomputes p and ds for its block pairs (the dk/dv
-// role also forms dv), each sum has one order, and repeated calls give the same bits. BT is
-// 64, or 32 for D >= 192, so a launch has 2 * T / BT CTAs a head (4096 at B=2, H=32, T=2048).
+// role also forms dv): seven products a pair against the function's five (s and dp twice),
+// but each sum has one order, and repeated calls give the same bits.
 //
 // Bound: operations, 10 D flops per visible (row, key) pair (the two score products and the
-// three gradient products). This version computes seven products a pair (s and dp twice:
-// once in each role) with f32 FMAs from shared memory; tensor cores and TMA are later work.
+// three gradient products); at the finetune shape (B=2, H=32, T=2048, D=128) 173.8 us on the
+// bf16 tensor cores. Two kernels, chosen statically by type and D (launch_d):
+//
+// bf16 with D = 64 or 128 (the finetune's type and Llama-2-7B's head): every product on the
+// tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, with K6's helpers (mma_bf16.cuh). A
+// CTA of 4 warps owns a 64-row tile of one head, a warp 16 whole rows of it, staged once in
+// shared memory (Q and do in the dq role, K and V in the dk/dv role). The other side's
+// 64-row tiles stream through a double-buffered cp.async ring, zero-filled past T; the dk/dv
+// role's stages carry the query rows' lse and delta beside Q and do. Rows are stored in
+// 16-byte chunks XOR-swizzled by row, as in K6, so ldmatrix reads have no bank conflicts. A
+// warp takes a streamed tile 32 rows at a time:
+//   dq role:    S = Q K^T and dP = do V^T (16 x 32 C fragments), p and ds = p (dP - delta),
+//               then dQ += bf16(dS) K, K read with ldmatrix.trans;
+//   dk/dv role: S^T = K Q^T and dP^T = V do^T, p^T and ds^T, then dV += bf16(P^T) do and
+//               dK += bf16(dS^T) Q, do and Q read with ldmatrix.trans.
+// p and ds go from their f32 C fragments straight into bf16 A fragments (cvt.rn, round to
+// nearest even, as the reference's casts), with no trip through shared memory. The causal
+// and T masks are tested only in blocks that hold a masked pair (the diagonal tiles, the
+// ragged last one); a wholly visible block takes an unmasked copy of the same arithmetic.
+// Registers: a dk/dv warp holds dK and dV of its 16 keys, D f32 a thread, so it streams 32
+// query rows at a time (not 64: 32 more score registers) and reads its K/V A fragments
+// from shared memory at each use; a dq warp holds its Q/do A fragments in registers (D / 2).
+// 246 registers a thread at D = 128, 186 at D = 64, no spills; 99.3 KB of shared memory a
+// CTA at D = 128, 2 CTAs an SM. Holding the dk/dv warp's fragments too (16 query rows at a
+// time), or 64-key steps in the dq role, measured no faster.
+//
+// Why p and ds need no block-wide rounding, unlike K6's p: here p = exp(s * scale - lse)
+// depends on its own element and the forward's lse alone, with no running max, so each
+// rounding the reference makes (p to do's type before dv, ds to q's and k's type before dk
+// and dq) is elementwise, and a tile of any size rounds the same values. s * scale is its
+// own rounded f32 product (__fmul_rn): nvcc would contract s * scale - lse into one FMA.
+//
+// f32, and bf16 with D = 192 or 256: f32 FMAs from shared memory (bf16 widened on load).
+// The reference multiplies f32 operands in f32 (TF32 would change the results). D = 192 and
+// 256 in bf16 take it too, by a static choice: they are off the finetune's path, and the
+// tensor-core kernel's dK and dV (192 and 256 registers a thread for 16 keys) do not fit
+// under its launch bound. A CTA of 8 warps owns BT rows (64, or 32 for D >= 192) and keeps
+// a tile pair's p and ds in shared memory between the score and the gradient products.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+// ------------------------------------------------------------------ f32 FMAs
 
 constexpr int kThreads = 256;
 
@@ -259,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_train_bwd_kernel(
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+cudaError_t launch_fma(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int bh,
                    int t_len, float scale, cudaStream_t stream) {
   auto kernel = flash_train_bwd_kernel<T, D>;
@@ -280,19 +320,421 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ bf16 on the tensor cores
+
+constexpr int kTcWarps = 4;              // warps of a CTA, 16 own rows each
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTile = 16 * kTcWarps;     // rows of the own tile and of each streamed tile
+constexpr int kStages = 2;               // streamed tiles in flight
+constexpr int kNC = 2;                   // 16-row blocks of a streamed tile a warp takes at once
+static_assert(kTcThreads == 2 * kTile, "a stage's lse and delta take one thread a value");
+
+// a stage: two (kTile, D) bf16 tiles, then kTile lse and kTile delta (f32)
+template <int D> __host__ __device__ constexpr size_t stage_bytes() {
+  return 2 * kTile * D * sizeof(bf16) + 2 * kTile * sizeof(float);
+}
+// shared memory: the CTA's two own tiles, then the ring of stages
+template <int D> constexpr size_t tc_smem_bytes() {
+  return 2 * kTile * D * sizeof(bf16) + kStages * stage_bytes<D>();
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// rows [r0, r0 + kTile) of a (T, D) head into a swizzled tile; rows at or past T zero-filled
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int t_len,
+                                          int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = tid; i < kTile * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < t_len;
+    cp_async16(dst + swz<D>(r, c), src + static_cast<size_t>(ok ? r0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+// p of one pair: exp(s * scale - lse), s * scale its own rounded f32 product. kMasked: 0
+// where the key lies past the query or the query at or past T.
+template <bool kMasked>
+__device__ __forceinline__ float pair_p(float s, float lse, int key, int query, int t_len,
+                                        float scale) {
+  if constexpr (kMasked) {
+    const bool visible = key <= query && query < t_len;
+    if (!visible) return 0.f;
+  }
+  return expf(__fmul_rn(s, scale) - lse);
+}
+
+// ds of one pair, from the unrounded p
+__device__ __forceinline__ float pair_ds(float p, float dp, float delta) {
+  return p * (dp - delta);
+}
+
+// The dq role's p and ds in place of its block's s and dp (as dots gives them): the warp's
+// rows w0 + g (+ 8) against keys k0 + 8 j + 2 t (+ 1); lse_r, delta_r of the thread's rows.
+template <bool kMasked>
+__device__ __forceinline__ void dq_scores(float s[2 * kNC][4], float dp[2 * kNC][4],
+                                          const float lse_r[2], const float delta_r[2], int k0,
+                                          int w0, int t_len, float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * kNC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = pair_p<kMasked>(s[j][e], lse_r[h], k0 + 8 * j + 2 * t + (e & 1),
+                                      w0 + g + 8 * h, t_len, scale);
+      dp[j][e] = pair_ds(p, dp[j][e], delta_r[h]);
+    }
+}
+
+// The dk/dv role's p^T and ds^T in place of its block's s^T and dp^T: the warp's keys
+// w0 + g (+ 8) against the stage's query rows c0 + 8 j + 2 t (+ 1), q0 in the head.
+template <bool kMasked>
+__device__ __forceinline__ void dkv_scores(float s[2 * kNC][4], float dp[2 * kNC][4],
+                                           const float* lse_s, const float* delta_s, int c0,
+                                           int q0, int w0, int t_len, float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * kNC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c0 + 8 * j + 2 * t + (e & 1);
+      const float p = pair_p<kMasked>(s[j][e], lse_s[col], w0 + g + 8 * (e >> 1), q0 + col,
+                                      t_len, scale);
+      dp[j][e] = pair_ds(p, dp[j][e], delta_s[col]);
+      s[j][e] = p;
+    }
+}
+
+// p's bf16 pair in dv's A fragment: to nearest even, as the reference's cast to do's type
+__device__ __forceinline__ uint32_t pack_p(float lo, float hi) {
+  return pack_bf16x2(lo, hi);
+}
+
+// The warp's 16 rows of the two own tiles (from row `ar`) as mma A fragments: read from
+// shared memory at each use or, kHeld, once into registers after the tiles have landed.
+template <int D, bool kHeld>
+struct OwnFrags {
+  uint32_t r[kHeld ? D / 8 : 1][4];  // kHeld: [2 kk] of tile 1, [2 kk + 1] of tile 2
+  const bf16* a1;
+  const bf16* a2;
+  int arow, half;
+  __device__ __forceinline__ void init(const bf16* own1, const bf16* own2, int ar, int lane) {
+    a1 = own1;
+    a2 = own2;
+    arow = ar + (lane & 15);
+    half = lane >> 4;
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ldsm_x4(r[2 * kk], a1 + swz<D>(arow, 2 * kk + half));
+        ldsm_x4(r[2 * kk + 1], a2 + swz<D>(arow, 2 * kk + half));
+      }
+    }
+  }
+  __device__ __forceinline__ void get(int kk, uint32_t f1[4], uint32_t f2[4]) const {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f1[i] = r[2 * kk][i], f2[i] = r[2 * kk + 1][i];
+    } else {
+      ldsm_x4(f1, a1 + swz<D>(arow, 2 * kk + half));
+      ldsm_x4(f2, a2 + swz<D>(arow, 2 * kk + half));
+    }
+  }
+};
+
+// c1 = A1 B1^T and c2 = A2 B2^T over D, interleaved: A the warp's own rows, B 16 kNC rows
+// of the two tiles of a stage from row `br`. mma C fragments: c[j][e] is A's row g + 8 (e >> 1)
+// against B's row 8 j + 2 t + (e & 1).
+template <int D, bool kHeld>
+__device__ __forceinline__ void dots(float c1[2 * kNC][4], float c2[2 * kNC][4],
+                                     const OwnFrags<D, kHeld>& own, const bf16* b1,
+                                     const bf16* b2, int br, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2 * kNC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[j][e] = c2[j][e] = 0.f;
+  const int brow = br + (lane & 7) + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t f1[4], f2[4];
+    own.get(kk, f1, f2);
+    const int bc = 2 * kk + ((lane >> 3) & 1);
+#pragma unroll
+    for (int jp = 0; jp < kNC; ++jp) {
+      uint32_t g1[4], g2[4];
+      ldsm_x4(g1, b1 + swz<D>(brow + 16 * jp, bc));
+      ldsm_x4(g2, b2 + swz<D>(brow + 16 * jp, bc));
+      mma_bf16(c1[2 * jp], f1, g1[0], g1[1]);
+      mma_bf16(c1[2 * jp + 1], f1, g1[2], g1[3]);
+      mma_bf16(c2[2 * jp], f2, g2[0], g2[1]);
+      mma_bf16(c2[2 * jp + 1], f2, g2[2], g2[3]);
+    }
+  }
+}
+
+// The bf16 A fragments of a 16 x 16 kNC block from its C fragments c (as dots gives them):
+// a[kk] holds columns 16 kk .. 16 kk + 15, each pair rounded to nearest even (p's by pack_p).
+template <bool kIsP>
+__device__ __forceinline__ void a_frags(uint32_t a[kNC][4], const float c[2 * kNC][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kNC; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+        a[kk][2 * h + e2] = kIsP ? pack_p(c[2 * kk + h][2 * e2], c[2 * kk + h][2 * e2 + 1])
+                                 : pack_bf16x2(c[2 * kk + h][2 * e2], c[2 * kk + h][2 * e2 + 1]);
+}
+
+// acc (the warp's 16 rows x D) += A B: A the bf16 A fragments of 16 rows x 16 kNC, B 16 kNC
+// rows of a streamed tile from row `br`, read with ldmatrix.trans
+template <int D>
+__device__ __forceinline__ void acc_rows(float acc[D / 8][4], const uint32_t a[kNC][4],
+                                         const bf16* b, int br, int lane) {
+  const int brow = br + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kNC; ++kk)
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t f[4];
+      ldsm_x4_trans(f, b + swz<D>(brow + 16 * kk, 2 * np + (lane >> 4)));
+      mma_bf16(acc[2 * np], a[kk], f[0], f[1]);
+      mma_bf16(acc[2 * np + 1], a[kk], f[2], f[3]);
+    }
+}
+
+// rows w0 + g and w0 + g + 8 (those before T) of acc, times `mul`, into a (T, D) head
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float acc[D / 8][4], int w0,
+                                           int t_len, float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = w0 + g + 8 * h;
+    if (row >= t_len) continue;
+    bf16* out = dst + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2) flash_train_bwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int t_len, float scale) {
+  constexpr int kElems = kTile * D;  // of one tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* own_a = reinterpret_cast<bf16*>(smem_raw);  // dq role: Q;  dk/dv role: K
+  bf16* own_b = own_a + kElems;                      // dq role: do; dk/dv role: V
+  unsigned char* ring = reinterpret_cast<unsigned char*>(own_b + kElems);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+  const int bh = blockIdx.x;
+  // the roles alternate along y, heaviest tiles first in both: dq tiles from the last,
+  // dk/dv tiles from the first
+  const bool dq_role = (blockIdx.y & 1) == 0;
+  const int tile = dq_role ? n_tiles - 1 - static_cast<int>(blockIdx.y >> 1)
+                           : static_cast<int>(blockIdx.y >> 1);
+  const int t0 = tile * kTile;
+  const size_t head = static_cast<size_t>(bh) * t_len * D;
+  const float* lse_h = lse + static_cast<size_t>(bh) * t_len;
+  const float* delta_h = delta + static_cast<size_t>(bh) * t_len;
+  const int wl = 16 * warp;  // the warp's first row in the own tiles
+  const int w0 = t0 + wl;    // and in the head; this thread's are w0 + g (+ 8)
+
+  // the ring: streamed tile i in stage i % kStages, kStages - 1 tiles in flight ahead of
+  // use; the own tiles go with the first group. dq role: key tiles 0 .. tile; dk/dv role:
+  // query tiles tile .. n_tiles - 1, each with its rows' lse and delta.
+  const int n_items = dq_role ? tile + 1 : n_tiles - tile;
+  const int r_first = dq_role ? 0 : t0;
+  const bf16* str_a = (dq_role ? k : q) + head;
+  const bf16* str_b = (dq_role ? v : dout) + head;
+  int issued = 0, used = 0;
+  auto issue = [&]() {
+    if (issued < n_items) {
+      const int r0 = r_first + issued * kTile;
+      bf16* st = reinterpret_cast<bf16*>(ring + (issued % kStages) * stage_bytes<D>());
+      load_rows<D>(st, str_a, r0, t_len, tid);
+      load_rows<D>(st + kElems, str_b, r0, t_len, tid);
+      if (!dq_role) {  // lse in threads 0 .. kTile - 1, delta in the rest
+        const int r = tid % kTile;
+        const bool ok = r0 + r < t_len;
+        cp_async4(reinterpret_cast<float*>(st + 2 * kElems) + tid,
+                  (tid < kTile ? lse_h : delta_h) + (ok ? r0 + r : 0), ok);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count of groups
+    ++issued;
+  };
+  auto acquire = [&]() -> const bf16* {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the stage is everyone's; the stage read last is free
+    issue();
+    return reinterpret_cast<const bf16*>(ring + (used++ % kStages) * stage_bytes<D>());
+  };
+  load_rows<D>(own_a, (dq_role ? q : k) + head, t0, t_len, tid);
+  load_rows<D>(own_b, (dq_role ? dout : v) + head, t0, t_len, tid);
+  for (int i = 0; i < kStages - 1; ++i) issue();
+
+  if (dq_role) {
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + g + 8 * h;
+      lse_r[h] = row < t_len ? lse_h[row] : 0.f;
+      delta_r[h] = row < t_len ? delta_h[row] : 0.f;
+    }
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    // the last key a row of the warp sees; -1 when its rows all lie at or past T
+    const int last = w0 < t_len ? min(w0 + 15, t_len - 1) : -1;
+    OwnFrags<D, true> own;  // Q and do held: the dq warp's accumulator leaves room
+    for (int it = 0; it < n_items; ++it) {
+      const bf16* ks = acquire();
+      const bf16* vs = ks + kElems;
+      const int kt = it * kTile;
+      if (it == 0) own.init(own_a, own_b, wl, lane);  // Q and do landed with the first tile
+#pragma unroll 1
+      for (int c0 = 0; c0 < kTile; c0 += 16 * kNC) {
+        if (kt + c0 > last) break;  // warp-uniform: these keys and the rest are masked
+        float s[2 * kNC][4], dp[2 * kNC][4];
+        dots<D>(s, dp, own, ks, vs, c0, lane);
+        // warp-uniform: a key past the warp's first row, or a row at or past T
+        if (kt + c0 + 16 * kNC - 1 > w0 || w0 + 15 >= t_len)
+          dq_scores<true>(s, dp, lse_r, delta_r, kt + c0, w0, t_len, scale, lane);
+        else
+          dq_scores<false>(s, dp, lse_r, delta_r, kt + c0, w0, t_len, scale, lane);
+        uint32_t da[kNC][4];
+        a_frags<false>(da, dp);
+        acc_rows<D>(acc, da, ks, c0, lane);
+      }
+    }
+    cp_async_wait<0>();
+    store_rows<D>(dq + head, acc, w0, t_len, scale, lane);
+    return;
+  }
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const bool live = w0 < t_len;  // some key of the warp lies before T
+  OwnFrags<D, false> own;  // K and V read at each use: dK and dV take D registers
+  for (int it = 0; it < n_items; ++it) {
+    const bf16* qs = acquire();
+    if (it == 0) own.init(own_a, own_b, wl, lane);  // K and V landed with the first tile
+    const bf16* dos = qs + kElems;
+    const float* lse_s = reinterpret_cast<const float*>(dos + kElems);
+    const float* delta_s = lse_s + kTile;
+    const int q0 = t0 + it * kTile;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 16 * kNC) {
+      // warp-uniform: these queries all lie at or past T, or before the warp's first key
+      if (!live || q0 + c0 >= t_len || q0 + c0 + 16 * kNC - 1 < w0) continue;
+      float s[2 * kNC][4], dp[2 * kNC][4];
+      dots<D>(s, dp, own, qs, dos, c0, lane);
+      // warp-uniform: a query before the warp's last key, or at or past T
+      if (q0 + c0 < w0 + 15 || q0 + c0 + 16 * kNC > t_len)
+        dkv_scores<true>(s, dp, lse_s, delta_s, c0, q0, w0, t_len, scale, lane);
+      else
+        dkv_scores<false>(s, dp, lse_s, delta_s, c0, q0, w0, t_len, scale, lane);
+      uint32_t pa[kNC][4], da[kNC][4];
+      a_frags<true>(pa, s);
+      a_frags<false>(da, dp);
+      acc_rows<D>(acc_v, pa, dos, c0, lane);
+      acc_rows<D>(acc_k, da, qs, c0, lane);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<D>(dk + head, acc_k, w0, t_len, scale, lane);
+  store_rows<D>(dv + head, acc_v, w0, t_len, 1.f, lane);
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                      int bh, int t_len, float scale, cudaStream_t stream) {
+  // cp.async copies 16-byte chunks of the rows: the bases must be 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  if (bases % 16 != 0) return cudaErrorMisalignedAddress;
+  auto kernel = flash_train_bwd_tc_kernel<D>;
+  constexpr int kSmem = static_cast<int>(tc_smem_bytes<D>());
+  static bool smem_set = false;  // set once, before any CUDA-graph capture of a launch
+  if (!smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(bh, 2 * ((t_len + kTile - 1) / kTile));
+  kernel<<<grid, kTcThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_len, scale);
+  return cudaGetLastError();
+}
+
+// The kernel for a type and head size, chosen statically: bf16 at D = 64 and 128 on the
+// tensor cores, everything else on the FMA kernel.
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv, int bh,
-                     int t_len, int d, float scale, cudaStream_t stream) {
+                     int t_len, int d, float scale, cudaStream_t stream);
+
+template <>
+cudaError_t launch_d<bf16>(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                           int bh, int t_len, int d, float scale, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
+      return launch_tc<64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
+      return launch_tc<128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
     case 192:
-      return launch<T, 192>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
+      return launch_fma<bf16, 192>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
+                                   stream);
     case 256:
-      return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
+      return launch_fma<bf16, 256>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
+                                   stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <>
+cudaError_t launch_d<float>(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                            int bh, int t_len, int d, float scale, cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch_fma<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
+                                   stream);
+    case 128:
+      return launch_fma<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
+                                    stream);
+    case 192:
+      return launch_fma<float, 192>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
+                                    stream);
+    case 256:
+      return launch_fma<float, 256>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
+                                    stream);
     default:
       return cudaErrorInvalidValue;
   }
