@@ -8,8 +8,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every CUDA kernel of the port, from ``fastmax_tpu_torch/csrc``;
 3. the int4 rank-1 matmul kernel against its plain PyTorch version at the four
-   Llama-2-7B linear shapes, m in {1, 8, 64, 512}, stacked (layer 2 of 3) and
-   per-layer, f32 and bf16 x, with per-launch times at m in {1, 8, 64};
+   Llama-2-7B linear shapes, m in {1, 5, 8, 16, 64, 512} (each path: gemv,
+   tensor cores, FMA tile), stacked (layer 2 of 3) and per-layer, f32 and bf16
+   x, at gk = 8 (m in {1, 8, 64}) and at a ragged k = 1540, n = 11000 with u,
+   v in [0.5, 2]; a bit-for-bit repeat at m = 8; device
+   times (weights cold) at m in {1, 8, 16, 32, 64}, 4 < m <= 64 on the tensor
+   cores and on the FMA tile kernel;
 4. the int8 decode-attention kernel against its plain version (7B: B=1, G=32,
    D=128, S=1024, pos in {0, 63, 1023}; a GQA case and a D=64 case);
 5. the batch-1 path: a random Llama-2-7B (full width, all 32 layers) in the
@@ -255,6 +259,76 @@ def bound(nbytes: int, flops: int, bf16: bool) -> dict:
 
 
 # ----------------------------------------------------------------- phase 3
+INT4_CHECKED_M = (1, 5, N_SLOTS, 16, 64, 512)
+INT4_TIMED_M = (1, N_SLOTS, 16, 32, 64)
+# u, v of phase 3's 7B linears, and of its ragged case: k % 16 != 0, so the
+# tensor-core kernel's last 16-row step runs past k into random words, and u,
+# v in [0.5, 2] (tests/test_torch_quant_kernels.py's law), where x*u is of
+# order 1 and the f32 gate's atol is as tight as f32 sums allow
+INT4_7B_UV = ((0.005, 0.035), (0.5, 1.5))
+INT4_RAGGED = ("ragged", 1540, 11000, ((0.5, 2.0), (0.5, 2.0)))
+
+
+def int4_weights(torch, gen, k, n, tk=None, uv=INT4_7B_UV, layers: int = 3) -> dict:
+    """Stacked q4r1 params of random words (every nibble a code, the rows
+    k..k_pad too, so a kernel that lets them into the sum is seen), u and v
+    uniform in the ranges ``uv``."""
+    k_pad, n_pad = k + (-k) % 512, n + (-n) % 1024
+    tk = tk or k_pad
+    pw = torch.randint(-2**31 + 1, 2**31 - 1, (layers, k_pad // tk, n_pad // 1024, tk, 128),
+                       generator=gen, device="cuda", dtype=torch.int32)
+    (u0, u1), (v0, v1) = uv
+    u = torch.rand((layers, k), generator=gen, device="cuda") * (u1 - u0) + u0
+    v = torch.rand((layers, n), generator=gen, device="cuda") * (v1 - v0) + v0
+    return {"q4r1": pw, "u4": u, "v4": v}
+
+
+def int4_case(torch, gen, what, p, m) -> dict:
+    """K1 on layer 2 of ``p`` against its plain version at m rows: f32 x
+    through the stacked entry and (m <= 128) the per-layer one, held at
+    INT4_ATOL + INT4_RTOL |plain|; bf16 x through the stacked entry, at
+    INT4_ATOL + INT4_BF16_RTOL |plain|. Raises AssertionError naming K1."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    pw, u, v = p["q4r1"], p["u4"], p["v4"]
+    k = u.shape[1]
+    path = qk.rank1_path(m, pw.shape[3])
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    ref = qk.int4_matmul_rank1_plain(x, pw[2], u[2], v[2])
+    checks = [("stacked", qk.int4_matmul_rank1_stacked(x, p, 2))]
+    if m <= qk._INT4_MAX_M:
+        checks.append(("per-layer", qk.int4_matmul_rank1(
+            x, {"q4r1": pw[2], "u4": u[2], "v4": v[2]})))
+    for entry, got in checks:
+        err = (got - ref).abs()
+        over = err > INT4_ATOL + INT4_RTOL * ref.abs()
+        if bool(over.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 int4 {what} m={m} ({path}) {entry}: max err "
+                                 f"{float(err.max()):.3e}, {float(over.float().mean()):.3f} "
+                                 "of the outputs over the gate")
+    xb = x.to(torch.bfloat16)
+    refb = qk.int4_matmul_rank1_plain(xb, pw[2], u[2], v[2])
+    errb = (qk.int4_matmul_rank1_stacked(xb, p, 2).float() - refb).abs()
+    if bool((errb > INT4_ATOL + INT4_BF16_RTOL * refb.abs()).any()):
+        raise AssertionError(f"K1 int4 {what} m={m} ({path}) bf16: max err "
+                             f"{float(errb.max()):.3e}")
+    torch.cuda.synchronize()
+    return {"path": path, "f32": max(float((got - ref).abs().max()) for _, got in checks),
+            "bf16": float(errb.max())}
+
+
+def int4_repeats(torch, gen, what, p, m=N_SLOTS, runs: int = 3) -> None:
+    """K1 gives the same bits on every run (no float atomics), f32 and bf16 x."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    x = torch.randn((m, p["u4"].shape[1]), generator=gen, device="cuda")
+    for xt in (x, x.to(torch.bfloat16)):
+        first = qk.int4_matmul_rank1_stacked(xt, p, 2)
+        for _ in range(runs - 1):
+            if not torch.equal(qk.int4_matmul_rank1_stacked(xt, p, 2), first):
+                raise AssertionError(f"K1 int4 {what} m={m} {xt.dtype}: a repeat differs")
+
+
 def check_int4(torch, gen, results):
     from fastmax_tpu_torch.ops import quant_kernels as qk
 
@@ -263,37 +337,17 @@ def check_int4(torch, gen, results):
     rows = []
     for name, k, n in LLAMA7B_LINEARS:
         k_pad, n_pad = k + (-k) % 512, n + (-n) % 1024
-        pw = torch.randint(-2**31 + 1, 2**31 - 1, (3, 1, n_pad // 1024, k_pad, 128),
-                           generator=gen, device=dev, dtype=torch.int32)
-        u = torch.rand((3, k), generator=gen, device=dev) * 0.03 + 0.005
-        v = torch.rand((3, n), generator=gen, device=dev) + 0.5
-        p = {"q4r1": pw, "u4": u, "v4": v}
-        p2 = {"q4r1": pw[2], "u4": u[2], "v4": v[2]}
-        for m in (1, N_SLOTS, 64, 512):
-            x = torch.randn((m, k), generator=gen, device=dev)
-            ref = qk.int4_matmul_rank1_plain(x, pw[2], u[2], v[2])
-            checks = [("stacked", qk.int4_matmul_rank1_stacked(x, p, 2))]
-            if m <= qk._INT4_MAX_M:
-                checks.append(("per-layer", qk.int4_matmul_rank1(x, p2)))
-            for entry, got in checks:
-                err = (got - ref).abs()
-                bad = err > INT4_ATOL + INT4_RTOL * ref.abs()
-                worst = max(worst, float(err.max()))
-                if bool(bad.any()) or not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"int4 {name} m={m} {entry}: max err "
-                                         f"{float(err.max()):.3e}")
-            xb = x.to(torch.bfloat16)
-            refb = qk.int4_matmul_rank1_plain(xb, pw[2], u[2], v[2])
-            gotb = qk.int4_matmul_rank1_stacked(xb, p, 2).float()
-            errb = (gotb - refb).abs()
-            if bool((errb > INT4_ATOL + INT4_BF16_RTOL * refb.abs()).any()):
-                raise AssertionError(f"int4 {name} m={m} bf16: max err {float(errb.max()):.3e}")
-            torch.cuda.synchronize()
-            log(f"  int4 {name:9s} k={k:5d} n={n:5d} m={m:3d}: ok, max abs err "
-                f"f32 {float((checks[0][1] - ref).abs().max()):.3e} bf16 {float(errb.max()):.3e}")
-        del pw, u, v, p, p2
+        p = int4_weights(torch, gen, k, n)
+        for m in INT4_CHECKED_M:
+            err = int4_case(torch, gen, name, p, m)
+            worst = max(worst, err["f32"])
+            log(f"  int4 {name:9s} k={k:5d} n={n:5d} m={m:3d} ({err['path']}): ok, max abs err "
+                f"f32 {err['f32']:.3e} bf16 {err['bf16']:.3e}")
+        int4_repeats(torch, gen, name, p)
+        log(f"  int4 {name:9s} m={N_SLOTS}: 3 runs bit for bit, f32 and bf16")
+        del p
         # timing at the main path's shapes, weights cold: rotate over enough
-        # layers to exceed the 50 MB L2
+        # layers to exceed the 50 MB L2; 4 < m <= 64 also on the FMA tile kernel
         layer_bytes = k_pad * n_pad // 2
         n_layers = max(2, math.ceil(160e6 / layer_bytes))
         pw = torch.randint(-2**31 + 1, 2**31 - 1, (n_layers, 1, n_pad // 1024, k_pad, 128),
@@ -301,40 +355,53 @@ def check_int4(torch, gen, results):
         u = torch.full((n_layers, k), 0.02, device=dev)
         v = torch.ones((n_layers, n), device=dev)
         p = {"q4r1": pw, "u4": u, "v4": v}
-        for m in (1, N_SLOTS, 64):
+        for m in INT4_TIMED_M:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             it = iter(range(10**9))
-            kern_ms = graph_ms(lambda: qk.int4_matmul_rank1_stacked(
-                x, p, next(it) % n_layers), calls=2 * n_layers)
-            call_ms = time_ms(lambda: qk.int4_matmul_rank1_stacked(
-                x, p, next(it) % n_layers), iters=2 * n_layers)
-            plain_ms = graph_ms(lambda: qk.int4_matmul_rank1_stacked(
-                x, p, next(it) % n_layers, plain=True), calls=n_layers, reps=1)
+
+            def call(plain=False):
+                return qk.int4_matmul_rank1_stacked(x, p, next(it) % n_layers, plain=plain)
+            path = qk.rank1_path(m, k_pad)
+            kern_ms = graph_ms(call, calls=2 * n_layers)
+            fma_ms = None
+            if path == "tc":
+                tc_max, qk.TC_MAX_M = qk.TC_MAX_M, qk.GEMV_MAX_M
+                try:
+                    fma_ms = graph_ms(call, calls=2 * n_layers)
+                finally:
+                    qk.TC_MAX_M = tc_max
+            call_ms = time_ms(call, iters=2 * n_layers)
+            plain_ms = graph_ms(lambda: call(plain=True), calls=n_layers, reps=1)
             nbytes = k * n_pad // 2 + m * k * 2 + k * 4 + n * 4 + m * n * 2
             rows.append({"shape": name, "k": k, "n": n, "m": m, "x_dtype": "bf16",
-                         "ms": kern_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                         **bound(nbytes, 2 * m * k * n, bf16=True)})
-            log(f"  int4 {name:9s} m={m:3d} bf16: kernel {kern_ms * 1e3:8.1f} us (eager call "
-                f"{call_ms * 1e3:7.1f} us)  plain {plain_ms * 1e3:8.1f} us  bound "
+                         "path": path, "ms": kern_ms, "fma_ms": fma_ms, "call_ms": call_ms,
+                         "plain_ms": plain_ms, **bound(nbytes, 2 * m * k * n, bf16=True)})
+            fma = f"  FMA tile {fma_ms * 1e3:8.1f} us" if fma_ms is not None else ""
+            log(f"  int4 {name:9s} m={m:3d} bf16: {path:4s} {kern_ms * 1e3:8.1f} us (eager call "
+                f"{call_ms * 1e3:7.1f} us){fma}  plain {plain_ms * 1e3:8.1f} us  bound "
                 f"{rows[-1]['bound_ms'] * 1e3:6.1f} us ({rows[-1]['bound_by']}; "
                 f"{rows[-1]['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate)")
         del pw, u, v, p
-    # several k tiles (gk = 8, tk = 512): the general word addressing
-    k, n = 4096, 4096
-    pw = torch.randint(-2**31 + 1, 2**31 - 1, (3, k // 512, n // 1024, 512, 128),
-                       generator=gen, device=dev, dtype=torch.int32)
-    u = torch.rand((3, k), generator=gen, device=dev) * 0.03 + 0.005
-    v = torch.rand((3, n), generator=gen, device=dev) + 0.5
-    for m in (1, 64):
-        x = torch.randn((m, k), generator=gen, device=dev)
-        ref = qk.int4_matmul_rank1_plain(x, pw[2], u[2], v[2])
-        err = (qk.int4_matmul_rank1_stacked(x, {"q4r1": pw, "u4": u, "v4": v}, 2) - ref).abs()
-        worst = max(worst, float(err.max()))
-        if bool((err > INT4_ATOL + INT4_RTOL * ref.abs()).any()):
-            raise AssertionError(f"int4 gk=8 m={m}: max err {float(err.max()):.3e}")
-        log(f"  int4 gk=8 tk=512 k= {k} n= {n} m={m:3d}: ok, max abs err f32 "
-            f"{float(err.max()):.3e}")
-    del pw, u, v
+    card = card_line()
+    for m in INT4_TIMED_M:
+        layer = [r for r in rows if r["m"] == m]
+        fma = (f", FMA tile {sum(r['fma_ms'] for r in layer) * 1e3:.1f} us"
+               if layer[0]["fma_ms"] is not None else "")
+        log(f"  int4 a layer's 4 linears, m={m:3d} bf16: {layer[0]['path']} "
+            f"{sum(r['ms'] for r in layer) * 1e3:.1f} us{fma}, bound "
+            f"{sum(r['bound_ms'] for r in layer) * 1e3:.1f} us   [{card}]")
+    # several k tiles (gk = 8, tk = 512): the general word addressing; and the
+    # ragged case
+    name, k, n, uv = INT4_RAGGED
+    for what, p, ms in (("gk=8 tk=512", int4_weights(torch, gen, 4096, 4096, tk=512),
+                         (1, N_SLOTS, 64)),
+                        (name, int4_weights(torch, gen, k, n, uv=uv), INT4_CHECKED_M)):
+        for m in ms:
+            err = int4_case(torch, gen, what, p, m)
+            worst = max(worst, err["f32"])
+            log(f"  int4 {what} k={p['u4'].shape[1]:5d} n={p['v4'].shape[1]:5d} m={m:3d} "
+                f"({err['path']}): ok, max abs err f32 {err['f32']:.3e} bf16 {err['bf16']:.3e}")
+        del p
     results["int4_times"] = rows
     results["int4_max_abs_err"] = worst
     return worst, rows
@@ -409,8 +476,8 @@ def check_attention(torch, gen, results):
 
 
 # ----------------------------------------------------------------- phase 5
-KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_gemm_kernel",
-                                             "int4_splitk_reduce_kernel")),
+KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_kernel",
+                                             "int4_gemm_kernel", "int4_splitk_reduce_kernel")),
                  ("K2 int8_decode_attention", ("int8_decode_attention_kernel",)),
                  ("K3 flash_attention", ("flash_attention_kernel", "flash_attention_tc_kernel")),
                  ("K4 fastmax_fwd", ("fastmax_fwd_kernel", "fastmax_fwd_finish")),
@@ -832,6 +899,7 @@ def serving_path(torch, results, card):
     from fastmax_tpu_torch.models import gpt
     from fastmax_tpu_torch.models.config import Config
     from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
+    from fastmax_tpu_torch.ops import quant_kernels as qk
 
     cfg = Config.from_name("Llama-2-7b-hf")
     cfg.block_size = 4096
@@ -961,6 +1029,12 @@ def serving_path(torch, results, card):
                                                                         device="cuda")
         prof_decode = profile_device(torch, lambda: batcher._decode_step(
             toks, pos, temps0, topk0, False), f"one decode step at {N_SLOTS} slots, positions 3000")
+        if prof_decode["device_us"]:
+            k1_us = prof_decode["by_group_us"]["K1 int4_rank1_matmul"]
+            prof_decode["k1_share"] = k1_us / prof_decode["device_us"]
+            log(f"  K1 in that decode step (m = {N_SLOTS}, {qk.rank1_path(N_SLOTS, 4096)}): "
+                f"{k1_us:.1f} us, {prof_decode['k1_share']:.3f} of its device time, "
+                f"{k1_us / cfg.n_layer:.1f} us a layer   [{card}]")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         for _ in range(8):
@@ -2729,7 +2803,8 @@ def main() -> int:
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab}
 
-    # K1: one decode step of one layer at m=1 (the four linears); K2: pos 191;
+    # K1: one decode step of one layer at m=1 (the four linears), and by path at
+    # each timed m (the serving decode step is m = 8); K2: pos 191;
     # K3: the five timed 7B calls of phase 6; K4, K5: one call at the training
     # shape (p=2, f32), with each one's own max abs error there (K4: o, K5: dq,
     # dk, dv); K6, K7: one call at the finetune shape (bf16, the path's type), with their
@@ -2748,12 +2823,21 @@ def main() -> int:
         for r in rows:
             by[r["bound_by"]] += r["bound_ms"]
         return max(by, key=by.get)
+    k1_paths = []
+    for m in INT4_TIMED_M:
+        layer = [r for r in int4_rows if r["m"] == m]
+        k1_paths.append({"path": layer[0]["path"], "m": m, "ms": sum(r["ms"] for r in layer),
+                         "bound_ms": sum(r["bound_ms"] for r in layer),
+                         "plain_ms": sum(r["plain_ms"] for r in layer)})
+        if layer[0]["fma_ms"] is not None:
+            k1_paths.append({**k1_paths[-1], "path": "fma",
+                             "ms": sum(r["fma_ms"] for r in layer)})
     kernels = [
         {"name": k1.name, "route": "cuda", "source": str(k1.source.relative_to(REPO)),
          "replaces": k1.replaces, "launches": counts[k1.name], "max_abs_err": int4_err,
          "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
          "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
-         "library_ms": None},
+         "library_ms": None, "by_path": k1_paths},
         {"name": k2.name, "route": "cuda", "source": str(k2.source.relative_to(REPO)),
          "replaces": k2.replaces, "launches": counts[k2.name], "max_abs_err": attn_err,
          "ms": att["ms"], "plain_ms": att["plain_ms"], "bound_ms": att["bound_ms"],

@@ -17,12 +17,16 @@
 // bound by device-memory bytes; its design keeps many 16-byte loads in
 // flight (4-deep unroll) and splits k over enough blocks to cover all SMs
 // (the TPU grid of one program per 1024 columns would give 4-22 blocks at
-// Llama-2-7B widths). At prefill (m > 4) it is bound by f32 FMA issue: each
-// k tile is decoded once into shared memory and reused by 64 rows.
+// Llama-2-7B widths). For 4 < m <= 64 (a batcher's decode step, a short
+// prefill) it is still bound by the bytes, and the product runs on the
+// tensor cores (int4_rank1_tc_kernel below). Above that (prefill) it is
+// bound by f32 FMA issue: each k tile is decoded once into shared memory and
+// reused by 64 rows. The caller picks the path (ops/quant_kernels.py).
 // Split-k partial sums go to a scratch buffer and a second pass adds them in
 // a fixed order (no float atomics), so results are the same on every run.
 
 #include "int4_tiled.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -129,7 +133,127 @@ __global__ void __launch_bounds__(kGvThreads) int4_gemv_kernel(
   }
 }
 
-// ---------------------------------------------------------------- m > 4
+// ---------------------------------------------------------------- 4 < m <= 64
+// mma.sync m16n8k16 (bf16 in, f32 sums), after int4_tiled_bf16.cu (K10). The
+// A operand is 16 output columns by 16 k of codes: 16 neighbouring lanes of
+// one nibble plane (a code in [-8, 7] is exact in bf16). The B operand is 16 k
+// by 8 rows of x*u, formed in f32 as the reference forms it and split into
+// three bf16 parts whose sum is x*u exactly (8 + 8 + 8 bits of its 24): three
+// mma a plane into one f32 sum, so every product is the reference's f32
+// product. One bf16 part puts an error of 2^-9 of each term into the sum (over
+// the f32 gate on a third of the outputs at the 7B shapes); two leave 2^-17,
+// enough at phase 3's scales of u but over the gate on a few outputs where
+// x*u is of order 1 and the gate's atol is as tight as f32 sums allow.
+// Each thread loads the 8 words its A fragments need for one 16-row k step
+// (2 lanes x rows 2t, 2t+1, 2t+8, 2t+9) once and feeds 8 planes x 3 mma: a warp
+// covers 128 columns and 16 rows a step, m = 8 fills B's 8 columns where the
+// 64-row FMA tile wastes 56 of its rows. The 4 warps of a block interleave
+// over the steps of one k split and their sums are added in warp order in
+// shared memory. Rows >= k of a step that runs past k (k % 16 != 0) get
+// x*u = 0 (the reference zero-pads x and u there; their words are in the array
+// and hold any bits); x and u are never read past column k.
+// grid: (gn * 8 units of 16 lanes, splits, m chunks of 8 rows); tk % 16 == 0
+// and rows_per_split % (16 * kTcWarps) == 0, so a step lies in one k tile.
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcUnitLanes = 16;                   // lanes of one A tile
+constexpr int kTcUnits = kLanes / kTcUnitLanes;    // A tiles across a plane
+constexpr int kTcStep = 16;                        // k rows of one mma
+constexpr int kTcRows = 8;                         // rows of x in one B tile
+
+// the f32 pair (a, b) as three bf16 pairs that add up to it exactly: each part
+// is the nearest bf16 of what the parts before it left, a remainder that is
+// exact in f32 and holds 8 fewer significant bits (the last part holds the rest)
+__device__ __forceinline__ void split3_bf16x2(float a, float b, uint32_t parts[3]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    parts[s] = *reinterpret_cast<const uint32_t*>(&h);
+    a -= hf.x;
+    b -= hf.y;
+  }
+  parts[2] = pack_bf16x2(a, b);
+}
+
+template <typename TX>
+__global__ void __launch_bounds__(kTcThreads) int4_rank1_tc_kernel(
+    const TX* __restrict__ x, int m, int k, const float* __restrict__ u,
+    const int32_t* __restrict__ w, int gk, int gn, int tk, int rows_per_split,
+    float* __restrict__ part, int n_pad) {
+  __shared__ float red[kTcWarps][8][kTcUnitLanes][kTcRows];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int gni = blockIdx.x / kTcUnits;
+  const int lane0 = (blockIdx.x % kTcUnits) * kTcUnitLanes;
+  const int split = blockIdx.y;
+  const int m0 = blockIdx.z * kTcRows;
+  const int k0 = split * rows_per_split;
+  const int k1 = min(k0 + rows_per_split, k);
+  const bool xrow_ok = m0 + g < m;
+  const TX* xrow = x + static_cast<size_t>(xrow_ok ? m0 + g : 0) * k;
+
+  float acc[8][4];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[p][j] = 0.f;
+
+  // k rows of this thread's fragments within a step: 2t, 2t+1, 2t+8, 2t+9
+  const int rofs[4] = {2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9};
+  for (int ks = k0 + warp * kTcStep; ks < k1; ks += kTcWarps * kTcStep) {
+    uint32_t words[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        words[h][r] = static_cast<uint32_t>(
+            __ldg(word_ptr(w, ks + rofs[r], gni, gk, gn, tk) + lane0 + g + 8 * h));
+    // B column g: x*u of row m0 + g at k rows ks + rofs[r]
+    float xu[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kr = ks + rofs[r];
+      const int kc = min(kr, k - 1);
+      const float val = to_f32(xrow[kc]) * __ldg(u + kc);
+      xu[r] = xrow_ok && kr < k ? val : 0.f;
+    }
+    uint32_t b[2][3];  // (k 2t, 2t+1), (k 2t+8, 2t+9): three bf16 parts each
+    split3_bf16x2(xu[0], xu[1], b[0]);
+    split3_bf16x2(xu[2], xu[3], b[1]);
+    float q[2][4][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) nibbles8(words[h][r], q[h][r]);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const uint32_t a[4] = {pack_bf16x2(q[0][0][p], q[0][1][p]),   // column g, k 2t, 2t+1
+                             pack_bf16x2(q[1][0][p], q[1][1][p]),   // column g+8
+                             pack_bf16x2(q[0][2][p], q[0][3][p]),   // column g, k 2t+8, 2t+9
+                             pack_bf16x2(q[1][2][p], q[1][3][p])};  // column g+8
+#pragma unroll
+      for (int s = 0; s < 3; ++s) mma_bf16(acc[p], a, b[0][s], b[1][s]);
+    }
+  }
+
+  // acc[p][j]: column lane0 + g + 8 (j >> 1) of plane p, x row m0 + 2t + (j & 1)
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp][p][g + 8 * (j >> 1)][2 * t + (j & 1)] = acc[p][j];
+  __syncthreads();
+  const int p = threadIdx.x / kTcUnitLanes, l = threadIdx.x % kTcUnitLanes;
+  const int col = gni * kTileN + p * kLanes + lane0 + l;
+  for (int i = 0; i < kTcRows && m0 + i < m; ++i) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kTcWarps; ++wi) sum += red[wi][p][l][i];
+    part[(static_cast<size_t>(split) * m + m0 + i) * n_pad + col] = sum;
+  }
+}
+
+// ---------------------------------------------------------------- m > 64
 // Block tile: 64 rows x 128 columns (16 lanes x 8 planes) x 32 k per step.
 // Thread (ty, tx) owns rows ty*4..ty*4+3 and the 8 planes of lane tx.
 constexpr int kGmThreads = 256;
@@ -231,10 +355,16 @@ __global__ void int4_splitk_reduce_kernel(const float* __restrict__ part, int sp
 template <typename T>
 cudaError_t launch(const void* x, int m, int k, const float* u, const int32_t* w, int gk,
                    int gn, int tk, const float* v, int n, void* y, float* part, int splits,
-                   int rows_per_split, cudaStream_t stream) {
+                   int rows_per_split, int tc, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const int n_pad = gn * kTileN;
-  if (m <= 4) {
+  if (tc) {
+    if (m <= 4 || tk % kTcStep || rows_per_split % (kTcStep * kTcWarps))
+      return cudaErrorInvalidValue;
+    const dim3 grid(gn * kTcUnits, splits, (m + kTcRows - 1) / kTcRows);
+    int4_rank1_tc_kernel<T><<<grid, kTcThreads, 0, stream>>>(xt, m, k, u, w, gk, gn, tk,
+                                                             rows_per_split, part, n_pad);
+  } else if (m <= 4) {
     const dim3 grid(gn * kGvStrips, splits);
     auto kernel = m == 1 ? int4_gemv_kernel<1, T> : m == 2 ? int4_gemv_kernel<2, T>
                                                            : int4_gemv_kernel<4, T>;
@@ -261,17 +391,19 @@ extern "C" {
 
 // x: (m, k) row-major, f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); u: (k,) f32;
 // w: one layer's (gk, gn, tk, 128) int32 words; v: (n,) f32;
-// y: (m, n) in x's dtype; part: (splits, m, gn*1024) f32 scratch.
+// y: (m, n) in x's dtype; part: (splits, m, gn*1024) f32 scratch; tc = 1
+// takes the tensor-core kernel (4 < m, tk % 16 == 0, rows_per_split % 64 ==
+// 0), tc = 0 the gemv kernel for m <= 4 and the FMA tile kernel above.
 // Returns the cudaError_t of the launches.
 int fm_int4_rank1_matmul(const void* x, int x_bf16, int m, int k, const float* u,
                          const int32_t* w, int gk, int gn, int tk, const float* v, int n,
-                         void* y, float* part, int splits, int rows_per_split,
+                         void* y, float* part, int splits, int rows_per_split, int tc,
                          cudaStream_t stream) {
   if (x_bf16)
     return static_cast<int>(launch<__nv_bfloat16>(x, m, k, u, w, gk, gn, tk, v, n, y, part,
-                                                  splits, rows_per_split, stream));
-  return static_cast<int>(
-      launch<float>(x, m, k, u, w, gk, gn, tk, v, n, y, part, splits, rows_per_split, stream));
+                                                  splits, rows_per_split, tc, stream));
+  return static_cast<int>(launch<float>(x, m, k, u, w, gk, gn, tk, v, n, y, part, splits,
+                                        rows_per_split, tc, stream));
 }
 
 const char* fm_error_string(int err) {

@@ -113,8 +113,8 @@ KERNELS = {
         "int4_rank1_matmul", "int4_rank1_matmul.cu",
         "fastmax_tpu/ops/quant_pallas.py:428",  # and its per-layer twin at :344
         "fm_int4_rank1_matmul",
-        # x, x_bf16, m, k, u, w, gk, gn, tk, v, n, y, part, splits, rows_per_split, stream
-        [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P]),
+        # x, x_bf16, m, k, u, w, gk, gn, tk, v, n, y, part, splits, rows_per_split, tc, stream
+        [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P]),
     "int8_decode_attention": Kernel(
         "int8_decode_attention", "int8_decode_attention.cu",
         "fastmax_tpu/ops/decode_attention.py:212",  # and its per-layer twin at :97

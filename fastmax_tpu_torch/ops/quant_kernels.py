@@ -28,8 +28,10 @@ from ..kernels.build import KERNELS, use_kernel
 from .quant import DEFAULT_BLOCK, INT4_TILE_N, _absmax_of, _unpack_int4_tiled, dequantize
 
 _INT4_MAX_M = 128   # per-layer entry: larger m goes to dequantize + matmul
-GEMV_MAX_M = 4      # the kernel streams weights for m <= 4 and tiles 64 rows above
+GEMV_MAX_M = 4      # K1 streams weights for m <= 4,
+TC_MAX_M = 64       # runs the tensor cores up to 64 rows, and tiles 64 rows above
 _GEMV_K_STEP = 128  # k rows per unrolled gemv step (32 row threads x 4)
+_TC_K_STEP = 64     # 16-row mma steps x 4 warps
 _GEMM_K_STEP = 32
 # B7's tiles: the route sends a q4 linear to the kernel when k and n are
 # multiples of them (K8 itself takes k % 64 == 0 and n % 8 == 0)
@@ -58,11 +60,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(m: int, k: int, gn: int, sm_count: int):
-    """Split k so that about four blocks per SM are launched; returns
-    (splits, rows_per_split)."""
+def rank1_path(m: int, tk: int) -> str:
+    """K1's kernel for m rows of x over k tiles of tk rows: "gemv" (m <= 4),
+    "tc" (the tensor cores, 4 < m <= TC_MAX_M, tk % 16 == 0) or "fma" (the
+    64-row f32 tile)."""
     if m <= GEMV_MAX_M:
+        return "gemv"
+    if m <= TC_MAX_M and tk % 16 == 0:
+        return "tc"
+    return "fma"
+
+
+def _splits(m: int, k: int, gn: int, sm_count: int, path: str | None = None):
+    """Split k so that about four blocks per SM are launched; returns
+    (splits, rows_per_split). ``path`` is K1's (``rank1_path``); K9 has the
+    gemv and FMA tile paths of K1, taken by m."""
+    path = path or ("gemv" if m <= GEMV_MAX_M else "fma")
+    if path == "gemv":
         blocks, step = gn * 4, _GEMV_K_STEP
+    elif path == "tc":
+        blocks, step = gn * 8 * math.ceil(m / 8), _TC_K_STEP
     else:
         blocks, step = gn * 8 * math.ceil(m / 64), _GEMM_K_STEP
     want = max(1, min(math.ceil(4 * sm_count / blocks), math.ceil(k / step)))
@@ -87,7 +104,8 @@ def _launch(x2: torch.Tensor, pw: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     if x2.dtype not in (torch.float32, torch.bfloat16):
         x2 = x2.float()
     x2 = x2.contiguous()
-    splits, rows = _splits(m, k, gn, _sm_count(x2.device.index or 0))
+    path = rank1_path(m, tk)
+    splits, rows = _splits(m, k, gn, _sm_count(x2.device.index or 0), path)
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     part = torch.empty((splits, m, gn * INT4_TILE_N), dtype=torch.float32, device=x2.device)
 
@@ -96,7 +114,7 @@ def _launch(x2: torch.Tensor, pw: torch.Tensor, u: torch.Tensor, v: torch.Tensor
 
     KERNELS["int4_rank1_matmul"].launch(
         x2.data_ptr(), int(x2.dtype == torch.bfloat16), m, k, at(u), at(pw), gk, gn, tk,
-        at(v), n, y.data_ptr(), part.data_ptr(), splits, rows)
+        at(v), n, y.data_ptr(), part.data_ptr(), splits, rows, int(path == "tc"))
     return y.to(out_dtype)
 
 
