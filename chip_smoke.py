@@ -136,10 +136,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): device memory rate, f32 rate outside the
-# tensor cores, dense bf16 tensor-core rate
+# tensor cores, dense bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
+TF32_TC_FLOPS_PER_S = 494.7e12
 
 # tolerances, stated before the run
 INT4_ATOL, INT4_RTOL = 2e-4, 2e-3          # f32 x: the reference's own (test_quant_pallas.py)
@@ -481,7 +482,8 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_ke
                  ("K2 int8_decode_attention", ("int8_decode_attention_kernel",)),
                  ("K3 flash_attention", ("flash_attention_kernel", "flash_attention_tc_kernel")),
                  ("K4 fastmax_fwd", ("fastmax_fwd_kernel", "fastmax_fwd_finish")),
-                 ("K5 fastmax_bwd", ("fastmax_bwd_kernel", "fastmax_bwd_finish")),
+                 ("K5 fastmax_bwd", ("fastmax_bwd_kernel", "fastmax_bwd_tc_kernel",
+                                     "fastmax_bwd_finish")),
                  ("K6 flash_train_fwd", ("flash_train_fwd_kernel",
                                          "flash_train_fwd_tc_kernel")),
                  ("K7 flash_train_bwd", ("flash_train_bwd_kernel",
@@ -1114,6 +1116,13 @@ def fastmax_work(bh, n, d, p, chunk, elem, backward: bool) -> tuple:
     return nbytes, ops
 
 
+def tensor_core_f32_ms(flops: int, nbytes: int) -> float:
+    """Least time of float32 work on the tensor cores at three TF32 products a
+    multiply (the rate of K5's split: six bf16 products at twice the TF32 rate
+    cost the same), against the bytes."""
+    return max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_TC_FLOPS_PER_S) * 1e3
+
+
 def fastmax_close(torch, what, got, ref, kind, dt):
     """max|got - ref| and that over max|ref|; raises past the tolerance."""
     got, ref = got.float(), ref.float()
@@ -1278,7 +1287,9 @@ def check_fastmax(torch, gen, results):
     results["fastmax_checks"] = {"cases": checks, "degree2_terms": pair, "ragged_n200": ragged,
                                  "repeat_bitwise": True}
 
-    # device time at the training shape, inputs cold: four input sets (67 MB f32)
+    # device time at the training shape, inputs cold: four input sets (67 MB f32).
+    # K5 at p = 2 on both of its kernels, the path passed explicitly, and the two
+    # held against each other and the plain walk on the first set
     rows = []
     n_sets = 4
     for p, dt in ((2, f32), (2, bf16), (1, f32)):
@@ -1294,30 +1305,46 @@ def check_fastmax(torch, gen, results):
                 return fk.fastmax_fwd_plain(q, k, v, p, z, 128)
             return fk._fwd_launch(q, k, v, p, z, 128, train=train)
 
-        def bwd(plain=False):
+        def bwd(plain=False, path=None):
             i = next(it) % n_sets
             q, k, v, do = sets[i]
             o, g, st = fwd_out[i]
-            walk = fk.fastmax_bwd_plain if plain else fk._bwd_launch
-            return walk(q, k, v, do, o, g, st, p, z, 128)
+            if plain:
+                return fk.fastmax_bwd_plain(q, k, v, do, o, g, st, p, z, 128)
+            return fk._bwd_launch(q, k, v, do, o, g, st, p, z, 128, path=path)
 
         k4 = graph_ms(fwd, calls=2 * n_sets)
         k4_only = graph_ms(lambda: fwd(train=False), calls=2 * n_sets)
         plain_f = graph_ms(lambda: fwd(plain=True), calls=n_sets, reps=1)
         k5 = graph_ms(bwd, calls=2 * n_sets)
         plain_b = graph_ms(lambda: bwd(plain=True), calls=n_sets, reps=1)
+        path = fk.bwd_path(p, 64, 128)
+        k5_fma = graph_ms(lambda: bwd(path="fma"), calls=2 * n_sets) if path == "tc" else k5
+        if path == "tc":  # both kernels against the plain walk on the first set
+            q, k, v, do = sets[0]
+            ref = fk.fastmax_bwd_plain(q, k, v, do, *fwd_out[0], p, z, 128)
+            for kernel in ("tc", "fma"):
+                got = fk._bwd_launch(q, k, v, do, *fwd_out[0], p, z, 128, path=kernel)
+                for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                    fastmax_close(torch, f"K5 ({kernel}) {name} timing set", a, b, "grad", dt)
         elem = 2 if dt == bf16 else 4
         b_f = bound(*fastmax_work(32, 512, 64, p, 128, elem, False), bf16=dt == bf16)
         b_b = bound(*fastmax_work(32, 512, 64, p, 128, elem, True), bf16=dt == bf16)
+        b_b["bound_tc_f32_ms"] = tensor_core_f32_ms(b_b["flops"], b_b["bytes"])
         rows.append({"p": p, "dtype": str(dt)[6:], "k4_ms": k4, "k4_forward_only_ms": k4_only,
-                     "plain_fwd_ms": plain_f, "k5_ms": k5, "plain_bwd_ms": plain_b,
-                     "fwd_bound": b_f, "bwd_bound": b_b})
+                     "plain_fwd_ms": plain_f, "k5_ms": k5, "k5_path": path, "k5_fma_ms": k5_fma,
+                     "plain_bwd_ms": plain_b, "fwd_bound": b_f, "bwd_bound": b_b})
         log(f"  fastmax B=4 H=8 N=512 D=64 p={p} {str(dt)[6:]:8s}: K4 {k4 * 1e3:8.1f} us "
             f"(forward only {k4_only * 1e3:8.1f})  plain {plain_f * 1e3:8.1f} us  bound "
             f"{b_f['bound_ms'] * 1e3:6.1f} us ({b_f['bound_by']}; {b_f['bound_f32_ms'] * 1e3:6.1f} "
-            f"at the f32 rate);  K5 {k5 * 1e3:8.1f} us  plain {plain_b * 1e3:8.1f} us  bound "
-            f"{b_b['bound_ms'] * 1e3:6.1f} us ({b_b['bound_by']}; "
-            f"{b_b['bound_f32_ms'] * 1e3:6.1f} at the f32 rate)")
+            f"at the f32 rate);  K5 ({path}) {k5 * 1e3:8.1f} us, FMA kernel {k5_fma * 1e3:8.1f} "
+            f"us  plain {plain_b * 1e3:8.1f} us  bound {b_b['bound_ms'] * 1e3:6.1f} us "
+            f"({b_b['bound_by']})   [{card_line()}]")
+        log(f"    K5 bounds: {b_b['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate (share: "
+            f"{path} {b_b['bound_f32_ms'] / k5:.3f}, FMA {b_b['bound_f32_ms'] / k5_fma:.3f}); "
+            f"{b_b['bound_tc_f32_ms'] * 1e3:6.1f} us at three TF32 products a multiply on the "
+            f"tensor cores (share: {path} {b_b['bound_tc_f32_ms'] / k5:.3f}, FMA "
+            f"{b_b['bound_tc_f32_ms'] / k5_fma:.3f})")
         del sets, fwd_out
     results["fastmax_times"] = rows
     return own_err, rows
@@ -1475,6 +1502,11 @@ def training_path(torch, results, card):
             prof["busy_share"] = prof["device_us"] / 1e3 / wall_ms
         log(f"  one step: {wall_ms:.2f} ms on the host clock, device busy share "
             f"{prof.get('busy_share', 'not measured')}   [{card}]")
+        if prof["device_us"]:
+            prof["k5_share"] = prof["by_group_us"]["K5 fastmax_bwd"] / prof["device_us"]
+            prof["k4_share"] = prof["by_group_us"]["K4 fastmax_fwd"] / prof["device_us"]
+            log(f"  one step: K5 {prof['k5_share']:.3f} and K4 {prof['k4_share']:.3f} of "
+                f"{prof['device_us'] / 1e3:.3f} ms of device time   [{card}]")
         run["profile_step"] = prof
         del state, leaves, optimizer
         out["fastmax"] = run
@@ -2861,6 +2893,13 @@ def main() -> int:
                         "launches": counts_train[kern.name], "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
                         "bound_by": bnd["bound_by"], "library_ms": None})
+    # K5 at p = 2 by kernel and type, with both bounds
+    kernels[-1]["by_path"] = [
+        {"path": path, "dtype": r["dtype"], "ms": r[key], "bound_ms": r["bwd_bound"]["bound_ms"],
+         "bound_f32_ms": r["bwd_bound"]["bound_f32_ms"],
+         "bound_tc_f32_ms": r["bwd_bound"]["bound_tc_f32_ms"]}
+        for r in fm_rows if r["p"] == 2
+        for path, key in ((r["k5_path"], "k5_ms"), ("fma", "k5_fma_ms"))]
     ft = next(r for r in ft_rows if r["dtype"] == "bfloat16")
     for kern, ms, plain_ms, bnd, lib in (
             (build.KERNELS["flash_train_fwd"], ft["k6_ms"], ft["plain_fwd_ms"], ft["fwd_bound"],

@@ -21,25 +21,46 @@
 // Taking step 3 before step 2 would give gradients that are right for one chunk and
 // wrong for more.
 //
-// State placement: s_kv, s_k, s_kk and their cotangents (69 KB at D = 64) live in
-// shared memory; S3 and dS3 (532 KB each a head at D = 64) stay in device memory,
-// 34 MB for the 32 heads of the training shape, inside the 50 MB L2.
+// Two kernels, chosen by the caller (ops/fastmax_kernels.py bwd_path):
 //
-// Parallelism: the pair terms (five products of 2 P D flops a row: the rewind,
-// dq2, dk2, dv and the dS3 update; 90 % of the work at D = 64) are split over
-// `nsplit` CTAs a head by ranges of pairs. Each CTA rewinds and updates its own
-// rows of S3 and dS3, so the CTAs never wait on each other; split 0 also does the
-// intra-chunk VJP and every D x D term. Each CTA sums its part of dq, dk and dv in
-// its own f32 buffer (one CTA a buffer row, so no atomics and a fixed order), and
-// fastmax_bwd_finish adds the splits' buffers and writes dq, dk, dv in the input's
-// type.
+// fastmax_bwd_tc_kernel, p = 2 at D % 16 == 0 and chunks of at most 128 rows: every
+// product on the tensor cores (csrc/fastmax_tc.cuh): float32 operands split into three
+// bfloat16 parts (six products, as exact as float32), the pair operands of bfloat16
+// inputs (bfloat16 values already) one exact product each. Of the `nsplit` CTAs a head,
+// CTA 0 does the intra-chunk VJP and every D x D term (split float32 products, for both
+// input types); the others split the pairs in whole 64-pair tiles and do the five pair
+// products (the rewind, dq2, dv, dk2, the dS3 update; 90 % of the work at D = 64) and the
+// two pair folds. A pair CTA holds the chunk's q and k (f32, for the pair features and the
+// folds) and v and rnd(df) (as bfloat16 planes) in shared memory and walks its tiles twice
+// a chunk: an S3 tile is read, rewound, written back and folded into dq in one visit; a
+// dS3 tile is read, used for dv and the dk fold with its incoming value, then updated and
+// written. So each slice of S3 and of dS3 is read and written once a chunk (four
+// streams, where the FMA kernel took seven a 64-row tile): at the training shape (BH 32,
+// N 512, D 64, chunk 128) 4 chunks x 2 x 2 x 532 KB x 32 heads = 272 MB of L2 traffic a
+// call. The tiles come through a two-stage cp.async ring and are split into planes once a
+// visit; the row and tile operands then load with ldmatrix, and the pair features
+// x_m x_j w, rounded as the reference rounds them, are formed on the fly into the
+// fragments. A fold, out[r, m_p] += rnd(t x_j) and out[r, j_p] += rnd(t x_m), runs on the
+// tensor cores too: the product tile's C fragments times x are the A fragments, and the
+// 0/1 expansions of the pair codes the B fragments.
 //
-// Bound: operations, about 2.5 times the forward's, all f32 FMAs from shared memory
-// in this first version.
+// fastmax_bwd_kernel, everything else: f32 FMAs from shared memory. S3 and dS3 stay in
+// device memory (34 MB for the 32 heads of the training shape, inside the 50 MB L2);
+// `nsplit` CTAs a head split the pair terms by ranges of pairs, each rewinding and
+// updating its own rows, and split 0 also does the intra-chunk VJP and every D x D term.
+//
+// Both: each CTA sums its part of dq, dk and dv in its own f32 buffer (one CTA a buffer
+// row, so no atomics and a fixed order), and fastmax_bwd_finish adds the splits'
+// buffers and writes dq, dk, dv in the input's type. Bound: operations.
 
 #include <algorithm>
 
 #include "fastmax_common.cuh"
+#include "fastmax_tc.cuh"
+
+// the tensor-core kernel's dynamic shared memory; its tiles are fixed offsets into it, so
+// every access to them compiles to a shared-memory instruction
+extern __shared__ __align__(16) float fm_tc_smem[];
 
 namespace {
 
@@ -425,6 +446,649 @@ __global__ void __launch_bounds__(kThreads, 1) fastmax_bwd_kernel(
   }
 }
 
+// ------------------------------------------------------------ the tensor-core path
+
+namespace tcp {
+
+using fmtc::kLDA;
+using fmtc::kLDF;
+
+constexpr int kR = 64;                         // rows of a tile
+constexpr int kMaxC = 128;                     // chunk rows a pair CTA holds
+constexpr int kPT = 64;                        // pairs a tile
+constexpr int kTablePairs = 2112;              // 2080 pairs at D = 64, to whole tiles
+constexpr uint16_t kNoPair = 64 | (64 << 8);   // a pair of the zero pad column
+constexpr int kTileA = kR * kLDA;
+
+// CTA 0: q, k, v, df, f(s), ds, s_kv, s_kk, d_skv, d_skk (kR x kLDA) and s_k, d_sv, d_sk,
+// dgr; a pair CTA: the S3/dS3 ring (2 x kPT x kLDA f32), the bfloat16 planes of v and df
+// (3 x kMaxC x 64) and of the step's tile (3 x kPT x 64), q and k (kMaxC x kLDF f32) and the
+// pair table
+constexpr size_t kDenseBytes = sizeof(float) * (10 * kTileA + 4 * kR);
+constexpr size_t kPairBytes = sizeof(float) * (2 * kPT * kLDA + 2 * kMaxC * kLDF) +
+                              sizeof(__nv_bfloat16) * 3 * (2 * kMaxC * 64 + kPT * 64) +
+                              sizeof(uint16_t) * kTablePairs;
+size_t smem_bytes() { return std::max(kDenseBytes, kPairBytes); }
+
+// a warp's part of a 64 x 64 output: rows 16 (w % 4), columns 32 (w / 4), four n8 tiles
+__device__ __forceinline__ int quad_row0() { return 16 * ((threadIdx.x >> 5) & 3); }
+__device__ __forceinline__ int quad_col0() { return 32 * (threadIdx.x >> 7); }
+// the (row, column) of acc[nt][e] for a warp at (row0, col0)
+__device__ __forceinline__ int acc_row(int row0, int e) {
+  return row0 + fmtc::lane_g() + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int col0, int nt, int e) {
+  return col0 + 8 * nt + 2 * fmtc::lane_t() + (e & 1);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// rows [0, rows) of a (., d) row-major matrix -> a tile of row stride LD, zero at c >= d;
+// rows <= kMaxC, and every load is issued before the first store
+template <int LD, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int rows, int d) {
+  constexpr int kQuads = (LD + 3) / 4;
+  constexpr int kSteps = (kMaxC * kQuads + fmtc::kThreads - 1) / fmtc::kThreads;
+  float4 x[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int idx = threadIdx.x + s * fmtc::kThreads, r = idx / kQuads, c = (idx % kQuads) * 4;
+    x[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows && c < d) x[s] = load4(src + static_cast<size_t>(r) * d + c);
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int idx = threadIdx.x + s * fmtc::kThreads, r = idx / kQuads, c = (idx % kQuads) * 4;
+    if (r >= rows) break;
+    float* out = dst + r * LD + c;
+    out[0] = x[s].x;
+    if (c + 1 < LD) out[1] = x[s].y;
+    if (c + 2 < LD) out[2] = x[s].z;
+    if (c + 3 < LD) out[3] = x[s].w;
+  }
+}
+
+// df = do / g and dgr = -rowsum(do o) / g for `rows` rows from row i0; four threads a row
+template <typename T>
+__device__ __forceinline__ void load_df(float* df, float* dgr, const T* dout, const T* o,
+                                        const float* g, size_t base, int i0, int rows, int d,
+                                        int n, int bh) {
+  const int quarter = threadIdx.x & 3;
+  for (int r = threadIdx.x >> 2; r < rows; r += fmtc::kThreads / 4) {
+    const float gv = g[static_cast<size_t>(bh) * n + i0 + r];
+    float part = 0.f;
+#pragma unroll
+    for (int c = 16 * quarter; c < 16 * quarter + 16; c += 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < d) {
+        const size_t at = base + static_cast<size_t>(i0 + r) * d + c;
+        x = load4(dout + at);
+        const float4 y = load4(o + at);
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+        part = fmaf(x.z, y.z, part);
+        part = fmaf(x.w, y.w, part);
+      }
+      float* out = df + r * kLDA + c;
+      out[0] = x.x / gv;
+      out[1] = x.y / gv;
+      out[2] = x.z / gv;
+      out[3] = x.w / gv;
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (quarter == 0) dgr[r] = -part / gv;
+  }
+}
+
+// operand views of a tile of row stride LD: at(t)(r, c) = t[r][c], tr(t)(r, c) = t[c][r]
+template <int LD> __device__ __forceinline__ auto at(const float* t) {
+  return [t](int r, int c) { return t[r * LD + c]; };
+}
+template <int LD> __device__ __forceinline__ auto tr(const float* t) {
+  return [t](int r, int c) { return t[c * LD + r]; };
+}
+
+// acc += A B for a 64 x 64 output, float32 by split operands
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma64(float (&acc)[4][4], FA A, FB B, int kdim) {
+  fmtc::mma_f32<4>(acc, quad_row0(), quad_col0(), A, B, kdim);
+}
+
+// CTA 0: the intra-chunk VJP and every D x D term, float32 products by split operands
+template <typename T>
+__device__ __forceinline__ void dense_cta(const T* q, const T* k, const T* v, const T* dout,
+                                          const T* o, const float* g, const float* skv_in,
+                                          const float* sk_in, const float* skk_in, float* dq_acc,
+                                          float* dk_acc, float* dv_acc, int n, int d, int chunk,
+                                          float z, float* smem) {
+  float* qs = smem;
+  float* ks = qs + kTileA;
+  float* vs = ks + kTileA;
+  float* df = vs + kTileA;
+  float* u1 = df + kTileA;  // f(s)
+  float* u2 = u1 + kTileA;  // ds
+  float* skv = u2 + kTileA;
+  float* skk = skv + kTileA;
+  float* dskv = skk + kTileA;
+  float* dskk = dskv + kTileA;
+  float* s_k = dskk + kTileA;
+  float* d_sv = s_k + kR;
+  float* d_sk = d_sv + kR;
+  float* dgr = d_sk + kR;
+
+  const int tid = threadIdx.x, bh = blockIdx.x;
+  const int row0 = quad_row0(), col0 = quad_col0();
+  const size_t base = static_cast<size_t>(bh) * n * d;
+  const size_t dd = static_cast<size_t>(d) * d;
+  const float z2 = 2.f * z * z;
+
+  for (int idx = tid; idx < kTileA; idx += fmtc::kThreads) {
+    const int m = idx / kLDA, c = idx % kLDA;
+    const bool in = m < d && c < d;
+    skv[idx] = in ? skv_in[bh * dd + m * d + c] : 0.f;
+    skk[idx] = in ? skk_in[bh * dd + m * d + c] : 0.f;
+    dskv[idx] = dskk[idx] = 0.f;
+  }
+  for (int c = tid; c < kR; c += fmtc::kThreads) {
+    s_k[c] = c < d ? sk_in[static_cast<size_t>(bh) * d + c] : 0.f;
+    d_sv[c] = d_sk[c] = 0.f;
+  }
+  __syncthreads();
+
+  for (int c0 = n - chunk; c0 >= 0; c0 -= chunk) {
+    // ---- 1. rewind the D x D state to the chunk's entry value
+    for (int j0 = c0; j0 < c0 + chunk; j0 += kR) {
+      __syncthreads();
+      load_rows<kLDA>(ks, k + base + static_cast<size_t>(j0) * d, kR, d);
+      load_rows<kLDA>(vs, v + base + static_cast<size_t>(j0) * d, kR, d);
+      __syncthreads();
+      if (tid < d) {
+        float sk = 0.f;
+        for (int r = 0; r < kR; ++r) sk += ks[r * kLDA + tid];
+        s_k[tid] -= sk;
+      }
+      float akv[4][4], akk[4][4];
+      fmtc::zero_acc(akv);
+      fmtc::zero_acc(akk);
+      mma64(akv, tr<kLDA>(ks), at<kLDA>(vs), kR);
+      mma64(akk, tr<kLDA>(ks), at<kLDA>(ks), kR);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = acc_row(row0, e) * kLDA + acc_col(col0, nt, e);
+          skv[i] -= akv[nt][e];
+          skk[i] -= akk[nt][e];
+        }
+    }
+
+    // ---- 2. gradients of the chunk's rows, 64 at a time
+    for (int i0 = c0; i0 < c0 + chunk; i0 += kR) {
+      __syncthreads();
+      load_rows<kLDA>(qs, q + base + static_cast<size_t>(i0) * d, kR, d);
+      load_df<T>(df, dgr, dout, o, g, base, i0, kR, d, n, bh);
+      float gq[4][4];
+      fmtc::zero_acc(gq);
+      for (int j0 = c0; j0 <= i0; j0 += kR) {
+        __syncthreads();
+        load_rows<kLDA>(ks, k + base + static_cast<size_t>(j0) * d, kR, d);
+        load_rows<kLDA>(vs, v + base + static_cast<size_t>(j0) * d, kR, d);
+        __syncthreads();
+        float s[4][4], dp[4][4];
+        fmtc::zero_acc(s);
+        fmtc::zero_acc(dp);
+        mma64(s, at<kLDA>(qs), tr<kLDA>(ks), d);
+        mma64(dp, at<kLDA>(df), tr<kLDA>(vs), d);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = acc_row(row0, e), u = acc_col(col0, nt, e);
+            const float x = s[nt][e] / z;
+            float wf = 1.f + x + 0.5f * x * x, wp = 1.f + x;
+            if (j0 + u > i0 + r) wf = wp = 0.f;  // causal
+            u1[r * kLDA + u] = wf;
+            u2[r * kLDA + u] = (dp[nt][e] + dgr[r]) * wp;
+          }
+        __syncthreads();
+        // dq += ds k / z for the query tile; dk += ds^T q / z, dv += f(s)^T df for the keys
+        float tq[4][4], tk[4][4], tv[4][4];
+        fmtc::zero_acc(tq);
+        fmtc::zero_acc(tk);
+        fmtc::zero_acc(tv);
+        mma64(tq, at<kLDA>(u2), at<kLDA>(ks), kR);
+        mma64(tk, tr<kLDA>(u2), at<kLDA>(qs), kR);
+        mma64(tv, tr<kLDA>(u1), at<kLDA>(df), kR);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = acc_row(row0, e), c = acc_col(col0, nt, e);
+            gq[nt][e] += tq[nt][e] / z;
+            if (c < d) {
+              const size_t row = base + static_cast<size_t>(j0 + r) * d + c;
+              dk_acc[row] += tk[nt][e] / z;
+              dv_acc[row] += tv[nt][e];
+            }
+          }
+      }
+      // the q-side terms against the rewound state
+      float t1[4][4], t2[4][4];
+      fmtc::zero_acc(t1);
+      fmtc::zero_acc(t2);
+      mma64(t1, at<kLDA>(df), tr<kLDA>(skv), d);
+      mma64(t2, at<kLDA>(qs), at<kLDA>(skk), d);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = acc_row(row0, e), c = acc_col(col0, nt, e);
+          const float dg = dgr[r];
+          float x = gq[nt][e] + t1[nt][e] / z;
+          x += dg * s_k[c] / z;
+          x += dg * t2[nt][e] / (z * z);
+          if (c < d) dq_acc[base + static_cast<size_t>(i0 + r) * d + c] = x;
+        }
+      // the update-path terms for these rows as keys (ks, vs hold them: j0 ended at i0),
+      // with the incoming cotangents
+      float gk[4][4], gv[4][4];
+      fmtc::zero_acc(gk);
+      fmtc::zero_acc(gv);
+      mma64(gk, at<kLDA>(vs), tr<kLDA>(dskv), d);                 // v d_skv^T
+      mma64(gk, at<kLDA>(ks), [dskk](int c, int m) {              // k (d_skk + d_skk^T)
+        return dskk[c * kLDA + m] + dskk[m * kLDA + c];
+      }, d);
+      mma64(gv, at<kLDA>(ks), at<kLDA>(dskv), d);                 // k d_skv
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = acc_row(row0, e), c = acc_col(col0, nt, e);
+          if (c < d) {
+            const size_t row = base + static_cast<size_t>(i0 + r) * d + c;
+            dk_acc[row] += gk[nt][e] + d_sk[c];
+            dv_acc[row] += gv[nt][e] + d_sv[c];
+          }
+        }
+    }
+
+    // ---- 3. the D x D cotangents take the chunk
+    for (int i0 = c0; i0 < c0 + chunk; i0 += kR) {
+      __syncthreads();
+      load_rows<kLDA>(qs, q + base + static_cast<size_t>(i0) * d, kR, d);
+      load_df<T>(df, dgr, dout, o, g, base, i0, kR, d, n, bh);
+      __syncthreads();
+      if (tid < d) {
+        float sv = 0.f, sk = 0.f;
+        for (int r = 0; r < kR; ++r) {
+          sv += df[r * kLDA + tid];
+          sk = fmaf(dgr[r], qs[r * kLDA + tid], sk);
+        }
+        d_sv[tid] += sv;
+        d_sk[tid] += sk / z;
+      }
+      float akv[4][4], akk[4][4];
+      fmtc::zero_acc(akv);
+      fmtc::zero_acc(akk);
+      mma64(akv, tr<kLDA>(qs), at<kLDA>(df), kR);
+      mma64(akk, tr<kLDA>(qs), [qs, dgr](int r, int c) { return dgr[r] * qs[r * kLDA + c]; }, kR);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = acc_row(row0, e) * kLDA + acc_col(col0, nt, e);
+          dskv[i] += akv[nt][e] / z;
+          dskk[i] += akk[nt][e] / z2;
+        }
+    }
+  }
+}
+
+// A pair CTA's shared state: the S3/dS3 ring (f32, cp.async's target), the planes of v,
+// of rnd(df) and of the step's tile (fmtc::Planes: the parts of float32 values, or the
+// bfloat16 values; swizzled rows of 64), q and k in f32 (for the pair features and the
+// folds) and the pair table (p -> m | j << 8, kNoPair past the pairs). Warp w takes rows
+// 16 w .. 16 w + 15 of the chunk in the products whose rows are the chunk's (dq2, dk2, dv
+// and the folds), and a 16 x 32 part of the tile in those whose rows are pairs (the
+// rewind, the dS3 update).
+struct PairSmem {
+  static constexpr int kRowPlane = kMaxC * 64, kTilePlane = kPT * 64;  // elements a plane
+  static constexpr int kQ = 2 * kPT * kLDA, kK = kQ + kMaxC * kLDF, kPlanes = kK + kMaxC * kLDF;
+  static __device__ __forceinline__ float* ring(int i) { return fm_tc_smem + i * kPT * kLDA; }
+  static __device__ __forceinline__ float* qs() { return fm_tc_smem + kQ; }
+  static __device__ __forceinline__ float* ks() { return fm_tc_smem + kK; }
+  static __device__ __forceinline__ __nv_bfloat16* vpl() {
+    return reinterpret_cast<__nv_bfloat16*>(fm_tc_smem + kPlanes);
+  }
+  static __device__ __forceinline__ __nv_bfloat16* dfpl() { return vpl() + 3 * kRowPlane; }
+  static __device__ __forceinline__ __nv_bfloat16* spl() { return dfpl() + 3 * kRowPlane; }
+  static __device__ __forceinline__ uint16_t* pmj() {
+    return reinterpret_cast<uint16_t*>(spl() + 3 * kTilePlane);
+  }
+};
+static_assert(sizeof(float) * PairSmem::kPlanes +
+                      sizeof(__nv_bfloat16) * 3 * (2 * PairSmem::kRowPlane + PairSmem::kTilePlane) +
+                      sizeof(uint16_t) * kTablePairs == kPairBytes,
+              "the pair CTA's layout");
+
+// A fragments of a plane tile stored [m][k], rows row0 ..
+template <typename T>
+__device__ __forceinline__ auto from_planes(const __nv_bfloat16* pl, int elems, int row0) {
+  return [pl, elems, row0](int k0, uint32_t (&a)[fmtc::Planes<T>::kCount][4]) {
+#pragma unroll
+    for (int i = 0; i < fmtc::Planes<T>::kCount; ++i) fmtc::ldsm_a(a[i], pl + i * elems, row0, k0);
+  };
+}
+// A fragments of values A(r, k), rows row0 ..
+template <typename T, typename FA>
+__device__ __forceinline__ auto from_values(FA A, int row0) {
+  return [A, row0](int k0, uint32_t (&a)[fmtc::Planes<T>::kCount][4]) {
+    fmtc::frag_values<T>(a, A, row0 + fmtc::lane_g(), k0 + 2 * fmtc::lane_t());
+  };
+}
+
+// the f32 tile sb (kPT x kLDA) -> the tile planes; ends synchronised
+template <typename T>
+__device__ __forceinline__ void tile_planes(const float* sb) {
+  for (int idx = threadIdx.x; idx < kPT * 32; idx += fmtc::kThreads) {
+    const int r = idx / 32, c = (idx % 32) * 2;
+    fmtc::put_planes<T>(PairSmem::spl(), PairSmem::kTilePlane, r, c, sb[r * kLDA + c],
+                        sb[r * kLDA + c + 1]);
+  }
+  __syncthreads();
+}
+
+// The pair-basis fold-back of a warp's tile t (its 16 rows x the tile's 64 pairs):
+// out[r, m_p] += rnd(t x[r, j_p]), out[r, j_p] += rnd(t x[r, m_p]) (both land on m for a
+// diagonal pair), the reference's (dq2 qb) E^T + (dq2 qa) F^T, on the tensor cores: t's
+// C fragments, times x, are the A fragments of U = rnd(t x_j) and W = rnd(t x_m), and the
+// 0/1 expansions E_m[p, c] = (m_p == c), E_j[p, c] = (j_p == c) are formed from the pair
+// codes as B fragments. Each 16-pair step multiplies every 8-column tile, without
+// branches, so the tiles' independent products overlap. x holds the warp's rows (row
+// stride kLDF); pmj the tile's codes.
+template <typename T>
+__device__ __forceinline__ void fold(float (&out)[8][4], const float (&t)[8][4], const float* x,
+                                     const uint16_t* pmj) {
+  const int g = fmtc::lane_g(), tq = fmtc::lane_t();
+  const float* x0 = x + g * kLDF;
+  const float* x1 = x0 + 8 * kLDF;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (pmj[16 * kk] == kNoPair) break;  // past the pairs (the same for every lane)
+    // the lane's pairs of this 16-pair step: A's columns 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9
+    int m[4], j[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int code = pmj[16 * kk + 2 * tq + (i & 1) + 8 * (i >> 1)];
+      m[i] = code & 255;
+      j[i] = code >> 8;
+    }
+    float u[8], w[8];  // A fragment order: (g, a) (g, a+1) (g+8, a) (g+8, a+1), then +8 columns
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 2 * h + (e & 1);
+        const float* xr = (e >> 1) ? x1 : x0;
+        const float tv = t[2 * kk + h][e];
+        u[4 * h + e] = rnd<T>(tv * xr[j[i]]);
+        w[4 * h + e] = rnd<T>(tv * xr[m[i]]);
+      }
+    const auto uf = fmtc::FoldMma<T>::prep(u), wf = fmtc::FoldMma<T>::prep(w);
+#pragma unroll
+    for (int nc = 0; nc < 8; ++nc) {
+      const int c = 8 * nc + g;
+      const uint32_t em0 = (m[0] == c ? fmtc::kOne : 0u) | (m[1] == c ? fmtc::kOne << 16 : 0u);
+      const uint32_t em1 = (m[2] == c ? fmtc::kOne : 0u) | (m[3] == c ? fmtc::kOne << 16 : 0u);
+      const uint32_t ej0 = (j[0] == c ? fmtc::kOne : 0u) | (j[1] == c ? fmtc::kOne << 16 : 0u);
+      const uint32_t ej1 = (j[2] == c ? fmtc::kOne : 0u) | (j[3] == c ? fmtc::kOne << 16 : 0u);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      fmtc::FoldMma<T>::expand(part, uf, em0, em1);
+      fmtc::FoldMma<T>::expand(part, wf, ej0, ej1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[nc][e] += part[e];
+    }
+  }
+}
+
+// An S3 tile: rewind it by the chunk's rows (S3 -= K2^T v), write it back, then fold
+// dq2 = (rnd(df) rnd(S3)^T) w against the rewound tile into the warp's dq sums.
+template <typename T>
+__device__ __forceinline__ void s3_tile(float* sb, float* s3, float (&oq)[8][4], int p0, int np,
+                                        int d, int chunk) {
+  const uint16_t* pmj = PairSmem::pmj() + p0;
+  const float* ks = PairSmem::ks();
+  const int row0 = quad_row0(), col0 = quad_col0();
+  const int pa = row0 + fmtc::lane_g(), code0 = pmj[pa], code1 = pmj[pa + 8];
+  auto k2t = [ks, pa, code0, code1](int pp, int r) {  // K2^T[pp, r] = rnd(k_m k_j)
+    const int code = pp == pa ? code0 : code1;
+    return rnd<T>(ks[r * kLDF + (code & 255)] * ks[r * kLDF + (code >> 8)]);
+  };
+  float acc[4][4];
+  fmtc::zero_acc(acc);
+  fmtc::mma_planes<T, 4, true>(acc, from_values<T>(k2t, row0), PairSmem::vpl(),
+                               PairSmem::kRowPlane, col0, chunk);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pp = acc_row(row0, e), c = acc_col(col0, nt, e), i = pp * kLDA + c;
+      if (pp < np && c < d) {
+        const float rewound = sb[i] - acc[nt][e];
+        sb[i] = rewound;
+        s3[static_cast<size_t>(p0 + pp) * d + c] = rewound;
+      }
+    }
+  __syncthreads();
+  tile_planes<T>(sb);
+  const int r0 = 16 * (threadIdx.x >> 5);
+  if (r0 >= chunk) return;
+  float t[8][4];
+  fmtc::zero_acc(t);
+  fmtc::mma_planes<T, 8, false>(t, from_planes<T>(PairSmem::dfpl(), PairSmem::kRowPlane, r0),
+                                PairSmem::spl(), PairSmem::kTilePlane, 0, d);
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int code = pmj[acc_col(0, nt, e)];
+      if ((code & 255) != (code >> 8)) t[nt][e] *= 2.f;  // w
+    }
+  fold<T>(oq, t, PairSmem::qs() + r0 * kLDF, pmj);
+}
+
+// dv += K2 rnd(dS3) and the fold of dk2 = rnd(v) rnd(dS3)^T into the warp's dk sums, with
+// the tile's incoming value (its planes are made here from the f32 tile)
+template <typename T>
+__device__ __forceinline__ void ds3_reads(const float* sb, float (&ok)[8][4], float (&gv)[8][4],
+                                          int p0, int d, int chunk) {
+  tile_planes<T>(sb);
+  const uint16_t* pmj = PairSmem::pmj() + p0;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  if (r0 >= chunk) return;
+  const float* ks = PairSmem::ks();
+  auto k2 = [ks, pmj](int r, int pp) {  // K2[r, pp] = rnd(k_m k_j)
+    const int code = pmj[pp];
+    return rnd<T>(ks[r * kLDF + (code & 255)] * ks[r * kLDF + (code >> 8)]);
+  };
+  fmtc::mma_planes<T, 8, true>(gv, from_values<T>(k2, r0), PairSmem::spl(),
+                               PairSmem::kTilePlane, 0, kPT);
+  float t[8][4];
+  fmtc::zero_acc(t);
+  fmtc::mma_planes<T, 8, false>(t, from_planes<T>(PairSmem::vpl(), PairSmem::kRowPlane, r0),
+                                PairSmem::spl(), PairSmem::kTilePlane, 0, d);
+  fold<T>(ok, t, PairSmem::ks() + r0 * kLDF, pmj);
+}
+
+// the chunk's own update of a dS3 tile, dS3 += (Q2 w)^T rnd(df) / (2 z^2), written to the
+// f32 tile and to device memory. Ends synchronised.
+template <typename T>
+__device__ __forceinline__ void ds3_update(float* sb, float* ds3, int p0, int np, int d,
+                                           int chunk, float inv_z2) {
+  const uint16_t* pmj = PairSmem::pmj() + p0;
+  const float* qs = PairSmem::qs();
+  const int row0 = quad_row0(), col0 = quad_col0();
+  const int pa = row0 + fmtc::lane_g(), code0 = pmj[pa], code1 = pmj[pa + 8];
+  auto q2t = [qs, pa, code0, code1](int pp, int r) {  // (Q2 w)^T[pp, r] = rnd(w q_m q_j)
+    const int code = pp == pa ? code0 : code1, m = code & 255, j = code >> 8;
+    float a = qs[r * kLDF + m] * qs[r * kLDF + j];
+    if (m != j) a *= 2.f;
+    return rnd<T>(a);
+  };
+  float acc[4][4];
+  fmtc::zero_acc(acc);
+  fmtc::mma_planes<T, 4, true>(acc, from_values<T>(q2t, row0), PairSmem::dfpl(),
+                               PairSmem::kRowPlane, col0, chunk);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pp = acc_row(row0, e), c = acc_col(col0, nt, e), i = pp * kLDA + c;
+      if (pp < np && c < d) {
+        const float updated = sb[i] + inv_z2 * acc[nt][e];
+        sb[i] = updated;
+        ds3[static_cast<size_t>(p0 + pp) * d + c] = updated;
+      }
+    }
+  __syncthreads();
+}
+
+// A pair CTA: the five pair products of the pairs [lo, hi), whole 64-pair tiles
+template <typename T>
+__device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, const T* dout,
+                                         const T* o, const float* g, float* s3, float* ds3,
+                                         float* dq_acc, float* dk_acc, float* dv_acc, int n,
+                                         int d, int chunk, float z, int lo, int hi) {
+  uint16_t* pmj = PairSmem::pmj();
+  const int tid = threadIdx.x, bh = blockIdx.x;
+  const size_t base = static_cast<size_t>(bh) * n * d;
+  const int ntile = (hi - lo + kPT - 1) / kPT, steps = 2 * ntile;
+  const float inv_z2 = 1.f / (2.f * z * z);
+  const int r0 = 16 * (tid >> 5);  // the warp's rows of the chunk
+
+  for (int p = tid; p < kTablePairs; p += fmtc::kThreads) pmj[p] = kNoPair;
+  __syncthreads();
+  for (int idx = tid; idx < d * d; idx += fmtc::kThreads) {
+    const int m = idx / d, j = idx % d;
+    if (j >= m) pmj[m * d - m * (m - 1) / 2 + (j - m)] = static_cast<uint16_t>(m | (j << 8));
+  }
+  for (int idx = tid; idx < 2 * kPT * kLDA; idx += fmtc::kThreads) fm_tc_smem[idx] = 0.f;
+
+  // stage step `step` of a chunk (its S3 tiles, then its dS3 tiles) into ring[step & 1]
+  auto issue = [=](int step) {
+    const float* src = step < ntile ? s3 : ds3;
+    const int p0 = lo + (step % ntile) * kPT;
+    float* dst = PairSmem::ring(step & 1);
+    const int quads = d / 4;
+    for (int idx = tid; idx < kPT * quads; idx += fmtc::kThreads) {
+      const int pp = idx / quads, c = (idx % quads) * 4, p = p0 + pp;
+      const bool ok = p < hi;
+      fmtc::cp_async16(dst + pp * kLDA + c, src + static_cast<size_t>(ok ? p : lo) * d + c, ok);
+    }
+    fmtc::cp_async_commit();
+  };
+  // the warp's 16 rows x 64 columns of an f32 sum, scaled, into a part buffer
+  auto flush = [=](const float (&acc)[8][4], float* dst, int c0, float scale) {
+    if (r0 >= chunk) return;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = acc_row(r0, e), c = acc_col(0, nt, e);
+        if (c < d) dst[base + static_cast<size_t>(c0 + r) * d + c] = acc[nt][e] * scale;
+      }
+  };
+
+  for (int c0 = n - chunk; c0 >= 0; c0 -= chunk) {
+    __syncthreads();
+    issue(0);
+    load_rows<kLDF>(PairSmem::qs(), q + base + static_cast<size_t>(c0) * d, chunk, d);
+    load_rows<kLDF>(PairSmem::ks(), k + base + static_cast<size_t>(c0) * d, chunk, d);
+    // the planes of v and of rnd(df) = rnd(do / g), zero at c >= d
+    for (int idx = tid; idx < chunk * 16; idx += fmtc::kThreads) {
+      const int r = idx / 16, c = (idx % 16) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+      if (c < d) {
+        const size_t at = base + static_cast<size_t>(c0 + r) * d + c;
+        const float gv = g[static_cast<size_t>(bh) * n + c0 + r];
+        x = load4(v + at);
+        y = load4(dout + at);
+        y = make_float4(y.x / gv, y.y / gv, y.z / gv, y.w / gv);
+      }
+      fmtc::put_planes<T>(PairSmem::vpl(), PairSmem::kRowPlane, r, c, x.x, x.y);
+      fmtc::put_planes<T>(PairSmem::vpl(), PairSmem::kRowPlane, r, c + 2, x.z, x.w);
+      fmtc::put_planes<T>(PairSmem::dfpl(), PairSmem::kRowPlane, r, c, y.x, y.y);
+      fmtc::put_planes<T>(PairSmem::dfpl(), PairSmem::kRowPlane, r, c + 2, y.z, y.w);
+    }
+    float sums[8][4], gv[8][4];  // dq (then dk) and dv of the warp's rows
+    fmtc::zero_acc(sums);
+    fmtc::zero_acc(gv);
+    for (int step = 0; step < steps; ++step) {
+      __syncthreads();  // the ring slot about to be filled is free
+      if (step + 1 < steps) {
+        issue(step + 1);
+        fmtc::cp_async_wait<1>();
+      } else {
+        fmtc::cp_async_wait<0>();
+      }
+      __syncthreads();  // this step's tile is in
+      float* sb = PairSmem::ring(step & 1);
+      const int p0 = lo + (step % ntile) * kPT, np = min(kPT, hi - p0);
+      if (step < ntile) {
+        s3_tile<T>(sb, s3, sums, p0, np, d, chunk);
+        if (step == ntile - 1) {
+          flush(sums, dq_acc, c0, inv_z2);
+          fmtc::zero_acc(sums);
+        }
+      } else {
+        ds3_reads<T>(sb, sums, gv, p0, d, chunk);
+        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);
+      }
+    }
+    flush(sums, dk_acc, c0, 1.f);
+    flush(gv, dv_acc, c0, 1.f);
+  }
+}
+
+// CTA 0 of a head: the intra-chunk VJP and the D x D terms; CTAs 1 .. nsplit - 1: the pair
+// terms, the pairs split between them in whole 64-pair tiles
+template <typename T>
+__global__ void __launch_bounds__(fmtc::kThreads, 1) fastmax_bwd_tc_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const T* __restrict__ o, const float* __restrict__ g,
+    const float* __restrict__ skv_in, const float* __restrict__ sk_in,
+    const float* __restrict__ skk_in, float* __restrict__ s3_all, float* __restrict__ ds3_all,
+    float* __restrict__ part, int n, int d, int chunk, float z, int s3_rows) {
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const size_t total = static_cast<size_t>(gridDim.x) * n * d;
+  float* dq_acc = part + static_cast<size_t>(split) * 3 * total;
+  float* dk_acc = dq_acc + total;
+  float* dv_acc = dk_acc + total;
+  if (split == 0) {
+    dense_cta<T>(q, k, v, dout, o, g, skv_in, sk_in, skk_in, dq_acc, dk_acc, dv_acc, n, d, chunk,
+                 z, fm_tc_smem);
+    return;
+  }
+  const int npairs = d * (d + 1) / 2, tiles = (npairs + kPT - 1) / kPT, ctas = gridDim.y - 1;
+  const int lo = min((split - 1) * tiles / ctas * kPT, npairs);
+  const int hi = min(split * tiles / ctas * kPT, npairs);
+  if (lo >= hi) return;
+  const size_t head = static_cast<size_t>(bh) * s3_rows * d;
+  pair_cta<T>(q, k, v, dout, o, g, s3_all + head, ds3_all + head, dq_acc, dk_acc, dv_acc, n, d,
+              chunk, z, lo, hi);
+}
+
+}  // namespace tcp
+
 // dq, dk, dv = the sums of the splits' f32 buffers, in the input's type
 template <typename T>
 __global__ void fastmax_bwd_finish(const float* __restrict__ part, T* __restrict__ dq,
@@ -450,15 +1114,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    const void* o, const float* g, const float* skv, const float* sk,
                    const float* skk, float* s3, float* ds3, float* part, void* dq, void* dk,
                    void* dv, int bh, int n, int d, int chunk, int p2, float z, int s3_rows,
-                   int nsplit, cudaStream_t stream) {
-  static bool smem_set = false;  // set once, before any CUDA-graph capture of a launch
-  auto kernel = fastmax_bwd_kernel<T>;
-  cudaError_t err = set_smem(kernel, smem_bytes(), smem_set);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, nsplit), kThreads, smem_bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const T*>(o), g, skv, sk, skk, s3, ds3, part, n,
-      d, chunk, p2, z, s3_rows);
+                   int nsplit, int tc, cudaStream_t stream) {
+  // set once, before any CUDA-graph capture of a launch
+  static bool smem_set = false, tc_smem_set = false;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dt = static_cast<const T*>(dout);
+  const T* ot = static_cast<const T*>(o);
+  cudaError_t err;
+  if (tc) {
+    auto kernel = tcp::fastmax_bwd_tc_kernel<T>;
+    err = set_smem(kernel, tcp::smem_bytes(), tc_smem_set);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(bh, nsplit), fmtc::kThreads, tcp::smem_bytes(), stream>>>(
+        qt, kt, vt, dt, ot, g, skv, sk, skk, s3, ds3, part, n, d, chunk, z, s3_rows);
+  } else {
+    auto kernel = fastmax_bwd_kernel<T>;
+    err = set_smem(kernel, smem_bytes(), smem_set);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(bh, nsplit), kThreads, smem_bytes(), stream>>>(
+        qt, kt, vt, dt, ot, g, skv, sk, skk, s3, ds3, part, n, d, chunk, p2, z, s3_rows);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(bh) * n * d;
@@ -477,20 +1154,24 @@ extern "C" {
 // f32; skv, skk (BH, D, D), sk (BH, D): the forward's final state. s3 (BH, s3_rows, D):
 // the forward's S3, rewound in place; ds3 the same shape, zeroed. nsplit CTAs a head
 // (1 unless p2); part: (nsplit, 3, BH, N, D) f32, zeroed. dq, dk, dv: (BH, N, D), the
-// gradients in the input's type.
+// gradients in the input's type. tc = 1 runs fastmax_bwd_tc_kernel, which takes p2,
+// D % 16 == 0, chunks of at most 128 rows and nsplit >= 2 (CTA 0 and a pair CTA);
+// tc = 0 the FMA kernel.
 int fm_fastmax_bwd(const void* q, const void* k, const void* v, const void* dout,
                    const void* o, int bf16, const float* g, const float* skv, const float* sk,
                    const float* skk, float* s3, float* ds3, float* part, void* dq, void* dk,
                    void* dv, int bh, int n, int d, int chunk, int p2, float z, int s3_rows,
-                   int nsplit, cudaStream_t stream) {
+                   int nsplit, int tc, cudaStream_t stream) {
   if (d < 1 || d > fm::kMaxD || chunk % fm::kR || chunk < fm::kR || n % chunk || nsplit < 1 ||
       (nsplit > 1 && !p2))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tc && (!p2 || d % 16 || chunk > tcp::kMaxC || nsplit < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16>(q, k, v, dout, o, g, skv, sk, skk, s3, ds3, part, dq, dk,
-                                   dv, bh, n, d, chunk, p2, z, s3_rows, nsplit, stream)
+                                   dv, bh, n, d, chunk, p2, z, s3_rows, nsplit, tc, stream)
            : launch<float>(q, k, v, dout, o, g, skv, sk, skk, s3, ds3, part, dq, dk, dv, bh, n,
-                           d, chunk, p2, z, s3_rows, nsplit, stream);
+                           d, chunk, p2, z, s3_rows, nsplit, tc, stream);
   return static_cast<int>(err);
 }
 

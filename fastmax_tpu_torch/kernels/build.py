@@ -139,8 +139,8 @@ KERNELS = {
         "fastmax_tpu/ops/fastmax_pallas.py:568",
         "fm_fastmax_bwd",
         # q, k, v, dout, o, bf16, g, skv, sk, skk, s3, ds3, part, dq, dk, dv, bh, n, d, chunk,
-        # p2, z, s3_rows, nsplit, stream
-        [_P] * 5 + [_I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
+        # p2, z, s3_rows, nsplit, tc, stream
+        [_P] * 5 + [_I] + [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]),
     "flash_train_fwd": Kernel(
         "flash_train_fwd", "flash_train_fwd.cu",
         "fastmax_tpu/ops/flash_attention.py:561",  # and flash_attention_trainable's at :230

@@ -2,7 +2,8 @@
 ``fastmax_tpu/ops/fastmax_pallas.py``).
 
 A CUDA tensor goes to the hand-written kernels ``csrc/fastmax_fwd.cu`` (K4) and
-``csrc/fastmax_bwd.cu`` (K5); a CPU tensor, or ``plain=True``, goes to
+``csrc/fastmax_bwd.cu`` (K5; ``bwd_path`` picks its tensor-core or FMA kernel);
+a CPU tensor, or ``plain=True``, goes to
 ``fastmax_fwd_plain`` and ``fastmax_bwd_plain``, which walk the same chunks
 with the same state:
 
@@ -40,6 +41,7 @@ DEFAULT_CHUNK = 128
 MAX_D = 64          # the head sizes the kernels take (the reference's d <= 64 gate)
 KERNEL_ROWS = 64    # the kernels' row tile: a chunk is a multiple of it
 PAIR_TILE = 64      # the kernels' pairs per tile: a split takes whole tiles
+TC_MAX_CHUNK = 128  # K5's tensor-core kernel holds a chunk's rows in shared memory
 
 
 def sym_width(d: int) -> int:
@@ -228,6 +230,25 @@ def _nsplit(p: int, d: int, bh: int, device) -> int:
     return max(1, min(4, sms // bh))
 
 
+def bwd_path(p: int, d: int, chunk: int) -> str:
+    """K5's kernel: "tc" (``fastmax_bwd_tc_kernel``, every product on the
+    tensor cores) for p = 2 at D % 16 == 0 and chunks of at most
+    TC_MAX_CHUNK rows, "fma" (``fastmax_bwd_kernel``, f32 FMAs) otherwise."""
+    return "tc" if p == 2 and d % 16 == 0 and chunk <= TC_MAX_CHUNK else "fma"
+
+
+def _bwd_nsplit(path: str, p: int, d: int, bh: int, device) -> int:
+    """CTAs a head for K5. The tensor-core kernel gives CTA 0 the intra-chunk
+    VJP and the D x D terms and splits the pairs over up to three more, in
+    whole tiles, while the heads alone leave SMs idle; the FMA kernel as
+    ``_nsplit``."""
+    if path != "tc":
+        return _nsplit(p, d, bh, device)
+    tiles = -(-(d * (d + 1) // 2) // PAIR_TILE)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 1 + max(1, min(3, tiles, sms // bh - 1))
+
+
 def _fwd_launch(q, k, v, p: int, z: float, chunk: int, train: bool):
     _check(q, k, v, p, chunk)
     bh, n, d = q.shape
@@ -255,7 +276,11 @@ def _fwd_launch(q, k, v, p: int, z: float, chunk: int, train: bool):
     return o, g, (s_kv, s_k, s3, s_kk)
 
 
-def _bwd_launch(q, k, v, do, o, g, state, p: int, z: float, chunk: int):
+def _bwd_launch(q, k, v, do, o, g, state, p: int, z: float, chunk: int,
+                path: str | None = None):
+    """K5. ``path`` ("tc" or "fma") overrides ``bwd_path``'s choice, to time
+    both kernels on the same inputs; the C entry refuses a tc call the kernel
+    does not take."""
     _check(q, k, v, p, chunk)
     bh, n, d = q.shape
     s_kv, s_k, s_kkv, s_kk = state
@@ -271,7 +296,8 @@ def _bwd_launch(q, k, v, do, o, g, state, p: int, z: float, chunk: int):
                              f"takes {dtype} {shape} on {q.device}")
     q, k, v, do, o, g = (x.contiguous() for x in (q, k, v, do, o, g))
     s_kv, s_k, s_kk = s_kv.contiguous(), s_k.contiguous(), s_kk.contiguous()
-    nsplit = _nsplit(p, d, bh, q.device)
+    path = path or bwd_path(p, d, chunk)
+    nsplit = _bwd_nsplit(path, p, d, bh, q.device)
     s3 = s_kkv.clone() if p == 2 else None           # rewound in place by the kernel
     ds3 = torch.zeros_like(s_kkv) if p == 2 else None
     part = torch.zeros((nsplit, 3, bh, n, d), device=q.device)
@@ -280,7 +306,8 @@ def _bwd_launch(q, k, v, do, o, g, state, p: int, z: float, chunk: int):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
         int(q.dtype == torch.bfloat16), g.data_ptr(), s_kv.data_ptr(), s_k.data_ptr(),
         _ptr(s_kk) if p == 2 else None, _ptr(s3), _ptr(ds3), part.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, n, d, chunk, int(p == 2), float(z), rows, nsplit)
+        dk.data_ptr(), dv.data_ptr(), bh, n, d, chunk, int(p == 2), float(z), rows, nsplit,
+        int(path == "tc"))
     return dq, dk, dv
 
 

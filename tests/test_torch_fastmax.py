@@ -165,6 +165,122 @@ def test_where_this_slice_stops():
                        64.0, 128)
 
 
+@pytest.mark.parametrize("p,d,chunk,path", [(2, 64, 128, "tc"), (2, 48, 64, "tc"),
+                                             (2, 32, 128, "tc"), (2, 16, 128, "tc"),
+                                             (2, 40, 128, "fma"), (2, 64, 256, "fma"),
+                                             (1, 64, 128, "fma")])
+def test_bwd_path_takes_the_tensor_cores_where_the_kernel_can(p, d, chunk, path):
+    """K5's tensor-core kernel takes p = 2 at D % 16 == 0 and chunks of at most
+    128 rows (it holds a chunk's rows in shared memory); the rest stays on the
+    FMA kernel."""
+    assert fk.bwd_path(p, d, chunk) == path
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits) as cvt.rna does."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16_parts(x):
+    """float32 x = hi + mid + lo exactly, each a bfloat16 value (K5's split)."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return hi, mid, (x - hi - mid).to(torch.bfloat16).float()
+
+
+def _split_mm(a, b):
+    """A float32 product as K5's tensor-core kernel takes it: both operands in
+    three bfloat16 parts, the six products down to 2^-16 of the whole."""
+    ah, am, al = _bf16_parts(a)
+    bh, bm, bl = _bf16_parts(b)
+    return (al @ bh + ah @ bl + am @ bm) + (am @ bh + ah @ bm + ah @ bh)
+
+
+def _walk_pair_products(q, k, v, do, o, g, state, z, chunk, mm):
+    """A copy of fastmax_bwd_plain at p = 2 in float32, with its five pair
+    products (the S3 rewind, dq2, dk2, dv, the dS3 update) taken by mm."""
+    bh, n, d = q.shape
+    z2 = 2.0 * z * z
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    s_kv, s_k, s_kkv, s_kk = (x.float().clone() for x in state)
+    d_sv = torch.zeros((bh, 1, d))
+    d_skv = torch.zeros((bh, d, d))
+    d_sk = torch.zeros((bh, 1, d))
+    pm, pj, w = fk._pairs(d, "cpu")
+    s3 = s_kkv[:, :pm.numel()].clone()
+    d_s3 = torch.zeros_like(s3)
+    d_skk = torch.zeros((bh, d, d))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    for c0 in range(n - chunk, -1, -chunk):
+        sl = slice(c0, c0 + chunk)
+        qi, ki, vi, doi, oi, gi = q[:, sl], k[:, sl], v[:, sl], do[:, sl], o[:, sl], g[:, sl]
+        s_kv = s_kv - ki.transpose(1, 2) @ vi
+        s_k = s_k - ki.sum(1, keepdim=True)
+        s_kk = s_kk - ki.transpose(1, 2) @ ki
+        df = doi / gi
+        dgr = -(doi * oi).sum(-1, keepdim=True) / gi
+        s = qi @ ki.transpose(1, 2) / z
+        fs = 1.0 + s + 0.5 * s * s
+        fsp = torch.ones_like(s) + s
+        zero = torch.zeros_like(s)
+        fs, fsp = torch.where(causal, fs, zero), torch.where(causal, fsp, zero)
+        ds = (df @ vi.transpose(1, 2) + dgr) * fsp
+        gq = ds @ ki / z
+        gk = ds.transpose(1, 2) @ qi / z
+        gv = fs.transpose(1, 2) @ df
+        gq = gq + df @ s_kv.transpose(1, 2) / z
+        gq = gq + dgr * s_k / z
+        gq = gq + dgr * (qi @ s_kk) / (z * z)
+        gv = gv + d_sv
+        gk = gk + vi @ d_skv.transpose(1, 2)
+        gv = gv + ki @ d_skv
+        gk = gk + d_sk
+        gk = gk + ki @ d_skk + ki @ d_skk.transpose(1, 2)
+        k2 = ki[..., pm] * ki[..., pj]
+        s3 = s3 - mm(k2.transpose(1, 2), vi)
+        qa, qb = qi[..., pm], qi[..., pj]
+        dq2 = mm(df, s3.transpose(1, 2)) * w
+        gq = gq + (fk._fold(dq2 * qb, pm, d) + fk._fold(dq2 * qa, pj, d)) / z2
+        dk2 = mm(vi, d_s3.transpose(1, 2))
+        gk = gk + (fk._fold(dk2 * ki[..., pj], pm, d) + fk._fold(dk2 * ki[..., pm], pj, d))
+        gv = gv + mm(k2, d_s3)
+        d_s3 = d_s3 + mm((qa * qb * w).transpose(1, 2), df) / z2
+        d_sv = d_sv + df.sum(1, keepdim=True)
+        d_skv = d_skv + qi.transpose(1, 2) @ df / z
+        d_sk = d_sk + (dgr * qi).sum(1, keepdim=True) / z
+        d_skk = d_skk + qi.transpose(1, 2) @ (dgr * qi) / z2
+        dq[:, sl], dk[:, sl], dv[:, sl] = gq, gk, gv
+    return dq, dk, dv
+
+
+def test_split_holds_the_f32_gate():
+    """K5's float32 split on the pair products of the walk at (1, 2, 512, 64),
+    p = 2, with phase 8's law (q, k std sqrt(8): s of order 1): the parts add
+    up to each operand exactly, and the gradients lie within
+    FASTMAX_F32_REL["grad"] of the exact walk (dq 1.1e-5 of its largest value,
+    a fifth of the gate at most), where one TF32 product (what a single
+    tensor-core pass over float32 would give) puts dq at 1.2e-2, far over it."""
+    rng = np.random.default_rng(13)
+    std = chip_smoke.FASTMAX_QK_STD[2]
+    q, k, v, do = (torch.from_numpy((rng.standard_normal((2, 512, 64)) * s).astype(np.float32))
+                   for s in (std, std, 1.0, 1.0))
+    hi, mid, lo = _bf16_parts(q)
+    assert torch.equal(hi + mid + lo, q)
+    z = 8.0 * np.sqrt(64)
+    o, g, state = fk.fastmax_fwd_plain(q, k, v, 2, z, 128)
+    args = (q, k, v, do, o, g, state, z, 128)
+    exact = _walk_pair_products(*args, lambda a, b: a @ b)
+    for a, b in zip(exact, fk.fastmax_bwd_plain(q, k, v, do, o, g, state, 2, z, 128)):
+        assert torch.equal(a, b)  # the copy is the plain walk
+    gate = chip_smoke.FASTMAX_F32_REL["grad"]
+    errs = {}
+    for name, mm in (("split", _split_mm), ("tf32", lambda a, b: _tf32(a) @ _tf32(b))):
+        got = _walk_pair_products(*args, mm)
+        errs[name] = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, exact)]
+    assert max(errs["split"]) <= gate / 5, errs
+    assert errs["tf32"][0] > 10 * gate, errs
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -207,32 +323,88 @@ def test_kernels_match_plain_on_the_card(p, dtype, shape, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", [((2, 4, 512, 64), 128), ((1, 3, 256, 48), 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fma_kernel_matches_plain_on_the_card(dtype, shape, chunk):
+    """K5's FMA kernel, taken by passing the path, where bwd_path picks the
+    tensor cores: dq, dk, dv against the plain walk on the forward's state,
+    at chip_smoke.py's tolerances."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, h, n, d = shape
+    q, k, v, do = chip_smoke.fastmax_qkv(torch, gen, (b * h, n, d), 2, dtype)
+    z = 8.0 * np.sqrt(d)
+    o, g, state = fk.fastmax_fwd_plain(q, k, v, 2, z, chunk)
+    assert fk.bwd_path(2, d, chunk) == "tc"
+    got = fk._bwd_launch(q, k, v, do, o, g, state, 2, z, chunk, path="fma")
+    ref = fk.fastmax_bwd_plain(q, k, v, do, o, g, state, 2, z, chunk)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        chip_smoke.fastmax_close(torch, f"K5 (fma) {name}", a, r, "grad", dtype)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_refuses_what_it_does_not_take():
+    """The C entry refuses a tc launch outside the kernel's conditions (p = 1;
+    a chunk of 256 rows) rather than running it."""
+    _needs_card()
+    x = torch.zeros((2, 256, 64), device="cuda")
+    for p, chunk in ((1, 128), (2, 256)):
+        o, g, state = fk.fastmax_fwd_plain(x, x, x, p, 64.0, chunk)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fk._bwd_launch(x, x, x, x, o, g, state, p, 64.0, chunk, path="tc")
+
+
+@pytest.mark.cuda
 def test_kernels_repeat_bit_for_bit():
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
     chip_smoke.fastmax_repeats(torch, gen, (2, 4, 512, 64), 128)
 
 
-# faults planted in a copy of csrc/: (kernel, file, the call as written, as planted).
-# An empty pair range [lo, lo) drops a degree-2 term; alpha 0 drops the rewind.
+# faults planted in a copy of csrc/: (kernel, file, the code as written, as planted).
+# K4: an empty pair range drops its degree-2 term. K5's faults are in its tensor-core
+# kernel, which the check's shape (p = 2, D = 64, chunk 128) takes: a term dropped (a
+# fold left out, a product over no pairs, a tile left as it came), the chunk's own
+# dS3 update applied before dv and the dk fold read the tile (right for the first chunk
+# walked only), and the float32 split's correction products dropped (each product then
+# bf16(a) bf16(b), about 2^-8 of its size).
 FAULTS = {
     "K4 f2 = (Q2 w) S3": ("fastmax_fwd", "fastmax_fwd.cu",
                           "pair_out<T>(f2, qs, s3, d, lo, hi,", "pair_out<T>(f2, qs, s3, d, lo, lo,"),
     "K5 dq fold over S3": ("fastmax_bwd", "fastmax_bwd.cu",
-                           "pair_fold<T>(acc_t, qs, df, s3, d, lo, hi,",
-                           "pair_fold<T>(acc_t, qs, df, s3, d, lo, lo,"),
+                           "  fold<T>(oq, t, PairSmem::qs() + r0 * kLDF, pmj);\n", ""),
     "K5 dk fold over dS3": ("fastmax_bwd", "fastmax_bwd.cu",
-                            "pair_fold<T>(acc_t, ks, vs, ds3, d, lo, hi,",
-                            "pair_fold<T>(acc_t, ks, vs, ds3, d, lo, lo,"),
+                            "  fold<T>(ok, t, PairSmem::ks() + r0 * kLDF, pmj);\n", ""),
     "K5 dv += K2 dS3": ("fastmax_bwd", "fastmax_bwd.cu",
-                        "pair_out<T>(gv, ks, ds3, d, lo, hi,", "pair_out<T>(gv, ks, ds3, d, lo, lo,"),
+                        "PairSmem::kTilePlane, 0, kPT);", "PairSmem::kTilePlane, 0, 0);"),
     "K5 S3 rewind": ("fastmax_bwd", "fastmax_bwd.cu",
-                     "pair_update<T>(s3, ks, vs, d, lo, hi, false, -1.f,",
-                     "pair_update<T>(s3, ks, vs, d, lo, hi, false, 0.f,"),
+                     "const float rewound = sb[i] - acc[nt][e];",
+                     "const float rewound = sb[i];"),
     "K5 dS3 update": ("fastmax_bwd", "fastmax_bwd.cu",
-                      "pair_update<T>(ds3, qs, df, d, lo, hi,",
-                      "pair_update<T>(ds3, qs, df, d, lo, lo,"),
+                      "const float updated = sb[i] + inv_z2 * acc[nt][e];",
+                      "const float updated = sb[i];"),
+    "K5 dS3 updated before dv and dk read it": (
+        "fastmax_bwd", "fastmax_bwd.cu",
+        "        ds3_reads<T>(sb, sums, gv, p0, d, chunk);\n"
+        "        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);\n",
+        "        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);\n"
+        "        ds3_reads<T>(sb, sums, gv, p0, d, chunk);\n"),
+    "K5 f32 split: correction products dropped": (
+        "fastmax_bwd", "fastmax_tc.cuh",
+        "    mma16816(part, a[2], b[0][2 * h], b[0][2 * h + 1]);\n"
+        "    mma16816(part, a[0], b[2][2 * h], b[2][2 * h + 1]);\n"
+        "    mma16816(part, a[1], b[1][2 * h], b[1][2 * h + 1]);\n"
+        "    mma16816(part, a[1], b[0][2 * h], b[0][2 * h + 1]);\n"
+        "    mma16816(part, a[0], b[1][2 * h], b[1][2 * h + 1]);\n", ""),
 }
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_kernel_source_holds_the_planted_lines(fault):
+    """Each fault's code occurs once in its source, so the card test plants
+    exactly the fault it names."""
+    _, source, written, _ = FAULTS[fault]
+    assert (build.CSRC_DIR / source).read_text().count(written) == 1
 
 
 def _planted(tmp_path, fault):
@@ -243,15 +415,18 @@ def _planted(tmp_path, fault):
     assert text.count(written) == 1, f"{written!r} is not in {source} once"
     (src / source).write_text(text.replace(written, planted))
     real = build.KERNELS[name]
-    return name, build.Kernel(name, str(src / source), real.replaces, real.entry, real.argtypes)
+    return name, build.Kernel(name, str(src / real.source.name), real.replaces, real.entry,
+                              real.argtypes)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_checks_catch_a_dropped_degree2_term(fault, tmp_path, monkeypatch):
     """chip_smoke.py's kernel check fails for a kernel built with one of its
-    degree-2 terms (or K5's rewind of S3) left out; for K4's f2 and K5's dq
-    fold, so does its one-step check of the model's loss and gradients."""
+    degree-2 terms (or K5's rewind of S3) left out, with K5's dS3 update taken
+    too early, or with its float32 split cut to one product; for K4's f2 and
+    K5's dq fold, so does its one-step check of the model's loss and
+    gradients."""
     _needs_card()
     from fastmax_tpu_torch.models.config import Config
 
