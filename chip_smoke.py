@@ -1116,11 +1116,24 @@ def fastmax_work(bh, n, d, p, chunk, elem, backward: bool) -> tuple:
     return nbytes, ops
 
 
-def tensor_core_f32_ms(flops: int, nbytes: int) -> float:
+def tensor_core_f32_bound(flops: int, nbytes: int) -> dict:
     """Least time of float32 work on the tensor cores at three TF32 products a
     multiply (the rate of K5's split: six bf16 products at twice the TF32 rate
     cost the same), against the bytes."""
-    return max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_TC_FLOPS_PER_S) * 1e3
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / TF32_TC_FLOPS_PER_S * 1e3
+    return {"bound_tc_f32_ms": max(b_ms, o_ms),
+            "bound_tc_f32_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def k5_bound(row: dict, path: str) -> tuple:
+    """(ms, bound_by) of K5's bound for the kernel of ``path`` on a phase 8
+    timing row: float32 on the tensor-core kernel at three TF32 products a
+    multiply, else ``bound``'s (float32: the f32 units; bfloat16: the bf16
+    tensor cores)."""
+    b = row["bwd_bound"]
+    if path == "tc" and row["dtype"] == "float32":
+        return b["bound_tc_f32_ms"], b["bound_tc_f32_by"]
+    return b["bound_ms"], b["bound_by"]
 
 
 def fastmax_close(torch, what, got, ref, kind, dt):
@@ -1246,9 +1259,14 @@ def check_fastmax(torch, gen, results):
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
     train_shape = (4, 8, 512, 64)
-    # ((B, H, N, D), p, chunk, dtype): the training shape, p = 1, 16 chunks at D = 16
+    # ((B, H, N, D), p, chunk, dtype): the training shape, p = 1, 16 chunks at D = 16,
+    # chunks of 256 rows (fastmax()'s at N >= 2048), which K5's pair CTAs take in two
+    # parts, at N = 1024: at N = 2048 the f32 dq of both K5 kernels lies 0.9e-4 to
+    # 5.6e-4 of its largest value from the plain walk and from float64, the tc kernel
+    # no farther than the FMA kernel (the long rewind's cancellation, as at 16 chunks)
     cases = [(train_shape, 2, 128, f32), (train_shape, 2, 128, bf16), (train_shape, 1, 128, f32),
-             ((1, 2, 2048, 16), 2, 128, f32)]
+             ((1, 2, 2048, 16), 2, 128, f32), ((1, 8, 1024, 64), 2, 256, f32),
+             ((1, 8, 1024, 64), 2, 256, bf16)]
     checks = []
     for shape, p, chunk, dt in cases:
         errs, f64 = fastmax_case(torch, gen, shape, p, chunk, dt)
@@ -1287,59 +1305,63 @@ def check_fastmax(torch, gen, results):
     results["fastmax_checks"] = {"cases": checks, "degree2_terms": pair, "ragged_n200": ragged,
                                  "repeat_bitwise": True}
 
-    # device time at the training shape, inputs cold: four input sets (67 MB f32).
-    # K5 at p = 2 on both of its kernels, the path passed explicitly, and the two
-    # held against each other and the plain walk on the first set
+    # device time at the training shape, inputs cold: four input sets (67 MB f32);
+    # then p = 2 at N = 2048 in chunks of 256 (what fastmax() picks there), which
+    # K5's pair CTAs take in two parts. K5 at p = 2 on both of its kernels, the path
+    # passed explicitly, and the two held against the plain walk on the first set
     rows = []
     n_sets = 4
-    for p, dt in ((2, f32), (2, bf16), (1, f32)):
-        sets = [[(torch.randn((32, 512, 64), generator=gen, device=dev) * 0.5).to(dt)
+    for p, dt, n, chunk in ((2, f32, 512, 128), (2, bf16, 512, 128), (1, f32, 512, 128),
+                            (2, f32, 2048, 256), (2, bf16, 2048, 256)):
+        sets = [[(torch.randn((32, n, 64), generator=gen, device=dev) * 0.5).to(dt)
                  for _ in range(4)] for _ in range(n_sets)]
         z = 8.0 * math.sqrt(64)
-        fwd_out = [fk.fastmax_fwd_plain(q, k, v, p, z, 128) for q, k, v, _ in sets]
+        fwd_out = [fk.fastmax_fwd_plain(q, k, v, p, z, chunk) for q, k, v, _ in sets]
         it = iter(range(10**9))
 
         def fwd(train=True, plain=False):
             q, k, v, _ = sets[next(it) % n_sets]
             if plain:
-                return fk.fastmax_fwd_plain(q, k, v, p, z, 128)
-            return fk._fwd_launch(q, k, v, p, z, 128, train=train)
+                return fk.fastmax_fwd_plain(q, k, v, p, z, chunk)
+            return fk._fwd_launch(q, k, v, p, z, chunk, train=train)
 
         def bwd(plain=False, path=None):
             i = next(it) % n_sets
             q, k, v, do = sets[i]
             o, g, st = fwd_out[i]
             if plain:
-                return fk.fastmax_bwd_plain(q, k, v, do, o, g, st, p, z, 128)
-            return fk._bwd_launch(q, k, v, do, o, g, st, p, z, 128, path=path)
+                return fk.fastmax_bwd_plain(q, k, v, do, o, g, st, p, z, chunk)
+            return fk._bwd_launch(q, k, v, do, o, g, st, p, z, chunk, path=path)
 
         k4 = graph_ms(fwd, calls=2 * n_sets)
         k4_only = graph_ms(lambda: fwd(train=False), calls=2 * n_sets)
         plain_f = graph_ms(lambda: fwd(plain=True), calls=n_sets, reps=1)
         k5 = graph_ms(bwd, calls=2 * n_sets)
         plain_b = graph_ms(lambda: bwd(plain=True), calls=n_sets, reps=1)
-        path = fk.bwd_path(p, 64, 128)
+        path = fk.bwd_path(p, 64)
         k5_fma = graph_ms(lambda: bwd(path="fma"), calls=2 * n_sets) if path == "tc" else k5
         if path == "tc":  # both kernels against the plain walk on the first set
             q, k, v, do = sets[0]
-            ref = fk.fastmax_bwd_plain(q, k, v, do, *fwd_out[0], p, z, 128)
+            ref = fk.fastmax_bwd_plain(q, k, v, do, *fwd_out[0], p, z, chunk)
             for kernel in ("tc", "fma"):
-                got = fk._bwd_launch(q, k, v, do, *fwd_out[0], p, z, 128, path=kernel)
+                got = fk._bwd_launch(q, k, v, do, *fwd_out[0], p, z, chunk, path=kernel)
                 for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-                    fastmax_close(torch, f"K5 ({kernel}) {name} timing set", a, b, "grad", dt)
+                    fastmax_close(torch, f"K5 ({kernel}) {name} timing set N={n}", a, b,
+                                  "grad", dt)
         elem = 2 if dt == bf16 else 4
-        b_f = bound(*fastmax_work(32, 512, 64, p, 128, elem, False), bf16=dt == bf16)
-        b_b = bound(*fastmax_work(32, 512, 64, p, 128, elem, True), bf16=dt == bf16)
-        b_b["bound_tc_f32_ms"] = tensor_core_f32_ms(b_b["flops"], b_b["bytes"])
-        rows.append({"p": p, "dtype": str(dt)[6:], "k4_ms": k4, "k4_forward_only_ms": k4_only,
-                     "plain_fwd_ms": plain_f, "k5_ms": k5, "k5_path": path, "k5_fma_ms": k5_fma,
+        b_f = bound(*fastmax_work(32, n, 64, p, chunk, elem, False), bf16=dt == bf16)
+        b_b = bound(*fastmax_work(32, n, 64, p, chunk, elem, True), bf16=dt == bf16)
+        b_b.update(tensor_core_f32_bound(b_b["flops"], b_b["bytes"]))
+        rows.append({"p": p, "dtype": str(dt)[6:], "n": n, "chunk": chunk, "k4_ms": k4,
+                     "k4_forward_only_ms": k4_only, "plain_fwd_ms": plain_f, "k5_ms": k5, "k5_path": path, "k5_fma_ms": k5_fma,
                      "plain_bwd_ms": plain_b, "fwd_bound": b_f, "bwd_bound": b_b})
-        log(f"  fastmax B=4 H=8 N=512 D=64 p={p} {str(dt)[6:]:8s}: K4 {k4 * 1e3:8.1f} us "
+        log(f"  fastmax B=4 H=8 N={n} D=64 chunk {chunk} p={p} {str(dt)[6:]:8s}: K4 "
+            f"{k4 * 1e3:8.1f} us "
             f"(forward only {k4_only * 1e3:8.1f})  plain {plain_f * 1e3:8.1f} us  bound "
             f"{b_f['bound_ms'] * 1e3:6.1f} us ({b_f['bound_by']}; {b_f['bound_f32_ms'] * 1e3:6.1f} "
             f"at the f32 rate);  K5 ({path}) {k5 * 1e3:8.1f} us, FMA kernel {k5_fma * 1e3:8.1f} "
-            f"us  plain {plain_b * 1e3:8.1f} us  bound {b_b['bound_ms'] * 1e3:6.1f} us "
-            f"({b_b['bound_by']})   [{card_line()}]")
+            f"us  plain {plain_b * 1e3:8.1f} us  bound {k5_bound(rows[-1], path)[0] * 1e3:6.1f} "
+            f"us ({k5_bound(rows[-1], path)[1]})   [{card_line()}]")
         log(f"    K5 bounds: {b_b['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate (share: "
             f"{path} {b_b['bound_f32_ms'] / k5:.3f}, FMA {b_b['bound_f32_ms'] / k5_fma:.3f}); "
             f"{b_b['bound_tc_f32_ms'] * 1e3:6.1f} us at three TF32 products a multiply on the "
@@ -2883,20 +2905,22 @@ def main() -> int:
          "library_ms": sum(r["library_ms"] for r in flash_rows)},
     ]
     train_row = next(r for r in fm_rows if r["p"] == 2 and r["dtype"] == "float32")
-    for kern, ms, plain_ms, bnd in (
+    fwd_b = train_row["fwd_bound"]
+    for kern, ms, plain_ms, (bound_ms, by) in (
             (build.KERNELS["fastmax_fwd"], train_row["k4_ms"], train_row["plain_fwd_ms"],
-             train_row["fwd_bound"]),
+             (fwd_b["bound_ms"], fwd_b["bound_by"])),
             (build.KERNELS["fastmax_bwd"], train_row["k5_ms"], train_row["plain_bwd_ms"],
-             train_row["bwd_bound"])):
+             k5_bound(train_row, train_row["k5_path"]))):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
                         "launches": counts_train[kern.name], "max_abs_err": fm_err[kern.name],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-                        "bound_by": bnd["bound_by"], "library_ms": None})
-    # K5 at p = 2 by kernel and type, with both bounds
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                        "library_ms": None})
+    kernels[-1]["bound_f32_ms"] = train_row["bwd_bound"]["bound_f32_ms"]
+    # K5 at p = 2 by kernel, type and chunk, each with its kernel's bound and both f32 ones
     kernels[-1]["by_path"] = [
-        {"path": path, "dtype": r["dtype"], "ms": r[key], "bound_ms": r["bwd_bound"]["bound_ms"],
-         "bound_f32_ms": r["bwd_bound"]["bound_f32_ms"],
+        {"path": path, "dtype": r["dtype"], "n": r["n"], "chunk": r["chunk"], "ms": r[key],
+         "bound_ms": k5_bound(r, path)[0], "bound_f32_ms": r["bwd_bound"]["bound_f32_ms"],
          "bound_tc_f32_ms": r["bwd_bound"]["bound_tc_f32_ms"]}
         for r in fm_rows if r["p"] == 2
         for path, key in ((r["k5_path"], "k5_ms"), ("fma", "k5_fma_ms"))]

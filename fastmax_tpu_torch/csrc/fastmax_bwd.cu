@@ -23,10 +23,10 @@
 //
 // Two kernels, chosen by the caller (ops/fastmax_kernels.py bwd_path):
 //
-// fastmax_bwd_tc_kernel, p = 2 at D % 16 == 0 and chunks of at most 128 rows: every
-// product on the tensor cores (csrc/fastmax_tc.cuh): float32 operands split into three
-// bfloat16 parts (six products, as exact as float32), the pair operands of bfloat16
-// inputs (bfloat16 values already) one exact product each. Of the `nsplit` CTAs a head,
+// fastmax_bwd_tc_kernel, p = 2 at D % 16 == 0: every product on the tensor cores
+// (csrc/fastmax_tc.cuh): float32 operands split into three bfloat16 parts (six products,
+// as exact as float32), the pair operands of bfloat16 inputs (bfloat16 values already)
+// one exact product each. Of the `nsplit` CTAs a head,
 // CTA 0 does the intra-chunk VJP and every D x D term (split float32 products, for both
 // input types); the others split the pairs in whole 64-pair tiles and do the five pair
 // products (the rewind, dq2, dv, dk2, the dS3 update; 90 % of the work at D = 64) and the
@@ -34,8 +34,10 @@
 // folds) and v and rnd(df) (as bfloat16 planes) in shared memory and walks its tiles twice
 // a chunk: an S3 tile is read, rewound, written back and folded into dq in one visit; a
 // dS3 tile is read, used for dv and the dk fold with its incoming value, then updated and
-// written. So each slice of S3 and of dS3 is read and written once a chunk (four
-// streams, where the FMA kernel took seven a 64-row tile): at the training shape (BH 32,
+// written. A chunk of more than 128 rows is held 128 rows at a time, and each walk becomes
+// 2 s - 1 passes for s such sub-chunks (pair_cta), in the same order of terms. So at
+// chunks of up to 128 rows each slice of S3 and of dS3 is read and written once a chunk
+// (four streams, where the FMA kernel took seven a 64-row tile): at the training shape (BH 32,
 // N 512, D 64, chunk 128) 4 chunks x 2 x 2 x 532 KB x 32 heads = 272 MB of L2 traffic a
 // call. The tiles come through a two-stage cp.async ring and are split into planes once a
 // visit; the row and tile operands then load with ldmatrix, and the pair features
@@ -860,11 +862,10 @@ __device__ __forceinline__ void fold(float (&out)[8][4], const float (&t)[8][4],
   }
 }
 
-// An S3 tile: rewind it by the chunk's rows (S3 -= K2^T v), write it back, then fold
-// dq2 = (rnd(df) rnd(S3)^T) w against the rewound tile into the warp's dq sums.
+// An S3 tile: rewind it by the held rows (S3 -= K2^T v), in the f32 tile and in device
+// memory. Ends synchronised.
 template <typename T>
-__device__ __forceinline__ void s3_tile(float* sb, float* s3, float (&oq)[8][4], int p0, int np,
-                                        int d, int chunk) {
+__device__ __forceinline__ void s3_rewind(float* sb, float* s3, int p0, int np, int d, int rows) {
   const uint16_t* pmj = PairSmem::pmj() + p0;
   const float* ks = PairSmem::ks();
   const int row0 = quad_row0(), col0 = quad_col0();
@@ -876,7 +877,7 @@ __device__ __forceinline__ void s3_tile(float* sb, float* s3, float (&oq)[8][4],
   float acc[4][4];
   fmtc::zero_acc(acc);
   fmtc::mma_planes<T, 4, true>(acc, from_values<T>(k2t, row0), PairSmem::vpl(),
-                               PairSmem::kRowPlane, col0, chunk);
+                               PairSmem::kRowPlane, col0, rows);
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -889,9 +890,16 @@ __device__ __forceinline__ void s3_tile(float* sb, float* s3, float (&oq)[8][4],
       }
     }
   __syncthreads();
+}
+
+// dq2 = (rnd(df) rnd(S3)^T) w against a rewound S3 tile, folded into the warp's dq sums
+template <typename T>
+__device__ __forceinline__ void s3_fold(const float* sb, float (&oq)[8][4], int p0, int d,
+                                        int rows) {
+  const uint16_t* pmj = PairSmem::pmj() + p0;
   tile_planes<T>(sb);
   const int r0 = 16 * (threadIdx.x >> 5);
-  if (r0 >= chunk) return;
+  if (r0 >= rows) return;
   float t[8][4];
   fmtc::zero_acc(t);
   fmtc::mma_planes<T, 8, false>(t, from_planes<T>(PairSmem::dfpl(), PairSmem::kRowPlane, r0),
@@ -910,11 +918,11 @@ __device__ __forceinline__ void s3_tile(float* sb, float* s3, float (&oq)[8][4],
 // the tile's incoming value (its planes are made here from the f32 tile)
 template <typename T>
 __device__ __forceinline__ void ds3_reads(const float* sb, float (&ok)[8][4], float (&gv)[8][4],
-                                          int p0, int d, int chunk) {
+                                          int p0, int d, int rows) {
   tile_planes<T>(sb);
   const uint16_t* pmj = PairSmem::pmj() + p0;
   const int r0 = 16 * (threadIdx.x >> 5);
-  if (r0 >= chunk) return;
+  if (r0 >= rows) return;
   const float* ks = PairSmem::ks();
   auto k2 = [ks, pmj](int r, int pp) {  // K2[r, pp] = rnd(k_m k_j)
     const int code = pmj[pp];
@@ -929,11 +937,11 @@ __device__ __forceinline__ void ds3_reads(const float* sb, float (&ok)[8][4], fl
   fold<T>(ok, t, PairSmem::ks() + r0 * kLDF, pmj);
 }
 
-// the chunk's own update of a dS3 tile, dS3 += (Q2 w)^T rnd(df) / (2 z^2), written to the
-// f32 tile and to device memory. Ends synchronised.
+// the held rows' part of the chunk's own update of a dS3 tile, dS3 += (Q2 w)^T rnd(df) /
+// (2 z^2), written to the f32 tile and to device memory. Ends synchronised.
 template <typename T>
 __device__ __forceinline__ void ds3_update(float* sb, float* ds3, int p0, int np, int d,
-                                           int chunk, float inv_z2) {
+                                           int rows, float inv_z2) {
   const uint16_t* pmj = PairSmem::pmj() + p0;
   const float* qs = PairSmem::qs();
   const int row0 = quad_row0(), col0 = quad_col0();
@@ -947,7 +955,7 @@ __device__ __forceinline__ void ds3_update(float* sb, float* ds3, int p0, int np
   float acc[4][4];
   fmtc::zero_acc(acc);
   fmtc::mma_planes<T, 4, true>(acc, from_values<T>(q2t, row0), PairSmem::dfpl(),
-                               PairSmem::kRowPlane, col0, chunk);
+                               PairSmem::kRowPlane, col0, rows);
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -962,7 +970,14 @@ __device__ __forceinline__ void ds3_update(float* sb, float* ds3, int p0, int np
   __syncthreads();
 }
 
-// A pair CTA: the five pair products of the pairs [lo, hi), whole 64-pair tiles
+// A pair CTA: the five pair products of the pairs [lo, hi), whole 64-pair tiles. It holds
+// at most kMaxC of a chunk's rows at a time (a sub-chunk) and walks its tiles in passes,
+// each pass one visit to every tile with one sub-chunk held. Over S3: the rewind by every
+// sub-chunk but the last, then the rewind by the last fused with its dq fold, then the dq
+// folds of the others, so every fold sees the whole chunk's rewind. Over dS3: dv and the
+// dk fold of every sub-chunk but the last with the incoming tile, then the last's fused
+// with its share of the update, then the others' shares, so every read comes before the
+// update. A chunk of at most kMaxC rows is one pass over each.
 template <typename T>
 __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, const T* dout,
                                          const T* o, const float* g, float* s3, float* ds3,
@@ -971,9 +986,10 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
   uint16_t* pmj = PairSmem::pmj();
   const int tid = threadIdx.x, bh = blockIdx.x;
   const size_t base = static_cast<size_t>(bh) * n * d;
-  const int ntile = (hi - lo + kPT - 1) / kPT, steps = 2 * ntile;
+  const int ntile = (hi - lo + kPT - 1) / kPT;
+  const int nsub = (chunk + kMaxC - 1) / kMaxC, per = 2 * nsub - 1, steps = 2 * per * ntile;
   const float inv_z2 = 1.f / (2.f * z * z);
-  const int r0 = 16 * (tid >> 5);  // the warp's rows of the chunk
+  const int r0 = 16 * (tid >> 5);  // the warp's rows of the sub-chunk
 
   for (int p = tid; p < kTablePairs; p += fmtc::kThreads) pmj[p] = kNoPair;
   __syncthreads();
@@ -983,9 +999,9 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
   }
   for (int idx = tid; idx < 2 * kPT * kLDA; idx += fmtc::kThreads) fm_tc_smem[idx] = 0.f;
 
-  // stage step `step` of a chunk (its S3 tiles, then its dS3 tiles) into ring[step & 1]
+  // stage step `step` of a chunk (its S3 passes, then its dS3 passes) into ring[step & 1]
   auto issue = [=](int step) {
-    const float* src = step < ntile ? s3 : ds3;
+    const float* src = step < per * ntile ? s3 : ds3;
     const int p0 = lo + (step % ntile) * kPT;
     float* dst = PairSmem::ring(step & 1);
     const int quads = d / 4;
@@ -996,30 +1012,17 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
     }
     fmtc::cp_async_commit();
   };
-  // the warp's 16 rows x 64 columns of an f32 sum, scaled, into a part buffer
-  auto flush = [=](const float (&acc)[8][4], float* dst, int c0, float scale) {
-    if (r0 >= chunk) return;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = acc_row(r0, e), c = acc_col(0, nt, e);
-        if (c < d) dst[base + static_cast<size_t>(c0 + r) * d + c] = acc[nt][e] * scale;
-      }
-  };
-
-  for (int c0 = n - chunk; c0 >= 0; c0 -= chunk) {
-    __syncthreads();
-    issue(0);
-    load_rows<kLDF>(PairSmem::qs(), q + base + static_cast<size_t>(c0) * d, chunk, d);
-    load_rows<kLDF>(PairSmem::ks(), k + base + static_cast<size_t>(c0) * d, chunk, d);
-    // the planes of v and of rnd(df) = rnd(do / g), zero at c >= d
-    for (int idx = tid; idx < chunk * 16; idx += fmtc::kThreads) {
+  // rows [r_beg, r_beg + rows) of the head: q and k in f32, the planes of v and of
+  // rnd(df) = rnd(do / g), zero at c >= d
+  auto hold = [=](int r_beg, int rows) {
+    load_rows<kLDF>(PairSmem::qs(), q + base + static_cast<size_t>(r_beg) * d, rows, d);
+    load_rows<kLDF>(PairSmem::ks(), k + base + static_cast<size_t>(r_beg) * d, rows, d);
+    for (int idx = tid; idx < rows * 16; idx += fmtc::kThreads) {
       const int r = idx / 16, c = (idx % 16) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
       if (c < d) {
-        const size_t at = base + static_cast<size_t>(c0 + r) * d + c;
-        const float gv = g[static_cast<size_t>(bh) * n + c0 + r];
+        const size_t at = base + static_cast<size_t>(r_beg + r) * d + c;
+        const float gv = g[static_cast<size_t>(bh) * n + r_beg + r];
         x = load4(v + at);
         y = load4(dout + at);
         y = make_float4(y.x / gv, y.y / gv, y.z / gv, y.w / gv);
@@ -1029,33 +1032,68 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
       fmtc::put_planes<T>(PairSmem::dfpl(), PairSmem::kRowPlane, r, c, y.x, y.y);
       fmtc::put_planes<T>(PairSmem::dfpl(), PairSmem::kRowPlane, r, c + 2, y.z, y.w);
     }
-    float sums[8][4], gv[8][4];  // dq (then dk) and dv of the warp's rows
-    fmtc::zero_acc(sums);
-    fmtc::zero_acc(gv);
-    for (int step = 0; step < steps; ++step) {
-      __syncthreads();  // the ring slot about to be filled is free
-      if (step + 1 < steps) {
-        issue(step + 1);
-        fmtc::cp_async_wait<1>();
-      } else {
-        fmtc::cp_async_wait<0>();
+  };
+  // the warp's 16 rows x 64 columns of an f32 sum, scaled, into a part buffer
+  auto flush = [=](const float (&acc)[8][4], float* dst, int r_beg, int rows, float scale) {
+    if (r0 >= rows) return;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = acc_row(r0, e), c = acc_col(0, nt, e);
+        if (c < d) dst[base + static_cast<size_t>(r_beg + r) * d + c] = acc[nt][e] * scale;
       }
-      __syncthreads();  // this step's tile is in
-      float* sb = PairSmem::ring(step & 1);
-      const int p0 = lo + (step % ntile) * kPT, np = min(kPT, hi - p0);
-      if (step < ntile) {
-        s3_tile<T>(sb, s3, sums, p0, np, d, chunk);
-        if (step == ntile - 1) {
-          flush(sums, dq_acc, c0, inv_z2);
-          fmtc::zero_acc(sums);
+  };
+
+  for (int c0 = n - chunk; c0 >= 0; c0 -= chunk) {
+    __syncthreads();
+    issue(0);
+    int held = -1;
+    for (int pass = 0; pass < 2 * per; ++pass) {
+      const bool on_s3 = pass < per;
+      const int b = on_s3 ? pass : pass - per, sub = b < nsub ? b : b - nsub;
+      const bool first = b < nsub, second = b >= nsub - 1;  // rewind | reads; fold | update
+      const int r_beg = c0 + sub * kMaxC, rows = min(kMaxC, chunk - sub * kMaxC);
+      if (sub != held) {
+        if (held >= 0) __syncthreads();  // the held rows are free
+        hold(r_beg, rows);
+        held = sub;
+      }
+      float sums[8][4], gv[8][4];  // the pass's dq (or dk) and dv of the warp's rows
+      fmtc::zero_acc(sums);
+      fmtc::zero_acc(gv);
+      for (int tile = 0; tile < ntile; ++tile) {
+        const int step = pass * ntile + tile;
+        // a lone tile is staged for the next pass over the same state only once written
+        const bool ahead = step + 1 < steps && (ntile > 1 || step + 1 == per);
+        __syncthreads();  // the ring slot about to be filled is free
+        if (ahead) {
+          issue(step + 1);
+          fmtc::cp_async_wait<1>();
+        } else {
+          fmtc::cp_async_wait<0>();
         }
-      } else {
-        ds3_reads<T>(sb, sums, gv, p0, d, chunk);
-        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);
+        __syncthreads();  // this step's tile is in
+        float* sb = PairSmem::ring(step & 1);
+        const int p0 = lo + tile * kPT, np = min(kPT, hi - p0);
+        if (on_s3) {
+          if (first) s3_rewind<T>(sb, s3, p0, np, d, rows);
+          if (second) s3_fold<T>(sb, sums, p0, d, rows);
+        } else {
+          if (first) ds3_reads<T>(sb, sums, gv, p0, d, rows);
+          if (second) ds3_update<T>(sb, ds3, p0, np, d, rows, inv_z2);
+        }
+        if (step + 1 < steps && !ahead) {
+          __syncthreads();  // the tile's writes are done
+          issue(step + 1);
+        }
+      }
+      if (on_s3 && second) flush(sums, dq_acc, r_beg, rows, inv_z2);
+      if (!on_s3 && first) {
+        flush(sums, dk_acc, r_beg, rows, 1.f);
+        flush(gv, dv_acc, r_beg, rows, 1.f);
       }
     }
-    flush(sums, dk_acc, c0, 1.f);
-    flush(gv, dv_acc, c0, 1.f);
   }
 }
 
@@ -1155,7 +1193,7 @@ extern "C" {
 // the forward's S3, rewound in place; ds3 the same shape, zeroed. nsplit CTAs a head
 // (1 unless p2); part: (nsplit, 3, BH, N, D) f32, zeroed. dq, dk, dv: (BH, N, D), the
 // gradients in the input's type. tc = 1 runs fastmax_bwd_tc_kernel, which takes p2,
-// D % 16 == 0, chunks of at most 128 rows and nsplit >= 2 (CTA 0 and a pair CTA);
+// D % 16 == 0 and nsplit >= 2 (CTA 0 and a pair CTA);
 // tc = 0 the FMA kernel.
 int fm_fastmax_bwd(const void* q, const void* k, const void* v, const void* dout,
                    const void* o, int bf16, const float* g, const float* skv, const float* sk,
@@ -1165,7 +1203,7 @@ int fm_fastmax_bwd(const void* q, const void* k, const void* v, const void* dout
   if (d < 1 || d > fm::kMaxD || chunk % fm::kR || chunk < fm::kR || n % chunk || nsplit < 1 ||
       (nsplit > 1 && !p2))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tc && (!p2 || d % 16 || chunk > tcp::kMaxC || nsplit < 2))
+  if (tc && (!p2 || d % 16 || nsplit < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16>(q, k, v, dout, o, g, skv, sk, skk, s3, ds3, part, dq, dk,

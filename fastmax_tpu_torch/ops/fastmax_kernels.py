@@ -41,7 +41,6 @@ DEFAULT_CHUNK = 128
 MAX_D = 64          # the head sizes the kernels take (the reference's d <= 64 gate)
 KERNEL_ROWS = 64    # the kernels' row tile: a chunk is a multiple of it
 PAIR_TILE = 64      # the kernels' pairs per tile: a split takes whole tiles
-TC_MAX_CHUNK = 128  # K5's tensor-core kernel holds a chunk's rows in shared memory
 
 
 def sym_width(d: int) -> int:
@@ -230,11 +229,11 @@ def _nsplit(p: int, d: int, bh: int, device) -> int:
     return max(1, min(4, sms // bh))
 
 
-def bwd_path(p: int, d: int, chunk: int) -> str:
+def bwd_path(p: int, d: int) -> str:
     """K5's kernel: "tc" (``fastmax_bwd_tc_kernel``, every product on the
-    tensor cores) for p = 2 at D % 16 == 0 and chunks of at most
-    TC_MAX_CHUNK rows, "fma" (``fastmax_bwd_kernel``, f32 FMAs) otherwise."""
-    return "tc" if p == 2 and d % 16 == 0 and chunk <= TC_MAX_CHUNK else "fma"
+    tensor cores) for p = 2 at D % 16 == 0, "fma" (``fastmax_bwd_kernel``,
+    f32 FMAs) otherwise."""
+    return "tc" if p == 2 and d % 16 == 0 else "fma"
 
 
 def _bwd_nsplit(path: str, p: int, d: int, bh: int, device) -> int:
@@ -296,7 +295,7 @@ def _bwd_launch(q, k, v, do, o, g, state, p: int, z: float, chunk: int,
                              f"takes {dtype} {shape} on {q.device}")
     q, k, v, do, o, g = (x.contiguous() for x in (q, k, v, do, o, g))
     s_kv, s_k, s_kk = s_kv.contiguous(), s_k.contiguous(), s_kk.contiguous()
-    path = path or bwd_path(p, d, chunk)
+    path = path or bwd_path(p, d)
     nsplit = _bwd_nsplit(path, p, d, bh, q.device)
     s3 = s_kkv.clone() if p == 2 else None           # rewound in place by the kernel
     ds3 = torch.zeros_like(s_kkv) if p == 2 else None

@@ -36,14 +36,14 @@ TOTAL, DENSE = len(PHASES), len(PHASES) + 1
 # no probe). A probe adds the cycles since the last probe to its phase.
 PROBES = [
     ("  fmtc::mma_planes<T, 4, true>(acc, from_values<T>(k2t, row0), PairSmem::vpl(),\n"
-     "                               PairSmem::kRowPlane, col0, chunk);\n", 2, 2),
+     "                               PairSmem::kRowPlane, col0, rows);\n", 2, 2),
     ("  tile_planes<T>(sb);\n  const int r0 = 16 * (threadIdx.x >> 5);\n", None, 3),
     ("  fold<T>(oq, t, PairSmem::qs() + r0 * kLDF, pmj);\n", 4, 5),
     ("                               PairSmem::kTilePlane, 0, kPT);\n", None, 6),
     ("  fold<T>(ok, t, PairSmem::ks() + r0 * kLDF, pmj);\n", 7, 8),
-    ("        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);\n", 9, 9),
-    ("      __syncthreads();  // this step's tile is in\n", None, 0),
-    ("    float sums[8][4], gv[8][4];  // dq (then dk) and dv of the warp's rows\n", 1, None),
+    ("          if (second) ds3_update<T>(sb, ds3, p0, np, d, rows, inv_z2);\n", 9, 9),
+    ("        __syncthreads();  // this step's tile is in\n", None, 0),
+    ("        hold(r_beg, rows);\n", 0, 1),
 ]
 PROLOGUE = ("__shared__ long long fm_prof[16];\n"
             "__device__ __forceinline__ void fm_tick(int i) {\n"
@@ -77,8 +77,8 @@ def instrumented(src_dir: Path) -> str:
                  "  for (int i = threadIdx.x; i < 16; i += blockDim.x) fm_prof[i] = 0;\n"
                  "  __syncthreads();\n  const long long t_start = clock64();\n"
                  "  if (threadIdx.x == 0) fm_prof[15] = t_start;\n")
-    text = _once(text, "    flush(gv, dv_acc, c0, 1.f);\n  }\n}",
-                 "    flush(gv, dv_acc, c0, 1.f);\n  }\n  __syncthreads();\n"
+    end = "        flush(gv, dv_acc, r_beg, rows, 1.f);\n      }\n    }\n  }\n}"
+    text = _once(text, end, end[:-1] + "  __syncthreads();\n"
                  "  if (threadIdx.x == 0) {\n    fm_prof[%d] = clock64() - t_start;\n"
                  "    for (int i = 0; i <= %d; ++i) dq_acc[base + i] = fm_prof[i];\n  }\n}"
                  % (TOTAL, TOTAL))

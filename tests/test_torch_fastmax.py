@@ -25,6 +25,7 @@ from fastmax_tpu.ops.fastmax_pallas import (_train_fwd_call, fastmax_pallas,
 from fastmax_tpu_torch.kernels import build
 from fastmax_tpu_torch.ops import fastmax as tfm
 from fastmax_tpu_torch.ops import fastmax_kernels as fk
+from fastmax_tpu_torch.tools import k5_phases
 
 # A fresh process's first exp after a matmul, on two threads, now and then gives other
 # values than later calls; warming both up on one thread first avoids it.
@@ -167,13 +168,14 @@ def test_where_this_slice_stops():
 
 @pytest.mark.parametrize("p,d,chunk,path", [(2, 64, 128, "tc"), (2, 48, 64, "tc"),
                                              (2, 32, 128, "tc"), (2, 16, 128, "tc"),
-                                             (2, 40, 128, "fma"), (2, 64, 256, "fma"),
-                                             (1, 64, 128, "fma")])
+                                             (2, 40, 128, "fma"), (2, 64, 256, "tc"),
+                                             (2, 64, 512, "tc"), (1, 64, 128, "fma")])
 def test_bwd_path_takes_the_tensor_cores_where_the_kernel_can(p, d, chunk, path):
-    """K5's tensor-core kernel takes p = 2 at D % 16 == 0 and chunks of at most
-    128 rows (it holds a chunk's rows in shared memory); the rest stays on the
-    FMA kernel."""
-    assert fk.bwd_path(p, d, chunk) == path
+    """K5's tensor-core kernel takes p = 2 at D % 16 == 0, whatever the chunk
+    (it holds 128 of a chunk's rows at a time); the rest stays on the FMA
+    kernel."""
+    assert fk.bwd_path(p, d) == path
+    assert chunk % fk.KERNEL_ROWS == 0
 
 
 def _tf32(x):
@@ -288,13 +290,15 @@ def _needs_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,chunk", [((2, 4, 512, 64), 128), ((1, 3, 256, 48), 64),
-                                         ((1, 2, 384, 32), 128)])
+                                         ((1, 2, 384, 32), 128), ((1, 3, 384, 48), 192),
+                                         ((1, 2, 1024, 64), 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [1, 2])
 def test_kernels_match_plain_on_the_card(p, dtype, shape, chunk):
     """K4 (both modes) and K5 against the plain walks: head sizes whose pair
     count is not a whole number of tiles (48: 1176 pairs, split four ways),
-    64-row chunks, chunk counts that are not powers of two. q and k as in
+    64-row chunks, chunk counts that are not powers of two, chunks that K5's
+    pair CTAs take in parts (192 rows: 128 and 64; 512: four of 128). q and k as in
     chip_smoke.py: s = q.k / z of order 1 at p = 2, so the degree-2 terms
     weigh as much as the others. Each output within chip_smoke.py's
     tolerances of its largest value (f32: 1e-5 forward, 1e-4 gradients; bf16:
@@ -335,7 +339,7 @@ def test_fma_kernel_matches_plain_on_the_card(dtype, shape, chunk):
     q, k, v, do = chip_smoke.fastmax_qkv(torch, gen, (b * h, n, d), 2, dtype)
     z = 8.0 * np.sqrt(d)
     o, g, state = fk.fastmax_fwd_plain(q, k, v, 2, z, chunk)
-    assert fk.bwd_path(2, d, chunk) == "tc"
+    assert fk.bwd_path(2, d) == "tc"
     got = fk._bwd_launch(q, k, v, do, o, g, state, 2, z, chunk, path="fma")
     ref = fk.fastmax_bwd_plain(q, k, v, do, o, g, state, 2, z, chunk)
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
@@ -345,13 +349,13 @@ def test_fma_kernel_matches_plain_on_the_card(dtype, shape, chunk):
 @pytest.mark.cuda
 def test_tensor_core_kernel_refuses_what_it_does_not_take():
     """The C entry refuses a tc launch outside the kernel's conditions (p = 1;
-    a chunk of 256 rows) rather than running it."""
+    a head size of 40, not a multiple of 16) rather than running it."""
     _needs_card()
-    x = torch.zeros((2, 256, 64), device="cuda")
-    for p, chunk in ((1, 128), (2, 256)):
-        o, g, state = fk.fastmax_fwd_plain(x, x, x, p, 64.0, chunk)
+    for p, d in ((1, 64), (2, 40)):
+        x = torch.zeros((2, 256, d), device="cuda")
+        o, g, state = fk.fastmax_fwd_plain(x, x, x, p, 64.0, 128)
         with pytest.raises(RuntimeError, match="launch failed"):
-            fk._bwd_launch(x, x, x, x, o, g, state, p, 64.0, chunk, path="tc")
+            fk._bwd_launch(x, x, x, x, o, g, state, p, 64.0, 128, path="tc")
 
 
 @pytest.mark.cuda
@@ -366,8 +370,10 @@ def test_kernels_repeat_bit_for_bit():
 # kernel, which the check's shape (p = 2, D = 64, chunk 128) takes: a term dropped (a
 # fold left out, a product over no pairs, a tile left as it came), the chunk's own
 # dS3 update applied before dv and the dk fold read the tile (right for the first chunk
-# walked only), and the float32 split's correction products dropped (each product then
-# bf16(a) bf16(b), about 2^-8 of its size).
+# walked only), the float32 split's correction products dropped (each product then
+# bf16(a) bf16(b), about 2^-8 of its size), and, at a chunk of 256 rows that the pair
+# CTAs hold in two parts, the S3 rewind by the first part left out; then the same
+# terms dropped from its FMA kernel.
 FAULTS = {
     "K4 f2 = (Q2 w) S3": ("fastmax_fwd", "fastmax_fwd.cu",
                           "pair_out<T>(f2, qs, s3, d, lo, hi,", "pair_out<T>(f2, qs, s3, d, lo, lo,"),
@@ -385,10 +391,14 @@ FAULTS = {
                       "const float updated = sb[i];"),
     "K5 dS3 updated before dv and dk read it": (
         "fastmax_bwd", "fastmax_bwd.cu",
-        "        ds3_reads<T>(sb, sums, gv, p0, d, chunk);\n"
-        "        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);\n",
-        "        ds3_update<T>(sb, ds3, p0, np, d, chunk, inv_z2);\n"
-        "        ds3_reads<T>(sb, sums, gv, p0, d, chunk);\n"),
+        "          if (first) ds3_reads<T>(sb, sums, gv, p0, d, rows);\n"
+        "          if (second) ds3_update<T>(sb, ds3, p0, np, d, rows, inv_z2);\n",
+        "          if (second) ds3_update<T>(sb, ds3, p0, np, d, rows, inv_z2);\n"
+        "          if (first) ds3_reads<T>(sb, sums, gv, p0, d, rows);\n"),
+    "K5 sub-chunks: the rewind by all but the last dropped": (
+        "fastmax_bwd", "fastmax_bwd.cu",
+        "          if (first) s3_rewind<T>(sb, s3, p0, np, d, rows);\n",
+        "          if (first && second) s3_rewind<T>(sb, s3, p0, np, d, rows);\n"),
     "K5 f32 split: correction products dropped": (
         "fastmax_bwd", "fastmax_tc.cuh",
         "    mma16816(part, a[2], b[0][2 * h], b[0][2 * h + 1]);\n"
@@ -396,7 +406,28 @@ FAULTS = {
         "    mma16816(part, a[1], b[1][2 * h], b[1][2 * h + 1]);\n"
         "    mma16816(part, a[1], b[0][2 * h], b[0][2 * h + 1]);\n"
         "    mma16816(part, a[0], b[1][2 * h], b[1][2 * h + 1]);\n", ""),
+    # the FMA kernel's pair terms (p = 1, other head sizes), planted with the check's
+    # calls sent to it (FMA_FAULTS)
+    "K5 (fma) dq fold over S3": ("fastmax_bwd", "fastmax_bwd.cu",
+                                 "pair_fold<T>(acc_t, qs, df, s3, d, lo, hi,",
+                                 "pair_fold<T>(acc_t, qs, df, s3, d, lo, lo,"),
+    "K5 (fma) dk fold over dS3": ("fastmax_bwd", "fastmax_bwd.cu",
+                                  "pair_fold<T>(acc_t, ks, vs, ds3, d, lo, hi,",
+                                  "pair_fold<T>(acc_t, ks, vs, ds3, d, lo, lo,"),
+    "K5 (fma) dv += K2 dS3": ("fastmax_bwd", "fastmax_bwd.cu",
+                              "pair_out<T>(gv, ks, ds3, d, lo, hi,",
+                              "pair_out<T>(gv, ks, ds3, d, lo, lo,"),
+    "K5 (fma) S3 rewind": ("fastmax_bwd", "fastmax_bwd.cu",
+                           "pair_update<T>(s3, ks, vs, d, lo, hi, false, -1.f,",
+                           "pair_update<T>(s3, ks, vs, d, lo, hi, false, 0.f,"),
+    "K5 (fma) dS3 update": ("fastmax_bwd", "fastmax_bwd.cu",
+                            "pair_update<T>(ds3, qs, df, d, lo, hi,",
+                            "pair_update<T>(ds3, qs, df, d, lo, lo,"),
 }
+FMA_FAULTS = {f for f in FAULTS if "(fma)" in f}
+# the check's (B, H, N, D) and chunk: a chunk of 128 rows, or 256 for a fault of the parts
+FAULT_CASES = {f: ((2, 4, 1024, 64), 256) if "sub-chunks" in f else ((2, 4, 512, 64), 128)
+               for f in FAULTS}
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
@@ -405,6 +436,22 @@ def test_kernel_source_holds_the_planted_lines(fault):
     exactly the fault it names."""
     _, source, written, _ = FAULTS[fault]
     assert (build.CSRC_DIR / source).read_text().count(written) == 1
+
+
+@pytest.mark.parametrize("i", range(len(k5_phases.PROBES)))
+def test_phase_probe_anchor_occurs_once(i):
+    """tools/k5_phases.py puts each clock probe before or after a line of K5's
+    source: each such line occurs there once."""
+    anchor = k5_phases.PROBES[i][0]
+    assert (build.CSRC_DIR / "fastmax_bwd.cu").read_text().count(anchor) == 1
+
+
+def test_phase_probes_instrument_the_source():
+    """Every anchor of tools/k5_phases.py (the probes and the counters' start
+    and end) is found once, and each probe lands in the copy."""
+    text = k5_phases.instrumented(build.CSRC_DIR)
+    ticks = sum((b is not None) + (a is not None) for _, b, a in k5_phases.PROBES)
+    assert text.count("fm_tick(") == 1 + ticks  # the definition and the calls
 
 
 def _planted(tmp_path, fault):
@@ -424,18 +471,22 @@ def _planted(tmp_path, fault):
 def test_checks_catch_a_dropped_degree2_term(fault, tmp_path, monkeypatch):
     """chip_smoke.py's kernel check fails for a kernel built with one of its
     degree-2 terms (or K5's rewind of S3) left out, with K5's dS3 update taken
-    too early, or with its float32 split cut to one product; for K4's f2 and
+    too early, or with its float32 split cut to one product; K5's FMA kernel
+    too, with the check's calls sent to it; for K4's f2 and
     K5's dq fold, so does its one-step check of the model's loss and
     gradients."""
     _needs_card()
     from fastmax_tpu_torch.models.config import Config
 
     name, faulty = _planted(tmp_path, fault)
+    if fault in FMA_FAULTS:
+        monkeypatch.setattr(fk, "bwd_path", lambda p, d: "fma")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    chip_smoke.fastmax_case(torch, gen, (2, 4, 512, 64), 2, 128, torch.float32)  # sound
+    shape, chunk = FAULT_CASES[fault]
+    chip_smoke.fastmax_case(torch, gen, shape, 2, chunk, torch.float32)  # sound
     monkeypatch.setitem(build.KERNELS, name, faulty)
     with pytest.raises(AssertionError, match=fault[:2]) as caught:
-        chip_smoke.fastmax_case(torch, gen, (2, 4, 512, 64), 2, 128, torch.float32)
+        chip_smoke.fastmax_case(torch, gen, shape, 2, chunk, torch.float32)
     print(f"{fault}: {caught.value}")
     if fault in ("K4 f2 = (Q2 w) S3", "K5 dq fold over S3"):
         cfg = Config.from_name("easy-transformer-fastmax", n_layer=2)
