@@ -52,7 +52,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    N=2048 at D=16; a ragged N=200 through ``fastmax()``), on inputs where
    s = q.k / z is of order 1 so that the degree-2 terms weigh as much as the
    others; those terms alone (p=2 minus p=1) kernels against plain; K4 and
-   K5 repeating bit for bit; device times (inputs cold) and bounds;
+   K5 repeating bit for bit; device times (inputs cold) of K4 and K5 on their
+   tensor-core and FMA kernels, each held against the plain walk, and the
+   bounds of each;
    ``pretrain.setup`` on
    easy-transformer-fastmax with its defaults (float32, global batch 8,
    micro-batch 4, T=512, remat, AdamW) for 40 steps over a ``train.bin``
@@ -481,7 +483,8 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_ke
                                              "int4_gemm_kernel", "int4_splitk_reduce_kernel")),
                  ("K2 int8_decode_attention", ("int8_decode_attention_kernel",)),
                  ("K3 flash_attention", ("flash_attention_kernel", "flash_attention_tc_kernel")),
-                 ("K4 fastmax_fwd", ("fastmax_fwd_kernel", "fastmax_fwd_finish")),
+                 ("K4 fastmax_fwd", ("fastmax_fwd_kernel", "fastmax_fwd_tc_kernel",
+                                     "fastmax_fwd_finish")),
                  ("K5 fastmax_bwd", ("fastmax_bwd_kernel", "fastmax_bwd_tc_kernel",
                                      "fastmax_bwd_finish")),
                  ("K6 flash_train_fwd", ("flash_train_fwd_kernel",
@@ -1125,12 +1128,18 @@ def tensor_core_f32_bound(flops: int, nbytes: int) -> dict:
             "bound_tc_f32_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
-def k5_bound(row: dict, path: str) -> tuple:
+def k4_bound(row: dict, path: str) -> tuple:
+    """K4's bound for the kernel of ``path`` on a phase 8 timing row, as
+    ``k5_bound`` gives K5's."""
+    return k5_bound(row, path, "fwd_bound")
+
+
+def k5_bound(row: dict, path: str, key: str = "bwd_bound") -> tuple:
     """(ms, bound_by) of K5's bound for the kernel of ``path`` on a phase 8
     timing row: float32 on the tensor-core kernel at three TF32 products a
     multiply, else ``bound``'s (float32: the f32 units; bfloat16: the bf16
     tensor cores)."""
-    b = row["bwd_bound"]
+    b = row[key]
     if path == "tc" and row["dtype"] == "float32":
         return b["bound_tc_f32_ms"], b["bound_tc_f32_by"]
     return b["bound_ms"], b["bound_by"]
@@ -1260,8 +1269,8 @@ def check_fastmax(torch, gen, results):
     f32, bf16 = torch.float32, torch.bfloat16
     train_shape = (4, 8, 512, 64)
     # ((B, H, N, D), p, chunk, dtype): the training shape, p = 1, 16 chunks at D = 16,
-    # chunks of 256 rows (fastmax()'s at N >= 2048), which K5's pair CTAs take in two
-    # parts, at N = 1024: at N = 2048 the f32 dq of both K5 kernels lies 0.9e-4 to
+    # chunks of 256 rows (fastmax()'s at N >= 2048), which the pair CTAs of K4 and K5
+    # take in two parts, at N = 1024: at N = 2048 the f32 dq of both K5 kernels lies 0.9e-4 to
     # 5.6e-4 of its largest value from the plain walk and from float64, the tc kernel
     # no farther than the FMA kernel (the long rewind's cancellation, as at 16 chunks)
     cases = [(train_shape, 2, 128, f32), (train_shape, 2, 128, bf16), (train_shape, 1, 128, f32),
@@ -1307,8 +1316,9 @@ def check_fastmax(torch, gen, results):
 
     # device time at the training shape, inputs cold: four input sets (67 MB f32);
     # then p = 2 at N = 2048 in chunks of 256 (what fastmax() picks there), which
-    # K5's pair CTAs take in two parts. K5 at p = 2 on both of its kernels, the path
-    # passed explicitly, and the two held against the plain walk on the first set
+    # the pair CTAs of K4 and K5 take in two parts. K4 and K5 at p = 2 on both of
+    # their kernels, the path passed explicitly, and each held against the plain walk
+    # on the first set
     rows = []
     n_sets = 4
     for p, dt, n, chunk in ((2, f32, 512, 128), (2, bf16, 512, 128), (1, f32, 512, 128),
@@ -1319,11 +1329,11 @@ def check_fastmax(torch, gen, results):
         fwd_out = [fk.fastmax_fwd_plain(q, k, v, p, z, chunk) for q, k, v, _ in sets]
         it = iter(range(10**9))
 
-        def fwd(train=True, plain=False):
+        def fwd(train=True, plain=False, path=None):
             q, k, v, _ = sets[next(it) % n_sets]
             if plain:
                 return fk.fastmax_fwd_plain(q, k, v, p, z, chunk)
-            return fk._fwd_launch(q, k, v, p, z, chunk, train=train)
+            return fk._fwd_launch(q, k, v, p, z, chunk, train=train, path=path)
 
         def bwd(plain=False, path=None):
             i = next(it) % n_sets
@@ -1336,6 +1346,17 @@ def check_fastmax(torch, gen, results):
         k4 = graph_ms(fwd, calls=2 * n_sets)
         k4_only = graph_ms(lambda: fwd(train=False), calls=2 * n_sets)
         plain_f = graph_ms(lambda: fwd(plain=True), calls=n_sets, reps=1)
+        path4 = fk.fwd_path(p, 64)
+        k4_fma = graph_ms(lambda: fwd(path="fma"), calls=2 * n_sets) if path4 == "tc" else k4
+        if path4 == "tc":  # both kernels against the plain walk on the first set
+            q, k, v, _ = sets[0]
+            ref = fwd_out[0]
+            for kernel in ("tc", "fma"):
+                o, g, st = fk._fwd_launch(q, k, v, p, z, chunk, train=True, path=kernel)
+                for name, a, b in zip(("o", "g", "s_kv", "s_k", "s_kkv", "s_kk"),
+                                      (o, g) + tuple(st), ref[:2] + tuple(ref[2])):
+                    fastmax_close(torch, f"K4 ({kernel}) {name} timing set N={n}", a, b,
+                                  "fwd", dt)
         k5 = graph_ms(bwd, calls=2 * n_sets)
         plain_b = graph_ms(lambda: bwd(plain=True), calls=n_sets, reps=1)
         path = fk.bwd_path(p, 64)
@@ -1350,18 +1371,27 @@ def check_fastmax(torch, gen, results):
                                   "grad", dt)
         elem = 2 if dt == bf16 else 4
         b_f = bound(*fastmax_work(32, n, 64, p, chunk, elem, False), bf16=dt == bf16)
+        b_f.update(tensor_core_f32_bound(b_f["flops"], b_f["bytes"]))
         b_b = bound(*fastmax_work(32, n, 64, p, chunk, elem, True), bf16=dt == bf16)
         b_b.update(tensor_core_f32_bound(b_b["flops"], b_b["bytes"]))
         rows.append({"p": p, "dtype": str(dt)[6:], "n": n, "chunk": chunk, "k4_ms": k4,
-                     "k4_forward_only_ms": k4_only, "plain_fwd_ms": plain_f, "k5_ms": k5, "k5_path": path, "k5_fma_ms": k5_fma,
-                     "plain_bwd_ms": plain_b, "fwd_bound": b_f, "bwd_bound": b_b})
-        log(f"  fastmax B=4 H=8 N={n} D=64 chunk {chunk} p={p} {str(dt)[6:]:8s}: K4 "
-            f"{k4 * 1e3:8.1f} us "
-            f"(forward only {k4_only * 1e3:8.1f})  plain {plain_f * 1e3:8.1f} us  bound "
-            f"{b_f['bound_ms'] * 1e3:6.1f} us ({b_f['bound_by']}; {b_f['bound_f32_ms'] * 1e3:6.1f} "
-            f"at the f32 rate);  K5 ({path}) {k5 * 1e3:8.1f} us, FMA kernel {k5_fma * 1e3:8.1f} "
+                     "k4_path": path4, "k4_fma_ms": k4_fma, "k4_forward_only_ms": k4_only,
+                     "plain_fwd_ms": plain_f, "k5_ms": k5, "k5_path": path,
+                     "k5_fma_ms": k5_fma, "plain_bwd_ms": plain_b, "fwd_bound": b_f,
+                     "bwd_bound": b_b})
+        b4 = k4_bound(rows[-1], path4)
+        log(f"  fastmax B=4 H=8 N={n} D=64 chunk {chunk} p={p} {str(dt)[6:]:8s}: K4 ({path4}) "
+            f"{k4 * 1e3:8.1f} us (forward only {k4_only * 1e3:8.1f}), FMA kernel "
+            f"{k4_fma * 1e3:8.1f} us  plain {plain_f * 1e3:8.1f} us  bound {b4[0] * 1e3:6.1f} us "
+            f"({b4[1]});  K5 ({path}) {k5 * 1e3:8.1f} us, FMA kernel {k5_fma * 1e3:8.1f} "
             f"us  plain {plain_b * 1e3:8.1f} us  bound {k5_bound(rows[-1], path)[0] * 1e3:6.1f} "
             f"us ({k5_bound(rows[-1], path)[1]})   [{card_line()}]")
+        log(f"    K4 bounds: {b_f['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate (share: "
+            f"{path4} {b_f['bound_f32_ms'] / k4:.3f}, FMA {b_f['bound_f32_ms'] / k4_fma:.3f}); "
+            f"{b_f['bound_tc_f32_ms'] * 1e3:6.1f} us at three TF32 products a multiply on the "
+            f"tensor cores (share: {path4} {b_f['bound_tc_f32_ms'] / k4:.3f}, FMA "
+            f"{b_f['bound_tc_f32_ms'] / k4_fma:.3f}); {b_f['bound_ms'] * 1e3:6.1f} us at the "
+            f"rate of the type (share: {path4} {b_f['bound_ms'] / k4:.3f})")
         log(f"    K5 bounds: {b_b['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate (share: "
             f"{path} {b_b['bound_f32_ms'] / k5:.3f}, FMA {b_b['bound_f32_ms'] / k5_fma:.3f}); "
             f"{b_b['bound_tc_f32_ms'] * 1e3:6.1f} us at three TF32 products a multiply on the "
@@ -2905,10 +2935,9 @@ def main() -> int:
          "library_ms": sum(r["library_ms"] for r in flash_rows)},
     ]
     train_row = next(r for r in fm_rows if r["p"] == 2 and r["dtype"] == "float32")
-    fwd_b = train_row["fwd_bound"]
     for kern, ms, plain_ms, (bound_ms, by) in (
             (build.KERNELS["fastmax_fwd"], train_row["k4_ms"], train_row["plain_fwd_ms"],
-             (fwd_b["bound_ms"], fwd_b["bound_by"])),
+             k4_bound(train_row, train_row["k4_path"])),
             (build.KERNELS["fastmax_bwd"], train_row["k5_ms"], train_row["plain_bwd_ms"],
              k5_bound(train_row, train_row["k5_path"]))):
         kernels.append({"name": kern.name, "route": "cuda",
@@ -2916,8 +2945,16 @@ def main() -> int:
                         "launches": counts_train[kern.name], "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                         "library_ms": None})
+    # K4 and K5 at p = 2 by kernel, type and chunk, each with its kernel's bound and both
+    # f32 ones
+    kernels[-2]["bound_f32_ms"] = train_row["fwd_bound"]["bound_f32_ms"]
+    kernels[-2]["by_path"] = [
+        {"path": path, "dtype": r["dtype"], "n": r["n"], "chunk": r["chunk"], "ms": r[key],
+         "bound_ms": k4_bound(r, path)[0], "bound_f32_ms": r["fwd_bound"]["bound_f32_ms"],
+         "bound_tc_f32_ms": r["fwd_bound"]["bound_tc_f32_ms"]}
+        for r in fm_rows if r["p"] == 2
+        for path, key in ((r["k4_path"], "k4_ms"), ("fma", "k4_fma_ms"))]
     kernels[-1]["bound_f32_ms"] = train_row["bwd_bound"]["bound_f32_ms"]
-    # K5 at p = 2 by kernel, type and chunk, each with its kernel's bound and both f32 ones
     kernels[-1]["by_path"] = [
         {"path": path, "dtype": r["dtype"], "n": r["n"], "chunk": r["chunk"], "ms": r[key],
          "bound_ms": k5_bound(r, path)[0], "bound_f32_ms": r["bwd_bound"]["bound_f32_ms"],

@@ -60,10 +60,6 @@
 #include "fastmax_common.cuh"
 #include "fastmax_tc.cuh"
 
-// the tensor-core kernel's dynamic shared memory; its tiles are fixed offsets into it, so
-// every access to them compiles to a shared-memory instruction
-extern __shared__ __align__(16) float fm_tc_smem[];
-
 namespace {
 
 using namespace fm;
@@ -452,71 +448,33 @@ __global__ void __launch_bounds__(kThreads, 1) fastmax_bwd_kernel(
 
 namespace tcp {
 
+using fmtc::acc_col;
+using fmtc::acc_row;
+using fmtc::at;
+using fmtc::from_planes;
+using fmtc::from_values;
 using fmtc::kLDA;
 using fmtc::kLDF;
-
-constexpr int kR = 64;                         // rows of a tile
-constexpr int kMaxC = 128;                     // chunk rows a pair CTA holds
-constexpr int kPT = 64;                        // pairs a tile
-constexpr int kTablePairs = 2112;              // 2080 pairs at D = 64, to whole tiles
-constexpr uint16_t kNoPair = 64 | (64 << 8);   // a pair of the zero pad column
-constexpr int kTileA = kR * kLDA;
+using fmtc::kMaxC;
+using fmtc::kNoPair;
+using fmtc::kPT;
+using fmtc::kR;
+using fmtc::kTileA;
+using fmtc::load_rows;
+using fmtc::load4;
+using fmtc::mma64;
+using fmtc::PairSmem;
+using fmtc::quad_col0;
+using fmtc::quad_row0;
+using fmtc::tile_planes;
+using fmtc::tr;
 
 // CTA 0: q, k, v, df, f(s), ds, s_kv, s_kk, d_skv, d_skk (kR x kLDA) and s_k, d_sv, d_sk,
 // dgr; a pair CTA: the S3/dS3 ring (2 x kPT x kLDA f32), the bfloat16 planes of v and df
 // (3 x kMaxC x 64) and of the step's tile (3 x kPT x 64), q and k (kMaxC x kLDF f32) and the
 // pair table
 constexpr size_t kDenseBytes = sizeof(float) * (10 * kTileA + 4 * kR);
-constexpr size_t kPairBytes = sizeof(float) * (2 * kPT * kLDA + 2 * kMaxC * kLDF) +
-                              sizeof(__nv_bfloat16) * 3 * (2 * kMaxC * 64 + kPT * 64) +
-                              sizeof(uint16_t) * kTablePairs;
-size_t smem_bytes() { return std::max(kDenseBytes, kPairBytes); }
-
-// a warp's part of a 64 x 64 output: rows 16 (w % 4), columns 32 (w / 4), four n8 tiles
-__device__ __forceinline__ int quad_row0() { return 16 * ((threadIdx.x >> 5) & 3); }
-__device__ __forceinline__ int quad_col0() { return 32 * (threadIdx.x >> 7); }
-// the (row, column) of acc[nt][e] for a warp at (row0, col0)
-__device__ __forceinline__ int acc_row(int row0, int e) {
-  return row0 + fmtc::lane_g() + 8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int col0, int nt, int e) {
-  return col0 + 8 * nt + 2 * fmtc::lane_t() + (e & 1);
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// rows [0, rows) of a (., d) row-major matrix -> a tile of row stride LD, zero at c >= d;
-// rows <= kMaxC, and every load is issued before the first store
-template <int LD, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int rows, int d) {
-  constexpr int kQuads = (LD + 3) / 4;
-  constexpr int kSteps = (kMaxC * kQuads + fmtc::kThreads - 1) / fmtc::kThreads;
-  float4 x[kSteps];
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int idx = threadIdx.x + s * fmtc::kThreads, r = idx / kQuads, c = (idx % kQuads) * 4;
-    x[s] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows && c < d) x[s] = load4(src + static_cast<size_t>(r) * d + c);
-  }
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int idx = threadIdx.x + s * fmtc::kThreads, r = idx / kQuads, c = (idx % kQuads) * 4;
-    if (r >= rows) break;
-    float* out = dst + r * LD + c;
-    out[0] = x[s].x;
-    if (c + 1 < LD) out[1] = x[s].y;
-    if (c + 2 < LD) out[2] = x[s].z;
-    if (c + 3 < LD) out[3] = x[s].w;
-  }
-}
+size_t smem_bytes() { return std::max(kDenseBytes, fmtc::kPairBytes); }
 
 // df = do / g and dgr = -rowsum(do o) / g for `rows` rows from row i0; four threads a row
 template <typename T>
@@ -549,20 +507,6 @@ __device__ __forceinline__ void load_df(float* df, float* dgr, const T* dout, co
     part += __shfl_xor_sync(0xffffffffu, part, 2);
     if (quarter == 0) dgr[r] = -part / gv;
   }
-}
-
-// operand views of a tile of row stride LD: at(t)(r, c) = t[r][c], tr(t)(r, c) = t[c][r]
-template <int LD> __device__ __forceinline__ auto at(const float* t) {
-  return [t](int r, int c) { return t[r * LD + c]; };
-}
-template <int LD> __device__ __forceinline__ auto tr(const float* t) {
-  return [t](int r, int c) { return t[c * LD + r]; };
-}
-
-// acc += A B for a 64 x 64 output, float32 by split operands
-template <typename FA, typename FB>
-__device__ __forceinline__ void mma64(float (&acc)[4][4], FA A, FB B, int kdim) {
-  fmtc::mma_f32<4>(acc, quad_row0(), quad_col0(), A, B, kdim);
 }
 
 // CTA 0: the intra-chunk VJP and every D x D term, float32 products by split operands
@@ -755,60 +699,6 @@ __device__ __forceinline__ void dense_cta(const T* q, const T* k, const T* v, co
   }
 }
 
-// A pair CTA's shared state: the S3/dS3 ring (f32, cp.async's target), the planes of v,
-// of rnd(df) and of the step's tile (fmtc::Planes: the parts of float32 values, or the
-// bfloat16 values; swizzled rows of 64), q and k in f32 (for the pair features and the
-// folds) and the pair table (p -> m | j << 8, kNoPair past the pairs). Warp w takes rows
-// 16 w .. 16 w + 15 of the chunk in the products whose rows are the chunk's (dq2, dk2, dv
-// and the folds), and a 16 x 32 part of the tile in those whose rows are pairs (the
-// rewind, the dS3 update).
-struct PairSmem {
-  static constexpr int kRowPlane = kMaxC * 64, kTilePlane = kPT * 64;  // elements a plane
-  static constexpr int kQ = 2 * kPT * kLDA, kK = kQ + kMaxC * kLDF, kPlanes = kK + kMaxC * kLDF;
-  static __device__ __forceinline__ float* ring(int i) { return fm_tc_smem + i * kPT * kLDA; }
-  static __device__ __forceinline__ float* qs() { return fm_tc_smem + kQ; }
-  static __device__ __forceinline__ float* ks() { return fm_tc_smem + kK; }
-  static __device__ __forceinline__ __nv_bfloat16* vpl() {
-    return reinterpret_cast<__nv_bfloat16*>(fm_tc_smem + kPlanes);
-  }
-  static __device__ __forceinline__ __nv_bfloat16* dfpl() { return vpl() + 3 * kRowPlane; }
-  static __device__ __forceinline__ __nv_bfloat16* spl() { return dfpl() + 3 * kRowPlane; }
-  static __device__ __forceinline__ uint16_t* pmj() {
-    return reinterpret_cast<uint16_t*>(spl() + 3 * kTilePlane);
-  }
-};
-static_assert(sizeof(float) * PairSmem::kPlanes +
-                      sizeof(__nv_bfloat16) * 3 * (2 * PairSmem::kRowPlane + PairSmem::kTilePlane) +
-                      sizeof(uint16_t) * kTablePairs == kPairBytes,
-              "the pair CTA's layout");
-
-// A fragments of a plane tile stored [m][k], rows row0 ..
-template <typename T>
-__device__ __forceinline__ auto from_planes(const __nv_bfloat16* pl, int elems, int row0) {
-  return [pl, elems, row0](int k0, uint32_t (&a)[fmtc::Planes<T>::kCount][4]) {
-#pragma unroll
-    for (int i = 0; i < fmtc::Planes<T>::kCount; ++i) fmtc::ldsm_a(a[i], pl + i * elems, row0, k0);
-  };
-}
-// A fragments of values A(r, k), rows row0 ..
-template <typename T, typename FA>
-__device__ __forceinline__ auto from_values(FA A, int row0) {
-  return [A, row0](int k0, uint32_t (&a)[fmtc::Planes<T>::kCount][4]) {
-    fmtc::frag_values<T>(a, A, row0 + fmtc::lane_g(), k0 + 2 * fmtc::lane_t());
-  };
-}
-
-// the f32 tile sb (kPT x kLDA) -> the tile planes; ends synchronised
-template <typename T>
-__device__ __forceinline__ void tile_planes(const float* sb) {
-  for (int idx = threadIdx.x; idx < kPT * 32; idx += fmtc::kThreads) {
-    const int r = idx / 32, c = (idx % 32) * 2;
-    fmtc::put_planes<T>(PairSmem::spl(), PairSmem::kTilePlane, r, c, sb[r * kLDA + c],
-                        sb[r * kLDA + c + 1]);
-  }
-  __syncthreads();
-}
-
 // The pair-basis fold-back of a warp's tile t (its 16 rows x the tile's 64 pairs):
 // out[r, m_p] += rnd(t x[r, j_p]), out[r, j_p] += rnd(t x[r, m_p]) (both land on m for a
 // diagonal pair), the reference's (dq2 qb) E^T + (dq2 qa) F^T, on the tensor cores: t's
@@ -860,36 +750,6 @@ __device__ __forceinline__ void fold(float (&out)[8][4], const float (&t)[8][4],
       for (int e = 0; e < 4; ++e) out[nc][e] += part[e];
     }
   }
-}
-
-// An S3 tile: rewind it by the held rows (S3 -= K2^T v), in the f32 tile and in device
-// memory. Ends synchronised.
-template <typename T>
-__device__ __forceinline__ void s3_rewind(float* sb, float* s3, int p0, int np, int d, int rows) {
-  const uint16_t* pmj = PairSmem::pmj() + p0;
-  const float* ks = PairSmem::ks();
-  const int row0 = quad_row0(), col0 = quad_col0();
-  const int pa = row0 + fmtc::lane_g(), code0 = pmj[pa], code1 = pmj[pa + 8];
-  auto k2t = [ks, pa, code0, code1](int pp, int r) {  // K2^T[pp, r] = rnd(k_m k_j)
-    const int code = pp == pa ? code0 : code1;
-    return rnd<T>(ks[r * kLDF + (code & 255)] * ks[r * kLDF + (code >> 8)]);
-  };
-  float acc[4][4];
-  fmtc::zero_acc(acc);
-  fmtc::mma_planes<T, 4, true>(acc, from_values<T>(k2t, row0), PairSmem::vpl(),
-                               PairSmem::kRowPlane, col0, rows);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int pp = acc_row(row0, e), c = acc_col(col0, nt, e), i = pp * kLDA + c;
-      if (pp < np && c < d) {
-        const float rewound = sb[i] - acc[nt][e];
-        sb[i] = rewound;
-        s3[static_cast<size_t>(p0 + pp) * d + c] = rewound;
-      }
-    }
-  __syncthreads();
 }
 
 // dq2 = (rnd(df) rnd(S3)^T) w against a rewound S3 tile, folded into the warp's dq sums
@@ -983,7 +843,6 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
                                          const T* o, const float* g, float* s3, float* ds3,
                                          float* dq_acc, float* dk_acc, float* dv_acc, int n,
                                          int d, int chunk, float z, int lo, int hi) {
-  uint16_t* pmj = PairSmem::pmj();
   const int tid = threadIdx.x, bh = blockIdx.x;
   const size_t base = static_cast<size_t>(bh) * n * d;
   const int ntile = (hi - lo + kPT - 1) / kPT;
@@ -991,26 +850,12 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
   const float inv_z2 = 1.f / (2.f * z * z);
   const int r0 = 16 * (tid >> 5);  // the warp's rows of the sub-chunk
 
-  for (int p = tid; p < kTablePairs; p += fmtc::kThreads) pmj[p] = kNoPair;
-  __syncthreads();
-  for (int idx = tid; idx < d * d; idx += fmtc::kThreads) {
-    const int m = idx / d, j = idx % d;
-    if (j >= m) pmj[m * d - m * (m - 1) / 2 + (j - m)] = static_cast<uint16_t>(m | (j << 8));
-  }
-  for (int idx = tid; idx < 2 * kPT * kLDA; idx += fmtc::kThreads) fm_tc_smem[idx] = 0.f;
+  fmtc::pair_setup(d);
 
   // stage step `step` of a chunk (its S3 passes, then its dS3 passes) into ring[step & 1]
   auto issue = [=](int step) {
-    const float* src = step < per * ntile ? s3 : ds3;
-    const int p0 = lo + (step % ntile) * kPT;
-    float* dst = PairSmem::ring(step & 1);
-    const int quads = d / 4;
-    for (int idx = tid; idx < kPT * quads; idx += fmtc::kThreads) {
-      const int pp = idx / quads, c = (idx % quads) * 4, p = p0 + pp;
-      const bool ok = p < hi;
-      fmtc::cp_async16(dst + pp * kLDA + c, src + static_cast<size_t>(ok ? p : lo) * d + c, ok);
-    }
-    fmtc::cp_async_commit();
+    fmtc::stage_tile(PairSmem::ring(step & 1), step < per * ntile ? s3 : ds3,
+                     lo + (step % ntile) * kPT, lo, hi, d);
   };
   // rows [r_beg, r_beg + rows) of the head: q and k in f32, the planes of v and of
   // rnd(df) = rnd(do / g), zero at c >= d
@@ -1077,7 +922,7 @@ __device__ __forceinline__ void pair_cta(const T* q, const T* k, const T* v, con
         float* sb = PairSmem::ring(step & 1);
         const int p0 = lo + tile * kPT, np = min(kPT, hi - p0);
         if (on_s3) {
-          if (first) s3_rewind<T>(sb, s3, p0, np, d, rows);
+          if (first) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, -1.f);
           if (second) s3_fold<T>(sb, sums, p0, d, rows);
         } else {
           if (first) ds3_reads<T>(sb, sums, gv, p0, d, rows);

@@ -1,5 +1,5 @@
-// Tensor-core pieces of the fastmax scan kernels (fastmax_bwd.cu's fastmax_bwd_tc_kernel;
-// kept apart from fastmax_common.cuh so that the forward can take them up later).
+// Tensor-core pieces of the fastmax scan kernels (fastmax_fwd.cu's fastmax_fwd_tc_kernel and
+// fastmax_bwd.cu's fastmax_bwd_tc_kernel).
 //
 // Every product is mma.sync m16n8k16 on bfloat16 operands with float32 sums: a warp's 16
 // rows from row0 and NT n8 tiles of columns; acc[nt][e] holds row row0 + g + 8 (e / 2),
@@ -27,6 +27,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fastmax_common.cuh"
+
+// the tensor-core kernels' dynamic shared memory; their tiles are fixed offsets into it, so
+// every access to them compiles to a shared-memory instruction
+extern __shared__ __align__(16) float fm_tc_smem[];
 
 namespace fmtc {
 
@@ -271,6 +277,185 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+
+// ---- the layout and pieces both kernels' CTAs share
+
+constexpr int kR = 64;                         // rows of a tile
+constexpr int kMaxC = 128;                     // chunk rows a pair CTA holds
+constexpr int kPT = 64;                        // pairs a tile
+constexpr int kTablePairs = 2112;              // 2080 pairs at D = 64, to whole tiles
+constexpr uint16_t kNoPair = 64 | (64 << 8);   // a pair of the zero pad column
+constexpr int kTileA = kR * kLDA;
+
+// a warp's part of a 64 x 64 output: rows 16 (w % 4), columns 32 (w / 4), four n8 tiles
+__device__ __forceinline__ int quad_row0() { return 16 * ((threadIdx.x >> 5) & 3); }
+__device__ __forceinline__ int quad_col0() { return 32 * (threadIdx.x >> 7); }
+// the (row, column) of acc[nt][e] for a warp at (row0, col0)
+__device__ __forceinline__ int acc_row(int row0, int e) { return row0 + lane_g() + 8 * (e >> 1); }
+__device__ __forceinline__ int acc_col(int col0, int nt, int e) {
+  return col0 + 8 * nt + 2 * lane_t() + (e & 1);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// rows [0, rows) of a (., d) row-major matrix -> a tile of row stride LD, zero at c >= d;
+// rows <= kMaxC, and every load is issued before the first store
+template <int LD, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int rows, int d) {
+  constexpr int kQuads = (LD + 3) / 4;
+  constexpr int kSteps = (kMaxC * kQuads + kThreads - 1) / kThreads;
+  float4 x[kSteps];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int idx = threadIdx.x + s * kThreads, r = idx / kQuads, c = (idx % kQuads) * 4;
+    x[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows && c < d) x[s] = load4(src + static_cast<size_t>(r) * d + c);
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int idx = threadIdx.x + s * kThreads, r = idx / kQuads, c = (idx % kQuads) * 4;
+    if (r >= rows) break;
+    float* out = dst + r * LD + c;
+    out[0] = x[s].x;
+    if (c + 1 < LD) out[1] = x[s].y;
+    if (c + 2 < LD) out[2] = x[s].z;
+    if (c + 3 < LD) out[3] = x[s].w;
+  }
+}
+
+// operand views of a tile of row stride LD: at(t)(r, c) = t[r][c], tr(t)(r, c) = t[c][r]
+template <int LD> __device__ __forceinline__ auto at(const float* t) {
+  return [t](int r, int c) { return t[r * LD + c]; };
+}
+template <int LD> __device__ __forceinline__ auto tr(const float* t) {
+  return [t](int r, int c) { return t[c * LD + r]; };
+}
+
+// acc += A B for a 64 x 64 output, float32 by split operands
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma64(float (&acc)[4][4], FA A, FB B, int kdim) {
+  mma_f32<4>(acc, quad_row0(), quad_col0(), A, B, kdim);
+}
+
+// A pair CTA's shared state: the S3/dS3 ring (f32, cp.async's target), the planes of v,
+// of rnd(df) (the backward's) and of the step's tile (Planes: the parts of float32 values,
+// or the bfloat16 values; swizzled rows of 64), q and k in f32 (for the pair features and
+// the folds) and the pair table (p -> m | j << 8, kNoPair past the pairs). Warp w takes
+// rows 16 w .. 16 w + 15 of the held rows in the products whose rows are the chunk's (f2;
+// dq2, dk2, dv and the folds), and a 16 x 32 part of the tile in those whose rows are
+// pairs (the S3 update or rewind, the dS3 update).
+struct PairSmem {
+  static constexpr int kRowPlane = kMaxC * 64, kTilePlane = kPT * 64;  // elements a plane
+  static constexpr int kQ = 2 * kPT * kLDA, kK = kQ + kMaxC * kLDF, kPlanes = kK + kMaxC * kLDF;
+  static __device__ __forceinline__ float* ring(int i) { return fm_tc_smem + i * kPT * kLDA; }
+  static __device__ __forceinline__ float* qs() { return fm_tc_smem + kQ; }
+  static __device__ __forceinline__ float* ks() { return fm_tc_smem + kK; }
+  static __device__ __forceinline__ __nv_bfloat16* vpl() {
+    return reinterpret_cast<__nv_bfloat16*>(fm_tc_smem + kPlanes);
+  }
+  static __device__ __forceinline__ __nv_bfloat16* dfpl() { return vpl() + 3 * kRowPlane; }
+  static __device__ __forceinline__ __nv_bfloat16* spl() { return dfpl() + 3 * kRowPlane; }
+  static __device__ __forceinline__ uint16_t* pmj() {
+    return reinterpret_cast<uint16_t*>(spl() + 3 * kTilePlane);
+  }
+};
+constexpr size_t kPairBytes = sizeof(float) * PairSmem::kPlanes +
+                              sizeof(__nv_bfloat16) * 3 * (2 * PairSmem::kRowPlane +
+                                                           PairSmem::kTilePlane) +
+                              sizeof(uint16_t) * kTablePairs;
+
+// A fragments of a plane tile stored [m][k], rows row0 ..
+template <typename T>
+__device__ __forceinline__ auto from_planes(const __nv_bfloat16* pl, int elems, int row0) {
+  return [pl, elems, row0](int k0, uint32_t (&a)[Planes<T>::kCount][4]) {
+#pragma unroll
+    for (int i = 0; i < Planes<T>::kCount; ++i) ldsm_a(a[i], pl + i * elems, row0, k0);
+  };
+}
+// A fragments of values A(r, k), rows row0 ..
+template <typename T, typename FA>
+__device__ __forceinline__ auto from_values(FA A, int row0) {
+  return [A, row0](int k0, uint32_t (&a)[Planes<T>::kCount][4]) {
+    frag_values<T>(a, A, row0 + lane_g(), k0 + 2 * lane_t());
+  };
+}
+
+// the f32 tile sb (kPT x kLDA) -> the tile planes; ends synchronised
+template <typename T>
+__device__ __forceinline__ void tile_planes(const float* sb) {
+  for (int idx = threadIdx.x; idx < kPT * 32; idx += kThreads) {
+    const int r = idx / 32, c = (idx % 32) * 2;
+    put_planes<T>(PairSmem::spl(), PairSmem::kTilePlane, r, c, sb[r * kLDA + c],
+                  sb[r * kLDA + c + 1]);
+  }
+  __syncthreads();
+}
+
+// a pair CTA's start: the pair table, and the ring zeroed (cp.async fills columns < d only)
+__device__ __forceinline__ void pair_setup(int d) {
+  uint16_t* pmj = PairSmem::pmj();
+  for (int p = threadIdx.x; p < kTablePairs; p += kThreads) pmj[p] = kNoPair;
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < d * d; idx += kThreads) {
+    const int m = idx / d, j = idx % d;
+    if (j >= m) pmj[m * d - m * (m - 1) / 2 + (j - m)] = static_cast<uint16_t>(m | (j << 8));
+  }
+  for (int idx = threadIdx.x; idx < 2 * kPT * kLDA; idx += kThreads) fm_tc_smem[idx] = 0.f;
+}
+
+// the ring: stage the tile of pairs p0 .. p0 + kPT of a (pairs, d) state into dst, pairs at or
+// past hi as zeros, one cp.async group
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int p0, int lo, int hi,
+                                           int d) {
+  const int quads = d / 4;
+  for (int idx = threadIdx.x; idx < kPT * quads; idx += kThreads) {
+    const int pp = idx / quads, c = (idx % quads) * 4, p = p0 + pp;
+    const bool ok = p < hi;
+    cp_async16(dst + pp * kLDA + c, src + static_cast<size_t>(ok ? p : lo) * d + c, ok);
+  }
+  cp_async_commit();
+}
+
+// An S3 tile takes the held rows: S3 += sign K2^T v, with K2^T[p, r] = rnd(k_m k_j) formed
+// on the fly (sign 1: the forward's update; -1: the backward's rewind), in the f32 tile
+// and in device memory. Ends synchronised.
+template <typename T>
+__device__ __forceinline__ void s3_update(float* sb, float* s3, int p0, int np, int d, int rows,
+                                          float sign) {
+  const uint16_t* pmj = PairSmem::pmj() + p0;
+  const float* ks = PairSmem::ks();
+  const int row0 = quad_row0(), col0 = quad_col0();
+  const int pa = row0 + lane_g(), code0 = pmj[pa], code1 = pmj[pa + 8];
+  auto k2t = [ks, pa, code0, code1](int pp, int r) {  // K2^T[pp, r] = rnd(k_m k_j)
+    const int code = pp == pa ? code0 : code1;
+    return fm::rnd<T>(ks[r * kLDF + (code & 255)] * ks[r * kLDF + (code >> 8)]);
+  };
+  float acc[4][4];
+  zero_acc(acc);
+  mma_planes<T, 4, true>(acc, from_values<T>(k2t, row0), PairSmem::vpl(), PairSmem::kRowPlane,
+                         col0, rows);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pp = acc_row(row0, e), c = acc_col(col0, nt, e), i = pp * kLDA + c;
+      if (pp < np && c < d) {
+        const float taken = sb[i] + sign * acc[nt][e];
+        sb[i] = taken;
+        s3[static_cast<size_t>(p0 + pp) * d + c] = taken;
+      }
+    }
+  __syncthreads();
 }
 
 }  // namespace fmtc

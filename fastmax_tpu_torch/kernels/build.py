@@ -132,8 +132,8 @@ KERNELS = {
         "fastmax_tpu/ops/fastmax_pallas.py:503",  # and fastmax_pallas's forward alone at :649
         "fm_fastmax_fwd",
         # q, k, v, o, bf16, g, skv, sk, s3, skk, fpart, bh, n, d, chunk, p2, z, s3_rows, nsplit,
-        # stream
-        [_P, _P, _P, _P, _I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]),
+        # tc, stream
+        [_P, _P, _P, _P, _I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P]),
     "fastmax_bwd": Kernel(
         "fastmax_bwd", "fastmax_bwd.cu",
         "fastmax_tpu/ops/fastmax_pallas.py:568",

@@ -1,9 +1,9 @@
 """Causal fastmax as a chunked prefix scan (counterpart of
 ``fastmax_tpu/ops/fastmax_pallas.py``).
 
-A CUDA tensor goes to the hand-written kernels ``csrc/fastmax_fwd.cu`` (K4) and
-``csrc/fastmax_bwd.cu`` (K5; ``bwd_path`` picks its tensor-core or FMA kernel);
-a CPU tensor, or ``plain=True``, goes to
+A CUDA tensor goes to the hand-written kernels ``csrc/fastmax_fwd.cu`` (K4;
+``fwd_path`` picks its tensor-core or FMA kernel) and ``csrc/fastmax_bwd.cu``
+(K5; ``bwd_path`` likewise); a CPU tensor, or ``plain=True``, goes to
 ``fastmax_fwd_plain`` and ``fastmax_bwd_plain``, which walk the same chunks
 with the same state:
 
@@ -229,6 +229,13 @@ def _nsplit(p: int, d: int, bh: int, device) -> int:
     return max(1, min(4, sms // bh))
 
 
+def fwd_path(p: int, d: int) -> str:
+    """K4's kernel: "tc" (``fastmax_fwd_tc_kernel``, every product on the
+    tensor cores) for p = 2 at D % 16 == 0, "fma" (``fastmax_fwd_kernel``,
+    f32 FMAs) otherwise."""
+    return "tc" if p == 2 and d % 16 == 0 else "fma"
+
+
 def bwd_path(p: int, d: int) -> str:
     """K5's kernel: "tc" (``fastmax_bwd_tc_kernel``, every product on the
     tensor cores) for p = 2 at D % 16 == 0, "fma" (``fastmax_bwd_kernel``,
@@ -236,10 +243,10 @@ def bwd_path(p: int, d: int) -> str:
     return "tc" if p == 2 and d % 16 == 0 else "fma"
 
 
-def _bwd_nsplit(path: str, p: int, d: int, bh: int, device) -> int:
-    """CTAs a head for K5. The tensor-core kernel gives CTA 0 the intra-chunk
-    VJP and the D x D terms and splits the pairs over up to three more, in
-    whole tiles, while the heads alone leave SMs idle; the FMA kernel as
+def _path_nsplit(path: str, p: int, d: int, bh: int, device) -> int:
+    """CTAs a head for K4 or K5. Their tensor-core kernels give CTA 0 the
+    work outside the pair terms and split the pairs over up to three more, in
+    whole tiles, while the heads alone leave SMs idle; the FMA kernels as
     ``_nsplit``."""
     if path != "tc":
         return _nsplit(p, d, bh, device)
@@ -248,12 +255,16 @@ def _bwd_nsplit(path: str, p: int, d: int, bh: int, device) -> int:
     return 1 + max(1, min(3, tiles, sms // bh - 1))
 
 
-def _fwd_launch(q, k, v, p: int, z: float, chunk: int, train: bool):
+def _fwd_launch(q, k, v, p: int, z: float, chunk: int, train: bool, path: str | None = None):
+    """K4. ``path`` ("tc" or "fma") overrides ``fwd_path``'s choice, to time
+    both kernels on the same inputs; the C entry refuses a tc call the kernel
+    does not take."""
     _check(q, k, v, p, chunk)
     bh, n, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dev = q.device
-    nsplit = _nsplit(p, d, bh, dev)
+    path = path or fwd_path(p, d)
+    nsplit = _path_nsplit(path, p, d, bh, dev)
     o = torch.empty_like(q)
     rows = sym_width(d) if p == 2 else 1
     s3 = torch.zeros((bh, rows, d), device=dev) if p == 2 or train else None
@@ -269,7 +280,7 @@ def _fwd_launch(q, k, v, p: int, z: float, chunk: int, train: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16),
         _ptr(g), _ptr(s_kv), _ptr(s_k), _ptr(s3) if p == 2 else None,
         _ptr(s_kk) if p == 2 else None, _ptr(fpart), bh, n, d, chunk, int(p == 2), float(z),
-        rows, nsplit)
+        rows, nsplit, int(path == "tc"))
     if not train:
         return o
     return o, g, (s_kv, s_k, s3, s_kk)
@@ -296,7 +307,7 @@ def _bwd_launch(q, k, v, do, o, g, state, p: int, z: float, chunk: int,
     q, k, v, do, o, g = (x.contiguous() for x in (q, k, v, do, o, g))
     s_kv, s_k, s_kk = s_kv.contiguous(), s_k.contiguous(), s_kk.contiguous()
     path = path or bwd_path(p, d)
-    nsplit = _bwd_nsplit(path, p, d, bh, q.device)
+    nsplit = _path_nsplit(path, p, d, bh, q.device)
     s3 = s_kkv.clone() if p == 2 else None           # rewound in place by the kernel
     ds3 = torch.zeros_like(s_kkv) if p == 2 else None
     part = torch.zeros((nsplit, 3, bh, n, d), device=q.device)

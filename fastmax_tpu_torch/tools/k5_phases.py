@@ -6,14 +6,15 @@ partial buffers), runs ``fastmax_bwd_tc_kernel`` once at the pretraining shape
 (B=4 H=8 N=512 D=64, p = 2, chunk 128) in float32 and in bfloat16, and prints
 the cycles a pair CTA spends in each phase (the mean over the pair CTAs) and
 CTA 0's total. Phases: ``wait`` the step's barriers and ring wait, ``rows``
-the chunk's rows and planes, ``rewind`` the S3 rewind product, ``rew_epi`` its
-write-back and the tile's planes, ``dq2``, ``fold_q``, ``dv``, ``dk2``,
+the chunk's rows and planes, ``rewind`` the S3 rewind (``fastmax_tc.cuh``'s
+``s3_update``) with its write-back, ``planes`` the S3 tile's planes, ``dq2``, ``fold_q``, ``dv``, ``dk2``,
 ``fold_k``, ``update`` the dS3 update with its write-back.
 
     python -m fastmax_tpu_torch.tools.k5_phases
 
-Needs an NVIDIA GPU and the CUDA toolkit; the anchors below are lines of the
-kernel's source, and the script stops if one is not found once.
+Needs an NVIDIA GPU and the CUDA toolkit; the anchors below are lines of
+``fastmax_bwd.cu`` (the shared helpers of ``fastmax_tc.cuh`` are timed at their
+call sites there), and the script stops if one is not found once.
 """
 
 from __future__ import annotations
@@ -29,14 +30,13 @@ import torch
 from ..kernels import build
 from ..ops import fastmax_kernels as fk
 
-PHASES = ("wait", "rows", "rewind", "rew_epi", "dq2", "fold_q", "dv", "dk2", "fold_k", "update")
+PHASES = ("wait", "rows", "rewind", "planes", "dq2", "fold_q", "dv", "dk2", "fold_k", "update")
 TOTAL, DENSE = len(PHASES), len(PHASES) + 1
 
 # (code of the source, the phase of the probe put before it, of the one put after it; None:
 # no probe). A probe adds the cycles since the last probe to its phase.
 PROBES = [
-    ("  fmtc::mma_planes<T, 4, true>(acc, from_values<T>(k2t, row0), PairSmem::vpl(),\n"
-     "                               PairSmem::kRowPlane, col0, rows);\n", 2, 2),
+    ("          if (first) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, -1.f);\n", None, 2),
     ("  tile_planes<T>(sb);\n  const int r0 = 16 * (threadIdx.x >> 5);\n", None, 3),
     ("  fold<T>(oq, t, PairSmem::qs() + r0 * kLDF, pmj);\n", 4, 5),
     ("                               PairSmem::kTilePlane, 0, kPT);\n", None, 6),
@@ -72,8 +72,8 @@ def instrumented(src_dir: Path) -> str:
         if after is not None:
             new += f"fm_tick({after});\n"
         text = _once(text, anchor, new)
-    text = _once(text, "  uint16_t* pmj = PairSmem::pmj();\n",
-                 "  uint16_t* pmj = PairSmem::pmj();\n"
+    text = _once(text, "  fmtc::pair_setup(d);\n",
+                 "  fmtc::pair_setup(d);\n"
                  "  for (int i = threadIdx.x; i < 16; i += blockDim.x) fm_prof[i] = 0;\n"
                  "  __syncthreads();\n  const long long t_start = clock64();\n"
                  "  if (threadIdx.x == 0) fm_prof[15] = t_start;\n")
@@ -106,7 +106,7 @@ def run(dtype) -> dict:
         q, k, v, do = ((torch.randn((bh, n, d), generator=gen, device="cuda") * 0.5).to(dtype)
                        for _ in range(4))
         o, g, (s_kv, s_k, s_kkv, s_kk) = fk.fastmax_fwd_plain(q, k, v, 2, z, chunk)
-        nsplit = fk._bwd_nsplit("tc", 2, d, bh, q.device)
+        nsplit = fk._path_nsplit("tc", 2, d, bh, q.device)
         for _ in range(2):  # the second call is counted
             s3, ds3 = s_kkv.clone(), torch.zeros_like(s_kkv)
             part = torch.zeros((nsplit, 3, bh, n, d), device="cuda")

@@ -178,6 +178,18 @@ def test_bwd_path_takes_the_tensor_cores_where_the_kernel_can(p, d, chunk, path)
     assert chunk % fk.KERNEL_ROWS == 0
 
 
+@pytest.mark.parametrize("p,d,chunk,path", [(2, 64, 128, "tc"), (2, 48, 64, "tc"),
+                                             (2, 32, 128, "tc"), (2, 16, 128, "tc"),
+                                             (2, 40, 128, "fma"), (2, 64, 256, "tc"),
+                                             (2, 64, 512, "tc"), (1, 64, 128, "fma")])
+def test_fwd_path_takes_the_tensor_cores_where_the_kernel_can(p, d, chunk, path):
+    """K4's tensor-core kernel takes p = 2 at D % 16 == 0, whatever the chunk
+    (its pair CTAs hold 128 of a chunk's rows at a time); the rest stays on
+    the FMA kernel."""
+    assert fk.fwd_path(p, d) == path
+    assert chunk % fk.KERNEL_ROWS == 0
+
+
 def _tf32(x):
     """Round float32 to TF32 (10 mantissa bits) as cvt.rna does."""
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
@@ -283,6 +295,64 @@ def test_split_holds_the_f32_gate():
     assert errs["tf32"][0] > 10 * gate, errs
 
 
+def _walk_fwd_pair_products(q, k, v, z, chunk, mm):
+    """A copy of fastmax_fwd_plain at p = 2 in float32, with its two pair
+    products (f2 = (Q2 w) S3 and the S3 update K2^T v) taken by mm."""
+    bh, n, d = q.shape
+    z2 = 2.0 * z * z
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    s_v = torch.zeros((bh, 1, d))
+    s_kv = torch.zeros((bh, d, d))
+    s_k = torch.zeros((bh, 1, d))
+    s_kk = torch.zeros((bh, d, d))
+    pm, pj, w = fk._pairs(d, "cpu")
+    s3 = torch.zeros((bh, pm.numel(), d))
+    o = torch.empty_like(q)
+    g = torch.empty((bh, n, 1))
+    for c0 in range(0, n, chunk):
+        qi, ki, vi = (x[:, c0:c0 + chunk] for x in (q, k, v))
+        s = qi @ ki.transpose(1, 2) / z
+        fs = 1.0 + s
+        fs = fs + 0.5 * s * s
+        fs = torch.where(causal, fs, torch.zeros_like(fs))
+        f = fs @ vi + s_v + qi @ s_kv / z
+        gi = fs.sum(-1, keepdim=True) + float(c0) + qi @ s_k.transpose(1, 2) / z
+        gi = gi + ((qi @ s_kk) * qi).sum(-1, keepdim=True) / z2
+        f = f + mm(qi[..., pm] * qi[..., pj] * w, s3) / z2
+        o[:, c0:c0 + chunk] = f / gi
+        g[:, c0:c0 + chunk] = gi
+        s_v = s_v + vi.sum(1, keepdim=True)
+        s_kv = s_kv + ki.transpose(1, 2) @ vi
+        s_k = s_k + ki.sum(1, keepdim=True)
+        s_kk = s_kk + ki.transpose(1, 2) @ ki
+        s3 = s3 + mm((ki[..., pm] * ki[..., pj]).transpose(1, 2), vi)
+    return o, g, s3
+
+
+def test_forward_split_holds_the_f32_gate():
+    """K4's float32 split on the pair products of the forward walk at
+    (1, 2, 512, 64), p = 2, with phase 8's law (q, k std sqrt(8)): o and the
+    final S3 lie within FASTMAX_F32_REL["fwd"] of the exact walk (a fifth of
+    the gate at most), where one TF32 product (what a single tensor-core pass
+    over float32 would give) puts o outside it."""
+    rng = np.random.default_rng(14)
+    std = chip_smoke.FASTMAX_QK_STD[2]
+    q, k, v = (torch.from_numpy((rng.standard_normal((2, 512, 64)) * s).astype(np.float32))
+               for s in (std, std, 1.0))
+    z = 8.0 * np.sqrt(64)
+    exact = _walk_fwd_pair_products(q, k, v, z, 128, lambda a, b: a @ b)
+    o, g, state = fk.fastmax_fwd_plain(q, k, v, 2, z, 128)
+    for a, b in zip(exact, (o, g, state[2][:, :exact[2].shape[1]])):
+        assert torch.equal(a, b)  # the copy is the plain walk
+    gate = chip_smoke.FASTMAX_F32_REL["fwd"]
+    errs = {}
+    for name, mm in (("split", _split_mm), ("tf32", lambda a, b: _tf32(a) @ _tf32(b))):
+        got = _walk_fwd_pair_products(q, k, v, z, 128, mm)
+        errs[name] = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, exact)]
+    assert max(errs["split"]) <= gate / 5, errs
+    assert errs["tf32"][0] > gate, errs
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -347,6 +417,47 @@ def test_fma_kernel_matches_plain_on_the_card(dtype, shape, chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", [((2, 4, 512, 64), 128), ((1, 3, 256, 48), 64),
+                                         ((1, 2, 384, 32), 128), ((1, 3, 384, 48), 192),
+                                         ((1, 4, 1024, 64), 256), ((1, 2, 1024, 64), 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["tc", "fma"])
+def test_forward_kernels_match_plain_on_the_card(path, dtype, shape, chunk):
+    """K4 at p = 2 on the kernel of ``path``, passed explicitly (the FMA
+    kernel where fwd_path picks the tensor cores): o, g and the final state
+    against the plain walk, in both modes (B11's forward alone too), at
+    chip_smoke.py's forward tolerances; chunks of 192, 256 and 512 rows, which
+    the tc kernel's pair CTAs take in parts. Two calls give the same bits."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, n, d = shape
+    q, k, v, _ = chip_smoke.fastmax_qkv(torch, gen, (b * h, n, d), 2, dtype)
+    z = 8.0 * np.sqrt(d)
+    assert fk.fwd_path(2, d) == "tc"
+    o, g, state = fk._fwd_launch(q, k, v, 2, z, chunk, train=True, path=path)
+    ref_o, ref_g, ref_state = fk.fastmax_fwd_plain(q, k, v, 2, z, chunk)
+    only = fk._fwd_launch(q, k, v, 2, z, chunk, train=False, path=path)
+    for name, a, r in zip(("o", "o (forward only)", "g", "s_kv", "s_k", "s_kkv", "s_kk"),
+                          (o, only, g) + tuple(state), (ref_o, ref_o, ref_g) + tuple(ref_state)):
+        chip_smoke.fastmax_close(torch, f"K4 ({path}) {name}", a, r, "fwd", dtype)
+    again = fk._fwd_launch(q, k, v, 2, z, chunk, train=True, path=path)
+    for a, b_ in zip((o, g) + tuple(state), (again[0], again[1]) + tuple(again[2])):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_refuses_what_it_does_not_take():
+    """The C entry refuses a tc launch of K4 outside the kernel's conditions
+    (p = 1; a head size of 40, not a multiple of 16) rather than running it."""
+    _needs_card()
+    for p, d in ((1, 64), (2, 40)):
+        x = torch.zeros((2, 256, d), device="cuda")
+        for train in (True, False):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fk._fwd_launch(x, x, x, p, 64.0, 128, train=train, path="tc")
+
+
+@pytest.mark.cuda
 def test_tensor_core_kernel_refuses_what_it_does_not_take():
     """The C entry refuses a tc launch outside the kernel's conditions (p = 1;
     a head size of 40, not a multiple of 16) rather than running it."""
@@ -366,17 +477,38 @@ def test_kernels_repeat_bit_for_bit():
 
 
 # faults planted in a copy of csrc/: (kernel, file, the code as written, as planted).
-# K4: an empty pair range drops its degree-2 term. K5's faults are in its tensor-core
-# kernel, which the check's shape (p = 2, D = 64, chunk 128) takes: a term dropped (a
-# fold left out, a product over no pairs, a tile left as it came), the chunk's own
-# dS3 update applied before dv and the dk fold read the tile (right for the first chunk
-# walked only), the float32 split's correction products dropped (each product then
-# bf16(a) bf16(b), about 2^-8 of its size), and, at a chunk of 256 rows that the pair
-# CTAs hold in two parts, the S3 rewind by the first part left out; then the same
-# terms dropped from its FMA kernel.
+# The tensor-core kernels, which the check's shape (p = 2, D = 64, chunk 128) takes: a
+# term dropped (a product over no pairs, a fold left out, a tile left as it came, a sum
+# left out of g), a state update taken before the reads it must follow (right for the
+# first chunk walked only in K5), the float32 split's correction products dropped (each
+# product then bf16(a) bf16(b), about 2^-8 of its size), and, at a chunk of 256 rows
+# that the pair CTAs hold in two parts, the S3 update (K4) or rewind (K5) by all parts
+# but the last left out; then the same pair terms dropped from the FMA kernels.
 FAULTS = {
-    "K4 f2 = (Q2 w) S3": ("fastmax_fwd", "fastmax_fwd.cu",
-                          "pair_out<T>(f2, qs, s3, d, lo, hi,", "pair_out<T>(f2, qs, s3, d, lo, lo,"),
+    "K4 f2 = (Q2 w) S3": ("fastmax_fwd", "fastmax_fwd.cu", "PairSmem::kTilePlane, 0, kPT);",
+                          "PairSmem::kTilePlane, 0, 0);"),
+    "K4 S3 update": ("fastmax_fwd", "fastmax_fwd.cu",
+                     "fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 1.f);",
+                     "fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 0.f);"),
+    "K4 S3 updated before f2 reads it": (
+        "fastmax_fwd", "fastmax_fwd.cu",
+        "        if (first) s3_read<T>(sb, f2, p0, rows);\n"
+        "        if (second) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 1.f);\n",
+        "        if (second) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 1.f);\n"
+        "        if (first) s3_read<T>(sb, f2, p0, rows);\n"),
+    "K4 sub-chunks: the update by all but the last dropped": (
+        "fastmax_fwd", "fastmax_fwd.cu",
+        "        if (second) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 1.f);\n",
+        "        if (first && second) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 1.f);\n"),
+    "K4 g without rowsum((q s_kk) q)": ("fastmax_fwd", "fastmax_fwd.cu",
+                                         "        gv += (a[2 * kR] + b[2 * kR]) / z2;\n", ""),
+    "K4 f32 split: correction products dropped": (
+        "fastmax_fwd", "fastmax_tc.cuh",
+        "    mma16816(part, a[2], b[0][2 * h], b[0][2 * h + 1]);\n"
+        "    mma16816(part, a[0], b[2][2 * h], b[2][2 * h + 1]);\n"
+        "    mma16816(part, a[1], b[1][2 * h], b[1][2 * h + 1]);\n"
+        "    mma16816(part, a[1], b[0][2 * h], b[0][2 * h + 1]);\n"
+        "    mma16816(part, a[0], b[1][2 * h], b[1][2 * h + 1]);\n", ""),
     "K5 dq fold over S3": ("fastmax_bwd", "fastmax_bwd.cu",
                            "  fold<T>(oq, t, PairSmem::qs() + r0 * kLDF, pmj);\n", ""),
     "K5 dk fold over dS3": ("fastmax_bwd", "fastmax_bwd.cu",
@@ -384,8 +516,8 @@ FAULTS = {
     "K5 dv += K2 dS3": ("fastmax_bwd", "fastmax_bwd.cu",
                         "PairSmem::kTilePlane, 0, kPT);", "PairSmem::kTilePlane, 0, 0);"),
     "K5 S3 rewind": ("fastmax_bwd", "fastmax_bwd.cu",
-                     "const float rewound = sb[i] - acc[nt][e];",
-                     "const float rewound = sb[i];"),
+                     "fmtc::s3_update<T>(sb, s3, p0, np, d, rows, -1.f);",
+                     "fmtc::s3_update<T>(sb, s3, p0, np, d, rows, 0.f);"),
     "K5 dS3 update": ("fastmax_bwd", "fastmax_bwd.cu",
                       "const float updated = sb[i] + inv_z2 * acc[nt][e];",
                       "const float updated = sb[i];"),
@@ -397,8 +529,8 @@ FAULTS = {
         "          if (first) ds3_reads<T>(sb, sums, gv, p0, d, rows);\n"),
     "K5 sub-chunks: the rewind by all but the last dropped": (
         "fastmax_bwd", "fastmax_bwd.cu",
-        "          if (first) s3_rewind<T>(sb, s3, p0, np, d, rows);\n",
-        "          if (first && second) s3_rewind<T>(sb, s3, p0, np, d, rows);\n"),
+        "          if (first) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, -1.f);\n",
+        "          if (first && second) fmtc::s3_update<T>(sb, s3, p0, np, d, rows, -1.f);\n"),
     "K5 f32 split: correction products dropped": (
         "fastmax_bwd", "fastmax_tc.cuh",
         "    mma16816(part, a[2], b[0][2 * h], b[0][2 * h + 1]);\n"
@@ -406,8 +538,11 @@ FAULTS = {
         "    mma16816(part, a[1], b[1][2 * h], b[1][2 * h + 1]);\n"
         "    mma16816(part, a[1], b[0][2 * h], b[0][2 * h + 1]);\n"
         "    mma16816(part, a[0], b[1][2 * h], b[1][2 * h + 1]);\n", ""),
-    # the FMA kernel's pair terms (p = 1, other head sizes), planted with the check's
-    # calls sent to it (FMA_FAULTS)
+    # the FMA kernels' pair terms (p = 1, other head sizes), planted with the check's
+    # calls sent to them (FMA_FAULTS)
+    "K4 (fma) f2 = (Q2 w) S3": ("fastmax_fwd", "fastmax_fwd.cu",
+                                "pair_out<T>(f2, qs, s3, d, lo, hi,",
+                                "pair_out<T>(f2, qs, s3, d, lo, lo,"),
     "K5 (fma) dq fold over S3": ("fastmax_bwd", "fastmax_bwd.cu",
                                  "pair_fold<T>(acc_t, qs, df, s3, d, lo, hi,",
                                  "pair_fold<T>(acc_t, qs, df, s3, d, lo, lo,"),
@@ -470,16 +605,17 @@ def _planted(tmp_path, fault):
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_checks_catch_a_dropped_degree2_term(fault, tmp_path, monkeypatch):
     """chip_smoke.py's kernel check fails for a kernel built with one of its
-    degree-2 terms (or K5's rewind of S3) left out, with K5's dS3 update taken
-    too early, or with its float32 split cut to one product; K5's FMA kernel
-    too, with the check's calls sent to it; for K4's f2 and
-    K5's dq fold, so does its one-step check of the model's loss and
-    gradients."""
+    degree-2 terms (or its S3 update or rewind) left out, with a state update
+    taken too early, with g short of a term, or with its float32 split cut to
+    one product; the FMA kernels too, with the check's calls sent to them; for
+    K4's f2 and K5's dq fold, so does its one-step check of the model's loss
+    and gradients."""
     _needs_card()
     from fastmax_tpu_torch.models.config import Config
 
     name, faulty = _planted(tmp_path, fault)
     if fault in FMA_FAULTS:
+        monkeypatch.setattr(fk, "fwd_path", lambda p, d: "fma")
         monkeypatch.setattr(fk, "bwd_path", lambda p, d: "fma")
     gen = torch.Generator(device="cuda").manual_seed(5)
     shape, chunk = FAULT_CASES[fault]
