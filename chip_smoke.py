@@ -295,7 +295,7 @@ def int4_case(torch, gen, what, p, m) -> dict:
 
     pw, u, v = p["q4r1"], p["u4"], p["v4"]
     k = u.shape[1]
-    path = qk.rank1_path(m, pw.shape[3])
+    path = qk.int4_path(m, pw.shape[3])
     x = torch.randn((m, k), generator=gen, device="cuda")
     ref = qk.int4_matmul_rank1_plain(x, pw[2], u[2], v[2])
     checks = [("stacked", qk.int4_matmul_rank1_stacked(x, p, 2))]
@@ -364,7 +364,7 @@ def check_int4(torch, gen, results):
 
             def call(plain=False):
                 return qk.int4_matmul_rank1_stacked(x, p, next(it) % n_layers, plain=plain)
-            path = qk.rank1_path(m, k_pad)
+            path = qk.int4_path(m, k_pad)
             kern_ms = graph_ms(call, calls=2 * n_layers)
             fma_ms = None
             if path == "tc":
@@ -493,8 +493,8 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_ke
                                          "flash_train_bwd_tc_kernel")),
                  ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_gemm_kernel",
                                     "nf4_splitk_reduce_kernel")),
-                 ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_gemm_kernel",
-                                           "int4_block_reduce_kernel")),
+                 ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_tc_kernel",
+                                           "int4_block_gemm_kernel", "int4_block_reduce_kernel")),
                  ("gemm (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")))
 
 
@@ -1037,9 +1037,21 @@ def serving_path(torch, results, card):
         if prof_decode["device_us"]:
             k1_us = prof_decode["by_group_us"]["K1 int4_rank1_matmul"]
             prof_decode["k1_share"] = k1_us / prof_decode["device_us"]
-            log(f"  K1 in that decode step (m = {N_SLOTS}, {qk.rank1_path(N_SLOTS, 4096)}): "
+            log(f"  K1 in that decode step (m = {N_SLOTS}, {qk.int4_path(N_SLOTS, 4096)}): "
                 f"{k1_us:.1f} us, {prof_decode['k1_share']:.3f} of its device time, "
                 f"{k1_us / cfg.n_layer:.1f} us a layer   [{card}]")
+            # K2 at the serving shape: each slot reads its int8 K and V codes and their f32
+            # scales at 3001 positions, its bf16 q and writes its output
+            g, hq, d, s_len = cfg.n_query_groups, cfg.n_head, cfg.head_size, 3001
+            k2 = bound(N_SLOTS * (g * s_len * (2 * d + 2 * 4) + 2 * hq * d * 2 + 4),
+                       N_SLOTS * 4 * hq * s_len * d, bf16=True)
+            prof_decode["k2_us_a_launch"] = (prof_decode["by_group_us"]["K2 int8_decode_attention"]
+                                             / cfg.n_layer)
+            prof_decode["k2_bound"] = k2
+            log(f"  K2 in that decode step: {prof_decode['k2_us_a_launch']:.1f} us a launch, "
+                f"bound {k2['bound_ms'] * 1e3:.1f} us ({k2['bound_by']}: {k2['bytes'] / 1e6:.1f} "
+                f"MB), {k2['bound_ms'] * 1e3 / prof_decode['k2_us_a_launch']:.3f} of it   "
+                f"[{card}]")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         for _ in range(8):
@@ -2040,15 +2052,31 @@ def nf4_case(torch, gen, k, n, m, dtype, kind="nf4", dq=False) -> float:
                 got, ref, NF4_ATOL, rtol)
 
 
-def int4_block_case(torch, gen, k, n, m, dtype, raw=False) -> float:
-    """K9 against ``int4_matmul_tiled_plain``: blockwise int4 of a random
-    (k, n) kernel quantized on the card, x with mean 0.5; ``raw`` takes the
-    raw nibbles of the same words (x padded to k_pad)."""
+# K9's timed calls by (m, x type): decode, the block batcher's step (f32 x), a short prefill
+K9_LAYER_TIMES = ((1, "bf16"), (N_SLOTS, "bf16"), (N_SLOTS, "f32"), (64, "bf16"), (128, "bf16"))
+
+
+def int4_block_weights(torch, gen, k, n) -> dict:
+    """Blockwise int4 of a random (k, n) kernel quantized on the card, with
+    random words in the rows k..k_pad (every nibble a code), so a kernel that
+    lets them into the sum is seen: the reference zero-pads x there."""
     from fastmax_tpu_torch.ops import quant
-    from fastmax_tpu_torch.ops import quant_kernels as qk
 
     p = quant.quantize_int4_tiled(torch.randn((k, n), generator=gen, device="cuda") * 0.05,
                                   "block")
+    pad = p["q4b"][:, :, k:, :]  # one k tile: quantize_int4_tiled packs k_pad rows at once
+    pad.copy_(torch.randint(-2**31 + 1, 2**31 - 1, pad.shape, generator=gen, device="cuda",
+                            dtype=torch.int32))
+    return p
+
+
+def int4_block_case(torch, gen, k, n, m, dtype, raw=False) -> float:
+    """K9 against ``int4_matmul_tiled_plain`` on ``int4_block_weights``, x
+    with mean 0.5; ``raw`` takes the raw nibbles of the same words (x padded
+    to k_pad)."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    p = int4_block_weights(torch, gen, k, n)
     x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dtype)
     rtol = INT4_RTOL if dtype == torch.float32 else INT4_BF16_RTOL
     if raw:
@@ -2060,13 +2088,30 @@ def int4_block_case(torch, gen, k, n, m, dtype, raw=False) -> float:
         got, ref = qk.int4_matmul_block(x, p), qk.int4_matmul_block(x, p, plain=True)
         atol, what = INT4_ATOL, "block"
     torch.cuda.synchronize()
-    return held(torch, f"K9 {what} k={k} n={n} m={m} {str(dtype)[6:]}", got, ref, atol, rtol)
+    path = qk.int4_path(m, p["q4b"].shape[2])
+    return held(torch, f"K9 {what} k={k} n={n} m={m} {str(dtype)[6:]} ({path})", got, ref, atol,
+                rtol)
 
 
-def quant_times(torch, gen, kind, k, n, ms):
+def int4_block_repeats(torch, gen, k, n) -> None:
+    """K9 at m = 8 gives the same bits on 3 runs (no float atomics), f32 and bf16 x."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    p = int4_block_weights(torch, gen, k, n)
+    x = torch.randn((N_SLOTS, k), generator=gen, device="cuda") + 0.5
+    for xt in (x, x.to(torch.bfloat16)):
+        first = qk.int4_matmul_block(xt, p)
+        for _ in range(2):
+            if not torch.equal(qk.int4_matmul_block(xt, p), first):
+                raise AssertionError(f"K9 k={k} n={n} m={N_SLOTS} {xt.dtype}: a repeat differs")
+
+
+def quant_times(torch, gen, kind, k, n, ms, card):
     """Device time a call (CUDA graph, weights cold: enough copies to exceed
     the 50 MB L2) of K8 or K9 at bf16 x, its plain version and dequantize +
-    torch.matmul, with the call's bound; one row per m."""
+    torch.matmul, with the call's bound; one row per m. K9 also at f32 x and
+    m = 8 (what the block batcher launches), and on its tensor-core path
+    also on the FMA tile (``qk.TC_MAX_M`` set to ``GEMV_MAX_M``)."""
     from fastmax_tpu_torch.ops import quant
     from fastmax_tpu_torch.ops import quant_kernels as qk
 
@@ -2084,25 +2129,47 @@ def quant_times(torch, gen, kind, k, n, ms):
     copies = [p] + [{key: v.clone() for key, v in p.items()}
                     for _ in range(max(1, math.ceil(160e6 / nbytes_w)) - 1)]
     rows = []
-    for m in ms:
-        x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    cases = [(m, torch.bfloat16) for m in ms]
+    if kind == "K9":
+        cases.append((N_SLOTS, torch.float32))
+    for m, dt in cases:
+        x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dt)
         it = iter(range(10**9))
 
         def call(fn):
             return lambda: fn(x, copies[next(it) % len(copies)])
 
         kern_ms = graph_ms(call(fns[0]), calls=2 * len(copies))
+        path = qk.int4_path(m, p["q4b"].shape[2]) if kind == "K9" else None
+        fma_ms = None
+        if path == "tc":
+            tc_max, qk.TC_MAX_M = qk.TC_MAX_M, qk.GEMV_MAX_M
+            try:
+                fma_ms = graph_ms(call(fns[0]), calls=2 * len(copies))
+            finally:
+                qk.TC_MAX_M = tc_max
         plain_ms = graph_ms(call(fns[1]), calls=len(copies), reps=1)
         deq_ms = graph_ms(call(lambda x, p: torch.matmul(x, quant.dequantize(p, x.dtype))),
                           calls=len(copies), reps=1)
-        rows.append({"kernel": kind, "k": k, "n": n, "m": m, "x_dtype": "bf16", "ms": kern_ms,
-                     "plain_ms": plain_ms, "dequant_matmul_ms": deq_ms,
-                     **bound(nbytes_w + m * k * 2 + m * n * 2, 2 * m * k * n, bf16=True)})
+        elem = x.element_size()
+        rows.append({"kernel": kind, "k": k, "n": n, "m": m,
+                     "x_dtype": "bf16" if dt == torch.bfloat16 else "f32", "path": path,
+                     "ms": kern_ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+                     "dequant_matmul_ms": deq_ms,
+                     **bound(nbytes_w + m * k * elem + m * n * elem, 2 * m * k * n,
+                             bf16=dt == torch.bfloat16)})
         r = rows[-1]
-        log(f"  {kind} k={k:5d} n={n:5d} m={m:3d} bf16: kernel {kern_ms * 1e3:8.1f} us  plain "
+        if path == "tc" and dt == torch.float32:
+            # f32 x runs on the tensor cores: read it against their f32 rate, and the
+            # FMA tile against the f32 units' (bound_f32_ms)
+            tcb = tensor_core_f32_bound(r["flops"], r["bytes"])
+            r.update(bound_ms=tcb["bound_tc_f32_ms"], bound_by=tcb["bound_tc_f32_by"])
+        fma = f" (FMA tile {fma_ms * 1e3:8.1f} us)" if fma_ms is not None else ""
+        log(f"  {kind} k={k:5d} n={n:5d} m={m:3d} {r['x_dtype']:4s}: kernel"
+            f"{' ' + path if path else ''} {kern_ms * 1e3:8.1f} us{fma}  plain "
             f"{plain_ms * 1e3:8.1f} us  dequantize + matmul {deq_ms * 1e3:8.1f} us  bound "
             f"{r['bound_ms'] * 1e3:6.1f} us ({r['bound_by']}; {r['bound_f32_ms'] * 1e3:6.1f} us "
-            "at the f32 rate)")
+            f"at the f32 rate)   [{card}]")
     return rows
 
 
@@ -2143,16 +2210,35 @@ def check_quant_kernels(torch, gen, results):
             worst["int4_block_matmul"] = max(worst["int4_block_matmul"], *errs)
             log(f"  K9 {name:9s} k={k:5d} n={n:5d} m={m:3d}: ok, max abs err f32 {errs[0]:.3e} "
                 f"bf16 {errs[1]:.3e}")
-    for m in (1, 64):
+    # a true k that is not a multiple of 16 (k_pad 1536): the tensor-core kernel's last
+    # 16-row step runs past k into random words
+    for m in (N_SLOTS, 64):
+        errs = [int4_block_case(torch, gen, 1100, 3000, m, dt)
+                for dt in (torch.float32, torch.bfloat16)]
+        worst["int4_block_matmul"] = max(worst["int4_block_matmul"], *errs)
+        log(f"  K9 ragged k= 1100 n= 3000 m={m:3d}: ok, max abs err f32 {errs[0]:.3e} bf16 "
+            f"{errs[1]:.3e}")
+    for m in (1, N_SLOTS, 64):
         err = int4_block_case(torch, gen, 4096, 4096, m, torch.float32, raw=True)
         log(f"  K9 raw nibbles (s_t None) k=4096 n=4096 m={m}: ok, max abs err {err:.3e}")
+    int4_block_repeats(torch, gen, 4096, 12288)
+    log(f"  K9 qkv m={N_SLOTS}: 3 runs bit for bit, f32 and bf16")
+    card = card_line()
     rows = []
     for name, k, n in LLAMA7B_LINEARS[:3]:
         rows += [dict(r, shape=name) for r in quant_times(torch, gen, "K8", k, n,
-                                                          (1, N_SLOTS, 64, 512))]
+                                                          (1, N_SLOTS, 64, 512), card)]
     for name, k, n in LLAMA7B_LINEARS:
         rows += [dict(r, shape=name) for r in quant_times(torch, gen, "K9", k, n,
-                                                          (1, N_SLOTS, 64, 128))]
+                                                          (1, N_SLOTS, 64, 128), card)]
+    for m, xdt in K9_LAYER_TIMES:
+        layer = [r for r in rows if r["kernel"] == "K9" and r["m"] == m and r["x_dtype"] == xdt]
+        fma = (f", FMA tile {sum(r['fma_ms'] for r in layer) * 1e3:.1f} us"
+               if layer[0]["fma_ms"] is not None else "")
+        log(f"  K9 a layer's 4 linears, m={m:3d} {xdt}: {layer[0]['path']} "
+            f"{sum(r['ms'] for r in layer) * 1e3:.1f} us{fma}, bound "
+            f"{sum(r['bound_ms'] for r in layer) * 1e3:.1f} us (at the f32 rate "
+            f"{sum(r['bound_f32_ms'] for r in layer) * 1e3:.1f} us)   [{card}]")
     results["quant_kernel_times"] = rows
     results["quant_kernel_max_abs_err"] = worst
     return worst, rows
@@ -2291,9 +2377,52 @@ def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
     return out, kern, lin
 
 
+def block_batcher_paths(torch, batcher, card) -> dict:
+    """The block batcher on each path of K9 at m = 8: the tensor cores, and the
+    FMA tile (``qk.TC_MAX_M`` set to ``GEMV_MAX_M``: the kernel K9 ran at m = 8
+    before it had a tensor-core path). For each, in turns (FMA tile first): one
+    decode step at every slot's position 287 (the last of phase 10's batchers:
+    256-token prompts and 32 new tokens) profiled (device µs by kernel group),
+    and 8 steps back to back on the host clock, with the device's busy share:
+    whether a cut in K9's time can reach tok/s or the host hides it."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    pos = 287
+    toks = torch.ones(N_SLOTS, dtype=torch.int32, device="cuda")
+    posv = torch.full((N_SLOTS,), pos, dtype=torch.int32, device="cuda")
+    temps0 = torch.zeros(N_SLOTS, device="cuda")
+    topk0 = torch.full((N_SLOTS,), 32000, device="cuda")
+    out = {}
+    tc_max = qk.TC_MAX_M
+    for path in ("fma", "tc"):
+        qk.TC_MAX_M = qk.GEMV_MAX_M if path == "fma" else tc_max
+        try:
+            with torch.inference_mode():
+                prof = profile_device(torch, lambda: batcher._decode_step(
+                    toks, posv, temps0, topk0, False), f"one decode step of the block batcher at "
+                    f"{N_SLOTS} slots, positions {pos}, K9 on the {path} path")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    batcher._decode_step(toks, posv, temps0, topk0, False)
+                torch.cuda.synchronize()
+        finally:
+            qk.TC_MAX_M = tc_max
+        prof.update(path=path, wall_ms_per_step=(time.perf_counter() - t0) / 8 * 1e3)
+        if prof["device_us"]:
+            prof["busy_share"] = prof["device_us"] / 1e3 / prof["wall_ms_per_step"]
+            prof["k9_us"] = prof["by_group_us"]["K9 int4_block_matmul"]
+        log(f"  block batcher, K9 {path}: a decode step {prof['wall_ms_per_step']:.2f} ms on the "
+            f"host clock, {prof['device_us'] if prof['device_us'] is None else round(prof['device_us'], 1)} "
+            f"us of device time (K9 {prof.get('k9_us', 'not measured')} us, busy share "
+            f"{prof.get('busy_share', 'not measured')})   [{card}]")
+        out[path] = prof
+    return out
+
+
 def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card, cache_dtype=None,
                  plain: bool = False, against: dict | None = None,
-                 held: bool = True) -> dict:
+                 held: bool = True, paths: bool = False) -> dict:
     """An 8-slot ``ContinuousBatcher`` over the NF4 tree (float32
     activations; a dense cache, or ``cache_dtype``) in ``mode`` serving
     ``prompts`` (one batched admission wave, then decode at m = 8), through
@@ -2302,7 +2431,8 @@ def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card, cache_dtype=None,
     1, the same cache type) on the same weights: a divergence beyond a
     near-tie raises. With ``against`` (another run's tokens by request id),
     the tokens are held to those under the near-tie rule instead, and the
-    engine's are only reported; ``held=False`` only reports."""
+    engine's are only reported; ``held=False`` only reports. ``paths`` adds
+    ``block_batcher_paths`` after the checks."""
     from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
     from fastmax_tpu_torch.inference.engine import InferenceEngine
     from fastmax_tpu_torch.kernels import build
@@ -2364,10 +2494,11 @@ def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card, cache_dtype=None,
         + (f"; tokens == the other run's for {sum(d is None for d in vs_other)} of "
            f"{len(vs_other)} {[d for d in vs_other if d is not None]}" if against else "")
         + f"   [{card}]")
+    by_path = block_batcher_paths(torch, batcher, card) if paths else None
     del batcher, engine
     return {"mode": mode, "route": route, "wall_s": wall, "tok_s": tok_s, "launches": counts,
             "first_logits_rel": first_rel, "divergences": checks, "vs_other": vs_other,
-            "tokens": res, "card": card}
+            "tokens": res, "by_path": by_path, "card": card}
 
 
 def quant_serving_path(torch, results, card):
@@ -2441,7 +2572,8 @@ def quant_serving_path(torch, results, card):
     # 7B's logits by several per cent
     batch_prompts = [rng.integers(1, 32000, 256).astype(np.int32) for _ in range(N_SLOTS)]
     nf4_f32 = with_f32_activations(torch, nf4)
-    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card)
+    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card,
+                             paths=mode == "preload_int4_block")
                 for mode in ("quantized", "preload_int4_block")]
     # the blockwise-int4 batcher under the int8 cache: the kernels against the plain versions
     # (the same m = 8 route) under the near-tie rule; against the engine (m = 1) reported: an
@@ -2698,8 +2830,11 @@ def lab_routes(torch, gen) -> dict:
                 raise AssertionError(f"route {what} at {name}: {launched} launches of {kern}")
             held(torch, f"route {what} ({kern}) k={k} n={n}", got, ref,
                  LAB_ATOL * float(ref.abs().max()), LAB_RTOL)
-            seen.setdefault(kern, []).append({"route": what, "shape": name,
-                                              **bound(nb, flops, bf16=False)})
+            b = bound(nb, flops, bf16=False)
+            if what == "m8 f32":  # K9's tensor-core path: f32 at their rate
+                tcb = tensor_core_f32_bound(flops, nb)
+                b.update(bound_ms=tcb["bound_tc_f32_ms"], bound_by=tcb["bound_tc_f32_by"])
+            seen.setdefault(kern, []).append({"route": what, "shape": name, **b})
     return seen
 
 
@@ -2983,6 +3118,22 @@ def main() -> int:
                         "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
                         "library_ms": None})
+    # K9 by path: a layer's four linears at each timed m and x type, the tensor-core path
+    # also on the FMA tile
+    k9_paths = []
+    for m, xdt in K9_LAYER_TIMES:
+        layer = [r for r in q_rows if r["kernel"] == "K9" and r["m"] == m and r["x_dtype"] == xdt]
+        k9_paths.append({"path": layer[0]["path"], "m": m, "x_dtype": xdt,
+                         "ms": sum(r["ms"] for r in layer),
+                         "bound_ms": sum(r["bound_ms"] for r in layer),
+                         "bound_f32_ms": sum(r["bound_f32_ms"] for r in layer),
+                         "plain_ms": sum(r["plain_ms"] for r in layer)})
+        if layer[0]["fma_ms"] is not None:  # f32 x on the FMA tile: the f32 units' bound
+            k9_paths.append({**k9_paths[-1], "path": "fma",
+                             "ms": sum(r["fma_ms"] for r in layer),
+                             "bound_ms": k9_paths[-1][
+                                 "bound_f32_ms" if xdt == "f32" else "bound_ms"]})
+    kernels[-1]["by_path"] = k9_paths
     # K10-K13: one call at each of the four 7B linears at m = 1 (K12 the three whose n is whole
     # 1024-column tiles) in their first mode (K10 raw bf16, K11 v1, K12 v8, K13 stream_ref);
     # launches over the three lab mains; no single PyTorch call computes a packed-format product

@@ -154,34 +154,11 @@ __global__ void __launch_bounds__(kGvThreads) int4_gemv_kernel(
 // and hold any bits); x and u are never read past column k.
 // grid: (gn * 8 units of 16 lanes, splits, m chunks of 8 rows); tk % 16 == 0
 // and rows_per_split % (16 * kTcWarps) == 0, so a step lies in one k tile.
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTcUnitLanes = 16;                   // lanes of one A tile
-constexpr int kTcUnits = kLanes / kTcUnitLanes;    // A tiles across a plane
-constexpr int kTcStep = 16;                        // k rows of one mma
-constexpr int kTcRows = 8;                         // rows of x in one B tile
-
-// the f32 pair (a, b) as three bf16 pairs that add up to it exactly: each part
-// is the nearest bf16 of what the parts before it left, a remainder that is
-// exact in f32 and holds 8 fewer significant bits (the last part holds the rest)
-__device__ __forceinline__ void split3_bf16x2(float a, float b, uint32_t parts[3]) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 hf = __bfloat1622float2(h);
-    parts[s] = *reinterpret_cast<const uint32_t*>(&h);
-    a -= hf.x;
-    b -= hf.y;
-  }
-  parts[2] = pack_bf16x2(a, b);
-}
-
 template <typename TX>
 __global__ void __launch_bounds__(kTcThreads) int4_rank1_tc_kernel(
     const TX* __restrict__ x, int m, int k, const float* __restrict__ u,
     const int32_t* __restrict__ w, int gk, int gn, int tk, int rows_per_split,
     float* __restrict__ part, int n_pad) {
-  __shared__ float red[kTcWarps][8][kTcUnitLanes][kTcRows];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int gni = blockIdx.x / kTcUnits;
@@ -238,19 +215,7 @@ __global__ void __launch_bounds__(kTcThreads) int4_rank1_tc_kernel(
   }
 
   // acc[p][j]: column lane0 + g + 8 (j >> 1) of plane p, x row m0 + 2t + (j & 1)
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][p][g + 8 * (j >> 1)][2 * t + (j & 1)] = acc[p][j];
-  __syncthreads();
-  const int p = threadIdx.x / kTcUnitLanes, l = threadIdx.x % kTcUnitLanes;
-  const int col = gni * kTileN + p * kLanes + lane0 + l;
-  for (int i = 0; i < kTcRows && m0 + i < m; ++i) {
-    float sum = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kTcWarps; ++wi) sum += red[wi][p][l][i];
-    part[(static_cast<size_t>(split) * m + m0 + i) * n_pad + col] = sum;
-  }
+  tc_store_part(acc, g, 8, part, split, m, m0, gni, lane0, n_pad);
 }
 
 // ---------------------------------------------------------------- m > 64

@@ -164,8 +164,9 @@ KERNELS = {
         "int4_block_matmul", "int4_block_matmul.cu",
         "fastmax_tpu/ops/quant_pallas.py:282",
         "fm_int4_block_matmul",
-        # x, x_bf16, m, k, w, s, gk, gn, tk, n, y, y_bf16, part, splits, rows_per_split, stream
-        [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _P]),
+        # x, x_bf16, m, k, w, s, gk, gn, tk, n, y, y_bf16, part, splits, rows_per_split, tc,
+        # stream
+        [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _P]),
 }
 
 

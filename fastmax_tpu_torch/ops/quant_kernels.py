@@ -28,8 +28,8 @@ from ..kernels.build import KERNELS, use_kernel
 from .quant import DEFAULT_BLOCK, INT4_TILE_N, _absmax_of, _unpack_int4_tiled, dequantize
 
 _INT4_MAX_M = 128   # per-layer entry: larger m goes to dequantize + matmul
-GEMV_MAX_M = 4      # K1 streams weights for m <= 4,
-TC_MAX_M = 64       # runs the tensor cores up to 64 rows, and tiles 64 rows above
+GEMV_MAX_M = 4      # K1 and K9 stream weights for m <= 4,
+TC_MAX_M = 64       # run the tensor cores up to 64 rows, and tile 64 rows above
 _GEMV_K_STEP = 128  # k rows per unrolled gemv step (32 row threads x 4)
 _TC_K_STEP = 64     # 16-row mma steps x 4 warps
 _GEMM_K_STEP = 32
@@ -60,10 +60,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def rank1_path(m: int, tk: int) -> str:
-    """K1's kernel for m rows of x over k tiles of tk rows: "gemv" (m <= 4),
-    "tc" (the tensor cores, 4 < m <= TC_MAX_M, tk % 16 == 0) or "fma" (the
-    64-row f32 tile)."""
+def int4_path(m: int, tk: int) -> str:
+    """The kernel of the tiled int4 matmuls (K1 and K9) for m rows of x over k
+    tiles of tk rows: "gemv" (m <= 4), "tc" (the tensor cores, 4 < m <=
+    TC_MAX_M, tk % 16 == 0) or "fma" (the 64-row f32 tile)."""
     if m <= GEMV_MAX_M:
         return "gemv"
     if m <= TC_MAX_M and tk % 16 == 0:
@@ -71,11 +71,11 @@ def rank1_path(m: int, tk: int) -> str:
     return "fma"
 
 
-def _splits(m: int, k: int, gn: int, sm_count: int, path: str | None = None):
+def _splits(m: int, k: int, gn: int, sm_count: int, path: str):
     """Split k so that about four blocks per SM are launched; returns
-    (splits, rows_per_split). ``path`` is K1's (``rank1_path``); K9 has the
-    gemv and FMA tile paths of K1, taken by m."""
-    path = path or ("gemv" if m <= GEMV_MAX_M else "fma")
+    (splits, rows_per_split). ``path`` is ``int4_path``'s; on "tc" the rows of
+    a split are a multiple of 64, so that none of K9's 64-row scale blocks
+    straddles two splits."""
     if path == "gemv":
         blocks, step = gn * 4, _GEMV_K_STEP
     elif path == "tc":
@@ -104,7 +104,7 @@ def _launch(x2: torch.Tensor, pw: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     if x2.dtype not in (torch.float32, torch.bfloat16):
         x2 = x2.float()
     x2 = x2.contiguous()
-    path = rank1_path(m, tk)
+    path = int4_path(m, tk)
     splits, rows = _splits(m, k, gn, _sm_count(x2.device.index or 0), path)
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     part = torch.empty((splits, m, gn * INT4_TILE_N), dtype=torch.float32, device=x2.device)
@@ -188,13 +188,14 @@ def _block_launch(x2: torch.Tensor, pw: torch.Tensor, s_t, n: int, out_dtype) ->
         x2 = x2.float()
     x2 = x2.contiguous()
     y_bf16 = out_dtype == torch.bfloat16
-    splits, rows = _splits(m, k, gn, _sm_count(x2.device.index or 0))
+    path = int4_path(m, tk)
+    splits, rows = _splits(m, k, gn, _sm_count(x2.device.index or 0), path)
     y = torch.empty((m, n), dtype=torch.bfloat16 if y_bf16 else torch.float32, device=x2.device)
     part = torch.empty((splits, m, gn * INT4_TILE_N), dtype=torch.float32, device=x2.device)
     KERNELS["int4_block_matmul"].launch(
         x2.data_ptr(), int(x2.dtype == torch.bfloat16), m, k, pw.data_ptr(),
         None if s_t is None else s_t.data_ptr(), gk, gn, tk, n, y.data_ptr(), int(y_bf16),
-        part.data_ptr(), splits, rows)
+        part.data_ptr(), splits, rows, int(path == "tc"))
     return y.to(out_dtype)
 
 

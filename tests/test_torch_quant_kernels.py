@@ -109,13 +109,13 @@ def test_int4_rank1_stacked_large_m_falls_back_to_dequant():
 @pytest.mark.parametrize("m", [1, 3, 5, 8, 16, 64, 512])
 @pytest.mark.parametrize("k,n", [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)])
 def test_kernel_k_splits_cover_k(m, k, n):
-    """The split-k plan for the CUDA kernel covers every row once, with no
-    empty split, and keeps a 132-SM card busy: on the path K1 takes (gemv
-    for m <= 4, the tensor cores up to 64 rows) and on the FMA tile path,
-    which K9 takes for every m > 4 and K1 above 64 rows."""
+    """The split-k plan for the CUDA kernels covers every row once, with no
+    empty split, and keeps a 132-SM card busy: on the path K1 and K9 take
+    (gemv for m <= 4, the tensor cores up to 64 rows) and on the FMA tile
+    path, which both take above 64 rows."""
     gn = (n + 1023) // 1024
     k_pad = k + (-k) % 512
-    path = quant_kernels.rank1_path(m, k_pad)
+    path = quant_kernels.int4_path(m, k_pad)
     for kind in sorted({path, "gemv" if m <= quant_kernels.GEMV_MAX_M else "fma"}):
         splits, rows = quant_kernels._splits(m, k, gn, 132, kind)
         step = {"gemv": 128, "tc": 64, "fma": 32}[kind]
@@ -123,9 +123,10 @@ def test_kernel_k_splits_cover_k(m, k, n):
         assert (splits - 1) * rows < k <= splits * rows
         per_split = gn * {"gemv": 4, "tc": 8 * math.ceil(m / 8), "fma": 8 * math.ceil(m / 64)}[kind]
         assert per_split * splits >= 132 or splits == math.ceil(k / step)
-    # K9's plan, taken by m alone, is the gemv or the FMA tile plan
-    assert quant_kernels._splits(m, k, gn, 132) == quant_kernels._splits(
-        m, k, gn, 132, "gemv" if m <= quant_kernels.GEMV_MAX_M else "fma")
+    # on the tensor cores every split starts on a 64-row boundary, so none of
+    # K9's scale blocks straddles two splits
+    splits, rows = quant_kernels._splits(m, k, gn, 132, path)
+    assert path != "tc" or rows % quant.DEFAULT_BLOCK == 0
 
 
 @pytest.mark.parametrize("m,tk,path", [(1, 4096, "gemv"), (4, 4096, "gemv"), (5, 4096, "tc"),
@@ -133,11 +134,11 @@ def test_kernel_k_splits_cover_k(m, k, n):
                                        (512, 4096, "fma"), (8, 8, "fma"), (64, 24, "fma"),
                                        (4, 24, "gemv")])
 def test_rank1_path(m, tk, path):
-    """K1's kernel by m and tk: the tensor cores for 4 < m <= 64 where a 16-row mma
-    step stays inside one k tile (tk % 16 == 0; pack_int4_tiled takes any divisor
-    of k_pad), else the FMA tile kernel; gemv for m <= 4 whatever tk."""
+    """The kernel of K1 and K9 by m and tk: the tensor cores for 4 < m <= 64 where a
+    16-row mma step stays inside one k tile (tk % 16 == 0; pack_int4_tiled takes
+    any divisor of k_pad), else the FMA tile kernel; gemv for m <= 4 whatever tk."""
     assert quant_kernels.TC_MAX_M == 64
-    assert quant_kernels.rank1_path(m, tk) == path
+    assert quant_kernels.int4_path(m, tk) == path
 
 
 def _split_case(k, n, m, u_range, v_range, seed):

@@ -272,6 +272,101 @@ def test_int4_matmul_block_matches_pallas(k, n, m):
                                rtol=2e-3)
 
 
+def _tc_sum(x, pw, s_t, parts, reset=True):
+    """K9's tensor-core sum (4 < m <= 64), emulated: x in ``parts`` bf16 parts (f32 x
+    in three that add up to it exactly, bf16 x in one), each times the exact codes
+    (the tensor cores' products are exact). Each part's 16-row step goes into the
+    64-row scale block's f32 sum as one mma adds it: its 16 products summed exactly
+    and added with one rounding (to nearest here; the card's adder truncates). Each
+    block's sum times s/8 goes into the running f32 sum with one rounding (fmaf).
+    ``reset=False`` never clears the block's sum, so each block's scale multiplies
+    the running sum of all blocks so far."""
+    codes = quant._unpack_int4_tiled(pw).double()
+    gk, gn, nb, _ = s_t.shape
+    s = s_t.permute(0, 2, 1, 3).reshape(gk * nb, gn * quant.INT4_TILE_N) * 0.125
+    hs, rest = [], x.float()
+    for _ in range(parts):
+        hs.append(rest.to(torch.bfloat16).double())
+        rest = rest - hs[-1].float()
+    acc = torch.zeros((x.shape[0], codes.shape[1]), dtype=torch.float32)
+    blk = torch.zeros_like(acc)
+    step = 16
+    for b in range(codes.shape[0] // quant.DEFAULT_BLOCK):
+        if reset:
+            blk = torch.zeros_like(acc)
+        for r in range(b * quant.DEFAULT_BLOCK, (b + 1) * quant.DEFAULT_BLOCK, step):
+            for h in hs:
+                blk = (blk.double() + h[:, r:r + step] @ codes[r:r + step]).float()
+        acc = (blk.double() * s[b].double() + acc.double()).float()
+    return acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [5, 8, 64])
+@pytest.mark.parametrize("k", [4096, 11008])
+def test_tc_block_sum_holds_the_f32_gate(k, m, dtype):
+    """The arithmetic of K9's tensor-core path (``_tc_sum``) at the 7B depths and
+    phase 10's law (weights N(0, 0.05), x N(0.5, 1)) against the JAX kernel in
+    interpret mode, with phase 10's f32 gate (chip_smoke.py's INT4_ATOL +
+    INT4_RTOL |ref|): f32 x in three parts and bf16 x in one pass. f32 x in its high
+    bf16 part alone puts about 40 % of the outputs over the gate, and a block sum
+    that is never cleared nearly all of them."""
+    rng = np.random.default_rng(k + m)
+    w = (rng.standard_normal((k, 1024)) * 0.05).astype(np.float32)
+    p = jquant.quantize_int4_tiled(w, "block")
+    k_pad = p["q4b"].shape[0] * p["q4b"].shape[2]
+    x = np.zeros((m, k_pad), np.float32)
+    x[:, :k] = _x(rng, (m, k))
+    x = torch.from_numpy(x).to(dtype).float()
+    ref = torch.from_numpy(np.array(jqp.int4_matmul_tiled(jnp.asarray(x.numpy()), p["q4b"],
+                                                          p["scale4"], interpret=True)))
+    tp = _t(p)
+
+    def over(**kw):
+        err = (_tc_sum(x, tp["q4b"], tp["scale4"], **kw) - ref).abs()
+        return float((err > chip_smoke.INT4_ATOL + chip_smoke.INT4_RTOL * ref.abs()).float()
+                     .mean())
+
+    if dtype == torch.bfloat16:
+        assert over(parts=1) == 0.0
+        return
+    assert over(parts=3) == 0.0
+    assert over(parts=1) > 0.3
+    assert over(parts=3, reset=False) > 0.9
+
+
+class _Launches:
+    """Stands in for a kernel's binding: records the C entry's arguments."""
+
+    def __init__(self):
+        self.args = []
+
+    def launch(self, *args):
+        self.args.append(args)
+
+
+@pytest.mark.parametrize("m,path", [(1, "gemv"), (4, "gemv"), (5, "tc"), (8, "tc"), (64, "tc"),
+                                    (65, "fma"), (128, "fma")])
+@pytest.mark.parametrize("k", [1100, 4096, 11008])
+def test_block_launch_takes_the_path(k, m, path, monkeypatch):
+    """K9's wrapper passes ``int4_path``'s choice to the C entry (its last int
+    argument: 1 for the tensor cores), with that path's split plan: splits that
+    cover k and, on the tensor cores, start on 64-row boundaries, so no scale block
+    straddles two of them."""
+    w = torch.from_numpy(np.random.default_rng(k).standard_normal((k, 1024)).astype(np.float32))
+    p = quant.quantize_int4_tiled(w * 0.05, "block")
+    launches = _Launches()
+    monkeypatch.setitem(quant_kernels.KERNELS, "int4_block_matmul", launches)
+    monkeypatch.setattr(quant_kernels, "_sm_count", lambda index: 132)
+    quant_kernels._block_launch(torch.zeros((m, k)), p["q4b"], p["scale4"], 1024, torch.float32)
+    (args,) = launches.args
+    splits, rows, tc = args[-3:]
+    assert quant_kernels.int4_path(m, p["q4b"].shape[2]) == path
+    assert tc == int(path == "tc")
+    assert (splits - 1) * rows < k <= splits * rows
+    assert path != "tc" or rows % quant.DEFAULT_BLOCK == 0
+
+
 # ------------------------------------------------------------------ routing
 
 
@@ -508,8 +603,27 @@ FAULTS = {
 }
 
 
-def _planted(tmp_path, fault):
-    name, source, written, planted = FAULTS[fault]
+# faults planted in K9's tensor-core kernel (int4_block_matmul.cu): (the code as
+# written, as planted, the (k, n, m) of int4_block_case at f32 x that must fail). The
+# B mask is seen only where a 16-row step runs past k: k = 1100 (k_pad 1536); an
+# uncleared block sum only where a warp takes two scale blocks or more of a split: at
+# k = 11008 and m = 8 (splits of 704 rows), not at k = 4096 (256 rows, one each).
+TC_FAULTS = {
+    "K9 only the high part of f32 x": (
+        "for (int e = 0; e < kParts; ++e) mma_bf16(blk[p], a, b[0][e], b[1][e]);",
+        "for (int e = 0; e < 1; ++e) mma_bf16(blk[p], a, b[0][e], b[1][e]);", (4096, 4096, 8)),
+    "K9 block sum not reset between blocks": (
+        "for (int j = 0; j < 4; ++j) blk[p][j] = 0.f;  // a fresh sum for each scale block",
+        "for (int j = 0; j < 4; ++j) blk[p][j] = kb == k0 + warp * kBlock ? 0.f : blk[p][j];",
+        (11008, 4096, 8)),
+    "K9 last 16-row step of a split skipped": (
+        "if (ks >= k1) break;", "if (ks + kTcStep >= k1) break;", (11008, 4096, 8)),
+    "K9 B not zeroed at rows >= k": ("xv[r] = xrow_ok && kr < k ? val : 0.f;",
+                                     "xv[r] = xrow_ok ? val : 0.f;", (1100, 3000, 8)),
+}
+
+
+def _planted(tmp_path, name, source, written, planted):
     src = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, src)
     text = (src / source).read_text()
@@ -527,7 +641,7 @@ def test_checks_catch_a_planted_fault(fault, m, tmp_path, monkeypatch):
     reading the next block's absmax, and for a K9 reading the next block's
     scales, in the streaming (m = 1) and the tiled (m = 64) regime."""
     _needs_card()
-    name, faulty = _planted(tmp_path, fault)
+    name, faulty = _planted(tmp_path, *FAULTS[fault])
     gen = torch.Generator(device="cuda").manual_seed(7)
     case = (chip_smoke.nf4_case if name == "nf4_matmul" else chip_smoke.int4_block_case)
     case(torch, gen, 1024, 2048, m, torch.float32)  # sound
@@ -537,9 +651,33 @@ def test_checks_catch_a_planted_fault(fault, m, tmp_path, monkeypatch):
     print(f"{fault}, m={m}: {caught.value}")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(TC_FAULTS))
+def test_checks_catch_a_planted_tc_fault(fault, tmp_path, monkeypatch):
+    """chip_smoke.py's K9 check fails for a tensor-core kernel that keeps only the
+    high bf16 part of f32 x, never clears a scale block's sum, skips the last
+    16-row step of each split, or lets the rows past k (random words) into the sum
+    with x of column k - 1 (seen where k % 16 != 0)."""
+    _needs_card()
+    written, planted, (k, n, m) = TC_FAULTS[fault]
+    name, faulty = _planted(tmp_path, "int4_block_matmul", "int4_block_matmul.cu", written,
+                            planted)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    assert quant_kernels.int4_path(m, k + (-k) % 512) == "tc"
+    chip_smoke.int4_block_case(torch, gen, k, n, m, torch.float32)  # sound
+    monkeypatch.setitem(build.KERNELS, name, faulty)
+    with pytest.raises(AssertionError, match="K9") as caught:
+        chip_smoke.int4_block_case(torch, gen, k, n, m, torch.float32)
+    print(f"{fault}: {caught.value}")
+
+
 def test_kernel_sources_hold_the_planted_lines():
     """The lines the card's fault tests plant faults in are in the sources
     once each (so a rewrite of a kernel does not silently disarm them)."""
-    for name, source, written, _ in FAULTS.values():
+    planted = list(FAULTS.values()) + [
+        ("int4_block_matmul", "int4_block_matmul.cu", written, planted)
+        for written, planted, _ in TC_FAULTS.values()]
+    for name, source, written, _ in planted:
         assert (build.CSRC_DIR / source).read_text().count(written) == 1, (source, written)
         assert build.KERNELS[name].source.name == source
+    assert TC_FAULTS["K9 B not zeroed at rows >= k"][2][0] % 16  # a step runs past k
