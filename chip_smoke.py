@@ -127,6 +127,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -491,7 +492,7 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_ke
                                          "flash_train_fwd_tc_kernel")),
                  ("K7 flash_train_bwd", ("flash_train_bwd_kernel",
                                          "flash_train_bwd_tc_kernel")),
-                 ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_gemm_kernel",
+                 ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_tc_kernel", "nf4_gemm_kernel",
                                     "nf4_splitk_reduce_kernel")),
                  ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_tc_kernel",
                                            "int4_block_gemm_kernel", "int4_block_reduce_kernel")),
@@ -2048,12 +2049,45 @@ def nf4_case(torch, gen, k, n, m, dtype, kind="nf4", dq=False) -> float:
     ref = qk.quantized_matmul_pallas(x, p, plain=True)
     torch.cuda.synchronize()
     rtol = NF4_RTOL if dtype == torch.float32 else INT4_BF16_RTOL
-    return held(torch, f"K8 {kind}{'-dq' if dq else ''} k={k} n={n} m={m} {str(dtype)[6:]}",
-                got, ref, NF4_ATOL, rtol)
+    return held(torch, f"K8 {kind}{'-dq' if dq else ''} k={k} n={n} m={m} {str(dtype)[6:]} "
+                f"({qk.nf4_path(m)})", got, ref, NF4_ATOL, rtol)
+
+
+def nf4_repeats(torch, gen, k, n) -> None:
+    """K8 at m = 8 gives the same bits on 3 runs (no float atomics), f32 and bf16 x."""
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    p = quant.quantize_4bit(torch.randn((k, n), generator=gen, device="cuda") * 0.05)
+    x = torch.randn((N_SLOTS, k), generator=gen, device="cuda") + 0.5
+    for xt in (x, x.to(torch.bfloat16)):
+        first = qk.quantized_matmul_pallas(xt, p)
+        for _ in range(2):
+            if not torch.equal(qk.quantized_matmul_pallas(xt, p), first):
+                raise AssertionError(f"K8 k={k} n={n} m={N_SLOTS} {xt.dtype}: a repeat differs")
+
+
+@contextlib.contextmanager
+def earlier_route(qk, kind):
+    """K8's or K9's route as it was before its tensor-core path: K9 the FMA tile
+    above m = 4 (``TC_MAX_M`` set to ``GEMV_MAX_M``), K8 the gemv up to m = 8 and
+    the FMA tile above (``NF4_GEMV_MAX_M`` and ``NF4_TC_MAX_M`` set to 8)."""
+    saved = (qk.TC_MAX_M, qk.NF4_GEMV_MAX_M, qk.NF4_TC_MAX_M)
+    if kind == "K9":
+        qk.TC_MAX_M = qk.GEMV_MAX_M
+    else:
+        qk.NF4_GEMV_MAX_M = qk.NF4_TC_MAX_M = 8
+    try:
+        yield
+    finally:
+        qk.TC_MAX_M, qk.NF4_GEMV_MAX_M, qk.NF4_TC_MAX_M = saved
 
 
 # K9's timed calls by (m, x type): decode, the block batcher's step (f32 x), a short prefill
 K9_LAYER_TIMES = ((1, "bf16"), (N_SLOTS, "bf16"), (N_SLOTS, "f32"), (64, "bf16"), (128, "bf16"))
+# K8's: decode, the quantized batcher's step (f32 x), 16 rows, a 64-token prefill chunk, prefill
+K8_LAYER_TIMES = ((1, "bf16"), (N_SLOTS, "bf16"), (N_SLOTS, "f32"), (16, "bf16"), (64, "bf16"),
+                  (512, "bf16"))
 
 
 def int4_block_weights(torch, gen, k, n) -> dict:
@@ -2109,9 +2143,11 @@ def int4_block_repeats(torch, gen, k, n) -> None:
 def quant_times(torch, gen, kind, k, n, ms, card):
     """Device time a call (CUDA graph, weights cold: enough copies to exceed
     the 50 MB L2) of K8 or K9 at bf16 x, its plain version and dequantize +
-    torch.matmul, with the call's bound; one row per m. K9 also at f32 x and
-    m = 8 (what the block batcher launches), and on its tensor-core path
-    also on the FMA tile (``qk.TC_MAX_M`` set to ``GEMV_MAX_M``)."""
+    torch.matmul, with the call's bound; one row per m. Both also at f32 x and
+    m = 8 (what the batchers launch). On the tensor-core path each is also
+    timed on the route it took before (``earlier_route``: K9 the FMA tile; K8
+    the gemv at m = 8, the FMA tile above), ``earlier_path`` and
+    ``earlier_ms``."""
     from fastmax_tpu_torch.ops import quant
     from fastmax_tpu_torch.ops import quant_kernels as qk
 
@@ -2128,10 +2164,12 @@ def quant_times(torch, gen, kind, k, n, ms, card):
     del w
     copies = [p] + [{key: v.clone() for key, v in p.items()}
                     for _ in range(max(1, math.ceil(160e6 / nbytes_w)) - 1)]
+
+    def path_of(m):
+        return qk.int4_path(m, p["q4b"].shape[2]) if kind == "K9" else qk.nf4_path(m)
+
     rows = []
-    cases = [(m, torch.bfloat16) for m in ms]
-    if kind == "K9":
-        cases.append((N_SLOTS, torch.float32))
+    cases = [(m, torch.bfloat16) for m in ms] + [(N_SLOTS, torch.float32)]
     for m, dt in cases:
         x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dt)
         it = iter(range(10**9))
@@ -2140,33 +2178,33 @@ def quant_times(torch, gen, kind, k, n, ms, card):
             return lambda: fn(x, copies[next(it) % len(copies)])
 
         kern_ms = graph_ms(call(fns[0]), calls=2 * len(copies))
-        path = qk.int4_path(m, p["q4b"].shape[2]) if kind == "K9" else None
-        fma_ms = None
+        path = path_of(m)
+        earlier_ms = earlier_path = None
         if path == "tc":
-            tc_max, qk.TC_MAX_M = qk.TC_MAX_M, qk.GEMV_MAX_M
-            try:
-                fma_ms = graph_ms(call(fns[0]), calls=2 * len(copies))
-            finally:
-                qk.TC_MAX_M = tc_max
+            with earlier_route(qk, kind):
+                earlier_path = path_of(m)
+                earlier_ms = graph_ms(call(fns[0]), calls=2 * len(copies))
         plain_ms = graph_ms(call(fns[1]), calls=len(copies), reps=1)
         deq_ms = graph_ms(call(lambda x, p: torch.matmul(x, quant.dequantize(p, x.dtype))),
                           calls=len(copies), reps=1)
         elem = x.element_size()
         rows.append({"kernel": kind, "k": k, "n": n, "m": m,
                      "x_dtype": "bf16" if dt == torch.bfloat16 else "f32", "path": path,
-                     "ms": kern_ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+                     "ms": kern_ms, "earlier_path": earlier_path, "earlier_ms": earlier_ms,
+                     "plain_ms": plain_ms,
                      "dequant_matmul_ms": deq_ms,
                      **bound(nbytes_w + m * k * elem + m * n * elem, 2 * m * k * n,
                              bf16=dt == torch.bfloat16)})
         r = rows[-1]
         if path == "tc" and dt == torch.float32:
             # f32 x runs on the tensor cores: read it against their f32 rate, and the
-            # FMA tile against the f32 units' (bound_f32_ms)
+            # earlier route against the f32 units' (bound_f32_ms)
             tcb = tensor_core_f32_bound(r["flops"], r["bytes"])
             r.update(bound_ms=tcb["bound_tc_f32_ms"], bound_by=tcb["bound_tc_f32_by"])
-        fma = f" (FMA tile {fma_ms * 1e3:8.1f} us)" if fma_ms is not None else ""
+        earlier = (f" (earlier route: {earlier_path} {earlier_ms * 1e3:8.1f} us)"
+                   if earlier_ms is not None else "")
         log(f"  {kind} k={k:5d} n={n:5d} m={m:3d} {r['x_dtype']:4s}: kernel"
-            f"{' ' + path if path else ''} {kern_ms * 1e3:8.1f} us{fma}  plain "
+            f" {path} {kern_ms * 1e3:8.1f} us{earlier}  plain "
             f"{plain_ms * 1e3:8.1f} us  dequantize + matmul {deq_ms * 1e3:8.1f} us  bound "
             f"{r['bound_ms'] * 1e3:6.1f} us ({r['bound_by']}; {r['bound_f32_ms'] * 1e3:6.1f} us "
             f"at the f32 rate)   [{card}]")
@@ -2177,21 +2215,30 @@ def check_quant_kernels(torch, gen, results):
     from fastmax_tpu_torch.kernels import build
     from fastmax_tpu_torch.ops import quant
 
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
     worst = {"nf4_matmul": 0.0, "int4_block_matmul": 0.0}
     for name, k, n in LLAMA7B_LINEARS[:3]:  # mlp.proj (k = 11008) is not K8's: below
-        for m in (1, N_SLOTS, 64, 512):
+        for m in (1, N_SLOTS, 16, 64, 512):
             errs = [nf4_case(torch, gen, k, n, m, dt) for dt in (torch.float32, torch.bfloat16)]
             worst["nf4_matmul"] = max(worst["nf4_matmul"], *errs)
-            log(f"  K8 {name:9s} k={k:5d} n={n:5d} m={m:3d}: ok, max abs err f32 {errs[0]:.3e} "
-                f"bf16 {errs[1]:.3e}")
-    for args, label in (((4096, 12288, N_SLOTS, torch.float32), "nf4 double-quant"),
+            log(f"  K8 {name:9s} k={k:5d} n={n:5d} m={m:3d} ({qk.nf4_path(m)}): ok, max abs err "
+                f"f32 {errs[0]:.3e} bf16 {errs[1]:.3e}")
+    # k = 11008 (172 quant blocks), where a warp of the tensor-core kernel takes several
+    # blocks of a split; an odd block count with n % 128 != 0; double-quant scales; FP4
+    for args, label in (((11008, 4096, N_SLOTS, torch.float32), "nf4"),
+                        ((1088, 3000, N_SLOTS, torch.float32), "nf4"),
+                        ((4096, 12288, N_SLOTS, torch.float32), "nf4 double-quant"),
+                        ((4096, 12288, N_SLOTS, torch.float32), "fp4"),
                         ((4096, 12288, 1, torch.float32), "fp4"),
                         ((4096, 4096, 64, torch.bfloat16), "fp4")):
         err = nf4_case(torch, gen, *args, kind="fp4" if label == "fp4" else "nf4",
                        dq=label.endswith("quant"))
         worst["nf4_matmul"] = max(worst["nf4_matmul"], err)
-        log(f"  K8 {label} k={args[0]} n={args[1]} m={args[2]} {str(args[3])[6:]}: ok, max abs "
-            f"err {err:.3e}")
+        log(f"  K8 {label} k={args[0]} n={args[1]} m={args[2]} {str(args[3])[6:]} "
+            f"({qk.nf4_path(args[2])}): ok, max abs err {err:.3e}")
+    nf4_repeats(torch, gen, 4096, 12288)
+    log(f"  K8 qkv m={N_SLOTS} ({qk.nf4_path(N_SLOTS)}): 3 runs bit for bit, f32 and bf16")
     # the model's route at mlp.proj (k = 11008): not pallas_eligible, so dequantize + matmul
     quant.set_quant_backend("pallas")
     p = quant.quantize_4bit(torch.randn((11008, 4096), generator=gen, device="cuda") * 0.05)
@@ -2227,18 +2274,22 @@ def check_quant_kernels(torch, gen, results):
     rows = []
     for name, k, n in LLAMA7B_LINEARS[:3]:
         rows += [dict(r, shape=name) for r in quant_times(torch, gen, "K8", k, n,
-                                                          (1, N_SLOTS, 64, 512), card)]
+                                                          (1, N_SLOTS, 16, 64, 512), card)]
     for name, k, n in LLAMA7B_LINEARS:
         rows += [dict(r, shape=name) for r in quant_times(torch, gen, "K9", k, n,
                                                           (1, N_SLOTS, 64, 128), card)]
-    for m, xdt in K9_LAYER_TIMES:
-        layer = [r for r in rows if r["kernel"] == "K9" and r["m"] == m and r["x_dtype"] == xdt]
-        fma = (f", FMA tile {sum(r['fma_ms'] for r in layer) * 1e3:.1f} us"
-               if layer[0]["fma_ms"] is not None else "")
-        log(f"  K9 a layer's 4 linears, m={m:3d} {xdt}: {layer[0]['path']} "
-            f"{sum(r['ms'] for r in layer) * 1e3:.1f} us{fma}, bound "
-            f"{sum(r['bound_ms'] for r in layer) * 1e3:.1f} us (at the f32 rate "
-            f"{sum(r['bound_f32_ms'] for r in layer) * 1e3:.1f} us)   [{card}]")
+    for kind, times, what in (("K8", K8_LAYER_TIMES, "qkv, attn.proj and fc_12"),
+                              ("K9", K9_LAYER_TIMES, "a layer's 4 linears")):
+        for m, xdt in times:
+            layer = [r for r in rows
+                     if r["kernel"] == kind and r["m"] == m and r["x_dtype"] == xdt]
+            earlier = (f", earlier route: {layer[0]['earlier_path']} "
+                       f"{sum(r['earlier_ms'] for r in layer) * 1e3:.1f} us"
+                       if layer[0]["earlier_ms"] is not None else "")
+            log(f"  {kind} {what}, m={m:3d} {xdt}: {layer[0]['path']} "
+                f"{sum(r['ms'] for r in layer) * 1e3:.1f} us{earlier}, bound "
+                f"{sum(r['bound_ms'] for r in layer) * 1e3:.1f} us (at the f32 rate "
+                f"{sum(r['bound_f32_ms'] for r in layer) * 1e3:.1f} us)   [{card}]")
     results["quant_kernel_times"] = rows
     results["quant_kernel_max_abs_err"] = worst
     return worst, rows
@@ -2377,14 +2428,16 @@ def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
     return out, kern, lin
 
 
-def block_batcher_paths(torch, batcher, card) -> dict:
-    """The block batcher on each path of K9 at m = 8: the tensor cores, and the
-    FMA tile (``qk.TC_MAX_M`` set to ``GEMV_MAX_M``: the kernel K9 ran at m = 8
-    before it had a tensor-core path). For each, in turns (FMA tile first): one
-    decode step at every slot's position 287 (the last of phase 10's batchers:
-    256-token prompts and 32 new tokens) profiled (device µs by kernel group),
-    and 8 steps back to back on the host clock, with the device's busy share:
-    whether a cut in K9's time can reach tok/s or the host hides it."""
+def batcher_paths(torch, batcher, kind, card) -> dict:
+    """An 8-slot batcher's decode step (m = 8) on each path of its kernel,
+    ``kind`` "K9" (the block batcher) or "K8" (the quantized one): the tensor
+    cores, and the route the kernel took at m = 8 before (``earlier_route``;
+    K9: the FMA tile, K8: the gemv). For each, in turns (the earlier route
+    first): one decode step at every slot's position 287 (the last of phase
+    10's batchers: 256-token prompts and 32 new tokens) profiled (device µs by
+    kernel group), and 8 steps back to back on the host clock, with the
+    device's busy share: whether a cut in the kernel's time can reach tok/s or
+    the host hides it."""
     from fastmax_tpu_torch.ops import quant_kernels as qk
 
     pos = 287
@@ -2392,29 +2445,28 @@ def block_batcher_paths(torch, batcher, card) -> dict:
     posv = torch.full((N_SLOTS,), pos, dtype=torch.int32, device="cuda")
     temps0 = torch.zeros(N_SLOTS, device="cuda")
     topk0 = torch.full((N_SLOTS,), 32000, device="cuda")
+    group = "K9 int4_block_matmul" if kind == "K9" else "K8 nf4_matmul"
+    which = "block" if kind == "K9" else "quantized"
     out = {}
-    tc_max = qk.TC_MAX_M
-    for path in ("fma", "tc"):
-        qk.TC_MAX_M = qk.GEMV_MAX_M if path == "fma" else tc_max
-        try:
-            with torch.inference_mode():
-                prof = profile_device(torch, lambda: batcher._decode_step(
-                    toks, posv, temps0, topk0, False), f"one decode step of the block batcher at "
-                    f"{N_SLOTS} slots, positions {pos}, K9 on the {path} path")
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(8):
-                    batcher._decode_step(toks, posv, temps0, topk0, False)
-                torch.cuda.synchronize()
-        finally:
-            qk.TC_MAX_M = tc_max
-        prof.update(path=path, wall_ms_per_step=(time.perf_counter() - t0) / 8 * 1e3)
+    for path in (("fma", "tc") if kind == "K9" else ("gemv", "tc")):
+        route = earlier_route(qk, kind) if path != "tc" else contextlib.nullcontext()
+        with route, torch.inference_mode():
+            prof = profile_device(torch, lambda: batcher._decode_step(
+                toks, posv, temps0, topk0, False), f"one decode step of the {which} batcher "
+                f"at {N_SLOTS} slots, positions {pos}, {kind} on the {path} path")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                batcher._decode_step(toks, posv, temps0, topk0, False)
+            torch.cuda.synchronize()
+        prof.update(path=path, kernel=kind, wall_ms_per_step=(time.perf_counter() - t0) / 8 * 1e3)
         if prof["device_us"]:
             prof["busy_share"] = prof["device_us"] / 1e3 / prof["wall_ms_per_step"]
-            prof["k9_us"] = prof["by_group_us"]["K9 int4_block_matmul"]
-        log(f"  block batcher, K9 {path}: a decode step {prof['wall_ms_per_step']:.2f} ms on the "
-            f"host clock, {prof['device_us'] if prof['device_us'] is None else round(prof['device_us'], 1)} "
-            f"us of device time (K9 {prof.get('k9_us', 'not measured')} us, busy share "
+            prof["kernel_us"] = prof["by_group_us"][group]
+        log(f"  {which} batcher, {kind} {path}: a decode step "
+            f"{prof['wall_ms_per_step']:.2f} ms on the host clock, "
+            f"{prof['device_us'] if prof['device_us'] is None else round(prof['device_us'], 1)} "
+            f"us of device time ({kind} {prof.get('kernel_us', 'not measured')} us, busy share "
             f"{prof.get('busy_share', 'not measured')})   [{card}]")
         out[path] = prof
     return out
@@ -2432,7 +2484,7 @@ def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card, cache_dtype=None,
     near-tie raises. With ``against`` (another run's tokens by request id),
     the tokens are held to those under the near-tie rule instead, and the
     engine's are only reported; ``held=False`` only reports. ``paths`` adds
-    ``block_batcher_paths`` after the checks."""
+    ``batcher_paths`` after the checks."""
     from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
     from fastmax_tpu_torch.inference.engine import InferenceEngine
     from fastmax_tpu_torch.kernels import build
@@ -2494,7 +2546,8 @@ def batcher_mode(torch, cfg, nf4, mode, prompts, n_new, card, cache_dtype=None,
         + (f"; tokens == the other run's for {sum(d is None for d in vs_other)} of "
            f"{len(vs_other)} {[d for d in vs_other if d is not None]}" if against else "")
         + f"   [{card}]")
-    by_path = block_batcher_paths(torch, batcher, card) if paths else None
+    by_path = (batcher_paths(torch, batcher, "K9" if mode == "preload_int4_block" else "K8",
+                             card) if paths else None)
     del batcher, engine
     return {"mode": mode, "route": route, "wall_s": wall, "tok_s": tok_s, "launches": counts,
             "first_logits_rel": first_rel, "divergences": checks, "vs_other": vs_other,
@@ -2572,8 +2625,7 @@ def quant_serving_path(torch, results, card):
     # 7B's logits by several per cent
     batch_prompts = [rng.integers(1, 32000, 256).astype(np.int32) for _ in range(N_SLOTS)]
     nf4_f32 = with_f32_activations(torch, nf4)
-    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card,
-                             paths=mode == "preload_int4_block")
+    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card, paths=True)
                 for mode in ("quantized", "preload_int4_block")]
     # the blockwise-int4 batcher under the int8 cache: the kernels against the plain versions
     # (the same m = 8 route) under the near-tie rule; against the engine (m = 1) reported: an
@@ -2831,7 +2883,8 @@ def lab_routes(torch, gen) -> dict:
             held(torch, f"route {what} ({kern}) k={k} n={n}", got, ref,
                  LAB_ATOL * float(ref.abs().max()), LAB_RTOL)
             b = bound(nb, flops, bf16=False)
-            if what == "m8 f32":  # K9's tensor-core path: f32 at their rate
+            # the routes at m = 8 take K9's and K8's tensor-core paths: f32 x at their rate
+            if what in ("m8 f32", "v3 m=8", "v4 m=8"):
                 tcb = tensor_core_f32_bound(flops, nb)
                 b.update(bound_ms=tcb["bound_tc_f32_ms"], bound_by=tcb["bound_tc_f32_by"])
             seen.setdefault(kern, []).append({"route": what, "shape": name, **b})
@@ -3118,22 +3171,25 @@ def main() -> int:
                         "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
                         "library_ms": None})
-    # K9 by path: a layer's four linears at each timed m and x type, the tensor-core path
-    # also on the FMA tile
-    k9_paths = []
-    for m, xdt in K9_LAYER_TIMES:
-        layer = [r for r in q_rows if r["kernel"] == "K9" and r["m"] == m and r["x_dtype"] == xdt]
-        k9_paths.append({"path": layer[0]["path"], "m": m, "x_dtype": xdt,
-                         "ms": sum(r["ms"] for r in layer),
-                         "bound_ms": sum(r["bound_ms"] for r in layer),
-                         "bound_f32_ms": sum(r["bound_f32_ms"] for r in layer),
-                         "plain_ms": sum(r["plain_ms"] for r in layer)})
-        if layer[0]["fma_ms"] is not None:  # f32 x on the FMA tile: the f32 units' bound
-            k9_paths.append({**k9_paths[-1], "path": "fma",
-                             "ms": sum(r["fma_ms"] for r in layer),
-                             "bound_ms": k9_paths[-1][
-                                 "bound_f32_ms" if xdt == "f32" else "bound_ms"]})
-    kernels[-1]["by_path"] = k9_paths
+    # K8 and K9 by path: their linears (K8: qkv, attn.proj and fc_12; K9: all four) at each
+    # timed m and x type; the tensor-core path also on the earlier route (K9: the FMA tile;
+    # K8: the gemv at m = 8, the FMA tile above), read at the f32 units' rate it computes at
+    for kern, kind, times in ((kernels[-2], "K8", K8_LAYER_TIMES),
+                              (kernels[-1], "K9", K9_LAYER_TIMES)):
+        paths = []
+        for m, xdt in times:
+            layer = [r for r in q_rows
+                     if r["kernel"] == kind and r["m"] == m and r["x_dtype"] == xdt]
+            paths.append({"path": layer[0]["path"], "m": m, "x_dtype": xdt,
+                          "ms": sum(r["ms"] for r in layer),
+                          "bound_ms": sum(r["bound_ms"] for r in layer),
+                          "bound_f32_ms": sum(r["bound_f32_ms"] for r in layer),
+                          "plain_ms": sum(r["plain_ms"] for r in layer)})
+            if layer[0]["earlier_ms"] is not None:
+                paths.append({**paths[-1], "path": layer[0]["earlier_path"],
+                              "ms": sum(r["earlier_ms"] for r in layer),
+                              "bound_ms": paths[-1]["bound_f32_ms"]})
+        kern["by_path"] = paths
     # K10-K13: one call at each of the four 7B linears at m = 1 (K12 the three whose n is whole
     # 1024-column tiles) in their first mode (K10 raw bf16, K11 v1, K12 v8, K13 stream_ref);
     # launches over the three lab mains; no single PyTorch call computes a packed-format product

@@ -9,20 +9,25 @@
 // As the reference, each 64-row quant block's partial sum of unscaled code
 // values is multiplied by its absmax and then added to the accumulator.
 //
-// Bound: at decode (m <= 8) the kernel reads 0.5 byte of codes and 1/16 byte of
-// absmax per weight, so device-memory bytes, with one shared-memory lookup per
-// weight close behind (the 16-entry table lies in 16 banks, so any pattern of
-// indices is conflict-free). Its GEMV gives each thread 4 columns (one 4-byte load
+// Bound: up to m = 64 the kernel reads 0.5 byte of codes and 1/16 byte of
+// absmax per weight, so device-memory bytes. Three kernels, chosen by the
+// caller (ops/quant_kernels.nf4_path): for m <= 4 a GEMV (one shared-memory
+// lookup per weight; the 16-entry table lies in 16 banks, so any pattern of
+// indices is conflict-free) that gives each thread 4 columns (one 4-byte load
 // a packed row, neighbouring threads on neighbouring bytes), keeps 8 loads in
-// flight, and splits k over enough blocks to cover all SMs. Above m = 8 it is
-// bound by f32 FMA issue: 64-row tiles decode each 32-row half of a quant block
-// once into shared memory and reuse it for 64 rows. With more than one split,
+// flight, and splits k over enough blocks to cover all SMs; for 4 < m <= 64 the
+// bf16 tensor cores (nf4_tc_kernel below); above that 64-row f32 FMA tiles
+// that decode each 32-row half of a quant block once into shared memory and
+// reuse it for 64 rows, bound by f32 FMA issue. With more than one split,
 // partial sums go to a scratch buffer and a second pass adds them in a fixed
 // order (no float atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int4_tiled.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -48,6 +53,7 @@ __device__ __forceinline__ const float* absmax_row(const float* absmax, int b, i
 }
 
 // ---------------------------------------------------------------- m <= 8
+// (the caller routes m <= 4 here; MR = 8 stays for timing the earlier route)
 // Block: 256 threads = 64 column threads (4 columns each) x 4 row threads.
 // It covers 256 columns and the quant blocks [b0, b1) of one k split; row
 // thread ty takes blocks b0 + ty, b0 + ty + 4, ...
@@ -143,7 +149,195 @@ __global__ void __launch_bounds__(kGvThreads) nf4_gemv_kernel(
   }
 }
 
-// ---------------------------------------------------------------- m > 8
+// ---------------------------------------------------------------- 4 < m <= 64
+// mma.sync m16n8k16, bf16 in, f32 sums, with the operands of K1's and K9's
+// tensor-core kernels: A is 16 output columns by 16 k of codes, B 16 k by 8 rows of
+// x (an m = 8 step fills one B tile exactly). In this layout the pair of A that a
+// thread holds in one register, k rows 2t and 2t + 1 of one column, is one packed
+// byte (row ks/2 + t): its high nibble in the low half.
+//
+// The codes are not bf16 numbers. Each splits exactly into three bf16 parts
+// c0 + c1 + c2 (split3_bf16x2; NF4 and FP4 need all three, the int4 levels one).
+// A block first builds, from the 16-entry code table, a table that maps a byte to
+// its A register in each part, the bf16 pairs (part of code[hi], part of
+// code[lo]), one 16-byte entry a byte: one 16-byte shared load gives all three. A
+// quarter warp's 8 lanes load together and read random bytes, so the table is kept
+// in 8 copies, copy c in bank group c (16 bytes), and lane l reads copy l % 8: no
+// two lanes of a quarter warp meet in a bank (one copy took 1.5x the time at m = 8,
+// four 1.25x: tools/k8_ab.py). 32 KB a block; after the k loop the same memory
+// takes the warps' sums on their way out.
+//
+// Products: bf16 x is exact in one part, so three mma a tile, x with each code
+// part, and every product is exact. f32 x splits into three parts x0 + x1 + x2
+// (split3_bf16x2); the kernel keeps x0 c0, x0 c1, x0 c2 and x1 c0, four mma a
+// tile. The dropped ones (x1 c1, x2 c0 and smaller) lie within 2^-17 of |x c| and
+// change sign with x's rounding residues: emulated at k = 4096 the kernel's sum
+// lies within a fifth of the f32 gate (2e-4 + 1e-4 |ref|; tests/test_torch_nf4_tc.py).
+// Each quant block's 64 rows (four 16-row steps) go into a fresh f32 sum, which is
+// scaled once by the block's absmax and added to the running sum with one fmaf, in
+// the reference's order.
+//
+// Loads: thread (g, t) reads, of packed rows ks/2 + t and ks/2 + t + 4, the 8 bytes
+// of columns 8g..8g+7 of its warp's 64 (one 8-byte load each: n % 8 == 0 keeps them
+// aligned; a quarter warp reads 64 neighbouring bytes of each row). Byte i is A row
+// g + 8 (i % 2) of tile i / 2, so the 8 bytes are the thread's A rows of the warp's
+// 4 tiles and no shuffle is needed. A quant block's 8 loads are issued before its
+// first step. Columns past n read no bytes and are not written.
+//
+// Block: 4 warps side by side on 256 columns, each walking the same quant blocks of
+// one k split, so that they read the same x (through L1). Each warp writes its own
+// columns through shared memory, 128 contiguous bytes a store.
+// grid: (m chunks of 8 rows, column tiles of 256, splits).
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcWarpN = 64;                 // columns of a warp
+constexpr int kTcN = kTcWarps * kTcWarpN;    // columns of a block
+constexpr int kTcTiles = kTcWarpN / 16;      // A tiles of a warp
+constexpr int kTcRows = 8;                   // rows of x in one B tile
+constexpr int kTcStep = 16;                  // k rows of one mma
+constexpr int kTcSteps = kQB / kTcStep;      // steps of one quant block
+constexpr int kCodeParts = 3;
+constexpr int kTabCopies = 8;
+constexpr int kTabEntries = 256;
+// shared memory in 16-byte words: the byte table, then the warps' sums
+constexpr int kTcSmem = kTabEntries * kTabCopies > kTcRows * kTcN / 4 ? kTabEntries * kTabCopies
+                                                                      : kTcRows * kTcN / 4;
+
+// the A register of byte b in each code part (a fourth word pads the entry to 16 bytes)
+__device__ __forceinline__ uint4 byte_parts(const float* code, uint32_t b) {
+  float e, o;
+  decode_byte(code, b, e, o);
+  uint32_t p[kCodeParts];
+  int4t::split3_bf16x2(e, o, p);
+  return make_uint4(p[0], p[1], p[2], 0u);
+}
+
+// the table entry of byte s of w in this lane's copy (tab: copy lane % 8)
+__device__ __forceinline__ uint4 lookup(const uint4* tab, uint32_t w, int s) {
+  return tab[((w >> (8 * s)) & 0xFFu) * kTabCopies];
+}
+
+// B's register pair of x at k rows kr, kr + 1 of one row: f32 in two bf16 parts
+// (the third is never multiplied), bf16 as it is
+__device__ __forceinline__ void x_pair(const float* p, bool ok, uint32_t b[2]) {
+  const float2 v = ok ? __ldg(reinterpret_cast<const float2*>(p)) : make_float2(0.f, 0.f);
+  uint32_t s[3];
+  int4t::split3_bf16x2(v.x, v.y, s);
+  b[0] = s[0];
+  b[1] = s[1];
+}
+__device__ __forceinline__ void x_pair(const __nv_bfloat16* p, bool ok, uint32_t b[2]) {
+  b[0] = ok ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
+  b[1] = 0u;
+}
+
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(kTcThreads, 4) nf4_tc_kernel(
+    const TX* __restrict__ x, int m, int k, const uint8_t* __restrict__ packed,
+    const float* __restrict__ absmax, const float* __restrict__ code, int n,
+    int blocks_per_split, float* __restrict__ part, TY* __restrict__ y) {
+  constexpr int kXParts = sizeof(TX) == 4 ? 2 : 1;  // parts of x in B
+  __shared__ uint4 smem[kTcSmem];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * kTcRows;
+  const int nw = blockIdx.y * kTcN + warp * kTcWarpN;  // the warp's first column
+  const int split = blockIdx.z;
+  const int nb = k / kQB;
+  const int b0 = split * blocks_per_split;
+  const int b1 = min(b0 + blocks_per_split, nb);
+
+  for (int i = threadIdx.x; i < kTabEntries; i += kTcThreads) {
+    const uint4 e = byte_parts(code, i);
+#pragma unroll
+    for (int c = 0; c < kTabCopies; ++c) smem[i * kTabCopies + c] = e;
+  }
+  __syncthreads();
+  const uint4* tab = smem + lane % kTabCopies;
+
+  const bool col_ok = nw + 8 * g < n;
+  const uint8_t* pcol = packed + nw + 8 * g;
+  const bool xrow_ok = m0 + g < m;
+  const TX* xrow = x + static_cast<size_t>(xrow_ok ? m0 + g : 0) * k + 2 * t;
+
+  float acc[kTcTiles][4], blk[kTcTiles][4];
+#pragma unroll
+  for (int j = 0; j < kTcTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int b = b0; b < b1; ++b) {
+    uint2 wv[kTcSteps][2];  // [step][packed row ks/2 + t, ks/2 + t + 4]
+#pragma unroll
+    for (int st = 0; st < kTcSteps; ++st)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        wv[st][r] = col_ok ? __ldg(reinterpret_cast<const uint2*>(
+                                 pcol + static_cast<size_t>(b * kQB / 2 + st * kTcStep / 2 +
+                                                            t + 4 * r) * n))
+                           : make_uint2(0u, 0u);
+#pragma unroll
+    for (int j = 0; j < kTcTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) blk[j][e] = 0.f;  // a fresh sum for each quant block
+#pragma unroll
+    for (int st = 0; st < kTcSteps; ++st) {
+      const int ks = b * kQB + st * kTcStep;
+      uint32_t bx[2][2];  // [k rows ks + 2t, 2t + 1 | ks + 2t + 8, 2t + 9][part of x]
+      x_pair(xrow + ks, xrow_ok, bx[0]);
+      x_pair(xrow + ks + 8, xrow_ok, bx[1]);
+#pragma unroll
+      for (int j = 0; j < kTcTiles; ++j) {
+        const int s = (2 * j) % 4;  // bytes 2j, 2j + 1: A rows g and g + 8 of tile j
+        const uint32_t w0 = j < 2 ? wv[st][0].x : wv[st][0].y;
+        const uint32_t w1 = j < 2 ? wv[st][1].x : wv[st][1].y;
+        const uint4 e0 = lookup(tab, w0, s), e1 = lookup(tab, w0, s + 1);
+        const uint4 e2 = lookup(tab, w1, s), e3 = lookup(tab, w1, s + 1);
+        // A rows g, g + 8 at k 2t, 2t + 1 (e0, e1) and 2t + 8, 2t + 9 (e2, e3)
+        const uint32_t a[kCodeParts][4] = {{e0.x, e1.x, e2.x, e3.x},
+                                           {e0.y, e1.y, e2.y, e3.y},
+                                           {e0.z, e1.z, e2.z, e3.z}};
+#pragma unroll
+        for (int e = 0; e < kCodeParts; ++e) mma_bf16(blk[j], a[e], bx[0][0], bx[1][0]);
+        if (kXParts == 2) mma_bf16(blk[j], a[0], bx[0][1], bx[1][1]);
+      }
+    }
+    // blk[j][e]: column nw + 8g + 2j + (e >> 1), x row m0 + 2t + (e & 1)
+    if (col_ok) {
+      const float* am = absmax_row(absmax, b, nb, n) + nw + 8 * g;
+      const float4 lo = __ldg(reinterpret_cast<const float4*>(am));
+      const float4 hi = __ldg(reinterpret_cast<const float4*>(am + 4));
+      const float a8[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < kTcTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = fmaf(blk[j][e], a8[2 * j + (e >> 1)], acc[j][e]);
+    }
+  }
+
+  __syncthreads();  // every warp is done with the table
+  float* red = reinterpret_cast<float*>(smem) + warp * kTcRows * kTcWarpN;  // [x row][column]
+#pragma unroll
+  for (int j = 0; j < kTcTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(2 * t + (e & 1)) * kTcWarpN + 8 * g + 2 * j + (e >> 1)] = acc[j][e];
+  __syncwarp();
+  for (int i = 0; i < kTcRows && m0 + i < m; ++i)
+#pragma unroll
+    for (int h = 0; h < kTcWarpN / 32; ++h) {
+      const int col = nw + 32 * h + lane;
+      const float v = red[i * kTcWarpN + 32 * h + lane];
+      if (col >= n) continue;
+      if (gridDim.z == 1)
+        store(y, static_cast<size_t>(m0 + i) * n + col, v);
+      else
+        part[(static_cast<size_t>(split) * m + m0 + i) * n + col] = v;
+    }
+}
+
+// ---------------------------------------------------------------- m > 64
 // Block tile: 64 rows x 128 columns, 32 k rows (half a quant block) a step.
 // Thread (ty, tx) owns rows ty*4..ty*4+3 and columns tx + 16 j, j < 8.
 constexpr int kGmThreads = 256;
@@ -259,13 +453,17 @@ __global__ void nf4_splitk_reduce_kernel(const float* __restrict__ part, int spl
   store(y, idx, s);
 }
 
+// the kernels the caller picks (ops/quant_kernels.nf4_path)
+constexpr int kPathGemv = 0, kPathTc = 1, kPathFma = 2;
+
 template <typename TX, typename TY>
 cudaError_t launch(const void* xv, int m, int k, const uint8_t* packed, const float* absmax,
                    const float* code, int n, void* yv, float* part, int splits,
-                   int blocks_per_split, cudaStream_t stream) {
+                   int blocks_per_split, int path, cudaStream_t stream) {
   const TX* x = static_cast<const TX*>(xv);
   TY* y = static_cast<TY*>(yv);
-  if (m <= 8) {
+  if (path == kPathGemv) {
+    if (m > 8) return cudaErrorInvalidValue;
     const dim3 grid((n + kGvN - 1) / kGvN, splits);
     auto kernel = m == 1   ? nf4_gemv_kernel<1, TX, TY>
                   : m == 2 ? nf4_gemv_kernel<2, TX, TY>
@@ -273,10 +471,16 @@ cudaError_t launch(const void* xv, int m, int k, const uint8_t* packed, const fl
                            : nf4_gemv_kernel<8, TX, TY>;
     kernel<<<grid, kGvThreads, 0, stream>>>(x, m, k, packed, absmax, code, n, blocks_per_split,
                                             part, y);
-  } else {
+  } else if (path == kPathTc) {
+    const dim3 grid((m + kTcRows - 1) / kTcRows, (n + kTcN - 1) / kTcN, splits);
+    nf4_tc_kernel<TX, TY><<<grid, kTcThreads, 0, stream>>>(x, m, k, packed, absmax, code, n,
+                                                          blocks_per_split, part, y);
+  } else if (path == kPathFma) {
     const dim3 grid((m + kGmM - 1) / kGmM, (n + kGmN - 1) / kGmN, splits);
     nf4_gemm_kernel<TX, TY><<<grid, kGmThreads, 0, stream>>>(x, m, k, packed, absmax, code, n,
                                                             blocks_per_split, part, y);
+  } else {
+    return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -291,25 +495,27 @@ cudaError_t launch(const void* xv, int m, int k, const uint8_t* packed, const fl
 
 extern "C" {
 
-// x: (m, k) row-major, f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), k % 64 == 0;
-// packed: (k/2, n) uint8, n % 8 == 0; absmax: (k/64, n) f32; code: (16,) f32;
+// x: (m, k) row-major, f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), k % 64 == 0, 8-byte
+// aligned; packed: (k/2, n) uint8, n % 8 == 0; absmax: (k/64, n) f32; code: (16,) f32;
 // y: (m, n) f32 (y_bf16 = 0) or bf16 (y_bf16 = 1); part: (splits, m, n) f32
-// scratch, unused (may be null) when splits == 1. Returns the cudaError_t of
-// the launches.
+// scratch, unused (may be null) when splits == 1; path: 0 the gemv (m <= 8), 1 the
+// tensor cores, 2 the FMA tile. Returns the cudaError_t of the launches.
 int fm_nf4_matmul(const void* x, int x_bf16, int m, int k, const uint8_t* packed,
                   const float* absmax, const float* code, int n, void* y, int y_bf16,
-                  float* part, int splits, int blocks_per_split, cudaStream_t stream) {
+                  float* part, int splits, int blocks_per_split, int path,
+                  cudaStream_t stream) {
   cudaError_t err;
   if (x_bf16)
     err = y_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(x, m, k, packed, absmax, code, n, y,
-                                                        part, splits, blocks_per_split, stream)
+                                                        part, splits, blocks_per_split, path,
+                                                        stream)
                  : launch<__nv_bfloat16, float>(x, m, k, packed, absmax, code, n, y, part,
-                                                splits, blocks_per_split, stream);
+                                                splits, blocks_per_split, path, stream);
   else
     err = y_bf16 ? launch<float, __nv_bfloat16>(x, m, k, packed, absmax, code, n, y, part,
-                                                splits, blocks_per_split, stream)
+                                                splits, blocks_per_split, path, stream)
                  : launch<float, float>(x, m, k, packed, absmax, code, n, y, part, splits,
-                                        blocks_per_split, stream);
+                                        blocks_per_split, path, stream);
   return static_cast<int>(err);
 }
 

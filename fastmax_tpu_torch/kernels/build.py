@@ -158,8 +158,8 @@ KERNELS = {
         "fastmax_tpu/ops/quant_pallas.py:131",
         "fm_nf4_matmul",
         # x, x_bf16, m, k, packed, absmax, code, n, y, y_bf16, part, splits,
-        # blocks_per_split, stream
-        [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P]),
+        # blocks_per_split, path, stream
+        [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P]),
     "int4_block_matmul": Kernel(
         "int4_block_matmul", "int4_block_matmul.cu",
         "fastmax_tpu/ops/quant_pallas.py:282",

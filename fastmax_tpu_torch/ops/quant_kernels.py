@@ -37,7 +37,9 @@ _GEMM_K_STEP = 32
 # multiples of them (K8 itself takes k % 64 == 0 and n % 8 == 0)
 TILE_K = 512
 TILE_N = 256
-NF4_GEMV_MAX_M = 8  # K8 streams weights for m <= 8 and tiles 64 rows above
+NF4_GEMV_MAX_M = 4  # K8 streams weights for m <= 4 (its gemv takes m <= 8),
+NF4_TC_MAX_M = 64   # runs the tensor cores up to 64 rows, and tiles 64 rows above
+_NF4_PATHS = ("gemv", "tc", "fma")  # the C entry's path argument, by index
 
 
 def int4_matmul_rank1_plain(x: torch.Tensor, q4r1: torch.Tensor, u: torch.Tensor,
@@ -267,11 +269,28 @@ def nf4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor
     return y
 
 
-def _nf4_splits(m: int, nb: int, n: int, sm_count: int):
-    """Split the k axis (in quant blocks) so that about four blocks per SM
-    are launched; returns (splits, quant blocks per split)."""
+def nf4_path(m: int) -> str:
+    """The kernel of K8 for m rows of x: "gemv" (m <= NF4_GEMV_MAX_M), "tc" (the
+    tensor cores, up to NF4_TC_MAX_M) or "fma" (the 64-row f32 tile). With
+    NF4_GEMV_MAX_M at 8 the gemv takes m <= 8 again, as before K8 had a
+    tensor-core path."""
     if m <= NF4_GEMV_MAX_M:
-        blocks, per = math.ceil(n / 256), 4  # 4 row threads: give each a quant block
+        return "gemv"
+    if m <= NF4_TC_MAX_M:
+        return "tc"
+    return "fma"
+
+
+def _nf4_splits(m: int, nb: int, n: int, sm_count: int, path: str):
+    """Split the k axis (in whole 64-row quant blocks) so that about four
+    blocks per SM are launched; returns (splits, quant blocks per split).
+    ``path`` is ``nf4_path``'s: the gemv's 4 row threads each want a quant
+    block of every split; the tensor-core kernel takes 8 rows and 256 columns a
+    block."""
+    if path == "gemv":
+        blocks, per = math.ceil(n / 256), 4
+    elif path == "tc":
+        blocks, per = math.ceil(m / 8) * math.ceil(n / 256), 1
     else:
         blocks, per = math.ceil(m / 64) * math.ceil(n / 128), 1
     want = max(1, min(math.ceil(4 * sm_count / blocks), nb // per))
@@ -293,15 +312,18 @@ def _nf4_launch(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor, cod
     if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.float()
     x = x.contiguous()
+    if x.data_ptr() % 16:  # a view at an odd offset: the kernels load x in pairs
+        x = x.clone()
     y_bf16 = out_dtype == torch.bfloat16
-    splits, bps = _nf4_splits(m, k // DEFAULT_BLOCK, n, _sm_count(x.device.index or 0))
+    path = nf4_path(m)
+    splits, bps = _nf4_splits(m, k // DEFAULT_BLOCK, n, _sm_count(x.device.index or 0), path)
     y = torch.empty((m, n), dtype=torch.bfloat16 if y_bf16 else torch.float32, device=x.device)
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     KERNELS["nf4_matmul"].launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, packed.data_ptr(), absmax.data_ptr(),
         code.data_ptr(), n, y.data_ptr(), int(y_bf16),
-        None if part is None else part.data_ptr(), splits, bps)
+        None if part is None else part.data_ptr(), splits, bps, _NF4_PATHS.index(path))
     return y.to(out_dtype)
 
 

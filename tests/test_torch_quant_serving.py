@@ -603,11 +603,13 @@ FAULTS = {
 }
 
 
-# faults planted in K9's tensor-core kernel (int4_block_matmul.cu): (the code as
-# written, as planted, the (k, n, m) of int4_block_case at f32 x that must fail). The
-# B mask is seen only where a 16-row step runs past k: k = 1100 (k_pad 1536); an
-# uncleared block sum only where a warp takes two scale blocks or more of a split: at
-# k = 11008 and m = 8 (splits of 704 rows), not at k = 4096 (256 rows, one each).
+# faults planted in the tensor-core kernels of K9 (int4_block_matmul.cu) and K8
+# (nf4_matmul.cu): (the code as written, as planted, the (k, n, m) of
+# int4_block_case or nf4_case at f32 x that must fail). K9's B mask is seen only
+# where a 16-row step runs past k: k = 1100 (k_pad 1536); an uncleared block sum
+# only where a warp takes two blocks or more of a split: for K9 at k = 11008 and m = 8
+# (splits of 704 rows), not at k = 4096 (256 rows, one each); for K8, whose warps walk
+# every block of their split, at k = 11008 and m = 8 (6 blocks a split).
 TC_FAULTS = {
     "K9 only the high part of f32 x": (
         "for (int e = 0; e < kParts; ++e) mma_bf16(blk[p], a, b[0][e], b[1][e]);",
@@ -620,7 +622,20 @@ TC_FAULTS = {
         "if (ks >= k1) break;", "if (ks + kTcStep >= k1) break;", (11008, 4096, 8)),
     "K9 B not zeroed at rows >= k": ("xv[r] = xrow_ok && kr < k ? val : 0.f;",
                                      "xv[r] = xrow_ok ? val : 0.f;", (1100, 3000, 8)),
+    "K8 only the first code part": (
+        "for (int e = 0; e < kCodeParts; ++e) mma_bf16(blk[j], a[e], bx[0][0], bx[1][0]);",
+        "for (int e = 0; e < 1; ++e) mma_bf16(blk[j], a[e], bx[0][0], bx[1][0]);",
+        (4096, 4096, 8)),
+    "K8 only the high part of f32 x": (
+        "if (kXParts == 2) mma_bf16(blk[j], a[0], bx[0][1], bx[1][1]);",
+        "if (kXParts == 0) mma_bf16(blk[j], a[0], bx[0][1], bx[1][1]);", (4096, 4096, 8)),
+    "K8 block sum not reset between blocks": (
+        "for (int e = 0; e < 4; ++e) blk[j][e] = 0.f;  // a fresh sum for each quant block",
+        "for (int e = 0; e < 4; ++e) blk[j][e] = b == b0 ? 0.f : blk[j][e];", (11008, 4096, 8)),
 }
+# the kernel, its source and the check of each tensor-core fault, by the fault's prefix
+TC_KERNELS = {"K9": ("int4_block_matmul", "int4_block_matmul.cu", "int4_block_case"),
+              "K8": ("nf4_matmul", "nf4_matmul.cu", "nf4_case")}
 
 
 def _planted(tmp_path, name, source, written, planted):
@@ -639,7 +654,8 @@ def _planted(tmp_path, name, source, written, planted):
 def test_checks_catch_a_planted_fault(fault, m, tmp_path, monkeypatch):
     """chip_smoke.py's checks fail for a K8 built with its nibbles swapped or
     reading the next block's absmax, and for a K9 reading the next block's
-    scales, in the streaming (m = 1) and the tiled (m = 64) regime."""
+    scales, in the streaming (m = 1) and the tensor-core (m = 64) regime (the
+    gemv's and the tensor-core kernel's code reads the planted lines)."""
     _needs_card()
     name, faulty = _planted(tmp_path, *FAULTS[fault])
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -657,17 +673,21 @@ def test_checks_catch_a_planted_tc_fault(fault, tmp_path, monkeypatch):
     """chip_smoke.py's K9 check fails for a tensor-core kernel that keeps only the
     high bf16 part of f32 x, never clears a scale block's sum, skips the last
     16-row step of each split, or lets the rows past k (random words) into the sum
-    with x of column k - 1 (seen where k % 16 != 0)."""
+    with x of column k - 1 (seen where k % 16 != 0); its K8 check for a tensor-core
+    kernel that multiplies only the first bf16 part of the codes or only the high
+    part of f32 x, or never clears a quant block's sum."""
     _needs_card()
     written, planted, (k, n, m) = TC_FAULTS[fault]
-    name, faulty = _planted(tmp_path, "int4_block_matmul", "int4_block_matmul.cu", written,
-                            planted)
+    kernel, source, check = TC_KERNELS[fault[:2]]
+    name, faulty = _planted(tmp_path, kernel, source, written, planted)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    assert quant_kernels.int4_path(m, k + (-k) % 512) == "tc"
-    chip_smoke.int4_block_case(torch, gen, k, n, m, torch.float32)  # sound
+    case = getattr(chip_smoke, check)
+    assert (quant_kernels.nf4_path(m) if kernel == "nf4_matmul"
+            else quant_kernels.int4_path(m, k + (-k) % 512)) == "tc"
+    case(torch, gen, k, n, m, torch.float32)  # sound
     monkeypatch.setitem(build.KERNELS, name, faulty)
-    with pytest.raises(AssertionError, match="K9") as caught:
-        chip_smoke.int4_block_case(torch, gen, k, n, m, torch.float32)
+    with pytest.raises(AssertionError, match=fault[:2]) as caught:
+        case(torch, gen, k, n, m, torch.float32)
     print(f"{fault}: {caught.value}")
 
 
@@ -675,8 +695,8 @@ def test_kernel_sources_hold_the_planted_lines():
     """The lines the card's fault tests plant faults in are in the sources
     once each (so a rewrite of a kernel does not silently disarm them)."""
     planted = list(FAULTS.values()) + [
-        ("int4_block_matmul", "int4_block_matmul.cu", written, planted)
-        for written, planted, _ in TC_FAULTS.values()]
+        (*TC_KERNELS[fault[:2]][:2], written, planted)
+        for fault, (written, planted, _) in TC_FAULTS.items()]
     for name, source, written, _ in planted:
         assert (build.CSRC_DIR / source).read_text().count(written) == 1, (source, written)
         assert build.KERNELS[name].source.name == source
