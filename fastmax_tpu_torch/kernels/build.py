@@ -119,8 +119,9 @@ KERNELS = {
         "int8_decode_attention", "int8_decode_attention.cu",
         "fastmax_tpu/ops/decode_attention.py:212",  # and its per-layer twin at :97
         "fm_int8_decode_attention",
-        # q, q_bf16, kc, vc, ks, vs, pos, out, b, hq, g, s_len, d, scale, stream
-        [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
+        # q, q_bf16, kc, vc, ks, vs, pos, out, scores, stats, part, b, hq, g, s_len, d, scale,
+        # nsplit, stream
+        [_P, _I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P]),
     "flash_attention": Kernel(
         "flash_attention", "flash_attention.cu",
         "fastmax_tpu/ops/flash_attention.py:137",
