@@ -637,6 +637,10 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_ke
                                     "nf4_splitk_reduce_kernel")),
                  ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_tc_kernel",
                                            "int4_block_gemm_kernel", "int4_block_reduce_kernel")),
+                 ("K11 q4_byte_matmul", ("q4_byte_kernel", "q4_byte_tc_kernel",
+                                         "q4_byte_reduce_kernel")),
+                 ("K12 int4_colnibble_matmul", ("colnibble_kernel", "colnibble_tc_kernel",
+                                                "colnibble_reduce_kernel")),
                  ("gemm (cuBLAS)", ("gemm", "cutlass", "nvjet", "xmma")))
 
 
@@ -2224,19 +2228,29 @@ def nf4_repeats(torch, gen, k, n) -> None:
 
 
 @contextlib.contextmanager
-def earlier_route(qk, kind):
-    """K8's or K9's route as it was before its tensor-core path: K9 the FMA tile
-    above m = 4 (``TC_MAX_M`` set to ``GEMV_MAX_M``), K8 the gemv up to m = 8 and
-    the FMA tile above (``NF4_GEMV_MAX_M`` and ``NF4_TC_MAX_M`` set to 8)."""
-    saved = (qk.TC_MAX_M, qk.NF4_GEMV_MAX_M, qk.NF4_TC_MAX_M)
+def earlier_route(mod, kind):
+    """A kernel's route as it was before its tensor-core path, on the module
+    that routes it: K9 the FMA tile above m = 4 (``ops/quant_kernels``:
+    ``TC_MAX_M`` set to ``GEMV_MAX_M``), K8 the gemv up to m = 8 and the FMA
+    tile above (``NF4_GEMV_MAX_M`` and ``NF4_TC_MAX_M`` set to 8), K11 and K12
+    the gemv at every m (``tools/lab_kernels``: ``LAB_TC_MAX_M`` set to
+    ``LAB_GEMV_MAX_M``)."""
     if kind == "K9":
-        qk.TC_MAX_M = qk.GEMV_MAX_M
+        values = {"TC_MAX_M": mod.GEMV_MAX_M}
+    elif kind == "K8":
+        values = {"NF4_GEMV_MAX_M": 8, "NF4_TC_MAX_M": 8}
+    elif kind in ("K11", "K12"):
+        values = {"LAB_TC_MAX_M": mod.LAB_GEMV_MAX_M}
     else:
-        qk.NF4_GEMV_MAX_M = qk.NF4_TC_MAX_M = 8
+        raise ValueError(f"{kind} has no tensor-core path")
+    saved = {name: getattr(mod, name) for name in values}
+    for name, value in values.items():
+        setattr(mod, name, value)
     try:
         yield
     finally:
-        qk.TC_MAX_M, qk.NF4_GEMV_MAX_M, qk.NF4_TC_MAX_M = saved
+        for name, value in saved.items():
+            setattr(mod, name, value)
 
 
 # K9's timed calls by (m, x type): decode, the block batcher's step (f32 x), a short prefill
@@ -2810,13 +2824,20 @@ def quant_serving_path(torch, results, card):
 # ----------------------------------------------------------------- phase 11
 # K10-K13 against their plain versions. Both round where the reference rounds
 # (x, code values and v10's weights to bf16; each weight's scale in f32), and
-# every product of bf16 operands is exact in f32, so they differ by the order
-# of f32 sums alone: each output within 2e-5 of the largest |plain| plus 2e-4
-# of its own (on the H100: at most 2e-6 of the largest; a v10 that skips its
-# product's rounding lies 4e-4 of the largest off, inside the CPU tests'
-# reference tolerance of 2e-4 / 2e-3). The probes bit for bit. A probe that
-# reads faster than 105 % of the data-sheet memory rate did not read what it
-# claims.
+# every product of bf16 operands is exact in f32, so on K10 and on K11's and
+# K12's gemv (m <= 4) they differ by the order of f32 sums alone. K11's and
+# K12's tensor-core kernels (4 < m <= 64) add two things. f32 operands go in as
+# bf16 parts: K12's f32 x in three, exactly; K11's f32 NF4 values in three and
+# its f32 x in two, of which x1 c1, x2 c0 and the smaller products are dropped
+# (each within 2^-17 of |x c|). And where the reference scales each weight (v1,
+# v2, v6, v8, v9), the scale multiplies each 64-row block's f32 sum instead,
+# which changes only the f32 rounding of c * s. The gate: each output within
+# 2e-5 of the largest |plain| plus 2e-4 of its own (on the H100, on the gemv: at
+# most 2e-6 of the largest; a v10 that skips its product's rounding lies 4e-4
+# of the largest off, inside the CPU tests' reference tolerance of 2e-4 / 2e-3;
+# tests/test_torch_lab_tc.py holds an emulation of the tensor-core sums within
+# it). The probes bit for bit. A probe that reads faster than 105 % of the
+# data-sheet memory rate did not read what it claims.
 LAB_ATOL, LAB_RTOL = 2e-5, 2e-4
 PROBE_RATE_MAX = 1.05 * HBM_BYTES_PER_S
 LAB_MODES = {"K10": ("raw",), "K11": ("v1", "v5", "v6", "v7"),
@@ -2835,6 +2856,12 @@ LAB_REFERENCE_ERRORS = {
     | {(v, 11008, 4096) for v in ("v9t", "v12", "v12b")},
 }
 LAB_PLAIN_IMPLS = {"xla", "bf16", "int8", "int4", "nf4_xla"}
+# K11's and K12's tensor-core checks: the rows of x, and the shapes: qkv, mlp.proj (k =
+# 11008, where a warp takes several 64-row blocks of its split) and a ragged one (k =
+# 1088: 17 blocks, an odd count; K11 at n = 3000, a partial 256-column tile)
+LAB_TC_M = (5, N_SLOTS, 16, 64)
+LAB_TC_SHAPES = {"K11": (LLAMA7B_LINEARS[0], LLAMA7B_LINEARS[3], ("ragged", 1088, 3000)),
+                 "K12": (LLAMA7B_LINEARS[0], LLAMA7B_LINEARS[3], ("ragged", 1088, 3072))}
 
 
 def lab_setup(torch, gen, kernel, variant, k, n, m) -> dict:
@@ -2873,14 +2900,16 @@ def lab_setup(torch, gen, kernel, variant, k, n, m) -> dict:
         getter = tv.get_int4 if variant in ("v6", "v7") else tv.get
         out.update(call=lambda x, w, plain: getter(variant, k, n, tk=512, tn=256, plain=plain)(
             x, w), io=m * k * 4 + m * n * 4, flops=2 * m * k * n)
-        if variant in ("v1", "v6"):
-            table = (torch.as_tensor(quant.NF4_CODE, device=dev) if variant == "v1"
-                     else torch.arange(-8, 8, device=dev).float())
-            mul = 1.0 if variant == "v1" else 0.125
-            xr = (lambda x: x) if variant == "v1" else (lambda x: x.to(torch.bfloat16).float())
-            out["f64"] = lambda x, w: xr(x).double() @ (
-                lk._q4_values(w["q4"], table).double()
-                * (w["absmax"].double() * mul).repeat_interleave(64, 0))
+        # the mode's function in float64 on its rounded operands
+        nf4 = torch.as_tensor(quant.NF4_CODE, device=dev)
+        table = {"v1": nf4, "v2": nf4, "v5": nf4.to(torch.bfloat16).float()}.get(
+            variant, torch.arange(-8, 8, device=dev).float())
+        mul = 0.125 if variant in ("v6", "v7") else 1.0
+        xr = (lambda x: x) if variant in ("v1", "v2") else (
+            lambda x: x.to(torch.bfloat16).float())
+        out["f64"] = lambda x, w: xr(x).double() @ (
+            lk._q4_values(w["q4"], table).double()
+            * (w["absmax"].double() * mul).repeat_interleave(64, 0))
     elif kernel == "K12":
         w = {"pw": torch.randint(0, 2**31 - 1, (k, n // 8), generator=gen, device=dev,
                                  dtype=torch.int32), "s": absmax(k // 64, n)}
@@ -2890,10 +2919,16 @@ def lab_setup(torch, gen, kernel, variant, k, n, m) -> dict:
             variant, lambda p: tv.get_v10(variant, k, n, tk=512, plain=p))
         out.update(call=lambda x, w, plain: get(plain)(x, w), io=m * k * 4 + m * n * 4,
                    flops=2 * m * k * n)
-        if variant in ("v8", "v9"):
-            out["f64"] = lambda x, w: x.double() @ (
-                lk._colnibble_codes(w["pw"], variant == "v8").double()
-                * (w["s"].double() * 0.125).repeat_interleave(64, 0))
+        xr = (lambda x: x) if variant in ("v8", "v9") else (
+            lambda x: x.to(torch.bfloat16).float())
+
+        def f64(x, w):  # the mode's function in float64 on its rounded operands
+            q = lk._colnibble_codes(w["pw"], variant == "v8")
+            s8 = (w["s"] * 0.125).repeat_interleave(64, 0)
+            wts = ((q.to(torch.bfloat16) * s8.to(torch.bfloat16)).double() if variant == "v10"
+                   else q.double() * s8.double())
+            return xr(x).double() @ wts
+        out["f64"] = f64
     elif variant == "stream_ref":
         k_pad, gn = k + (-k) % 512, -(-n // 1024)
         w = {"pw": torch.randint(-2**31, 2**31 - 1, (1, gn, k_pad, 128), generator=gen,
@@ -2948,7 +2983,10 @@ def lab_case(torch, gen, kernel, variant, k, n, m) -> dict:
 def lab_time(torch, gen, kernel, variant, k, n, m, plain: bool = True) -> dict:
     """Device time a call (CUDA graph, weights cold: enough copies to exceed
     the 50 MB L2) of one lab kernel mode and, with ``plain``, of its plain
-    version, beside the call's bound."""
+    version, beside the call's bound. Where K11 or K12 takes the tensor cores,
+    also on the gemv (the earlier route), the two in turns (A B B A)."""
+    from fastmax_tpu_torch.tools import lab_kernels as lk
+
     s = lab_setup(torch, gen, kernel, variant, k, n, m)
     copies = [s["w"]] + [{key: v.clone() for key, v in s["w"].items()}
                          for _ in range(max(1, math.ceil(160e6 / s["bytes_w"])) - 1)]
@@ -2957,9 +2995,20 @@ def lab_time(torch, gen, kernel, variant, k, n, m, plain: bool = True) -> dict:
     def call(p):
         return lambda: s["call"](s["x"], copies[next(it) % len(copies)], p)
 
-    row = {"kernel": kernel, "variant": variant, "k": k, "n": n, "m": m,
-           "ms": graph_ms(call(False), calls=2 * len(copies)),
-           **bound(s["bytes_w"] + s["io"], s["flops"], bf16=s["bf16"])}
+    path = lk.lab_path(m, n) if kernel in ("K11", "K12") else None
+    runs = {"route": [], "earlier": []}
+    for turn in (("route", "earlier", "earlier", "route") if path == "tc" else ("route",)):
+        with earlier_route(lk, kernel) if turn == "earlier" else contextlib.nullcontext():
+            runs[turn].append(graph_ms(call(False), calls=2 * len(copies)))
+    b = bound(s["bytes_w"] + s["io"], s["flops"], bf16=s["bf16"])
+    if path == "tc" and not s["bf16"]:  # f32 operands on the tensor cores, read as K8's and K9's
+        tcb = tensor_core_f32_bound(s["flops"], s["bytes_w"] + s["io"])
+        b.update(bound_ms=tcb["bound_tc_f32_ms"], bound_by=tcb["bound_tc_f32_by"])
+    row = {"kernel": kernel, "variant": variant, "k": k, "n": n, "m": m, "path": path,
+           "ms": sum(runs["route"]) / len(runs["route"]), "ms_runs": runs["route"],
+           "earlier_path": "gemv" if runs["earlier"] else None,
+           "earlier_ms": sum(runs["earlier"]) / len(runs["earlier"]) if runs["earlier"] else None,
+           **b}
     row["gbps"] = s["bytes_w"] / (row["ms"] * 1e-3) / 1e9
     if plain:
         row["plain_ms"] = graph_ms(call(True), calls=len(copies), reps=1)
@@ -2974,6 +3023,46 @@ def probe_rate(torch, gen, which, k, n) -> dict:
                              f"105 % of {HBM_BYTES_PER_S / 1e9:.0f} GB/s: it did not read what "
                              "it claims")
     return row
+
+
+def lab_tc_cases() -> list:
+    """K11's and K12's tensor-core cases: (kernel, mode, k, n, m)."""
+    return [(kern, v, k, n, m) for kern, shapes in LAB_TC_SHAPES.items() for _, k, n in shapes
+            for v in LAB_MODES[kern] for m in LAB_TC_M]
+
+
+def check_lab_tc(torch, gen, worst) -> list:
+    """K11 and K12 on the tensor cores against their plain versions at every
+    mode, row count and shape of ``lab_tc_cases``, with the float64 yardstick's
+    distance for kernel and plain; then three runs bit for bit at m = 8, every
+    mode, at qkv. Raises on a miss; adds each kernel's largest error to
+    ``worst``."""
+    from fastmax_tpu_torch.tools import lab_kernels as lk
+
+    rows = []
+    for case in lab_tc_cases():
+        kern, v, k, n, m = case
+        if lk.lab_path(m, n) != "tc":
+            raise AssertionError(f"{kern} {v} k={k} n={n} m={m}: not routed to the tensor cores")
+        r = lab_case(torch, gen, *case)
+        worst[LAB_KERNEL[kern]] = max(worst[LAB_KERNEL[kern]], r["err"])
+        rows.append({"case": case, **r})
+    for kern, shapes in LAB_TC_SHAPES.items():
+        for name, k, n in shapes:
+            got = [r for r in rows if r["case"][0] == kern and r["case"][2:4] == (k, n)]
+            log(f"  {kern} tensor cores {name:9s} k={k:5d} n={n:5d} m={LAB_TC_M}, every mode: "
+                f"ok, max abs err {max(r['err'] for r in got):.3e}; from float64, kernel / plain "
+                f"{max(r['f64_kernel'] for r in got):.3e} / {max(r['f64_plain'] for r in got):.3e}")
+    _, k, n = LLAMA7B_LINEARS[0]
+    for kern in ("K11", "K12"):
+        for v in LAB_MODES[kern]:
+            s = lab_setup(torch, gen, kern, v, k, n, N_SLOTS)
+            first = s["call"](s["x"], s["w"], False)
+            for _ in range(2):
+                if not torch.equal(s["call"](s["x"], s["w"], False), first):
+                    raise AssertionError(f"{kern} {v} k={k} n={n} m={N_SLOTS}: a repeat differs")
+    log(f"  K11, K12 tensor cores at qkv, m={N_SLOTS}, every mode: 3 runs bit for bit")
+    return rows
 
 
 def lab_routes(torch, gen) -> dict:
@@ -3110,8 +3199,9 @@ def lab_path(torch, results, card):
                 if "f64_kernel" in r:
                     f64.append({"case": case, **r})
         log(f"  K10-K13 {name:9s} k={k:5d} n={n:5d} m=1,{N_SLOTS}: every mode ok")
-    log(f"  max abs err vs plain: {worst}; f32 modes against float64, kernel / plain: max "
+    log(f"  max abs err vs plain: {worst}; against float64, kernel / plain: max "
         f"{max(r['f64_kernel'] for r in f64):.3e} / {max(r['f64_plain'] for r in f64):.3e}")
+    tc = check_lab_tc(torch, gen, worst)
     rows = []
     for name, k, n in LLAMA7B_LINEARS:
         for kernel, modes in LAB_MODES.items():
@@ -3125,8 +3215,11 @@ def lab_path(torch, results, card):
                         row["plain_ms"] = lab_time(torch, gen, kernel, v, k, n, 1)["plain_ms"]
                     rows.append(dict(row, shape=name))
                     log(f"  {kernel} {v:12s} {name:9s} m={m}: {row['ms'] * 1e3:8.1f} us "
-                        f"({row['gbps']:7.1f} GB/s of weights) bound {row['bound_ms'] * 1e3:6.1f}"
+                        + (f"on {row['path']} " if row.get("path") else "")
+                        + f"({row['gbps']:7.1f} GB/s of weights) bound {row['bound_ms'] * 1e3:6.1f}"
                         f" us ({row['bound_by']})"
+                        + (f" {row['earlier_path']} {row['earlier_ms'] * 1e3:8.1f} us"
+                           if row.get("earlier_ms") else "")
                         + (f" plain {row['plain_ms'] * 1e3:8.1f} us" if "plain_ms" in row
                            else "") + f"   [{card}]")
     big = probe_rate(torch, gen, "stream_ref", 16384, 65536)  # 512 MB of words, one copy
@@ -3159,7 +3252,8 @@ def lab_path(torch, results, card):
     phase_s = time.perf_counter() - t_phase
     log(f"  the three lab mains in {mains_s:.1f} s, the phase in {phase_s:.1f} s; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
-    results["lab"] = {"max_abs_err": worst, "f64": f64, "times": rows, "probe_512mb": big,
+    results["lab"] = {"max_abs_err": worst, "f64": f64, "tc": tc, "times": rows,
+                      "probe_512mb": big,
                       "routes": routes, "mains": mains, "mains_s": mains_s, "phase_s": phase_s,
                       "launches": counts, "card": card}
     return worst, rows, counts
@@ -3364,6 +3458,27 @@ def main() -> int:
                         "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
                         "library_ms": None})
+    # K11 and K12 by path: each mode's linears at m = 1 (gemv) and m = 8 (tensor cores; f32
+    # operands read at three TF32 products a multiply), with the gemv timed at m = 8 in turns
+    # with them (the earlier route), read at the f32 units' rate it computes at
+    for short in ("K11", "K12"):
+        kern = next(e for e in kernels if e["name"] == LAB_KERNEL[short])
+        paths = []
+        for v in LAB_MODES[short]:
+            for m in (1, N_SLOTS):
+                layer = [r for r in lab_rows
+                         if r["kernel"] == short and r["variant"] == v and r["m"] == m]
+                paths.append({"path": layer[0]["path"], "variant": v, "m": m,
+                              "ms": sum(r["ms"] for r in layer),
+                              "bound_ms": sum(r["bound_ms"] for r in layer),
+                              "bound_f32_ms": sum(r["bound_f32_ms"] for r in layer),
+                              "plain_ms": sum(r["plain_ms"] for r in layer)
+                              if "plain_ms" in layer[0] else None})
+                if layer[0]["earlier_ms"] is not None:
+                    paths.append({**paths[-1], "path": layer[0]["earlier_path"],
+                                  "ms": sum(r["earlier_ms"] for r in layer),
+                                  "bound_ms": paths[-1]["bound_f32_ms"]})
+        kern["by_path"] = paths
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     out_dir = REPO / "chiprun_out"

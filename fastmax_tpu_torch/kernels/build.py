@@ -183,14 +183,14 @@ TOOL_KERNELS = {
         "tools/nf4_variants_r04.py:123",  # v1, v2, v5; and :208 (v6, v7)
         "fm_q4_byte_matmul",
         # x (f32), m, k, packed, absmax, table, scale_mul, per_block, n, y, part, splits,
-        # blocks_per_split, stream
-        [_P, _I, _I, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _I, _I, _P]),
+        # blocks_per_split, bf16 operands, path, stream
+        [_P, _I, _I, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _I, _I, _I, _I, _P]),
     "int4_colnibble_matmul": Kernel(
         "int4_colnibble_matmul", "int4_colnibble_matmul.cu",
         "tools/nf4_variants_r04.py:289",  # v8; and :355 (v9), :440 (v10, v11)
         "fm_int4_colnibble_matmul",
-        # x (f32), m, k, pw, s, n, mode, y, part, splits, blocks_per_split, stream
-        [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]),
+        # x (f32), m, k, pw, s, n, mode, y, part, splits, blocks_per_split, path, stream
+        [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P]),
     "stream_probe": Kernel(
         "stream_probe", "stream_probe.cu",
         "tools/nf4_lab_r04.py:159",  # and int4_opt_r05.py:188 (stream_ref)

@@ -11,9 +11,11 @@
 * K13 ``stream_tiled`` and ``stream_bytes``: the read-rate probes,
   ``csrc/stream_probe.cu``.
 
-A CUDA tensor goes to the kernel (or the call raises); a CPU tensor, or
-``plain=True``, to the plain version, which repeats the kernel's arithmetic
-(where the Pallas code rounds to bf16, both round). Every output is f32.
+K11 and K12 each have a gemv and a tensor-core kernel, chosen by
+``lab_path`` from the shape alone. A CUDA tensor goes to the kernel (or the
+call raises); a CPU tensor, or ``plain=True``, to the plain version, which
+repeats the kernel's arithmetic (where the Pallas code rounds to bf16, both
+round). Every output is f32.
 """
 
 from __future__ import annotations
@@ -25,6 +27,30 @@ import torch
 from ..kernels.build import TOOL_KERNELS, use_kernel
 from ..ops.quant import DEFAULT_BLOCK, INT4_TILE_N, _unpack_int4_tiled
 from ..ops.quant_kernels import _sm_count
+
+LAB_GEMV_MAX_M = 4  # K11 and K12 stream weights for m <= 4 (the gemv takes any m),
+LAB_TC_MAX_M = 64   # run the tensor cores up to 64 rows, and the gemv above
+_LAB_PATHS = ("gemv", "tc")  # the C entries' path argument, by index
+
+
+def lab_path(m: int, n: int) -> str:
+    """The kernel of K11 and K12 for m rows of x and n columns: "tc" (the
+    tensor cores) for LAB_GEMV_MAX_M < m <= LAB_TC_MAX_M where n % 8 == 0
+    (K11's 8-byte loads; K12's n is whole 1024-column tiles), else "gemv".
+    With LAB_TC_MAX_M at LAB_GEMV_MAX_M every m takes the gemv, as before the
+    tensor-core kernels."""
+    if LAB_GEMV_MAX_M < m <= LAB_TC_MAX_M and n % 8 == 0:
+        return "tc"
+    return "gemv"
+
+
+def _lab_splits(kernel: str, path: str, m: int, k: int, n: int, sm_count: int):
+    """(splits, 64-row blocks per split) of a K11 ("q4") or K12 ("colnibble")
+    call on ``path``, each split whole 64-row blocks. A launched block takes 8
+    rows of x and 256 columns, except K12's tensor-core block: one 16-lane
+    unit of a 1024-column tile, 128 columns."""
+    cols = 128 if (kernel, path) == ("colnibble", "tc") else 256
+    return _splits(math.ceil(n / cols) * math.ceil(m / 8), k, DEFAULT_BLOCK, sm_count)
 
 
 def _splits(units: int, k: int, step: int, sm_count: int):
@@ -103,13 +129,41 @@ def q4_byte_matmul_plain(x, packed, absmax, table, scale_mul: float, per_block: 
     return torch.matmul(x.float(), w)
 
 
+def _f32_x(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels load it: contiguous f32, 16-byte aligned (the tensor-
+    core kernels read it in pairs)."""
+    xf = x.float().contiguous()
+    return xf.clone() if xf.data_ptr() % 16 else xf
+
+
+def _q4_launch(x, packed, absmax, table, scale_mul: float, per_block: bool,
+               bf16: bool) -> torch.Tensor:
+    m, k = x.shape
+    n = packed.shape[1]
+    for name, a, dt in (("q4", packed, torch.uint8), ("absmax", absmax, torch.float32),
+                        ("table", table, torch.float32)):
+        _check(name, a, dt, x.device)
+    xf = _f32_x(x)
+    path = lab_path(m, n)
+    splits, per = _lab_splits("q4", path, m, k, n, _sm_count(x.device.index or 0))
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    TOOL_KERNELS["q4_byte_matmul"].launch(
+        xf.data_ptr(), m, k, packed.data_ptr(), absmax.data_ptr(), table.data_ptr(),
+        float(scale_mul), int(per_block), n, y.data_ptr(), part.data_ptr(), splits, per,
+        int(bf16), _LAB_PATHS.index(path))
+    return y
+
+
 def q4_byte_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
                    table: torch.Tensor, scale_mul: float, per_block: bool, *,
-                   plain: bool = False) -> torch.Tensor:
+                   bf16: bool = False, plain: bool = False) -> torch.Tensor:
     """K11: x (m, k) f32 (rounded by the caller where the reference rounds) @
     table[codes] of the q4 bytes (k/2, n) u8, each weight times absmax (k/64,
     n) * scale_mul before the product, or each 64-row block's partial after
-    it (``per_block``) -> (m, n) f32."""
+    it (``per_block``) -> (m, n) f32. ``bf16``: the caller states that x and
+    the table values are bf16 numbers (v5-v7), so the tensor-core kernel takes
+    one bf16 part of each; else three of the table and two of x."""
     m, k = x.shape
     n = packed.shape[1]
     if (k % DEFAULT_BLOCK or packed.shape[0] * 2 != k or tuple(absmax.shape) != (
@@ -118,18 +172,7 @@ def q4_byte_matmul(x: torch.Tensor, packed: torch.Tensor, absmax: torch.Tensor,
                          f"{tuple(absmax.shape)} table {tuple(table.shape)}")
     if not use_kernel(x, packed, absmax, table, plain=plain):
         return q4_byte_matmul_plain(x, packed, absmax, table, scale_mul, per_block)
-    for name, a, dt in (("q4", packed, torch.uint8), ("absmax", absmax, torch.float32),
-                        ("table", table, torch.float32)):
-        _check(name, a, dt, x.device)
-    xf = x.float().contiguous()
-    splits, per = _splits(math.ceil(n / 256) * math.ceil(m / 8), k, DEFAULT_BLOCK,
-                          _sm_count(x.device.index or 0))
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    TOOL_KERNELS["q4_byte_matmul"].launch(
-        xf.data_ptr(), m, k, packed.data_ptr(), absmax.data_ptr(), table.data_ptr(),
-        float(scale_mul), int(per_block), n, y.data_ptr(), part.data_ptr(), splits, per)
-    return y
+    return _q4_launch(x, packed, absmax, table, scale_mul, per_block, bf16)
 
 
 # ---------------------------------------------------------------- K12
@@ -162,6 +205,22 @@ def colnibble_matmul_plain(x: torch.Tensor, pw: torch.Tensor, s: torch.Tensor,
     return torch.matmul(x.float(), q * s8.repeat_interleave(DEFAULT_BLOCK, 0))
 
 
+def _colnibble_launch(x, pw, s, variant: str) -> torch.Tensor:
+    m, k = x.shape
+    n = pw.shape[1] * 8
+    _check("pw", pw, torch.int32, x.device)
+    _check("s", s, torch.float32, x.device)
+    xf = _f32_x(x)
+    path = lab_path(m, n)
+    splits, per = _lab_splits("colnibble", path, m, k, n, _sm_count(x.device.index or 0))
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    TOOL_KERNELS["int4_colnibble_matmul"].launch(
+        xf.data_ptr(), m, k, pw.data_ptr(), s.data_ptr(), n, COLNIBBLE_MODES[variant],
+        y.data_ptr(), part.data_ptr(), splits, per, _LAB_PATHS.index(path))
+    return y
+
+
 def colnibble_matmul(x: torch.Tensor, pw: torch.Tensor, s: torch.Tensor, variant: str, *,
                      plain: bool = False) -> torch.Tensor:
     """K12: x (m, k) f32 (rounded to bf16 by the caller for v10 and v11) @
@@ -175,17 +234,7 @@ def colnibble_matmul(x: torch.Tensor, pw: torch.Tensor, s: torch.Tensor, variant
                          f"{tuple(s.shape)}")
     if not use_kernel(x, pw, s, plain=plain):
         return colnibble_matmul_plain(x, pw, s, variant)
-    _check("pw", pw, torch.int32, x.device)
-    _check("s", s, torch.float32, x.device)
-    xf = x.float().contiguous()
-    splits, per = _splits(n // 256 * math.ceil(m / 8), k, DEFAULT_BLOCK,
-                          _sm_count(x.device.index or 0))
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    TOOL_KERNELS["int4_colnibble_matmul"].launch(
-        xf.data_ptr(), m, k, pw.data_ptr(), s.data_ptr(), n, COLNIBBLE_MODES[variant],
-        y.data_ptr(), part.data_ptr(), splits, per)
-    return y
+    return _colnibble_launch(x, pw, s, variant)
 
 
 # ---------------------------------------------------------------- K13

@@ -76,7 +76,7 @@ def _run(variant, x, packed, absmax, code_vals, tk, tn, *, plain: bool = False):
     if variant == "v5":  # bf16 code values and bf16 x, per-block partials
         table = _table(code_vals, x.device).to(torch.bfloat16).float()
         return lab_kernels.q4_byte_matmul(x.to(torch.bfloat16).float(), packed, absmax, table,
-                                          1.0, True, plain=plain)
+                                          1.0, True, bf16=True, plain=plain)
     raise ValueError(variant)
 
 
@@ -106,7 +106,7 @@ def _run_int4(variant, x, packed, absmax, tk, tn, *, plain: bool = False):
     _require(k % tk == 0 and n % tn == 0, (k, n, tk, tn))
     xb = x.to(torch.bfloat16).float()
     return lab_kernels.q4_byte_matmul(xb, packed, absmax, _table(_INT4_LEVELS, x.device), 0.125,
-                                      variant == "v7", plain=plain)
+                                      variant == "v7", bf16=True, plain=plain)
 
 
 def get_int4(name, k, n, tk=2048, tn=512, *, plain: bool = False):

@@ -391,13 +391,15 @@ def test_kernel_sources_hold_the_planted_lines():
 
 def test_step_profiles_attribute_every_kernel_function():
     """chip_smoke.py's step profiles sum device time by kernel from the
-    names of the __global__ functions: each one in the sources of K1-K9
-    falls in its own kernel's group, so a second function (K7's tensor-core
-    kernel, K4's and K5's finishing passes) is not counted as "other"."""
+    names of the __global__ functions: each one in the sources of K1-K9, K11
+    and K12 falls in its own kernel's group, so a second function (K7's
+    tensor-core kernel, K4's and K5's finishing passes) is not counted as
+    "other"."""
+    kernels = {**build.KERNELS, **build.TOOL_KERNELS}
     for label, keys in chip_smoke.KERNEL_GROUPS:
-        if label.split()[1] not in build.KERNELS:  # the library's group
+        if label.split()[1] not in kernels:  # the library's group
             continue
-        source = build.KERNELS[label.split()[1]].source.read_text()
+        source = kernels[label.split()[1]].source.read_text()
         functions = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
                                source)
         assert functions, label

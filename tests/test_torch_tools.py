@@ -21,6 +21,7 @@ The ``cuda`` tests hold K10-K13 against their plain versions with
 chip_smoke.py's checks and plant faults in a copy of csrc/ that the checks
 must catch."""
 
+import contextlib
 import importlib
 import os
 import shutil
@@ -466,19 +467,56 @@ def test_lab_kernels_match_plain_on_the_card(m):
 
 
 # faults planted in a copy of csrc/: (kernel, file, the code as written, as planted, the case
-# that must catch it)
+# that must catch it (kernel, mode, k, n), the path that reads the planted line, and the rows of
+# x at which it must be caught there). At m = 8, where lab_path picks the tensor cores, a gemv
+# fault is caught on the earlier route (chip_smoke.earlier_route: the gemv at every m). The
+# tensor-core faults are those tests/test_torch_lab_tc.py plants in its emulation; a block sum
+# never cleared shows only where a warp takes several 64-row blocks of its split (k = 11008).
 FAULTS = {
     "K11 nibbles swapped": ("q4_byte_matmul", "q4_byte_matmul.cu",
                             "e = table[(b >> 4) & 0xFu]; o = table[b & 0xFu];",
                             "e = table[b & 0xFu]; o = table[(b >> 4) & 0xFu];",
-                            ("K11", "v1")),
+                            ("K11", "v1", 4096, 2048), "gemv", (1, 8)),
     "K12 next block's scale": ("int4_colnibble_matmul", "int4_colnibble_matmul.cu",
                                "sc[p] = plane_scale(s, b, n, colbase + p * kLanes, mode);",
                                "sc[p] = plane_scale(s, min(b + 1, nb - 1), n, colbase + p * "
-                               "kLanes, mode);", ("K12", "v9")),
+                               "kLanes, mode);", ("K12", "v9", 4096, 2048), "gemv", (1, 8)),
     "K12 v10 unrounded": ("int4_colnibble_matmul", "int4_colnibble_matmul.cu",
                           "wq = __bfloat162float(__float2bfloat16(wq * sc[p]));",
-                          "wq *= sc[p];", ("K12", "v10")),
+                          "wq *= sc[p];", ("K12", "v10", 4096, 2048), "gemv", (1, 8)),
+    "K11 tc first code part alone": (
+        "q4_byte_matmul", "q4_byte_matmul.cu",
+        "for (int e = 0; e < kCodeParts; ++e) mma_bf16(blk[j], a[e], bx[0][0], bx[1][0]);",
+        "for (int e = 0; e < 1; ++e) mma_bf16(blk[j], a[e], bx[0][0], bx[1][0]);",
+        ("K11", "v1", 4096, 2048), "tc", (8,)),
+    "K11 tc high part of x alone": (
+        "q4_byte_matmul", "q4_byte_matmul.cu",
+        "if (kXParts == 2) mma_bf16(blk[j], a[0], bx[0][1], bx[1][1]);",
+        "if (kXParts == 0) mma_bf16(blk[j], a[0], bx[0][1], bx[1][1]);",
+        ("K11", "v1", 4096, 2048), "tc", (8,)),
+    "K11 tc block sum not reset": (
+        "q4_byte_matmul", "q4_byte_matmul.cu",
+        "for (int e = 0; e < 4; ++e) blk[j][e] = 0.f;  // a fresh sum for each absmax block",
+        "for (int e = 0; e < 4; ++e) blk[j][e] = b == b0 ? 0.f : blk[j][e];",
+        ("K11", "v7", 11008, 2048), "tc", (8,)),
+    "K12 tc high part of x alone": (
+        "int4_colnibble_matmul", "int4_colnibble_matmul.cu",
+        "for (int e = 0; e < kParts; ++e) mma_bf16(blk[p], a, bx[0][e], bx[1][e]);",
+        "for (int e = 0; e < 1; ++e) mma_bf16(blk[p], a, bx[0][e], bx[1][e]);",
+        ("K12", "v8", 4096, 2048), "tc", (8,)),
+    "K12 tc v10 scale out of the product": (
+        "int4_colnibble_matmul", "int4_colnibble_matmul.cu",
+        "constexpr bool kScaleInA = MODE == 2;", "constexpr bool kScaleInA = false;",
+        ("K12", "v10", 4096, 2048), "tc", (8,)),
+    "K12 tc v8 without the XOR": (
+        "int4_colnibble_matmul", "int4_colnibble_matmul.cu",
+        "const uint32_t flip = MODE == 0 ? 0x88888888u : 0u;", "const uint32_t flip = 0u;",
+        ("K12", "v8", 4096, 2048), "tc", (8,)),
+    "K12 tc block sum not reset": (
+        "int4_colnibble_matmul", "int4_colnibble_matmul.cu",
+        "for (int j = 0; j < 4; ++j) blk[p][j] = 0.f;  // a fresh sum for each scale block",
+        "for (int j = 0; j < 4; ++j) blk[p][j] = b == b0 + warp ? 0.f : blk[p][j];",
+        ("K12", "v11", 11008, 2048), "tc", (8,)),
 }
 
 
@@ -492,21 +530,32 @@ def _planted(tmp_path, source, written, planted, name):
     return build.Kernel(name, str(src / source), real.replaces, real.entry, real.argtypes)
 
 
+def _on_path(kern, path, m):
+    """The route on which ``path`` takes m rows: the gemv at m > 4 on the earlier route."""
+    if path == "gemv" and m > lab_kernels.LAB_GEMV_MAX_M:
+        return chip_smoke.earlier_route(lab_kernels, kern)
+    return contextlib.nullcontext()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8])
-@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("fault,m", [(f, m) for f in sorted(FAULTS) for m in FAULTS[f][6]])
 def test_checks_catch_a_planted_fault(fault, m, tmp_path, monkeypatch):
     """chip_smoke.py's check fails for K11 with its nibbles swapped, K12
     reading the next block's scale, and K12's v10 without its bf16 product
-    rounding."""
+    rounding, on the gemv; and, on the tensor cores, for K11 with only the
+    first bf16 part of the codes, only the high part of x, or a block sum
+    never cleared, and for K12 with only the high part of x, v10's scale out
+    of the product, v8's words not XORed, or a block sum never cleared."""
     _needs_card()
-    name, source, written, planted, case = FAULTS[fault]
+    name, source, written, planted, (kern, v, k, n), path, _ = FAULTS[fault]
     faulty = _planted(tmp_path, source, written, planted, name)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    chip_smoke.lab_case(torch, gen, *case, 4096, 2048, m)  # sound
-    monkeypatch.setitem(build.TOOL_KERNELS, name, faulty)
-    with pytest.raises(AssertionError, match=fault[:3]) as caught:
-        chip_smoke.lab_case(torch, gen, *case, 4096, 2048, m)
+    with _on_path(kern, path, m):
+        assert lab_kernels.lab_path(m, n) == path
+        chip_smoke.lab_case(torch, gen, kern, v, k, n, m)  # sound
+        monkeypatch.setitem(build.TOOL_KERNELS, name, faulty)
+        with pytest.raises(AssertionError, match=fault[:3]) as caught:
+            chip_smoke.lab_case(torch, gen, kern, v, k, n, m)
     print(f"{fault}, m={m}: {caught.value}")
 
 
@@ -533,8 +582,19 @@ def test_rate_check_catches_a_probe_that_skips_rows(tmp_path, monkeypatch):
 
 def test_kernel_sources_hold_the_planted_lines():
     """The lines the card's fault tests plant faults in are in the sources
-    once each."""
-    for name, source, written, _, _ in FAULTS.values():
+    once each, each fault's case takes the path it names at its rows of x, and
+    where a block sum is never cleared a warp of the case takes several blocks
+    of its split (132 SMs)."""
+    for fault, (name, source, written, _, (kern, _, k, n), path, ms) in FAULTS.items():
         assert (build.CSRC_DIR / source).read_text().count(written) == 1, (source, written)
         assert build.TOOL_KERNELS[name].source.name == source
+        assert chip_smoke.LAB_KERNEL[kern] == name
+        for m in ms:
+            with _on_path(kern, path, m):
+                assert lab_kernels.lab_path(m, n) == path, (fault, m)
+        if "block sum" in fault:
+            which = "q4" if kern == "K11" else "colnibble"
+            _, per = lab_kernels._lab_splits(which, "tc", 8, k, n, 132)
+            # K11: every warp walks each block of its split; K12: the 4 warps interleave
+            assert per >= (2 if kern == "K11" else 5), (fault, per)
     assert (build.CSRC_DIR / "stream_probe.cu").read_text().count(PROBE_FAULT[0]) == 1
