@@ -2864,11 +2864,12 @@ LAB_TC_SHAPES = {"K11": (LLAMA7B_LINEARS[0], LLAMA7B_LINEARS[3], ("ragged", 1088
                  "K12": (LLAMA7B_LINEARS[0], LLAMA7B_LINEARS[3], ("ragged", 1088, 3072))}
 
 
-def lab_setup(torch, gen, kernel, variant, k, n, m) -> dict:
+def lab_setup(torch, gen, kernel, variant, k, n, m, tile_k=None) -> dict:
     """Inputs of one lab kernel mode at (k, n, m) on the card, x with mean 0.5,
     codes uniform, absmax 0.01-0.03: {"w": weights, "x", "call": (x, w, plain)
     -> output, "f64": (x, w) -> float64 yardstick or None, bytes of w, bytes
-    of x and the output, flops, bf16, exact}."""
+    of x and the output, flops, bf16, exact}. ``tile_k``: K10's words packed in
+    k tiles of that many rows (gk > 1)."""
     from fastmax_tpu_torch.ops import quant
     from fastmax_tpu_torch.tools import int4_opt_r05 as t05
     from fastmax_tpu_torch.tools import lab_kernels as lk
@@ -2886,7 +2887,7 @@ def lab_setup(torch, gen, kernel, variant, k, n, m) -> dict:
     out = {"bf16": variant in LAB_BF16, "exact": kernel == "K13", "f64": None}
     if kernel == "K10":
         codes = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
-        w = {"pw": quant.pack_int4_tiled(codes)}
+        w = {"pw": quant.pack_int4_tiled(codes, tile_k)}
         k_pad, n_pad = w["pw"].shape[0] * w["pw"].shape[2], w["pw"].shape[1] * 1024
         x = torch.nn.functional.pad(xin(k), (0, k_pad - k))
         out.update(call=lambda x, w, plain: lk.int4_tiled_bf16(x, w["pw"], plain=plain),
@@ -2958,11 +2959,11 @@ def lab_cases(k, n, m) -> list:
             for v in modes if not (kern == "K12" and n % 1024)]
 
 
-def lab_case(torch, gen, kernel, variant, k, n, m) -> dict:
+def lab_case(torch, gen, kernel, variant, k, n, m, tile_k=None) -> dict:
     """One lab kernel mode against its plain version (the probes bit for bit),
     with the float64 yardstick where the mode's operands are f32; raises with
     the kernel's name on a miss."""
-    s = lab_setup(torch, gen, kernel, variant, k, n, m)
+    s = lab_setup(torch, gen, kernel, variant, k, n, m, tile_k)
     got = s["call"](s["x"], s["w"], False)
     ref = s["call"](s["x"], s["w"], True)
     torch.cuda.synchronize()
@@ -3010,6 +3011,10 @@ def lab_time(torch, gen, kernel, variant, k, n, m, plain: bool = True) -> dict:
            "earlier_ms": sum(runs["earlier"]) / len(runs["earlier"]) if runs["earlier"] else None,
            **b}
     row["gbps"] = s["bytes_w"] / (row["ms"] * 1e-3) / 1e9
+    if kernel == "K13":  # a read yardstick: PyTorch's own reduction over the same bytes
+        row["yardstick_ms"] = graph_ms(lambda: [
+            torch.sum(t.view(torch.int32) if t.dtype == torch.float32 else t, dtype=torch.int64)
+            for t in copies[next(it) % len(copies)].values()], calls=2 * len(copies))
     if plain:
         row["plain_ms"] = graph_ms(call(True), calls=len(copies), reps=1)
     return row
@@ -3023,6 +3028,42 @@ def probe_rate(torch, gen, which, k, n) -> dict:
                              f"105 % of {HBM_BYTES_PER_S / 1e9:.0f} GB/s: it did not read what "
                              "it claims")
     return row
+
+
+# K10's checks beside the four linears at m = 1 and 8 (where fc_12 takes 3 splits of 1408
+# rows, the last partial): rows of x that leave a chunk short or take several chunks (5, 16,
+# 64) at qkv and mlp.proj (k_pad 11264 in 1408-row splits at m <= 24), and words packed in k
+# tiles of 512 rows (gk = 8) at attn.proj
+K10_CHECKS = tuple((name, k, n, m, None) for name, k, n in (LLAMA7B_LINEARS[0], LLAMA7B_LINEARS[3])
+                   for m in (5, 16, 64)) + tuple(("attn_proj tk 512", 4096, 4096, m, 512)
+                                                 for m in (1, N_SLOTS))
+
+
+def check_k10(torch, gen, worst) -> list:
+    """K10 against its plain version at every case of K10_CHECKS, then three
+    runs bit for bit at qkv, m = 1 and 8. Raises on a miss; adds the largest
+    error to ``worst``."""
+    from fastmax_tpu_torch.tools import lab_kernels as lk
+
+    rows = []
+    for name, k, n, m, tile_k in K10_CHECKS:
+        r = lab_case(torch, gen, "K10", "raw", k, n, m, tile_k)
+        worst["int4_tiled_bf16"] = max(worst["int4_tiled_bf16"], r["err"])
+        k_pad = k + (-k) % 512
+        rows.append({"case": (name, k, n, m, tile_k), "plan": lk.k10_plan(
+            m, k_pad, -(-n // 1024), torch.cuda.get_device_properties(0).multi_processor_count),
+            **r})
+    log("  K10 " + "; ".join(f"{r['case'][0]} m={r['case'][3]} splits {r['plan'][0]} x "
+                             f"{r['plan'][1]} rows: {r['err']:.3e}" for r in rows))
+    _, k, n = LLAMA7B_LINEARS[0]
+    for m in (1, N_SLOTS):
+        s = lab_setup(torch, gen, "K10", "raw", k, n, m)
+        first = s["call"](s["x"], s["w"], False)
+        for _ in range(2):
+            if not torch.equal(s["call"](s["x"], s["w"], False), first):
+                raise AssertionError(f"K10 raw k={k} n={n} m={m}: a repeat differs")
+    log(f"  K10 at qkv, m=1 and {N_SLOTS}: 3 runs bit for bit")
+    return rows
 
 
 def lab_tc_cases() -> list:
@@ -3202,6 +3243,7 @@ def lab_path(torch, results, card):
     log(f"  max abs err vs plain: {worst}; against float64, kernel / plain: max "
         f"{max(r['f64_kernel'] for r in f64):.3e} / {max(r['f64_plain'] for r in f64):.3e}")
     tc = check_lab_tc(torch, gen, worst)
+    k10 = check_k10(torch, gen, worst)
     rows = []
     for name, k, n in LLAMA7B_LINEARS:
         for kernel, modes in LAB_MODES.items():
@@ -3221,10 +3263,12 @@ def lab_path(torch, results, card):
                         + (f" {row['earlier_path']} {row['earlier_ms'] * 1e3:8.1f} us"
                            if row.get("earlier_ms") else "")
                         + (f" plain {row['plain_ms'] * 1e3:8.1f} us" if "plain_ms" in row
-                           else "") + f"   [{card}]")
+                           else "")
+                        + (f" read yardstick (torch.sum int64) {row['yardstick_ms'] * 1e3:8.1f}"
+                           " us" if "yardstick_ms" in row else "") + f"   [{card}]")
     big = probe_rate(torch, gen, "stream_ref", 16384, 65536)  # 512 MB of words, one copy
-    log(f"  K13 stream_ref over 512 MB: {big['ms'] * 1e3:.1f} us, {big['gbps']:.1f} GB/s   "
-        f"[{card}]")
+    log(f"  K13 stream_ref over 512 MB: {big['ms'] * 1e3:.1f} us, {big['gbps']:.1f} GB/s; read "
+        f"yardstick (torch.sum int64) {big['yardstick_ms'] * 1e3:.1f} us   [{card}]")
     routes = lab_routes(torch, gen)
     per_route = {}
     for x in (x for v in routes.values() for x in v):
@@ -3252,7 +3296,7 @@ def lab_path(torch, results, card):
     phase_s = time.perf_counter() - t_phase
     log(f"  the three lab mains in {mains_s:.1f} s, the phase in {phase_s:.1f} s; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
-    results["lab"] = {"max_abs_err": worst, "f64": f64, "tc": tc, "times": rows,
+    results["lab"] = {"max_abs_err": worst, "f64": f64, "tc": tc, "k10": k10, "times": rows,
                       "probe_512mb": big,
                       "routes": routes, "mains": mains, "mains_s": mains_s, "phase_s": phase_s,
                       "launches": counts, "card": card}
@@ -3458,6 +3502,8 @@ def main() -> int:
                         "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
                         "library_ms": None})
+        if short == "K13":  # torch.sum over the same bytes: reads them, computes another function
+            kernels[-1]["read_yardstick_ms"] = sum(r["yardstick_ms"] for r in dec)
     # K11 and K12 by path: each mode's linears at m = 1 (gemv) and m = 8 (tensor cores; f32
     # operands read at three TF32 products a multiply), with the gemv timed at m = 8 in turns
     # with them (the earlier route), read at the f32 units' rate it computes at

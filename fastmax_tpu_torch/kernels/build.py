@@ -176,8 +176,8 @@ TOOL_KERNELS = {
         "int4_tiled_bf16", "int4_tiled_bf16.cu",
         "tools/int4_opt_r05.py:158",  # and :145 (bf16), nf4_variants_r04.py:571 (bf16=True)
         "fm_int4_tiled_bf16",
-        # x (bf16), m, w, gk, gn, tk, y, part, splits, rows_per_split, stream
-        [_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P]),
+        # x (bf16), m, w, gk, gn, tk, y, part, counter, splits, rows_per_split, stream
+        [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P]),
     "q4_byte_matmul": Kernel(
         "q4_byte_matmul", "q4_byte_matmul.cu",
         "tools/nf4_variants_r04.py:123",  # v1, v2, v5; and :208 (v6, v7)
@@ -195,9 +195,9 @@ TOOL_KERNELS = {
         "stream_probe", "stream_probe.cu",
         "tools/nf4_lab_r04.py:159",  # and int4_opt_r05.py:188 (stream_ref)
         "fm_stream_probe",
-        # mode, words, n_words, rows, cols, tiles, absmax, tk, tn, out, n_out, colsum,
-        # checksum, stream
-        [_I, _P, ctypes.c_longlong, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]),
+        # mode, words, n_words, tk, cols, tiles, absmax, out, grid, per, checksum, vals,
+        # counter, stream
+        [_I, _P, ctypes.c_longlong, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
 }
 
 

@@ -2,14 +2,15 @@
 ``kernels/build.py``), each with its plain PyTorch version beside it:
 
 * K10 ``int4_tiled_bf16``: raw signed nibbles of tiled words times bf16 x on
-  the tensor cores, ``csrc/int4_tiled_bf16.cu``;
+  the tensor cores, one launch a call (the last block of a column unit to
+  finish adds the k splits in order), ``csrc/int4_tiled_bf16.cu``;
 * K11 ``q4_byte_matmul``: 4-bit codes in the q4 byte layout through a
   16-entry value table, scaled before the product or per 64-row block,
   ``csrc/q4_byte_matmul.cu``;
 * K12 ``colnibble_matmul``: blockwise int4 in the column-nibble layout (the
   lab's v8-v11), ``csrc/int4_colnibble_matmul.cu``;
-* K13 ``stream_tiled`` and ``stream_bytes``: the read-rate probes,
-  ``csrc/stream_probe.cu``.
+* K13 ``stream_tiled`` and ``stream_bytes``: the read-rate probes, one
+  launch a call, ``csrc/stream_probe.cu``.
 
 K11 and K12 each have a gemv and a tensor-core kernel, chosen by
 ``lab_path`` from the shape alone. A CUDA tensor goes to the kernel (or the
@@ -28,6 +29,11 @@ from ..kernels.build import TOOL_KERNELS, use_kernel
 from ..ops.quant import DEFAULT_BLOCK, INT4_TILE_N, _unpack_int4_tiled
 from ..ops.quant_kernels import _sm_count
 
+# copies of csrc/int4_tiled_bf16.cu's kSlices, kSplitRows, kMaxSplits and kBlocksPerSm, and
+# of csrc/stream_probe.cu's kColThreads, kMaxSplits and kBlocksPerSm (mode 1)
+# (tests/test_torch_lab_k10.py holds them)
+K10_SLICES, K10_SPLIT_ROWS, K10_MAX_SPLITS, K10_BLOCKS_PER_SM = 8, 64, 8, 6
+PROBE_COL_THREADS, PROBE_MAX_SPLITS, PROBE_BLOCKS_PER_SM = 8, 16, 4
 LAB_GEMV_MAX_M = 4  # K11 and K12 stream weights for m <= 4 (the gemv takes any m),
 LAB_TC_MAX_M = 64   # run the tensor cores up to 64 rows, and the gemv above
 _LAB_PATHS = ("gemv", "tc")  # the C entries' path argument, by index
@@ -77,6 +83,54 @@ def int4_tiled_bf16_plain(x: torch.Tensor, pw_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.bfloat16).float(), _unpack_int4_tiled(pw_t))
 
 
+_COUNTERS: dict = {}
+_MAX_COUNTERS = 1 << 16
+
+
+def _counters(name: str, device, n: int) -> torch.Tensor:
+    """The zeroed int32 counters of ``name``'s kernel on ``device`` (one for each
+    unit whose k splits the kernel adds up), made once and kept: each call's
+    last block of a unit sets its counter back to zero, so they are zero
+    between calls and a CUDA graph's replays find them so. Calls of one kernel
+    must not run at once on two streams."""
+    if n > _MAX_COUNTERS:
+        raise ValueError(f"{name}: {n} counters, at most {_MAX_COUNTERS}")
+    key = (name, str(device))
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(_MAX_COUNTERS, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
+def _balanced_splits(units: int, rounds: int, max_splits: int, sm_count: int,
+                     per_sm: int):
+    """(splits, rounds per split) for ``units`` blocks a split, each streaming
+    its rounds: at most ``max_splits``, none empty; the fewest waves of
+    ``per_sm`` blocks an SM (each block pays a fixed start and end), then the
+    busiest SM streaming the fewest rounds (its ceil(blocks / SMs) blocks times
+    the rounds of one), then more splits (more blocks in flight)."""
+    best = None
+    for want in range(1, min(max_splits, rounds) + 1):
+        per = math.ceil(rounds / want)
+        splits = math.ceil(rounds / per)
+        blocks = units * splits
+        key = (math.ceil(blocks / (sm_count * per_sm)), math.ceil(blocks / sm_count) * per,
+               -splits)
+        if best is None or key < best[0]:
+            best = (key, splits, per)
+    return best[1], best[2]
+
+
+def k10_plan(m: int, k: int, gn: int, sm_count: int):
+    """(splits, rows per split) of a K10 call over its blocks (``K10_SLICES`` a
+    1024-column tile, one a chunk of 8 rows of x): each split whole rounds of
+    ``K10_SPLIT_ROWS`` rows (one 16-row step a warp), balanced over the SMs
+    (``_balanced_splits``)."""
+    units = gn * K10_SLICES * math.ceil(m / 8)
+    splits, per = _balanced_splits(units, math.ceil(k / K10_SPLIT_ROWS), K10_MAX_SPLITS,
+                                   sm_count, K10_BLOCKS_PER_SM)
+    return splits, per * K10_SPLIT_ROWS
+
+
 def int4_tiled_bf16(x: torch.Tensor, pw_t: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     """K10: bf16(x) (m, gk*tk) @ raw signed nibbles (gk, gn, tk, 128) ->
     (m, gn*1024) f32, columns in the packed order."""
@@ -88,12 +142,16 @@ def int4_tiled_bf16(x: torch.Tensor, pw_t: torch.Tensor, *, plain: bool = False)
         return int4_tiled_bf16_plain(x, pw_t)
     _check("words", pw_t, torch.int32, x.device)
     xb = x.to(torch.bfloat16).contiguous()
-    units = gn * 8 * math.ceil(m / 8)
-    splits, per = _splits(units, k, 64, _sm_count(x.device.index or 0))
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    splits, rows = k10_plan(m, k, gn, _sm_count(x.device.index or 0))
+    units = gn * K10_SLICES * math.ceil(m / 8)
     y = torch.empty((m, gn * INT4_TILE_N), dtype=torch.float32, device=x.device)
-    part = torch.empty((splits, m, gn * INT4_TILE_N), dtype=torch.float32, device=x.device)
+    part = torch.empty((units, splits, INT4_TILE_N), dtype=torch.float32, device=x.device)
+    counter = _counters("int4_tiled_bf16", x.device, units)
     TOOL_KERNELS["int4_tiled_bf16"].launch(xb.data_ptr(), m, pw_t.data_ptr(), gk, gn, tk,
-                                           y.data_ptr(), part.data_ptr(), splits, per * 64)
+                                           y.data_ptr(), part.data_ptr(), counter.data_ptr(),
+                                           splits, rows)
     return y
 
 
@@ -259,11 +317,22 @@ def stream_tiled(pw_t: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
         return stream_tiled_plain(pw_t)
     _check("words", pw_t, torch.int32, pw_t.device)
     out = torch.empty((1, gn * INT4_TILE_N), dtype=torch.float32, device=pw_t.device)
-    checksum = torch.zeros(1, dtype=torch.int32, device=pw_t.device)
-    TOOL_KERNELS["stream_probe"].launch(0, pw_t.data_ptr(), pw_t.numel(), tk, gn, gk, None, tk,
-                                        0, out.data_ptr(), out.shape[1], None,
-                                        checksum.data_ptr())
+    blocks = 2 * _sm_count(pw_t.device.index or 0)
+    checksum = torch.empty(blocks, dtype=torch.int32, device=pw_t.device)
+    TOOL_KERNELS["stream_probe"].launch(0, pw_t.data_ptr(), pw_t.numel(), tk, gn, gk, None,
+                                        out.data_ptr(), blocks, 0, checksum.data_ptr(), None,
+                                        None)
     return out
+
+
+def probe_plan(n: int, tiles: int, sm_count: int):
+    """(splits, tiles per split, strips) of a stream_bytes call: strips of
+    ``PROBE_COL_THREADS`` 16-byte loads across (4-byte where n % 16 != 0), the
+    tiles split as ``_balanced_splits`` does, at most ``PROBE_MAX_SPLITS``."""
+    strips = math.ceil(n / (PROBE_COL_THREADS * (16 if n % 16 == 0 else 4)))
+    splits, per = _balanced_splits(strips, tiles, PROBE_MAX_SPLITS, sm_count,
+                                   PROBE_BLOCKS_PER_SM)
+    return splits, per, strips
 
 
 def stream_bytes_plain(packed: torch.Tensor, absmax: torch.Tensor, tk: int) -> torch.Tensor:
@@ -291,10 +360,12 @@ def stream_bytes(packed: torch.Tensor, absmax: torch.Tensor, tk: int = 512, tn: 
     _check("q4", packed, torch.uint8, packed.device)
     _check("absmax", absmax, torch.float32, packed.device)
     tiles = (2 * k2) // tk
+    splits, per, strips = probe_plan(n, tiles, _sm_count(packed.device.index or 0))
     out = torch.empty((1, n), dtype=torch.float32, device=packed.device)
-    colsum = torch.empty((tiles, n), dtype=torch.int32, device=packed.device)
-    checksum = torch.zeros(1, dtype=torch.int32, device=packed.device)
-    TOOL_KERNELS["stream_probe"].launch(1, packed.data_ptr(), 0, k2, n, tiles, absmax.data_ptr(),
-                                        tk, tn, out.data_ptr(), n, colsum.data_ptr(),
-                                        checksum.data_ptr())
+    checksum = torch.empty(splits * strips, dtype=torch.int32, device=packed.device)
+    vals = torch.empty((tiles, n), dtype=torch.float32, device=packed.device)
+    counter = _counters("stream_probe", packed.device, strips)
+    TOOL_KERNELS["stream_probe"].launch(1, packed.data_ptr(), 0, tk, n, tiles, absmax.data_ptr(),
+                                        out.data_ptr(), splits, per, checksum.data_ptr(),
+                                        vals.data_ptr(), counter.data_ptr())
     return out

@@ -472,7 +472,32 @@ def test_lab_kernels_match_plain_on_the_card(m):
 # fault is caught on the earlier route (chip_smoke.earlier_route: the gemv at every m). The
 # tensor-core faults are those tests/test_torch_lab_tc.py plants in its emulation; a block sum
 # never cleared shows only where a warp takes several 64-row blocks of its split (k = 11008).
+# K10 has one kernel ("tc": the tensor cores at every m) and K13 one a mode ("probe"); their
+# faults are those tests/test_torch_lab_k10.py plants in its emulation of K10's sums, and one
+# tile of stream_bytes left out of the tile-order sum, which the exact check catches. The rows
+# of x past m feed only the outputs past m, so their mask that matters is where the block
+# writes its sums, compact (rows floats a column): unmasked, at m = 5 rows 5-7 of a column
+# land on rows 0-2 of the next, after its own where the next is another thread's.
 FAULTS = {
+    "K10 nibble planes swapped": (
+        "int4_tiled_bf16", "int4_tiled_bf16.cu",
+        "const int col = gni * kTileN + (c / kUnitLanes) * kLanes + lane0 + c % kUnitLanes;",
+        "const int col = gni * kTileN + ((c / kUnitLanes) ^ 1) * kLanes + lane0 + c % "
+        "kUnitLanes;", ("K10", "raw", 4096, 4096), "tc", (1, 8)),
+    "K10 one split left out": (
+        "int4_tiled_bf16", "int4_tiled_bf16.cu",
+        "if (sp < splits) sum += v[sp][q];  // the splits in order",
+        "if (sp > 0 && sp < splits) sum += v[sp][q];  // the splits in order",
+        ("K10", "raw", 4096, 12288), "tc", (8,)),
+    "K10 rows past m not masked": (
+        "int4_tiled_bf16", "int4_tiled_bf16.cu",
+        "if (i < rows) red[warp * kCols * kMChunk + c * rows + i] = acc[p][j];",
+        "red[warp * kCols * kMChunk + c * rows + i] = acc[p][j];",
+        ("K10", "raw", 4096, 4096), "tc", (5,)),
+    "K13 stream_bytes one tile left out": (
+        "stream_probe", "stream_probe.cu", "if (j0 + u < tiles) sum += v[u];",
+        "if (j0 + u < tiles && j0 + u != 1) sum += v[u];", ("K13", "stream_bytes", 4096, 4096),
+        "probe", (1,)),
     "K11 nibbles swapped": ("q4_byte_matmul", "q4_byte_matmul.cu",
                             "e = table[(b >> 4) & 0xFu]; o = table[b & 0xFu];",
                             "e = table[b & 0xFu]; o = table[(b >> 4) & 0xFu];",
@@ -545,13 +570,16 @@ def test_checks_catch_a_planted_fault(fault, m, tmp_path, monkeypatch):
     rounding, on the gemv; and, on the tensor cores, for K11 with only the
     first bf16 part of the codes, only the high part of x, or a block sum
     never cleared, and for K12 with only the high part of x, v10's scale out
-    of the product, v8's words not XORed, or a block sum never cleared."""
+    of the product, v8's words not XORed, or a block sum never cleared; for
+    K10 with its nibble planes swapped, one split left out of the split-order
+    sum, or the rows of x past m written unmasked (m = 5); and for K13's
+    stream_bytes with one tile left out of the tile-order sum."""
     _needs_card()
     name, source, written, planted, (kern, v, k, n), path, _ = FAULTS[fault]
     faulty = _planted(tmp_path, source, written, planted, name)
     gen = torch.Generator(device="cuda").manual_seed(7)
     with _on_path(kern, path, m):
-        assert lab_kernels.lab_path(m, n) == path
+        assert kern in ("K10", "K13") or lab_kernels.lab_path(m, n) == path
         chip_smoke.lab_case(torch, gen, kern, v, k, n, m)  # sound
         monkeypatch.setitem(build.TOOL_KERNELS, name, faulty)
         with pytest.raises(AssertionError, match=fault[:3]) as caught:
@@ -559,17 +587,19 @@ def test_checks_catch_a_planted_fault(fault, m, tmp_path, monkeypatch):
     print(f"{fault}, m={m}: {caught.value}")
 
 
-PROBE_FAULT = ("const long long blk = row / tk, r = row % tk;",
-               "const long long blk = row / tk, r = 0;")
+# the line that folds every load of stream_ref into the checksum: removed, the loads feed
+# nothing and the compiler drops them
+PROBE_FAULT = ("for (int u = 0; u < kUnroll; ++u) h ^= fold(v[u]);  // every load into the "
+               "checksum", "")
 
 
 @pytest.mark.cuda
 def test_rate_check_catches_a_probe_that_skips_rows(tmp_path, monkeypatch):
-    """A K13 that loads one row of each (tk, 128) block keeps its output (the
-    reference's row 0) but reads far less than it claims: the rate check of
-    chip_smoke.py fails it, while the sound probe passes. At 512 MB, where
-    the launches' fixed cost is small beside the read (at the 7B shapes it is
-    not: a 25 MB probe reads at 1.4 TB/s)."""
+    """A K13 whose stream_ref folds none of its loads into the checksum keeps
+    its output (the reference's row 0, read apart) but reads far less than it
+    claims: the rate check of chip_smoke.py fails it, while the sound probe
+    passes. At 512 MB, where the launch's fixed cost is small beside the
+    read."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
     chip_smoke.probe_rate(torch, gen, "stream_ref", 16384, 65536)  # sound; 512 MB of words
@@ -582,16 +612,19 @@ def test_rate_check_catches_a_probe_that_skips_rows(tmp_path, monkeypatch):
 
 def test_kernel_sources_hold_the_planted_lines():
     """The lines the card's fault tests plant faults in are in the sources
-    once each, each fault's case takes the path it names at its rows of x, and
+    once each, each fault's case takes the path it names at its rows of x,
     where a block sum is never cleared a warp of the case takes several blocks
-    of its split (132 SMs)."""
+    of its split, and K10's cases run more than one split (132 SMs)."""
     for fault, (name, source, written, _, (kern, _, k, n), path, ms) in FAULTS.items():
         assert (build.CSRC_DIR / source).read_text().count(written) == 1, (source, written)
         assert build.TOOL_KERNELS[name].source.name == source
         assert chip_smoke.LAB_KERNEL[kern] == name
         for m in ms:
             with _on_path(kern, path, m):
-                assert lab_kernels.lab_path(m, n) == path, (fault, m)
+                assert kern in ("K10", "K13") or lab_kernels.lab_path(m, n) == path, (fault, m)
+        if kern == "K10":
+            gn = -(-n // 1024)
+            assert lab_kernels.k10_plan(max(ms), k, gn, 132)[0] > 1, fault  # several splits
         if "block sum" in fault:
             which = "q4" if kern == "K11" else "colnibble"
             _, per = lab_kernels._lab_splits(which, "tc", 8, k, n, 132)
