@@ -70,8 +70,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logged loss (the last must be lower), K4/K5 launch counts (exactly 2 and 1
    per layer per micro-batch under remat), a profile of one step; one step's
    loss and every gradient with the kernels against ``plain=True`` (qkv
-   weights scaled so that s is of order 1); and the
+   weights scaled so that s is of order 1); the
    same 40 steps of easy-transformer (quadratic attention) as a yardstick;
+   and 10 steps each of easy-transformer-fastmax with ``attn_alg``
+   linearmax and performer (their chunked scans: no K4/K5 launch, a finite
+   loss that falls);
 9. finetuning: the trainable flash kernels K6 (forward: out and lse) and K7
    (backward: dq, dk, dv), through ``flash_attention_fused``,
    ``flash_attention_trainable`` and ``attention()`` (T=1088, padded to 1536),
@@ -88,7 +91,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    per layer per micro-batch), the written lora_weights.safetensors read
    back, a profile of one step; and one step of the same model cut to 4
    layers, kernels against plain (bf16 and f32), loss and every LoRA
-   gradient;
+   gradient; then the linear arms at D = 128: (a) masked fastmax's
+   reversible float32 scan at the finetune shape (no K4/K5 launch) against
+   the same scan in float64 on the card (output, dq, dk, dv) and the O(N^2)
+   formula in float64 (output), its forward and forward + backward times and
+   TFLOP/s; (b) ``finetune.setup`` QLoRA on the same NF4 Llama-2-7B with
+   fastmax, linearmax and performer, 2 steps each: step time, tokens/s, peak
+   memory, the losses, lora_B moved, no K4-K7 launch, and for fastmax one
+   micro-batch on the host clock, its device time and busy share profiled,
+   and the scan's part of it;
 10. quantized serving: the exact 4-bit codebook kernel K8 against its plain
    version at the three Llama-2-7B linears it takes (m in {1, 8, 64, 512},
    f32 and bf16 x, a double-quant and two FP4 cases), the model's route at
@@ -207,6 +218,23 @@ FASTMAX_PAIR_REL = 1e-3
 # it is 0.025): the loss (relative) and each gradient leaf (of its largest entry)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-6, 1e-4
 TRAIN_STEPS = 40
+# the fork's linear arms at every head size (phases 8 and 9). Masked fastmax at
+# D = 128 runs the reversible float32 scan (ops/fastmax.py; the reference has no
+# Pallas kernel there, so neither has the port). Op check at the finetune shape
+# (FT_SHAPE), q, k at FASTMAX_QK_STD[2] (s of std ~1), v and the cotangent std 1,
+# against the same scan in float64 on the card and the forward also against the
+# O(N^2) formula in float64, each by max|diff| / max|float64|: forward 1e-5;
+# gradients the larger of phase 8's 1e-4 and twice the JAX package's own scan's
+# float32 dq error from float64 at (1, 4, 2048, 128), chunk 256 (7.519e-05 on the
+# CPU, `JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_linear_attention.py`;
+# at (1, 8, 2048, 64) 6.076e-05): the rewind's cancellation belongs to the
+# algorithm, the port's own float32 scan lay 1.016e-04 from float64 there.
+JAX_SCAN_F32_GRAD_REL = 7.519e-05
+LINEAR_F32_REL = {"fwd": 1e-5, "grad": max(FASTMAX_F32_REL["grad"], 2.0 * JAX_SCAN_F32_GRAD_REL)}
+LINEAR_ARMS = ("fastmax", "linearmax", "performer")
+LINEAR_FT_STEPS = 2        # QLoRA steps of each arm: the fewest that time a step after the first
+LINEAR_TRAIN_STEPS = 10    # pretraining steps of linearmax and performer
+FASTMAX_KERNELS = ("fastmax_fwd", "fastmax_bwd")
 
 LLAMA7B_LINEARS = [("qkv", 4096, 12288), ("attn_proj", 4096, 4096),
                    ("fc_12", 4096, 22016), ("mlp_proj", 11008, 4096)]
@@ -654,49 +682,59 @@ def union_us(spans) -> float:
     return total
 
 
-def profile_device(torch, fn, label, per: int = 1) -> dict:
+def profile_device(torch, fn, label, per: int = 1, cpu: bool = True) -> dict:
     """Device time of ``fn`` by kernel group (torch.profiler), per ``per``
-    (steps or tokens), with the top kernels and the aten calls issued. A
+    (steps or tokens), with the top kernels and the aten calls issued
+    (``cpu=False`` records the device's activity alone, no aten calls). A
     group's time, and the total, is the time some kernel of it ran: the union
     of their intervals, since K2's second and third launches are programmatic
     dependents that start, and wait, while the launch before them runs (summed
     durations would count that time twice). The top kernels' times are summed
-    durations."""
+    durations. The profiler's raw events are read, not its parsed ones: a
+    fastmax finetune micro-batch issues ~400 000 kernels, whose parse took
+    minutes."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     spans = {name: [] for name, _ in KERNEL_GROUPS}
     spans["other"] = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.time_range.end > ev.time_range.start:
-            group = next((g for g, keys in KERNEL_GROUPS
-                          if any(k in ev.name.lower() for k in keys)), "other")
-            spans[group].append((ev.time_range.start, ev.time_range.end))
-    groups = {name: union_us(s) / per for name, s in spans.items()}
-    top = []
-    averages = prof.key_averages()
-    for ev in averages:
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+    group_of = {}  # a kernel's group by its name
+    kernels = {}   # name -> [launches, summed us]
+    aten = 0
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            aten += name.startswith("aten::")
             continue
-        top.append((dev_us / per, ev.key[:90], ev.count / per))
+        if ev.duration_ns() <= 0:
+            continue
+        if name not in group_of:
+            group_of[name] = next((g for g, keys in KERNEL_GROUPS
+                                   if any(k in name.lower() for k in keys)), "other")
+        start = ev.start_ns() / 1e3
+        spans[group_of[name]].append((start, start + ev.duration_ns() / 1e3))
+        row = kernels.setdefault(name[:90], [0, 0.0])
+        row[0] += 1
+        row[1] += ev.duration_ns() / 1e3
+    groups = {name: union_us(s) / per for name, s in spans.items()}
     total = union_us([iv for s in spans.values() for iv in s]) / per
     if total <= 0:
         log(f"  profile of {label}: the profiler recorded no device time (not measured)")
         return {"device_us": None}
-    aten = sum(ev.count for ev in averages if ev.key.startswith("aten::")) / per
+    aten = aten / per if cpu else None
     by_group = ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
     log(f"  profile of {label}: device {total:.1f} us ({by_group}); aten calls (nested ones "
-        f"included) {aten:.0f}")
-    top = sorted(top, reverse=True)[:8]
+        f"included) {'not recorded' if aten is None else f'{aten:.0f}'}")
+    top = sorted(((us / per, name, n / per) for name, (n, us) in kernels.items()),
+                 reverse=True)[:8]
     for dev_us, name, count in top:
         log(f"    {dev_us:10.1f} us  x{count:7.1f}  {name}")
     return {"device_us": total, "by_group_us": groups, "aten_calls": aten,
+            "kernel_launches": sum(n for n, _ in kernels.values()) / per,
             "top": [{"us": d, "name": n, "calls": c} for d, n, c in top]}
 
 
@@ -1591,16 +1629,19 @@ def clone_tree(tree, requires_grad: bool):
     return tree.detach().clone().requires_grad_(requires_grad)
 
 
-def train_args():
-    """``pretrain.setup``'s defaults, TRAIN_STEPS steps, a log line every step."""
+def train_args(steps: int = TRAIN_STEPS):
+    """``pretrain.setup``'s defaults, ``steps`` steps, a log line every step."""
     from fastmax_tpu_torch.utils.args import TrainArgs
 
-    return TrainArgs(global_batch_size=8, micro_batch_size=4, max_iters=TRAIN_STEPS,
+    return TrainArgs(global_batch_size=8, micro_batch_size=4, max_iters=steps,
                      learning_rate=6e-4, save_interval=1000, log_interval=1)
 
 
-def training_run(torch, pretrain, build, data, out, model_name, card):
-    """TRAIN_STEPS steps of ``pretrain.setup`` with its defaults."""
+def training_run(torch, pretrain, build, data, out, model_name, card, attn_alg=None,
+                 n_steps: int = TRAIN_STEPS):
+    """``n_steps`` steps of ``pretrain.setup`` with its defaults (``attn_alg``
+    None: the model's own); the step time from step 10 on (step 2 on for
+    runs of 10 steps or fewer)."""
     import csv
 
     from fastmax_tpu_torch.utils.args import IOArgs
@@ -1611,8 +1652,8 @@ def training_run(torch, pretrain, build, data, out, model_name, card):
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    state = pretrain.setup(model_name=model_name, data_format="openwebtext",
-                           train=train_args(), io=IOArgs(train_data_dir=data, out_dir=out))
+    state = pretrain.setup(model_name=model_name, data_format="openwebtext", attn_alg=attn_alg,
+                           train=train_args(n_steps), io=IOArgs(train_data_dir=data, out_dir=out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
@@ -1620,14 +1661,16 @@ def training_run(torch, pretrain, build, data, out, model_name, card):
     with open(out / "metrics.csv", newline="") as f:
         steps = {int(r["step"]): r for r in csv.DictReader(f)}
     losses = [float(steps[s]["loss"]) for s in sorted(steps)]
-    step_s = (float(steps[TRAIN_STEPS]["time"]) - float(steps[10]["time"])) / (TRAIN_STEPS - 10)
+    last, first = n_steps, (10 if n_steps > 10 else 2)
+    step_s = (float(steps[last]["time"]) - float(steps[first]["time"])) / (last - first)
     tok_s = 8 * 512 / step_s
-    run = {"model": model_name, "steps": state.step, "wall_s": wall, "step_s": step_s,
+    name = f"{model_name} ({attn_alg})" if attn_alg else model_name
+    run = {"model": name, "steps": state.step, "wall_s": wall, "step_s": step_s,
            "tokens_per_s": tok_s, "peak_gb": peak_gb, "held_before_gb": held / 1e9,
            "launches": counts,
            "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
-           "est_mfu_logged": float(steps[TRAIN_STEPS].get("est_mfu") or "nan"), "card": card}
-    log(f"  {model_name}: {state.step} steps in {wall:.2f} s; steps 11-{TRAIN_STEPS}: "
+           "est_mfu_logged": float(steps[last].get("est_mfu") or "nan"), "card": card}
+    log(f"  {name}: {state.step} steps in {wall:.2f} s; steps {first + 1}-{last}: "
         f"{step_s * 1e3:.2f} ms a step, {tok_s:.1f} tokens/s; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; peak {peak_gb:.3f} GB; launches {counts}   [{card}]")
     return state, run
@@ -1745,6 +1788,19 @@ def training_path(torch, results, card):
         out["quadratic"] = quad
         log(f"  tokens/s: easy-transformer-fastmax {run['tokens_per_s']:.1f}, easy-transformer "
             f"(quadratic) {quad['tokens_per_s']:.1f}   [{card}]")
+
+        # the other linear arms at head size 64: their chunked scans, never K4/K5
+        for arm in ("linearmax", "performer"):
+            _, lin = training_run(torch, pretrain, build, data, Path(tmp) / arm,
+                                  "easy-transformer-fastmax", card, attn_alg=arm,
+                                  n_steps=LINEAR_TRAIN_STEPS)
+            out[arm] = lin
+            fused = {k: lin["launches"][k] for k in FASTMAX_KERNELS}
+            if any(fused.values()):
+                raise AssertionError(f"{arm} launched the fastmax kernels: {fused}")
+            if not (all(math.isfinite(x) for x in lin["losses"])
+                    and lin["last_loss"] < lin["first_loss"]):
+                raise AssertionError(f"{arm}: the loss did not fall: {lin['losses']}")
     results["training"] = out
     return run["launches"]
 
@@ -2052,20 +2108,56 @@ def finetune_step_vs_plain(torch, batch, dtype, seed: int = 1337) -> dict:
             "worst_grad_rel": grad_rel, "qkv_weight_std_before": w_std}
 
 
-def finetune_path(torch, results, card):
+def qlora_run(torch, data, out, attn_alg, train) -> tuple:
+    """``finetune.setup`` QLoRA on the full-width Llama-2-7B (random weights in
+    bnb.nf4, bf16, LoRA r 8, alpha 16 on query and value) with ``attn_alg``
+    over the SFT examples at ``data``: (state, {wall_s (setup included),
+    step_s and tokens_per_s over steps 2 on, peak_gb above held_before_gb,
+    the losses, max|lora_B|, the launch counts})."""
     import csv
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.utils.args import IOArgs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = finetune.setup(method="lora", model_name="Llama-2-7b-hf", data_path=data,
+                           quantize="bnb.nf4", attn_alg=attn_alg, precision="bfloat16",
+                           lora_r=8, lora_alpha=16.0, lora_query=True, lora_value=True,
+                           train=train, io=IOArgs(out_dir=out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    with open(out / "metrics.csv", newline="") as f:
+        steps = {int(r["step"]): r for r in csv.DictReader(f)}
+    last = train.max_iters
+    dt = float(steps[last]["time"]) - float(steps[1]["time"])
+    toks = float(steps[last]["tokens"]) - float(steps[1]["tokens"])
+    moved = float(state.params["blocks"]["attn"]["attn"]["lora_B"].detach().float().abs().max())
+    return state, {"steps": state.step, "wall_s": wall, "step_s": dt / (last - 1),
+                   "tokens_per_s": toks / dt, "peak_gb": peak_gb, "held_before_gb": held / 1e9,
+                   "launches": counts, "losses": [float(steps[i]["loss"]) for i in sorted(steps)],
+                   "lora_b_max": moved}
+
+
+def finetune_path(torch, results, card):
     import tempfile
 
     import numpy as np
 
     from fastmax_tpu_torch.data.lm_datasets import SFTDataset
-    from fastmax_tpu_torch.kernels import build
     from fastmax_tpu_torch.models import lora
     from fastmax_tpu_torch.models.config import Config
     from fastmax_tpu_torch.training import finetune
     from fastmax_tpu_torch.training.fit import build_optimizer
     from fastmax_tpu_torch.training.step import tree_leaves
-    from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
+    from fastmax_tpu_torch.utils.args import TrainArgs
     from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint
 
     cfg = Config.from_name("Llama-2-7b-hf")
@@ -2073,45 +2165,25 @@ def finetune_path(torch, results, card):
     train = TrainArgs(global_batch_size=8, micro_batch_size=2, max_iters=FT_STEPS,
                       learning_rate=3e-4, save_interval=1000, log_interval=1,
                       max_seq_length=2048)
-    run = {}
     with tempfile.TemporaryDirectory() as tmp:
         data = Path(tmp) / "sft.npz"
         np.savez(data, examples=np.array(examples, dtype=object))
         log(f"  sft.npz: {len(examples)} examples of 1100-2600 tokens from {n_tokens} bytes of the "
             "repository's *.md/*.py files (those below 205)")
-        gc.collect()
-        torch.cuda.empty_cache()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launch_counts()
         out = Path(tmp) / "ft"
-        t0 = time.perf_counter()
-        state = finetune.setup(method="lora", model_name="Llama-2-7b-hf", data_path=data,
-                               quantize="bnb.nf4", attn_alg="quadratic", precision="bfloat16",
-                               lora_r=8, lora_alpha=16.0, lora_query=True, lora_value=True,
-                               train=train, io=IOArgs(out_dir=out))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = build.launch_counts()
-        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
-        with open(out / "metrics.csv", newline="") as f:
-            steps = {int(r["step"]): r for r in csv.DictReader(f)}
-        losses = [float(steps[s]["loss"]) for s in sorted(steps)]
-        dt = float(steps[FT_STEPS]["time"]) - float(steps[1]["time"])
-        toks = float(steps[FT_STEPS]["tokens"]) - float(steps[1]["tokens"])
-        step_s, tok_s = dt / (FT_STEPS - 1), toks / dt
+        state, run = qlora_run(torch, data, out, "quadratic", train)
+        counts, losses, moved = run["launches"], run["losses"], run["lora_b_max"]
         mb = FT_STEPS * train.gradient_accumulation_iters()
         want = {"flash_train_fwd": 2 * cfg.n_layer * mb, "flash_train_bwd": cfg.n_layer * mb}
-        lora_b = state.params["blocks"]["attn"]["attn"]["lora_B"]
-        moved = float(lora_b.detach().float().abs().max())
         _, delta = lora.split_lora_state(state.params)
         back = load_flat_checkpoint(out / "lora_weights.safetensors")
         flat = finetune._flatten(delta)
         same = sorted(back) == sorted(flat) and all(
             torch.equal(back[n], flat[n].detach().cpu()) for n in flat)
-        log(f"  finetune.setup: {state.step} steps in {wall:.2f} s (setup included); steps 2-"
-            f"{FT_STEPS}: {step_s * 1e3:.1f} ms a step, {tok_s:.1f} tokens/s; loss "
-            f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak_gb:.3f} GB; max|lora_B| {moved:.3e}; "
+        log(f"  finetune.setup: {state.step} steps in {run['wall_s']:.2f} s (setup included); "
+            f"steps 2-{FT_STEPS}: {run['step_s'] * 1e3:.1f} ms a step, "
+            f"{run['tokens_per_s']:.1f} tokens/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+            f"{run['peak_gb']:.3f} GB; max|lora_B| {moved:.3e}; "
             f"launches {counts} (want {want}); lora_weights.safetensors: {len(back)} tensors "
             f"read back {'equal' if same else 'DIFFERENT'}   [{card}]")
         if {k: counts[k] for k in want} != want:
@@ -2121,9 +2193,6 @@ def finetune_path(torch, results, card):
                                  f"checkpoint read back {same}")
         run.update({"model": "Llama-2-7b-hf (random weights, seed 1337), bnb.nf4, bf16",
                     "lora": {"r": 8, "alpha": 16.0, "query": True, "value": True},
-                    "steps": state.step, "wall_s": wall, "step_s": step_s,
-                    "tokens_per_s": tok_s, "peak_gb": peak_gb, "held_before_gb": held / 1e9,
-                    "launches": counts, "losses": losses, "lora_b_max": moved,
                     "checkpoint_read_back": same, "card": card})
 
         # one step's device time by kernel group, and the busy share
@@ -2167,6 +2236,191 @@ def finetune_path(torch, results, card):
     results["finetune"] = run
     return counts
 
+
+
+def linear_scan_flops(bh: int, n: int, d: int, chunk: int, backward: bool) -> int:
+    """The matmul operations of the reversible p = 2 scan on bh heads: a chunk's
+    forward (q k^T and f(s) v: 2 C^2 D each; q s_kv, q s_kk and the
+    contraction of q (q s_kkv) with q: 2 C D^2 each; q s_kkv: 2 C D^3) and its
+    state update (k^T v and k^T k: 2 C D^2 each; kk^T v: 2 C D^3). The
+    backward takes both again (the rewind and the re-run forward) and their
+    VJPs, two products each: four times the forward in all."""
+    c = chunk
+    fwd = (n // c) * (4 * c * c * d + 10 * c * d * d + 4 * c * d ** 3)
+    return bh * fwd * (4 if backward else 1)
+
+
+def linear_rel(torch, what, got, ref, tol) -> float:
+    """max|got - ref| / max|ref|; raises past ``tol`` or on a non-finite value."""
+    rel = float((got.double() - ref).abs().max() / ref.abs().max())
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()) or not rel <= tol:
+        raise AssertionError(f"{what}: {rel:.3e} of the largest value (tolerance {tol})")
+    return rel
+
+
+def linear_op_check(torch, gen, results, card) -> dict:
+    """(a) The port's masked fastmax at D = 128, the finetune shape, in f32 on
+    the card (the reversible scan, head groups from ``_auto_head_groups``):
+    output and q, k, v gradients against the same scan in float64, the output
+    also against the O(N^2) formula in float64; the forward and the fwd+bwd
+    times of one call (one layer of one micro-batch) by CUDA events, and their
+    rate against the f32 data-sheet peak."""
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.ops import fastmax as fm
+
+    b, h, n, d = FT_SHAPE
+    q, k, v, do = fastmax_qkv(torch, gen, FT_SHAPE, 2, torch.float32)
+    z, chunk = 8.0 * math.sqrt(d), fm._auto_chunk(fm.DEFAULT_CHUNK, n)
+    groups = fm._auto_head_groups(b, h, d, 2)
+
+    def fwd_bwd(dtype):
+        ts = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
+        if dtype == torch.float32:
+            o = fm.fastmax(*ts, mask=True, p=2)
+        else:  # the same scan the entry runs, in float64
+            o = fm._masked_grouped(*ts, z, 2, chunk, None)
+        o.backward(do.to(dtype))
+        return [o.detach()] + [t.grad for t in ts]
+
+    build.reset_launch_counts()
+    got = fwd_bwd(torch.float32)
+    torch.cuda.synchronize()
+    fused = {k_: build.launch_counts()[k_] for k_ in FASTMAX_KERNELS}
+    if any(fused.values()):
+        raise AssertionError(f"fastmax at D = 128 launched the fastmax kernels: {fused}")
+    ref = fwd_bwd(torch.float64)
+    rel = {name: linear_rel(torch, f"fastmax D=128 {name} vs float64",
+                            x, r, LINEAR_F32_REL["fwd" if name == "o" else "grad"])
+           for name, x, r in zip(("o", "dq", "dk", "dv"), got, ref)}
+    del ref
+    with torch.no_grad():
+        quad = torch.cat([fm.polynomial_attention_reference(*(x[:, i:i + 4].double()
+                                                              for x in (q, k, v)), p=2)
+                          for i in range(0, h, 4)], dim=1)
+    rel["o vs O(N^2)"] = linear_rel(torch, "fastmax D=128 o vs the O(N^2) formula", got[0], quad,
+                                    LINEAR_F32_REL["fwd"])
+    del quad, got
+
+    def fwd():
+        with torch.no_grad():
+            fm.fastmax(q, k, v, mask=True, p=2)
+
+    def step():
+        ts = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fm.fastmax(*ts, mask=True, p=2).backward(do)
+
+    fwd_ms, step_ms = time_ms(fwd, 3, warmup=1), time_ms(step, 3, warmup=1)
+    flops = linear_scan_flops(b * h, n, d, chunk, backward=True)
+    fwd_flops = linear_scan_flops(b * h, n, d, chunk, backward=False)
+    row = {"shape": list(FT_SHAPE), "chunk": chunk, "head_groups": groups, "rel": rel,
+           "tolerance": LINEAR_F32_REL, "fwd_ms": fwd_ms, "fwd_bwd_ms": step_ms,
+           "fwd_flops": fwd_flops, "fwd_bwd_flops": flops,
+           "fwd_tflops": fwd_flops / fwd_ms / 1e9, "fwd_bwd_tflops": flops / step_ms / 1e9,
+           "share_of_f32_peak": flops / step_ms * 1e3 / F32_FLOPS_PER_S, "card": card}
+    log(f"  (a) fastmax D=128 at B={b} H={h} N={n}, f32, chunk {chunk}, {groups} head groups: "
+        "max|diff| / max|float64| " + ", ".join(f"{k_} {x:.3e}" for k_, x in rel.items())
+        + f" (tolerances {LINEAR_F32_REL}); forward {fwd_ms:.2f} ms "
+        f"({row['fwd_tflops']:.1f} TFLOP/s), forward + backward {step_ms:.2f} ms "
+        f"({flops / 1e12:.3f} TFLOP of matmuls, {row['fwd_bwd_tflops']:.1f} TFLOP/s, "
+        f"{row['share_of_f32_peak']:.3f} of the f32 data-sheet {F32_FLOPS_PER_S / 1e12:.0f})"
+        f"   [{card}]")
+    results["linear_op_check"] = row
+    return row
+
+
+def linear_finetune_path(torch, results, card, op_row):
+    """(b) ``finetune.setup`` QLoRA on the full-width Llama-2-7B (random
+    weights in bnb.nf4, bf16, LoRA r 8 on query and value, T <= 2048, batch 8,
+    micro-batch 2) with each linear arm, LINEAR_FT_STEPS steps each: step time,
+    tokens/s, peak memory, the losses, lora_B moved, and no launch of K4-K7
+    (at D = 128 no arm takes a kernel route in the reference). fastmax also:
+    one micro-batch's host time, device time and busy share, and the part the
+    scan's calls take (``linear_step_profile``)."""
+    import tempfile
+
+    import numpy as np
+
+    from fastmax_tpu_torch.utils.args import TrainArgs
+
+    examples, _ = sft_examples(np)
+    train = TrainArgs(global_batch_size=8, micro_batch_size=2, max_iters=LINEAR_FT_STEPS,
+                      learning_rate=3e-4, save_interval=1000, log_interval=1,
+                      max_seq_length=2048)
+    banned = FASTMAX_KERNELS + ("flash_train_fwd", "flash_train_bwd")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "sft.npz"
+        np.savez(data, examples=np.array(examples, dtype=object))
+        for arm in LINEAR_ARMS:
+            state, run = qlora_run(torch, data, Path(tmp) / arm, arm, train)
+            run.update(arm=arm, card=card)
+            counts, losses, moved = run["launches"], run["losses"], run["lora_b_max"]
+            log(f"  (b) QLoRA Llama-2-7B, {arm}: {state.step} steps in {run['wall_s']:.2f} s "
+                f"(setup included); step {LINEAR_FT_STEPS}: {run['step_s']:.2f} s, "
+                f"{run['tokens_per_s']:.1f} tokens/s; loss "
+                f"{' -> '.join(f'{x:.4f}' for x in losses)}; peak {run['peak_gb']:.3f} GB above "
+                f"{run['held_before_gb']:.3f} held; max|lora_B| {moved:.3e} "
+                f"({'moved' if moved > 0 else 'NOT moved'}); K4-K7 launches "
+                f"{ {k_: counts[k_] for k_ in banned} }   [{card}]")
+            if any(counts[k_] for k_ in banned):
+                raise AssertionError(f"{arm} at D = 128 launched K4-K7: {counts}")
+            if not all(math.isfinite(x) for x in losses) or not moved > 0:
+                raise AssertionError(f"{arm}: losses {losses}, max|lora_B| {moved}")
+            if arm == "fastmax":
+                run["profile_micro_batch"] = linear_step_profile(torch, state, data, op_row,
+                                                                 card)
+            out[arm] = run
+            del state
+    results["linear_finetune"] = out
+    return out
+
+
+def linear_step_profile(torch, state, data, op_row, card) -> dict:
+    """One micro-batch of a fastmax QLoRA step (forward and backward of the
+    loss on 2 examples, cut at T = 2048) on the host clock, then the same
+    micro-batch profiled: device time and busy share. The window is a quarter
+    of a step because a step issues ~1.6 M kernels, whose profile alone took
+    minutes on an H100. The scan's part of it is estimated from the op
+    check's times: each layer's call runs its forward twice under remat and
+    its backward once, scaled by the matmul operations at the batch's length."""
+    from fastmax_tpu_torch.data.lm_datasets import SFTDataset
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops import fastmax as fm
+    from fastmax_tpu_torch.training import finetune
+
+    cfg = Config.from_name("Llama-2-7b-hf", attn_alg="fastmax")
+    batch = tuple(torch.as_tensor(x, device="cuda")
+                  for x in SFTDataset.load(data, 7).sample_batch(2, 2048))
+    loss_fn = finetune.sft_loss_fn(cfg)
+
+    def micro_batch():
+        loss_fn(state.params, batch).backward()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    micro_batch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_device(torch, micro_batch, "one fastmax QLoRA micro-batch (2 examples)",
+                          cpu=False)
+    t = int(batch[0].shape[1])
+    prof.update(wall_ms=wall_ms, batch_t=t)
+    if prof["device_us"]:
+        prof["busy_share"] = prof["device_us"] / 1e3 / wall_ms
+    b, h, _, d = FT_SHAPE
+    per_fwd = op_row["fwd_ms"] / op_row["fwd_flops"]
+    per_bwd = (op_row["fwd_bwd_ms"] - op_row["fwd_ms"]) / (op_row["fwd_bwd_flops"]
+                                                           - op_row["fwd_flops"])
+    c = fm._auto_chunk(fm.DEFAULT_CHUNK, t)
+    f = linear_scan_flops(b * h, t + (-t) % c, d, c, backward=False)
+    prof["scan_ms_estimate"] = cfg.n_layer * (2 * f * per_fwd + 3 * f * per_bwd)
+    prof["scan_share_of_wall"] = prof["scan_ms_estimate"] / wall_ms
+    log(f"  (b) one fastmax QLoRA micro-batch (T {t}): {wall_ms:.1f} ms on the host clock, "
+        f"device busy share {prof.get('busy_share', 'not measured')}, "
+        f"{prof.get('kernel_launches', 0):.0f} kernels; the scan's calls "
+        f"~{prof['scan_ms_estimate']:.1f} ms of it ({prof['scan_share_of_wall']:.3f}, from the "
+        f"op check's times)   [{card}]")
+    return prof
 
 
 # ----------------------------------------------------------------- phase 10
@@ -3358,6 +3612,9 @@ def main() -> int:
         "Llama-2-7B")
     ft_err, ft_rows = check_flash_train(torch, gen, results)
     counts_ft = finetune_path(torch, results, card)
+    log("  the linear arms at D = 128: (a) masked fastmax's reversible scan at the finetune "
+        "shape vs float64, (b) QLoRA Llama-2-7B with fastmax, linearmax and performer")
+    linear_finetune_path(torch, results, card, linear_op_check(torch, gen, results, card))
     log("[10] quantized serving: K8/K9 kernels vs plain, then an NF4 Llama-2-7B in every "
         "weights mode (engine and batcher)")
     q_err, q_rows = check_quant_kernels(torch, gen, results)

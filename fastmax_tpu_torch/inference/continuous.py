@@ -28,7 +28,7 @@ skips the sort and the noise, which the host knows from its requests, so
 no device value is read to decide it.
 
 Not ported yet: ``speculative_k > 0`` (ROADMAP.md queue A, A1), the
-multi-GPU ``mesh`` (A8) and the linear-attention slots (A5) raise
+multi-GPU ``mesh`` (A8) and the linear-attention slots (A5 slice 2) raise
 ``NotImplementedError``.
 """
 
@@ -95,7 +95,7 @@ class ContinuousBatcher:
         if cfg.attn_alg != "quadratic":
             raise NotImplementedError(
                 f"linear-attention slots ({cfg.attn_alg}) are not ported yet (ROADMAP.md queue "
-                "A, A5)")
+                "A, A5 slice 2)")
         self.cfg = cfg
         self.plain = bool(plain)
         self.device = default_device(device)

@@ -7,7 +7,7 @@ The decode loop keeps the token buffer and the sampling on the device and
 reads nothing back per token when ``eos_id`` is None: the host learns the
 result once, at the end. With an ``eos_id`` it checks the new token each
 step, as the reference's eos test does. The linear-attention state cache
-comes with a later slice.
+comes with ROADMAP A5 slice 2.
 """
 
 from __future__ import annotations
@@ -169,7 +169,8 @@ class InferenceEngine:
 
     def new_cache(self) -> dict:
         if self.cfg.attn_alg != "quadratic":
-            raise NotImplementedError("the linear-attention state cache is not ported yet")
+            raise NotImplementedError(f"attn_alg {self.cfg.attn_alg!r} needs the linear-attention "
+                                      "state cache (ROADMAP A5 slice 2)")
         return gpt.init_kv_cache(self.cfg, self.batch_size, self.max_seq_length,
                                  self.cache_dtype, device=self.device)
 

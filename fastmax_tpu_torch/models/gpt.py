@@ -17,12 +17,15 @@ The no-cache forward (``kv_cache=None``: training and evaluation; and
 ``forward_hidden``, the same without the lm_head) runs every block over the
 whole sequence with ``ops/attention.attention``, so
 ``attn_alg="fastmax"``/``"fastmax_cuda"`` goes through the fastmax kernels K4
-(forward) and K5 (backward) and ``quadratic`` at T >= 1024 through the
-trainable flash kernels K6 (forward) and K7 (backward); ``remat=True``
+(forward) and K5 (backward) at head sizes up to 64 and through the
+reversible float32 scan above, ``linearmax`` and ``performer`` through
+their chunked scans (ops/fastmax.py), and ``quadratic`` at T >= 1024 through
+the trainable flash kernels K6 (forward) and K7 (backward); ``remat=True``
 recomputes each block in the backward (``torch.utils.checkpoint``).
 ``init_params`` gives the GPT-NeoX initialisation from a seed; the GPT-NeoX
 MLP (exact or tanh GELU) and bias leaves are ported. The linear-attention
-cache, MoE and the XLA remat policies come in later slices.
+state cache (the cached forward with a linear arm, ROADMAP A5 slice 2), MoE
+and the XLA remat policies come in later slices.
 """
 
 from __future__ import annotations
@@ -227,7 +230,8 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
         _write(kv_cache["v"], v.to(kv_cache["v"].dtype), layer, input_pos)
         k, v = kv_cache["k"][layer], kv_cache["v"][layer]
     if cfg.attn_alg != "quadratic":
-        raise NotImplementedError(f"attn_alg {cfg.attn_alg!r} is not ported yet")
+        raise NotImplementedError(f"attn_alg {cfg.attn_alg!r} over a KV cache needs the "
+                                  "linear-attention state cache (ROADMAP A5 slice 2)")
     s_len = k.shape[2]
     if t > 1 and isinstance(input_pos, int) and \
             flash_eligible(t + (-t) % FLASH_BLOCK_Q, s_len, hs):

@@ -3,9 +3,13 @@
 
 Softmax attention runs on grouped shapes: q (B, Hq, T, D) is viewed as
 (B, G, Hq/G, T, D) against un-expanded k/v (B, G, S, D). The dispatch
-``attention`` is ported for ``quadratic`` and for ``fastmax``/``fastmax_cuda``
-(degree 2, ops/fastmax.py); ``performer`` and ``linearmax`` come in a later
-slice.
+``attention`` takes every ``attn_alg`` of the fork for the causal
+full-sequence forward: ``quadratic``, and the linear arms of
+``ops/fastmax.py`` on KV heads repeated to the query heads first:
+``fastmax``/``fastmax_cuda`` (degree 2: the kernel pair K4/K5 at head sizes up
+to 64, the reversible float32 scan above), ``linearmax`` (degree 1) and
+``performer`` (k and v cut to the query length, as the reference cuts them).
+The linear arms over a KV cache come with ROADMAP A5 slice 2.
 
 Quadratic attention at T >= ``BLOCKWISE_MIN_T`` takes the reference's
 trainable route (``fastmax_tpu/ops/attention.py:289-347``) with its constants
@@ -28,7 +32,7 @@ from typing import Optional
 import torch
 
 from .blockwise_attention import blockwise_attention
-from .fastmax import fastmax
+from .fastmax import fastmax, linearmax, performer
 from .flash_attention import (DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q, _fused_block, _fused_eligible,
                               flash_attention_fused, flash_attention_trainable)
 
@@ -139,7 +143,7 @@ def attention(
     reference's ``mask=None``). q: (B, Hq, T, D); k, v: (B, G, T, D). For the
     linear algorithms the grouped KV heads are repeated to the full head count
     first. An explicit mask and the reference's ``is_decode`` (the linear
-    algorithms unmasked over a KV cache) come with the slices that need them."""
+    algorithms unmasked over a KV cache, ROADMAP A5 slice 2) are not ported."""
     if attn_alg == "quadratic":
         if q.shape[2] >= BLOCKWISE_MIN_T:
             return _long_causal(q, k, v, head_size, plain)
@@ -148,11 +152,13 @@ def attention(
     n_head = q.shape[1]
     k = repeat_kv_heads(k, n_head)
     v = repeat_kv_heads(v, n_head)
+    if attn_alg == "performer":
+        t = q.shape[2]
+        return performer(q, k[:, :, :t], v[:, :, :t])
+    if attn_alg == "linearmax":
+        return linearmax(q, k, v, p=1)
     if attn_alg in ("fastmax", "fastmax_cuda"):
         return fastmax(q, k, v, p=2, mask=True, plain=plain)
-    if attn_alg in ("performer", "linearmax"):
-        raise NotImplementedError(f"attn_alg {attn_alg!r} comes with the fastmax linear-cache "
-                                  "slice (ROADMAP queue A, A5)")
     raise ValueError(f"Attention algorithm {attn_alg} not supported")
 
 

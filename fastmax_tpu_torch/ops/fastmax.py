@@ -1,23 +1,40 @@
-"""Fastmax: degree-p Taylor-polynomial linear attention (counterpart of
+"""Fastmax: degree-p Taylor-polynomial linear attention, and the fork's other
+linear arms, linearmax and performer (counterpart of
 ``fastmax_tpu/ops/fastmax.py``).
 
 The attention weight is ``f(s) = 1 + s (+ s^2/2 for p=2)`` with
-``s = q . k / Z``, rows normalised by ``g_i = sum_j f(s_ij)``. The causal
-form runs as a chunked prefix scan (``ops/fastmax_kernels.py``: the CUDA
-kernels K4/K5 on the card, their plain walks on the CPU); the unmasked form
-is the global-sum formula. q, k, v are (B, H, N, D).
+``s = q . k / Z``, rows normalised by ``g_i = sum_j f(s_ij)``. q, k, v are
+(B, H, N, D).
 
-Ported here: ``fastmax`` with the routing the reference takes on its chip
-(masked, D <= 64: the fused kernel pair, in the input's type, the chunk
-clamped to a multiple of 128 and the tail padded), the unmasked formula,
-``_auto_chunk`` and the O(N^2) ``polynomial_attention_reference``. The
-masked D > 64 scan, ``linearmax``, ``performer`` and the recurrent decode
-state come with the fastmax linear-cache slice (ROADMAP queue A, A5).
+The causal form has two routes, as the reference has on its chip:
+
+- D <= 64 (``MAX_D``): the fused kernel pair (``ops/fastmax_kernels.py``: the
+  CUDA kernels K4/K5 on the card, their plain walks on the CPU), in the
+  input's type, the chunk clamped to a multiple of 128 and the tail padded.
+- D > 64: the chunked prefix scan in float32 (``_masked_chunked``): each
+  chunk of C tokens takes its own C x C block densely and reads a carried
+  state of running sums (``cnt``, ``s_v``, ``s_kv``, ``s_k``, and at p = 2
+  ``s_kkv`` (D^2, D) and ``s_kk`` (D^2)). Its backward is reversible
+  (``_masked_chunked_vjp``, a ``torch.autograd.Function``): the forward keeps
+  q, k, v and the final state only, and the backward walks the chunks last
+  first, rewinding the state by subtracting each chunk's update. Memory
+  stays O(D^3) a head, and ``_masked_grouped`` runs the heads in groups
+  (``_auto_head_groups``) so that one group's p = 2 state stays near
+  ``FASTMAX_TPU_HEADGROUP_LIMIT`` bytes. The reference has no Pallas kernel
+  on this route, and neither has the port: it is plain PyTorch on the card.
+
+``linearmax`` (the hack's mean-centred, max-norm-scaled q and k at Z = 1) and
+``performer`` (causal dot-product attention with a sign-keeping denominator
+clamp) run the scan's idea with autograd through the chunk loop, as the
+reference differentiates them; neither takes the fastmax kernels. The
+unmasked form is the global-sum formula. The recurrent decode state comes
+with the linear-attention state cache (ROADMAP A5 slice 2).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +42,23 @@ import torch.nn.functional as F
 from .fastmax_kernels import MAX_D, fastmax_trainable
 
 DEFAULT_CHUNK = 128
+
+# performer's denominator conditioning, under the reference's names and
+# environment variables: |den| is floored, its sign kept, at rel * |q| *
+# |cumsum k + eps| and at least DEN_FLOOR; the output is clipped to
+# +-OUT_CLIP (see ``performer``)
+DEN_REL_FLOOR = float(os.environ.get("FASTMAX_TPU_PERFORMER_DEN_REL", 0.05))
+DEN_FLOOR = float(os.environ.get("FASTMAX_TPU_PERFORMER_DEN_FLOOR", 1e-2))
+OUT_CLIP = float(os.environ.get("FASTMAX_TPU_PERFORMER_OUT_CLIP", 64.0))
+
+# the scan state's entries, in order; p = 1 carries the first four
+STATE_NAMES = ("cnt", "s_v", "s_kv", "s_k", "s_kkv", "s_kk")
+
+
+def _clamp_den(den, floor):
+    """|den| floored at ``floor``, its sign kept (0 counts as positive)."""
+    sign = torch.where(den >= 0.0, 1.0, -1.0)
+    return sign * torch.maximum(den.abs(), floor)
 
 
 def _auto_chunk(chunk: int, n: int) -> int:
@@ -78,6 +112,181 @@ def _unmasked_linear(q, k, v, z: float, p: int):
     return f / g[..., None]
 
 
+# ---------------------------------------------------------------- the chunked scan
+# The scan works on (G, N, D) tensors, G = B * H, with N padded at its tail to
+# a whole number of chunks. Zero tokens add nothing to the state but a count.
+
+
+def _fold(x, n_pad: int):
+    """(B, H, N, D) -> (B * H, N + n_pad, D), zeros at the tail."""
+    b, h, n, d = x.shape
+    x = x.reshape(b * h, n, d)
+    return F.pad(x, (0, 0, 0, n_pad)) if n_pad else x
+
+
+def _outer(x):
+    """Row-wise x (x) x: (G, C, D) -> (G, C, D^2), entry (m, l) at m D + l."""
+    g, c, d = x.shape
+    return torch.einsum("gcm,gcl->gcml", x, x).reshape(g, c, d * d)
+
+
+def _state_zeros(x, d: int, p: int) -> tuple:
+    """The empty state of x's G heads, in x's type (float32 on every route;
+    float64 for a yardstick)."""
+    g = x.shape[0]
+    shapes = ((g,), (g, d), (g, d, d), (g, d)) + (((g, d * d, d), (g, d * d)) if p == 2 else ())
+    return tuple(x.new_zeros(s) for s in shapes)
+
+
+def _chunk_forward(qi, ki, vi, state, z: float, p: int, causal):
+    """One chunk's output, from its own C x C block and the state of every
+    chunk before it. qi, ki, vi: (G, C, D)."""
+    cnt, s_v, s_kv, s_k = state[:4]
+    s = qi @ ki.transpose(1, 2) / z
+    fs = torch.where(causal, _poly_weights(s, p), 0.0)
+    f = fs @ vi + s_v[:, None] + qi @ s_kv / z
+    g = fs.sum(-1) + cnt[:, None] + (qi @ s_k[..., None])[..., 0] / z
+    if p == 2:
+        # (q (x) q) s_kkv as q_l (q_m s_kkv[m, l, :]): the D^2-wide product has
+        # D^2 columns and depth D, not depth D^2; likewise (q (x) q) . s_kk
+        s_kkv, s_kk = state[4:]
+        gs, c, d = qi.shape
+        qs = (qi @ s_kkv.view(gs, d, d * d)).view(gs, c, d, d)
+        f = f + torch.einsum("gcl,gclj->gcj", qi, qs) / (2.0 * z * z)
+        g = g + ((qi @ s_kk.view(gs, d, d)) * qi).sum(-1) / (2.0 * z * z)
+    return f / g[..., None]
+
+
+def _chunk_update(ki, vi, p: int) -> tuple:
+    """What one chunk adds to the state."""
+    g, c, d = ki.shape
+    kt = ki.transpose(1, 2)
+    upd = (ki.new_full((g,), float(c)), vi.sum(1), kt @ vi, ki.sum(1))
+    if p == 2:
+        upd += (_outer(ki).transpose(1, 2) @ vi, (kt @ ki).reshape(g, d * d))
+    return upd
+
+
+def _state_add(a: tuple, b: tuple, sign: float) -> tuple:
+    return tuple(torch.add(x, y, alpha=sign) for x, y in zip(a, b))
+
+
+def _causal(c: int, device):
+    return torch.ones((c, c), dtype=torch.bool, device=device).tril()
+
+
+def _masked_chunked(q, k, v, z: float, p: int, chunk: int, return_state: bool = False):
+    """Causal chunked prefix scan; differentiable by autograd, which keeps
+    every chunk's state (``_masked_chunked_vjp`` does not). With
+    ``return_state`` also the final state, a dict of ``STATE_NAMES``
+    entries of shape (B, H, ...), counting real tokens only."""
+    b, h, n, d = q.shape
+    c = min(chunk, n)
+    n_pad = (-n) % c
+    qf, kf, vf = (_fold(x, n_pad) for x in (q, k, v))
+    causal = _causal(c, q.device)
+    state = _state_zeros(qf, d, p)
+    outs = []
+    for i in range(0, n + n_pad, c):
+        qi, ki, vi = (x[:, i:i + c] for x in (qf, kf, vf))
+        outs.append(_chunk_forward(qi, ki, vi, state, z, p, causal))
+        state = _state_add(state, _chunk_update(ki, vi, p), 1.0)
+    o = torch.cat(outs, dim=1)[:, :n].reshape(b, h, n, d)
+    if not return_state:
+        return o
+    # the padded tail's zero tokens add only to cnt
+    state = (state[0] - float(n_pad),) + state[1:]
+    return o, {name: x.reshape(b, h, *x.shape[1:]) for name, x in zip(STATE_NAMES, state)}
+
+
+class _MaskedChunkedVJP(torch.autograd.Function):
+    """``_masked_chunked`` with the reversible backward. The state update is
+    additive, so the state before a chunk is the state after it less the
+    chunk's update: the backward walks the chunks last first from the final
+    state, rewinding it, and takes each chunk's VJP by re-running its forward
+    on detached leaves under autograd. It keeps q, k, v and one state,
+    O(D^3) a head, where autograd through the scan keeps one a chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, z: float, p: int, chunk: int):
+        o, state = _masked_chunked(q, k, v, z, p, chunk, return_state=True)
+        ctx.save_for_backward(q, k, v, *(state[name] for name in STATE_NAMES[:len(state)]))
+        ctx.z, ctx.p, ctx.chunk = z, p, chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, *final = ctx.saved_tensors
+        z, p = ctx.z, ctx.p
+        b, h, n, d = q.shape
+        c = min(ctx.chunk, n)
+        n_pad = (-n) % c
+        qf, kf, vf, dof = (_fold(x, n_pad) for x in (q, k, v, do))
+        state = tuple(x.reshape(b * h, *x.shape[2:]) for x in final)
+        # walk the same states as the forward: its padded tokens counted
+        state = (state[0] + float(n_pad),) + state[1:]
+        d_state = tuple(torch.zeros_like(x) for x in state)
+        causal = _causal(c, q.device)
+        dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+        for i in reversed(range(0, n + n_pad, c)):
+            qi, ki, vi, doi = (x[:, i:i + c] for x in (qf, kf, vf, dof))
+            with torch.enable_grad():
+                kl, vl = ki.detach().requires_grad_(), vi.detach().requires_grad_()
+                upd = _chunk_update(kl, vl, p)
+                state = _state_add(state, tuple(u.detach() for u in upd), -1.0)
+                leaves = tuple(x.detach().requires_grad_() for x in (qi, ki, vi) + state)
+                o = _chunk_forward(*leaves[:3], leaves[3:], z, p, causal)
+                grads = torch.autograd.grad(o, leaves, doi)
+                # the update's VJP against the cotangent of the state after this
+                # chunk (cnt's update is a constant)
+                dk_u, dv_u = torch.autograd.grad(upd[1:], (kl, vl), d_state[1:])
+            dq[:, i:i + c] = grads[0]
+            dk[:, i:i + c] = grads[1] + dk_u
+            dv[:, i:i + c] = grads[2] + dv_u
+            d_state = _state_add(d_state, grads[3:], 1.0)
+
+        def unfold(x):
+            return x[:, :n].reshape(b, h, n, d)
+
+        return unfold(dq), unfold(dk), unfold(dv), None, None, None
+
+
+def _masked_chunked_vjp(q, k, v, z: float, p: int, chunk: int):
+    return _MaskedChunkedVJP.apply(q, k, v, z, p, chunk)
+
+
+def _auto_head_groups(b: int, h: int, d: int, p: int, limit_bytes: int | None = None) -> int:
+    """The number of head groups (a divisor of h) that keeps one group's p = 2
+    scan state, b * h * d^3 float32 over the groups, near ``limit_bytes``
+    (default ``FASTMAX_TPU_HEADGROUP_LIMIT``, 64 MiB). The heads are
+    independent, so grouping changes no value."""
+    if limit_bytes is None:
+        limit_bytes = int(os.environ.get("FASTMAX_TPU_HEADGROUP_LIMIT", 64 * 2**20))
+    if p != 2:
+        return 1
+    state_bytes = b * h * d * d * d * 4
+    if state_bytes <= limit_bytes:
+        return 1
+    groups = min(h, -(-state_bytes // limit_bytes))
+    while h % groups:
+        groups += 1
+    return groups
+
+
+def _masked_grouped(q, k, v, z: float, p: int, chunk: int, head_group):
+    """The reversible scan over groups of heads, one group after another."""
+    b, h, n, d = q.shape
+    groups = head_group if head_group else _auto_head_groups(b, h, d, p)
+    if groups <= 1:
+        return _masked_chunked_vjp(q, k, v, z, p, chunk)
+    if h % groups:
+        raise ValueError(f"head_group {groups} must divide n_head {h}")
+    hg = h // groups
+    return torch.cat([_masked_chunked_vjp(qg, kg, vg, z, p, chunk)
+                      for qg, kg, vg in zip(q.split(hg, 1), k.split(hg, 1), v.split(hg, 1))],
+                     dim=1)
+
+
 def _masked_kernel(q, k, v, z: float, p: int, chunk: int, plain: bool):
     """The masked path through the kernel pair. The chunk is clamped to a
     multiple of 128 and the sequence padded at its tail only: padded rows
@@ -94,24 +303,87 @@ def _masked_kernel(q, k, v, z: float, p: int, chunk: int, plain: bool):
 
 
 def fastmax(q, k, v, mask: bool = True, normalize_term: float = 8.0,
-            tensors_normalized: bool = False, p: int = 1, chunk: int = DEFAULT_CHUNK, *,
-            plain: bool = False):
+            tensors_normalized: bool = False, p: int = 1, chunk: int = DEFAULT_CHUNK,
+            head_group: int | None = None, *, plain: bool = False):
     """Fastmax polynomial linear attention. ``normalize_term`` is multiplied by
-    sqrt(D) unless ``tensors_normalized``. The masked path keeps the input's
-    type (the kernels round their pair operands to it); the unmasked one runs
-    in float32 and casts back. ``plain=True`` sends the kernels' calls to their
-    plain PyTorch versions (a test hook)."""
+    sqrt(D) unless ``tensors_normalized``. Masked at D <= 64 it takes the
+    kernel pair in the input's type; masked at D > 64 the reversible scan in
+    float32 over ``head_group`` groups of heads (None: ``_auto_head_groups``;
+    it does not touch the kernel route); unmasked the global-sum formula in
+    float32. The float32 routes cast back to the input's type. ``plain=True``
+    sends the kernels' calls to their plain PyTorch versions (a test hook)."""
     if p not in (1, 2):
         raise ValueError(f"p should be 1 or 2, got p={p}")
     d = q.shape[-1]
     z = 1.0 if tensors_normalized else float(normalize_term) * math.sqrt(d)
-    if mask:
-        if d > MAX_D:
-            raise NotImplementedError(
-                f"masked fastmax at head size {d} > {MAX_D} takes the reference's scan "
-                "formulation, which comes with the fastmax linear-cache slice (ROADMAP queue "
-                "A, A5)")
+    if mask and d <= MAX_D:
         return _masked_kernel(q, k, v, z, p, _auto_chunk(chunk, q.shape[-2]), plain)
     dtype = q.dtype
-    o = _unmasked_linear(q.float(), k.float(), v.float(), z, p)
+    q, k, v = q.float(), k.float(), v.float()
+    if mask:
+        o = _masked_grouped(q, k, v, z, p, _auto_chunk(chunk, q.shape[-2]), head_group)
+    else:
+        o = _unmasked_linear(q, k, v, z, p)
+    return o.to(dtype)
+
+
+# ---------------------------------------------------------------- linearmax, performer
+
+
+def _hack_normalize(q, k):
+    """Mean-centre the channels, then divide by the largest token norm of each
+    (B, H)."""
+    q = q - q.mean(-1, keepdim=True)
+    k = k - k.mean(-1, keepdim=True)
+    qn = torch.sqrt(torch.sum(q * q, dim=-1))
+    kn = torch.sqrt(torch.sum(k * k, dim=-1))
+    return q / qn.amax(-1)[..., None, None], k / kn.amax(-1)[..., None, None]
+
+
+def linearmax(q, k, v, p: int = 1, mask: bool = True, chunk: int = DEFAULT_CHUNK):
+    """The reference's linearmax (its ``fastmax_hack``): q and k through
+    ``_hack_normalize``, then degree-p polynomial attention at Z = 1, in
+    float32, cast back. Masked it runs ``_masked_chunked`` with autograd
+    through the chunks, at every head size."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    q, k = _hack_normalize(q, k)
+    if mask:
+        o = _masked_chunked(q, k, v, 1.0, p, _auto_chunk(chunk, q.shape[-2]))
+    else:
+        o = _unmasked_linear(q, k, v, 1.0, p)
+    return o.to(dtype)
+
+
+def performer(q, k, v, eps: float = 1e-6, chunk: int = DEFAULT_CHUNK,
+              den_floor: float = DEN_FLOOR):
+    """Causal dot-product linear attention, the reference's ``performer``
+    branch: o_i = sum_{j<=i} (q_i . k_j) v_j / (q_i . (cumsum(k)_i + eps)), by
+    chunks carrying sum k (x) v and sum k, in float32, cast back. The
+    denominator crosses zero for real activations, so its magnitude is
+    floored at max(DEN_REL_FLOOR |q_i| |cumsum(k)_i + eps|, den_floor), its
+    sign kept, and the output clipped to +-OUT_CLIP (zero gradient outside);
+    on well-conditioned rows neither acts."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    b, h, n, d = q.shape
+    c = min(chunk, n)
+    n_pad = (-n) % c
+    qf, kf, vf = (_fold(x, n_pad) for x in (q, k, v))
+    causal = _causal(c, q.device)
+    s_kv = torch.zeros(b * h, d, d, dtype=torch.float32, device=q.device)
+    s_k = torch.zeros(b * h, d, dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(0, n + n_pad, c):
+        qi, ki, vi = (x[:, i:i + c] for x in (qf, kf, vf))
+        num = torch.where(causal, qi @ ki.transpose(1, 2), 0.0) @ vi + qi @ s_kv
+        k_cum = s_k[:, None] + ki.cumsum(1) + eps
+        den = torch.sum(qi * k_cum, dim=-1)
+        qn = torch.sqrt(torch.sum(qi * qi, dim=-1))
+        kn = torch.sqrt(torch.sum(k_cum * k_cum, dim=-1))
+        floor = torch.clamp(DEN_REL_FLOOR * qn * kn, min=den_floor)
+        outs.append(torch.clamp(num / _clamp_den(den, floor)[..., None], -OUT_CLIP, OUT_CLIP))
+        s_kv = s_kv + ki.transpose(1, 2) @ vi
+        s_k = s_k + ki.sum(1)
+    o = torch.cat(outs, dim=1)[:, :n].reshape(b, h, n, d)
     return o.to(dtype)

@@ -8,7 +8,11 @@ quantizes it, adds the LoRA leaves, and trains with ``sft_loss_fn``
 (``gpt.forward_hidden`` under per-block remat + ``chunked_cross_entropy``
 with the lm_head in chunks of 128) through ``fit`` and the masked AdamW:
 only lora_A/lora_B require grad. With ``attn_alg="quadratic"`` every layer
-at T >= 1024 takes the trainable flash kernels K6/K7 on the card. LoRA runs
+at T >= 1024 takes the trainable flash kernels K6/K7 on the card; the fork's
+linear arms train at every head size (``ops/fastmax.py``): ``fastmax`` and
+``fastmax_cuda`` at a head size of 128 (Llama-2-7B) run the reversible
+float32 scan in head groups, ``linearmax`` and ``performer`` their chunked
+scans, each in float32 and cast back to a bf16 model's type. LoRA runs
 save the LoRA leaves to ``out_dir/lora_weights.safetensors`` by their tree
 paths ("blocks.attn.attn.lora_A", ...), as the reference does; ``full``
 saves the torch train state in ``out_dir/state`` (the lit-format checkpoint
@@ -25,6 +29,7 @@ Example (the card; pass device="cpu" to run on the CPU):
     from fastmax_tpu_torch.utils.args import TrainArgs
     finetune.setup(method="lora", model_name="Llama-2-7b-hf", quantize="bnb.nf4",
                    attn_alg="quadratic", precision="bfloat16", data_path="train.npz",
+                   # or attn_alg="fastmax", "linearmax" or "performer"
                    train=TrainArgs(global_batch_size=8, micro_batch_size=2, max_iters=100,
                                    learning_rate=3e-4, max_seq_length=2048))
 """

@@ -6,7 +6,9 @@
 
 ``attn_alg`` selects the fork's attention algorithm; with ``fastmax`` or
 ``fastmax_cuda`` every attention call of a step goes through the fastmax
-kernels K4/K5 on the card. Not ported yet: the ``packed`` data format,
+kernels K4/K5 on the card at head sizes up to 64 and through the reversible
+float32 scan above; ``linearmax`` and ``performer`` run their chunked scans
+(``ops/fastmax.py``). Not ported yet: the ``packed`` data format,
 ``dp``/``fsdp``/``tp`` above 1 (the multi-GPU item of ROADMAP queue A) and the
 lit-format deploy checkpoint that the reference writes at the end: ``setup``
 saves the torch train state (``out_dir/state/train_state.pt``) instead.

@@ -22,7 +22,10 @@ import chip_smoke
 from fastmax_tpu.ops import fastmax as jfm
 from fastmax_tpu.ops.fastmax_pallas import (_train_fwd_call, fastmax_pallas,
                                              fastmax_pallas_trainable)
+from fastmax_tpu_torch.inference.engine import InferenceEngine
 from fastmax_tpu_torch.kernels import build
+from fastmax_tpu_torch.models import gpt
+from fastmax_tpu_torch.models.config import Config
 from fastmax_tpu_torch.ops import fastmax as tfm
 from fastmax_tpu_torch.ops import fastmax_kernels as fk
 from fastmax_tpu_torch.tools import k5_phases
@@ -151,11 +154,24 @@ def test_unmasked_and_reference_match_jax(p):
 
 
 def test_where_this_slice_stops():
-    x = torch.zeros((1, 1, 128, 128))
-    with pytest.raises(NotImplementedError, match="linear-cache"):
-        tfm.fastmax(x, x, x, mask=True, p=2)
+    """Masked fastmax at d = 128 computes (the reversible scan; its values are
+    held in tests/test_torch_linear_attention.py); p = 3, and the cached
+    forward and the engine with a linear arm, still raise (ROADMAP A5 slice 2)."""
+    x = torch.randn((1, 1, 128, 128), generator=torch.Generator().manual_seed(0))
+    o = tfm.fastmax(x, x, x, mask=True, p=2)
+    assert o.shape == x.shape and bool(torch.isfinite(o).all())
     with pytest.raises(ValueError):
         tfm.fastmax(x[..., :64], x[..., :64], x[..., :64], p=3)
+    cfg = Config(block_size=64, vocab_size=128, padded_vocab_size=128, n_layer=1, n_head=2,
+                 n_embd=64, n_query_groups=1, intermediate_size=128, _norm_class="RMSNorm",
+                 _mlp_class="LLaMAMLP", bias=False, attn_alg="linearmax")
+    params = gpt.init_params(cfg, seed=0, device="cpu")
+    idx = torch.arange(1, 9)[None]
+    cache = gpt.init_kv_cache(cfg, 1, 64, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5 slice 2"):
+        gpt.forward(params, cfg, idx, input_pos=0, kv_cache=cache)
+    with pytest.raises(NotImplementedError, match="A5 slice 2"):
+        InferenceEngine(cfg, params, device="cpu").generate(idx[0], 4)
     with pytest.raises(ValueError, match="chunk"):
         fk.fastmax_forward(x[..., :64], x[..., :64], x[..., :64], 2, 8.0, 96)
     z = torch.zeros((2, 128, 64))

@@ -189,10 +189,10 @@ def test_merge_lora_folds_the_delta():
 # ------------------------------------------------------------------ model level
 
 
-def _lora_params(base: str, seed: int = 0):
+def _lora_params(base: str, seed: int = 0, **overrides):
     """JAX params (numpy), LoRA on q and v with lora_B drawn so that the
     deltas reach the loss and lora_A gets a gradient."""
-    jcfg = JaxConfig(**TINY)
+    jcfg = JaxConfig(**{**TINY, **overrides})
     params = jgpt.init_params(jcfg, jax.random.PRNGKey(seed), jnp.float32)
     if base != "dense":
         params = jquant.quantize_model(params, base)
@@ -236,6 +236,35 @@ def test_sft_loss_and_lora_gradients_match_jax(base, flash2_both):
         scale = float(np.abs(jflat[n]).max())
         assert scale > 0, n
         np.testing.assert_allclose(tflat[n], jflat[n], atol=1e-3 * scale, err_msg=n)
+
+
+@pytest.mark.parametrize("attn_alg,n_embd", [("fastmax", 256), ("linearmax", 128),
+                                             ("performer", 128)])
+def test_sft_loss_and_lora_gradients_match_jax_linear_arms(attn_alg, n_embd):
+    """The QLoRA loss and LoRA gradients with the fork's linear arms on a
+    bnb.nf4 base, against the JAX finetune: fastmax at head size 128 (the
+    reversible scan, as Llama-2-7B takes it), linearmax and performer at 64;
+    T = 256."""
+    overrides = dict(attn_alg=attn_alg, n_embd=n_embd)
+    jcfg, jp = _lora_params("bnb.nf4", **overrides)
+    cfg = Config(**{**TINY, **overrides})
+    assert cfg.head_size == n_embd // 2
+    batch = _sft_batch(2, t=256)
+    jb = tuple(jnp.asarray(x, jnp.int32) for x in batch)
+    jloss, jgrads = jfit.value_and_grad_floats(jfinetune.sft_loss_fn(jcfg), jp, jb)
+    tp = from_numpy_params(jp, "cpu")
+    for p, m in zip(tree_leaves(tp), tree_leaves(lora.trainable_mask(tp))):
+        p.requires_grad_(m)
+    loss = finetune.sft_loss_fn(cfg)(tp, tuple(torch.from_numpy(x) for x in batch))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    jflat = _flat(jax.tree.map(np.asarray, jgrads))
+    tflat = {n: p.grad.numpy() for n, p in zip(_flat(jp), tree_leaves(tp)) if p.grad is not None}
+    assert sorted(tflat) == sorted(n for n in _flat(jp) if n.endswith(("lora_A", "lora_B")))
+    for n, got in tflat.items():
+        scale = float(np.abs(jflat[n]).max())
+        assert scale > 0, n
+        np.testing.assert_allclose(got, jflat[n], atol=1e-3 * scale, err_msg=n)
 
 
 def test_chunked_cross_entropy_matches_jax():

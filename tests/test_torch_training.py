@@ -74,7 +74,8 @@ def _flat(tree, prefix=""):
 
 
 @pytest.mark.parametrize("attn_alg,gelu", [("fastmax_cuda", "none"), ("quadratic", "none"),
-                                           ("quadratic", "tanh")])
+                                           ("quadratic", "tanh"), ("linearmax", "none"),
+                                           ("performer", "none")])
 def test_loss_and_gradients_match_jax(attn_alg, gelu, pallas_route):
     jcfg, cfg, jp = _params(attn_alg, gelu)
     batch = _batch(1)
