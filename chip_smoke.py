@@ -136,7 +136,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fails), also over 512 MB; the lab functions that equal K1, K8 or K9
    launching them; then the three lab mains end to end (``int4_opt_r04``,
    ``int4_opt_r05``, ``nf4_lab_r04`` with every impl at m = 1 and 8), every
-   line checked, with the launch counts of the phase.
+   line checked, with the launch counts of the phase;
+12. the training command lines: each command's flags read from its launch
+   script (``exec`` wrappers followed, shell variables substituted), a few
+   appended to cut the run, run in-process through the port's ``main()``:
+   (a) ``pretrain_easy_transformer_enwik8.sh`` (easy-transformer-fastmax,
+   K4/K5) for 4 steps on a gzipped enwik8 file of the repository's text, its
+   ``out_dir/final`` loaded back bit for bit; (b) a random Llama-2-7B at full
+   width and 2 layers written as an HF-named ``model.safetensors``, converted
+   by ``scripts/convert_hf_checkpoint.py`` and loaded back bit for bit, with
+   write, conversion and load rates; (c) ``finetune_qlora.sh`` (quadratic,
+   bnb.nf4) from that directory at T up to 2048 for 2 steps (K6/K7, lora_B
+   moved, ``lora_weights.safetensors`` read back); (d) ``finetune_full.sh``
+   from it for one step at T up to 512, ``full_weights.safetensors`` holding
+   every input name at its shape, moved, and reloading to the final state;
+   step times, peak memory and the launch counts of each command.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -149,6 +163,7 @@ import contextlib
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -3557,6 +3572,269 @@ def lab_path(torch, results, card):
     return worst, rows, counts
 
 
+# ----------------------------------------------------------------- phase 12
+# The training command lines of launch_scripts/, run in-process through the port's
+# main() with the script's own flags, then a few appended that cut the run (argparse
+# keeps a flag's last occurrence) and log every step. The checkpoint directory is
+# Llama-2-7B at its full width cut to CMD_DEPTH of its 32 layers (the card's disk and
+# the run's time; full depth at full width runs from model_name in phase 9).
+CMD_DEPTH = 2
+CMD_LOG = ["--train.log_interval", "1"]
+CMD_PRETRAIN = ["--train.max_iters", "4", "--train.global_batch_size", "8"]
+CMD_QLORA = ["--train.max_seq_length", "2048", "--train.max_iters", "2",
+             "--train.global_batch_size", "4"]
+# one step, and its learning rate not the warmup's 0 at step 0
+CMD_FULL = ["--train.max_iters", "1", "--train.max_seq_length", "512",
+            "--train.lr_warmup_steps", "0"]
+ENWIK8_MIN_BYTES = 1 << 20
+
+
+def launch_command(name: str, args: list, env=None) -> tuple:
+    """(module, flags) of the python command that ``launch_scripts/<name>``
+    runs with positional ``args``: ``exec`` wrappers followed, ``VAR=...``
+    assignments and ``${N:?...}``/``${N:-default}``/``$VAR`` substituted;
+    ``NCHIPS`` is 1 unless ``env`` sets it."""
+    import re
+    import shlex
+
+    env = dict(env or {"NCHIPS": "1"})
+
+    def sub(text: str) -> str:
+        def param(m):
+            var, op, default = m.group(1), m.group(2), m.group(3)
+            if not var.isdigit():
+                return env[var]
+            i = int(var) - 1
+            if i < len(args):
+                return args[i]
+            if op != "-":
+                raise ValueError(f"{name}: positional ${var} is required")
+            return default
+        text = re.sub(r"\$\{(\w+)(?::([?-])([^}]*))?\}", param, text)
+        return re.sub(r"\$([A-Za-z_]\w*)", lambda m: env[m.group(1)], text)
+
+    text = (REPO / "launch_scripts" / name).read_text().replace("\\\n", " ")
+    for line in (raw.strip() for raw in text.splitlines()):
+        if not line or line.startswith(("#", "set ")):
+            continue
+        wrapper = re.match(r'exec "\$\(dirname "\$0"\)/([\w.]+)"\s+(.*)$', line)
+        if wrapper:
+            return launch_command(wrapper.group(1), shlex.split(sub(wrapper.group(2))), env)
+        assign = re.match(r"(\w+)=(.*)$", line)
+        if assign:
+            if assign.group(1) not in env:
+                env[assign.group(1)] = shlex.split(sub(assign.group(2)))[0]
+            continue
+        words = shlex.split(sub(line))
+        if words[:2] != ["python", "-m"]:
+            raise ValueError(f"{name}: not a python -m command: {words}")
+        return words[2], words[3:]
+    raise ValueError(f"{name}: no command")
+
+
+def run_command(torch, main_fn, flags: list, out: Path, card: str) -> tuple:
+    """``main_fn(flags)`` with the launch counts set to 0 just before and read
+    just after: (state, {wall_s, step_s, peak_gb, losses, launches})."""
+    import csv
+
+    from fastmax_tpu_torch.kernels import build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = main_fn(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    with open(out / "metrics.csv", newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("loss")]
+    if len(rows) > 1:  # steps 2 on
+        step_s = (float(rows[-1]["time"]) - float(rows[0]["time"])) / (len(rows) - 1)
+    else:  # the fit loop's own time of its one step
+        step_s = float(rows[0]["tokens"]) / float(rows[0]["tokens_per_sec"])
+    return state, {"steps": state.step, "wall_s": wall, "step_s": step_s, "peak_gb": peak_gb,
+                   "held_before_gb": held / 1e9, "losses": [float(r["loss"]) for r in rows],
+                   "launches": counts, "card": card}
+
+
+def trees_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            trees_equal(torch, a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b.to(a.device))
+
+
+def hf_llama_flat(cfg, flat: dict, conv) -> dict:
+    """A lit-gpt flat dict of a Llama model under HF's names, the fused QKV
+    split back into q_proj/k_proj/v_proj (what save_pretrained writes)."""
+    to_hf = {}
+    for hf_name, lit_name in conv.llama_weight_map(cfg).items():
+        if lit_name is not None:
+            for i in range(cfg.n_layer):
+                to_hf[lit_name.format(i)] = hf_name.format(i)
+    out = {}
+    for name, t in flat.items():
+        if name.endswith("attn.attn.weight"):
+            i = int(name.split(".")[2])
+            for proj, part in zip("qkv", conv.split_qkv(t, cfg)):
+                out[f"model.layers.{i}.self_attn.{proj}_proj.weight"] = part
+        else:
+            out[to_hf[name]] = t
+    return out
+
+
+def command_path(torch, results, card):
+    """Phase 12: the pretraining, conversion and finetuning command lines,
+    each through the port's own entry point."""
+    import gzip
+    import tempfile
+
+    import numpy as np
+
+    from fastmax_tpu_torch.models import gpt, lora
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.models.params import flat_to_params, params_to_flat
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.scripts import convert_hf_checkpoint as conv
+    from fastmax_tpu_torch.training import finetune, pretrain
+    from fastmax_tpu_torch.utils.checkpoint import (load_flat_checkpoint, load_model_params,
+                                                    save_flat_checkpoint)
+
+    t_phase = time.perf_counter()
+    out = {}
+    # each command runs as in a fresh process: the 4-bit matmul backend is process-global,
+    # and phase 10 leaves it at "pallas" (K8 wherever x needs no gradient)
+    backend = quant.get_quant_backend()
+    quant.set_quant_backend("xla")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # (a) pretraining: the fork's fastmax run on an enwik8 file of the repository's text
+        tokens, n_files = repo_text_tokens(np)
+        text = np.resize(tokens.astype(np.uint8), max(tokens.size, ENWIK8_MIN_BYTES)).tobytes()
+        gz = tmp / "enwik8.gz"
+        gz.write_bytes(gzip.compress(text, compresslevel=1))
+        module, flags = launch_command("pretrain_easy_transformer_enwik8.sh", [str(gz)])
+        flags += CMD_PRETRAIN + CMD_LOG + ["--io.out_dir", str(tmp / "pt")]
+        log(f"  (a) {module} (the port's) {' '.join(flags)}")
+        log(f"      enwik8.gz: {len(text)} bytes from {n_files} *.md/*.py files of the repository")
+        state, run = run_command(torch, pretrain.main, flags, tmp / "pt", card)
+        _, final = load_model_params(tmp / "pt" / "final", device="cuda")
+        same = trees_equal(torch, final, state.params)
+        k45 = {k: run["launches"][k] for k in FASTMAX_KERNELS}
+        log(f"      {run['steps']} steps in {run['wall_s']:.2f} s; steps 2-{run['steps']}: "
+            f"{run['step_s'] * 1e3:.1f} ms a step; peak {run['peak_gb']:.3f} GB; losses "
+            f"{[round(x, 4) for x in run['losses']]}; K4/K5 launches {k45}; out_dir/final "
+            f"reloads {'bit for bit' if same else 'DIFFERENT'}   [{card}]")
+        if not (all(k45.values()) and all(math.isfinite(x) for x in run["losses"]) and same):
+            raise AssertionError(f"pretrain command: launches {k45}, losses {run['losses']}, "
+                                 f"final checkpoint equal {same}")
+        out["pretrain"] = dict(run, module=module, flags=flags)
+        del state, final
+
+        # (b) a checkpoint directory: Llama-2-7B's width at CMD_DEPTH layers, written under
+        # HF's names, converted by the port's converter and loaded back
+        cfg = Config.from_name("Llama-2-7b-hf", n_layer=CMD_DEPTH)
+        drawn = gpt.init_params(cfg, 0, torch.bfloat16, "cuda")
+        hf_dir, ckpt = tmp / "hf", tmp / "Llama-2-7b-hf"
+        hf_dir.mkdir()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_flat_checkpoint(hf_llama_flat(cfg, params_to_flat(drawn, cfg), conv),
+                             hf_dir / "model.safetensors")
+        write_s = time.perf_counter() - t0
+        nbytes = (hf_dir / "model.safetensors").stat().st_size
+        t0 = time.perf_counter()
+        conv.main(["--checkpoint_dir", str(hf_dir), "--model_name", "Llama-2-7b-hf",
+                   "--out_dir", str(ckpt)])
+        convert_s = time.perf_counter() - t0
+        lit = json.loads((ckpt / "lit_config.json").read_text())
+        lit["n_layer"] = CMD_DEPTH
+        (ckpt / "lit_config.json").write_text(json.dumps(lit, indent=2))
+        t0 = time.perf_counter()
+        _, loaded = load_model_params(ckpt, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = trees_equal(torch, loaded, drawn)
+        n_params = sum(t.numel() for t in params_to_flat(drawn, cfg).values())
+        log(f"  (b) Llama-2-7B width, {CMD_DEPTH} layers: {n_params} parameters, {nbytes / 1e9:.3f} "
+            f"GB in bf16; HF-named model.safetensors written in {write_s:.2f} s "
+            f"({nbytes / write_s / 1e9:.2f} GB/s), converted in {convert_s:.2f} s "
+            f"({nbytes / convert_s / 1e9:.2f} GB/s), loaded onto the card in {load_s:.2f} s "
+            f"({nbytes / load_s / 1e9:.2f} GB/s; file cache warm); the loaded tree "
+            f"{'equals the drawn one bit for bit' if same else 'DIFFERS'}   [{card}]")
+        if not same:
+            raise AssertionError("the converted checkpoint does not load back to the drawn tree")
+        out["checkpoint"] = {"n_layer": CMD_DEPTH, "n_params": n_params, "bytes": nbytes,
+                             "write_s": write_s, "convert_s": convert_s, "load_s": load_s,
+                             "card": card}
+        shutil.rmtree(hf_dir)
+        del drawn, loaded
+
+        # (c) QLoRA from that directory: quadratic attention at T up to 2048 (K6/K7)
+        examples, _ = sft_examples(np, n=16)
+        data = tmp / "sft.npz"
+        np.savez(data, examples=np.array(examples, dtype=object))
+        module, flags = launch_command("finetune_qlora.sh",
+                                       [str(ckpt), str(data), "quadratic", "bnb.nf4"])
+        flags += CMD_QLORA + CMD_LOG + ["--io.out_dir", str(tmp / "qlora")]
+        log(f"  (c) {module} (the port's) {' '.join(flags)}")
+        state, run = run_command(torch, finetune.main, flags, tmp / "qlora", card)
+        k67 = {k: run["launches"][k] for k in ("flash_train_fwd", "flash_train_bwd")}
+        moved = float(state.params["blocks"]["attn"]["attn"]["lora_B"].detach().float().abs().max())
+        back = load_flat_checkpoint(tmp / "qlora" / "lora_weights.safetensors")
+        delta = finetune._flatten(lora.split_lora_state(state.params)[1])
+        saved = sorted(back) == sorted(delta) and all(
+            torch.equal(back[n], delta[n].detach().cpu()) for n in delta)
+        log(f"      {run['steps']} steps in {run['wall_s']:.2f} s (load and NF4 included); step 2: "
+            f"{run['step_s'] * 1e3:.1f} ms; peak {run['peak_gb']:.3f} GB; losses "
+            f"{[round(x, 4) for x in run['losses']]}; max|lora_B| {moved:.3e}; K6/K7 launches "
+            f"{k67}; lora_weights.safetensors {sorted(back)} "
+            f"{'read back equal' if saved else 'DIFFERENT'}   [{card}]")
+        if not (all(k67.values()) and all(math.isfinite(x) for x in run["losses"]) and moved > 0
+                and saved):
+            raise AssertionError(f"QLoRA command: launches {k67}, losses {run['losses']}, "
+                                 f"max|lora_B| {moved}, lora weights saved {saved}")
+        out["qlora"] = dict(run, module=module, flags=flags, lora_b_max=moved)
+        del state
+
+        # (d) full finetuning from that directory: one step at T up to 512
+        module, flags = launch_command("finetune_full.sh", [str(ckpt), str(data)])
+        flags += CMD_FULL + CMD_LOG + ["--io.out_dir", str(tmp / "full")]
+        log(f"  (d) {module} (the port's) {' '.join(flags)}")
+        state, run = run_command(torch, finetune.main, flags, tmp / "full", card)
+        written = load_flat_checkpoint(tmp / "full" / "full_weights.safetensors")
+        source = load_flat_checkpoint(ckpt)
+        shapes = sorted(written) == sorted(source) and all(
+            written[n].shape == source[n].shape for n in source)
+        changed = shapes and any(not torch.equal(written[n], source[n]) for n in source)
+        reloaded = trees_equal(torch, flat_to_params(written, Config.from_checkpoint(ckpt),
+                                                     torch.bfloat16, "cuda"), state.params)
+        log(f"      {run['steps']} step in {run['wall_s']:.2f} s (load included); the step "
+            f"{run['step_s'] * 1e3:.1f} ms; peak {run['peak_gb']:.3f} GB; loss "
+            f"{run['losses']}; full_weights.safetensors: {len(written)} tensors, every lit name "
+            f"and shape of the input {shapes}, moved off the input {changed}, reloads to the "
+            f"final state bit for bit {reloaded}   [{card}]")
+        if not (shapes and changed and reloaded and all(math.isfinite(x) for x in run["losses"])):
+            raise AssertionError(f"full command: names/shapes {shapes}, changed {changed}, "
+                                 f"reloaded {reloaded}, losses {run['losses']}")
+        out["full"] = dict(run, module=module, flags=flags)
+        del state, written, source
+    quant.set_quant_backend(backend)
+    counts = {}
+    for name in ("pretrain", "qlora", "full"):
+        for k, v in out[name]["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  the phase in {out['phase_s']:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
+    results["commands"] = out
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3622,9 +3900,14 @@ def main() -> int:
     log("[11] int4/NF4 kernel labs: K10-K13 vs plain at the 7B shapes, the probes' read rates, "
         "the routes onto K1/K8/K9, then the three lab mains")
     lab_err, lab_rows, counts_lab = lab_path(torch, results, card)
+    log("[12] the training command lines of launch_scripts/ through the port's main(): "
+        "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
+        "finetuning from it")
+    counts_cmd = command_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
-                           "quant_serving_path": counts_q, "lab_path": counts_lab}
+                           "quant_serving_path": counts_q, "lab_path": counts_lab,
+                           "command_path": counts_cmd}
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,

@@ -8,7 +8,7 @@ arrival process (latency under load), timing on the host clock around
 ``step()``, the loop a server runs, so the host's own overheads count.
 The reference's command line (``run``/``main``) builds its model from a
 checkpoint or from the JAX package's initializer; it waits for the
-checkpoint tooling (ROADMAP.md queue A, A7).
+tokenizer and the inference command lines (ROADMAP.md queue A, A7 slice 2).
 """
 
 from __future__ import annotations

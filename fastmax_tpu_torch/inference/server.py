@@ -25,8 +25,8 @@ per-request token queues. Tokens flow out through ``Request.generated``
 watermarks, which also catch the first token, sampled at admission.
 
 The command-line entry (``main``/``cli`` in the reference) loads a
-checkpoint and a tokenizer, so it waits for the checkpoint tooling
-(ROADMAP.md queue A, A7).
+checkpoint and a tokenizer, so it waits for the tokenizer and the inference
+command lines (ROADMAP.md queue A, A7 slice 2).
 """
 
 from __future__ import annotations

@@ -142,7 +142,7 @@ def merge_lora(params: dict, cfg: Optional[Config] = None) -> dict:
             return p
         if "kernel" not in p:
             raise NotImplementedError("merging LoRA into a quantized base is not ported yet "
-                                      "(ROADMAP queue A, A7)")
+                                      "(ROADMAP queue A, A7 slice 2)")
         a, b = p["lora_A"].float(), p["lora_B"].float()
         lead = tuple(a.shape[:-2])
         delta = torch.matmul(a, b) * p["lora_scale"].float().reshape(lead + (1, 1))

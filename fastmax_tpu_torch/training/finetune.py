@@ -3,35 +3,37 @@
 ``ops.quant.QUANT_MODES`` ("bnb.nf4", "bnb.nf4-dq", ...), on a quantized base
 that stays frozen (QLoRA: the reference's finetune/lora.py flow).
 
-``setup`` builds the model from the registry (random weights from ``seed``),
-quantizes it, adds the LoRA leaves, and trains with ``sft_loss_fn``
-(``gpt.forward_hidden`` under per-block remat + ``chunked_cross_entropy``
-with the lm_head in chunks of 128) through ``fit`` and the masked AdamW:
-only lora_A/lora_B require grad. With ``attn_alg="quadratic"`` every layer
-at T >= 1024 takes the trainable flash kernels K6/K7 on the card; the fork's
-linear arms train at every head size (``ops/fastmax.py``): ``fastmax`` and
-``fastmax_cuda`` at a head size of 128 (Llama-2-7B) run the reversible
-float32 scan in head groups, ``linearmax`` and ``performer`` their chunked
-scans, each in float32 and cast back to a bf16 model's type. LoRA runs
-save the LoRA leaves to ``out_dir/lora_weights.safetensors`` by their tree
-paths ("blocks.attn.attn.lora_A", ...), as the reference does; ``full``
-saves the torch train state in ``out_dir/state`` (the lit-format checkpoint
-waits for ROADMAP A7).
+``setup`` takes the base from ``checkpoint_dir`` (a converted checkpoint
+directory: ``lit_config.json`` and the weights, read by
+``utils/checkpoint.load_model_params`` in ``precision`` on the device, one
+tensor at a time) or builds ``model_name`` from the registry with random
+weights from ``seed``; quantizes it, adds the LoRA leaves, and trains with
+``sft_loss_fn`` (``gpt.forward_hidden`` under per-block remat +
+``chunked_cross_entropy`` with the lm_head in chunks of 128) through ``fit``
+and the masked AdamW: only lora_A/lora_B require grad. With
+``attn_alg="quadratic"`` every layer at T >= 1024 takes the trainable flash
+kernels K6/K7 on the card; the fork's linear arms train at every head size
+(``ops/fastmax.py``): ``fastmax`` and ``fastmax_cuda`` at a head size of 128
+(Llama-2-7B) run the reversible float32 scan in head groups, ``linearmax``
+and ``performer`` their chunked scans, each in float32 and cast back to a
+bf16 model's type. LoRA runs save the LoRA leaves to
+``out_dir/lora_weights.safetensors`` by their tree paths
+("blocks.attn.attn.lora_A", ...), ``full`` runs the whole model to
+``out_dir/full_weights.safetensors`` by its lit-gpt names
+(``models/params.params_to_flat``), as the reference does.
 
-Not ported yet, each raising ``NotImplementedError``: ``checkpoint_dir``
-(the lit-format loader, ROADMAP queue A, A7), ``adapter``/``adapter_v2``
-(A4), ``gptq_calib`` (A3: gptq.int4 quantizes by rounding to
-nearest), ``dp``/``fsdp``/``tp`` above 1 (A8).
+The command line is the reference's (``utils/cli.py``), so a launch script's
+flags run here unchanged, on the card (``--device cpu`` for the CPU):
 
-Example (the card; pass device="cpu" to run on the CPU):
+    python -m fastmax_tpu_torch.training.finetune --method lora --quantize bnb.nf4 \\
+        --attn_alg quadratic --checkpoint_dir checkpoints/meta-llama/Llama-2-7b-hf \\
+        --data_path data/alpaca/train.npz --precision bfloat16 \\
+        --train.micro_batch_size 2 --train.max_seq_length 512 --io.out_dir out/qlora
 
-    from fastmax_tpu_torch.training import finetune
-    from fastmax_tpu_torch.utils.args import TrainArgs
-    finetune.setup(method="lora", model_name="Llama-2-7b-hf", quantize="bnb.nf4",
-                   attn_alg="quadratic", precision="bfloat16", data_path="train.npz",
-                   # or attn_alg="fastmax", "linearmax" or "performer"
-                   train=TrainArgs(global_batch_size=8, micro_batch_size=2, max_iters=100,
-                                   learning_rate=3e-4, max_seq_length=2048))
+Not ported yet, each raising ``NotImplementedError``: ``adapter``/``adapter_v2``
+(A4; their flags ``adapter_prompt_length`` and ``adapter_start_layer`` parse),
+``gptq_calib`` (A3: gptq.int4 quantizes by rounding to nearest), ``dp``/
+``fsdp``/``tp`` above 1 (A8).
 """
 
 from __future__ import annotations
@@ -46,12 +48,13 @@ from ..inference.engine import default_device
 from ..models import gpt
 from ..models import lora as lora_mod
 from ..models.config import Config
+from ..models.params import params_to_flat
 from ..ops.quant import quantize_model
 from ..utils.args import EvalArgs, IOArgs, TrainArgs
-from ..utils.checkpoint import save_flat_checkpoint
+from ..utils.checkpoint import load_model_params, save_flat_checkpoint
 from ..utils.logging import choose_logger
 from ..utils.loss import chunked_cross_entropy
-from .fit import TrainState, build_optimizer, fit, save_train_state
+from .fit import TrainState, build_optimizer, fit
 from .step import tree_leaves
 
 METHODS = ("full", "lora", "adapter", "adapter_v2")
@@ -96,6 +99,8 @@ def setup(
     lora_projection: bool = False,
     lora_mlp: bool = False,
     lora_head: bool = False,
+    adapter_prompt_length: int = 10,
+    adapter_start_layer: int = 2,
     dp: int = 1,
     fsdp: int = 1,
     tp: int = 1,
@@ -107,17 +112,14 @@ def setup(
     io: IOArgs = IOArgs(),
     device=None,
 ) -> TrainState:
-    """Finetune ``model_name`` on the SFT examples at ``data_path`` on the card
-    (``device="cpu"`` for the CPU). Logs to ``out_dir/metrics.csv`` and
-    returns the final TrainState."""
+    """Finetune the model of ``checkpoint_dir`` (or ``model_name``) on the SFT
+    examples at ``data_path`` on the card (``device="cpu"`` for the CPU). Logs
+    to ``out_dir/metrics.csv`` and returns the final TrainState."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     if method != "lora" and method != "full":
         raise NotImplementedError(f"method {method!r} (models/adapter.py) is not ported yet "
                                   "(ROADMAP queue A, A4)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir: the lit-format checkpoint loader is not "
-                                  "ported yet (ROADMAP queue A, A7); pass model_name")
     if gptq_calib:
         raise NotImplementedError("gptq_calib (ops/gptq.py) is not ported yet (ROADMAP queue "
                                   "A, A3)")
@@ -129,8 +131,13 @@ def setup(
     device = default_device(device)
     dtype = getattr(torch, precision)
 
-    cfg = Config.from_name(model_name, **({"attn_alg": attn_alg} if attn_alg else {}))
-    params = gpt.init_params(cfg, seed, dtype, device)
+    kw = {"attn_alg": attn_alg} if attn_alg else {}
+    if checkpoint_dir is not None:
+        cfg = Config.from_checkpoint(Path(checkpoint_dir), **kw)
+        _, params = load_model_params(Path(checkpoint_dir), cfg, dtype, device)
+    else:
+        cfg = Config.from_name(model_name, **kw)
+        params = gpt.init_params(cfg, seed, dtype, device)
     if quantize:
         params = quantize_model(params, quantize)
 
@@ -159,10 +166,10 @@ def setup(
 
     def checkpoint_fn(s: TrainState) -> None:
         if method == "full":
-            save_train_state(s, out_dir / "state")
-            return
-        _, delta = lora_mod.split_lora_state(s.params)
-        save_flat_checkpoint(_flatten(delta), out_dir / f"{method}_weights.safetensors")
+            flat = params_to_flat(s.params, cfg)
+        else:
+            flat = _flatten(lora_mod.split_lora_state(s.params)[1])
+        save_flat_checkpoint(flat, out_dir / f"{method}_weights.safetensors")
 
     state = fit(cfg, state, optimizer, train_iter, train=train, eval_args=eval, val_iter_fn=None,
                 logger=logger, loss_fn=sft_loss_fn(cfg), checkpoint_fn=checkpoint_fn,
@@ -170,3 +177,14 @@ def setup(
     logger.finalize()
     print(f"finetune done at step {state.step}; weights in {out_dir}")
     return state
+
+
+def main(args=None) -> TrainState:
+    """The command line: ``setup``'s parameters as flags (``utils/cli.py``)."""
+    from ..utils.cli import CLI
+
+    return CLI(setup, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,17 +8,20 @@
 ``fastmax_cuda`` every attention call of a step goes through the fastmax
 kernels K4/K5 on the card at head sizes up to 64 and through the reversible
 float32 scan above; ``linearmax`` and ``performer`` run their chunked scans
-(``ops/fastmax.py``). Not ported yet: the ``packed`` data format,
-``dp``/``fsdp``/``tp`` above 1 (the multi-GPU item of ROADMAP queue A) and the
-lit-format deploy checkpoint that the reference writes at the end: ``setup``
-saves the torch train state (``out_dir/state/train_state.pt``) instead.
+(``ops/fastmax.py``). The torch train state (``out_dir/state/train_state.pt``)
+is saved every ``save_interval`` steps and at the end, and ``io.resume``
+continues from it (the reference's resume format is orbax's; the two do not
+read each other's). At the end the deploy checkpoint is written as the
+reference writes it: ``out_dir/final`` in the npy layout
+(``utils/checkpoint.py``) with ``out_dir/final/lit_config.json``. Not ported
+yet: the ``packed`` data format and ``dp``/``fsdp``/``tp`` above 1 (the
+multi-GPU item of ROADMAP queue A).
 
-Example (the card; pass device="cpu" to run on the CPU):
+The command line is the reference's (``utils/cli.py``); on the card
+(``--device cpu`` for the CPU):
 
-    from fastmax_tpu_torch.training import pretrain
-    from fastmax_tpu_torch.utils.args import IOArgs
-    pretrain.setup(model_name="easy-transformer-fastmax", data_format="openwebtext",
-                   io=IOArgs(train_data_dir="data/openwebtext", out_dir="out"))
+    python -m fastmax_tpu_torch.training.pretrain --model_name easy-transformer-fastmax \\
+        --data_format enwik8 --io.train_data_dir data/enwik8.gz --io.out_dir out
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from ..data.packed_dataset import batch_iterator
 from ..inference.engine import default_device
 from ..models import gpt
 from ..models.config import Config
+from ..models.params import params_to_flat
 from ..utils.args import EvalArgs, IOArgs, TrainArgs
+from ..utils.checkpoint import save_flat_checkpoint
 from ..utils.logging import choose_logger
 from .fit import (TrainState, build_optimizer, fit, has_train_state, load_train_state,
                   save_train_state)
@@ -124,5 +129,20 @@ def setup(
                 val_iter_fn=val_iter_fn, logger=logger,
                 checkpoint_fn=lambda s: save_train_state(s, ckpt_dir))
     print(f"done: {state.step} steps in {time.perf_counter()-t0:.1f}s")
+
+    # deploy checkpoint (weights only, the reference's lit-format contract)
+    save_flat_checkpoint(params_to_flat(state.params, cfg), out_dir / "final")
+    cfg.to_json(out_dir / "final" / "lit_config.json")
     logger.finalize()
     return state
+
+
+def main(args=None) -> TrainState:
+    """The command line: ``setup``'s parameters as flags (``utils/cli.py``)."""
+    from ..utils.cli import CLI
+
+    return CLI(setup, args)
+
+
+if __name__ == "__main__":
+    main()

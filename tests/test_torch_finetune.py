@@ -15,8 +15,6 @@ steps each LoRA leaf within 1e-4 of the JAX package's (Adam divides each
 gradient by its own running magnitude).
 """
 
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -398,9 +396,11 @@ def test_checkpoint_formats_round_trip(tmp_path):
 def test_setup_refuses_what_is_not_ported(tmp_path, tiny_registry):
     base = dict(model_name="tiny-llama", data_path=tmp_path / "x.npz", device="cpu",
                 io=IOArgs(out_dir=tmp_path))
-    for kw, match in (({"method": "adapter"}, "adapter"), ({"checkpoint_dir": Path(".")}, "lit"),
-                      ({"gptq_calib": True}, "gptq"), ({"dp": 2}, "dp")):
+    for kw, match in (({"method": "adapter"}, "adapter"), ({"gptq_calib": True}, "gptq"),
+                      ({"dp": 2}, "dp")):
         with pytest.raises(NotImplementedError, match=match):
             finetune.setup(**{**base, **kw})
+    with pytest.raises(FileNotFoundError, match="lit_config.json"):  # checkpoint_dir is ported
+        finetune.setup(**{**base, "checkpoint_dir": tmp_path})
     with pytest.raises(ValueError):
         finetune.setup(**{**base, "method": "full", "quantize": "bnb.nf4"})

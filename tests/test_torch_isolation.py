@@ -53,7 +53,8 @@ def test_no_jax_and_no_reference_package_imported():
         "            'utils.loss', 'ops.fastmax', 'ops.fastmax_kernels', 'training.finetune',\n"
         "            'models.lora', 'ops.blockwise_attention', 'utils.checkpoint',\n"
         "            'tools.int4_opt_r04', 'tools.int4_opt_r05', 'tools.nf4_variants_r04',\n"
-        "            'tools.nf4_lab_r04', 'tools.lab_kernels'):\n"
+        "            'tools.nf4_lab_r04', 'tools.lab_kernels', 'utils.cli', 'models.params',\n"
+        "            'scripts.convert_hf_checkpoint'):\n"
         "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
