@@ -150,7 +150,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    moved, ``lora_weights.safetensors`` read back); (d) ``finetune_full.sh``
    from it for one step at T up to 512, ``full_weights.safetensors`` holding
    every input name at its shape, moved, and reloading to the final state;
-   step times, peak memory and the launch counts of each command.
+   step times, peak memory and the launch counts of each command;
+13. the inference and eval command lines, inside phase 12's directory: (a)
+   ``bench_serving.main`` on a random Llama-2-7B at full width and depth,
+   bnb.nf4 under "auto" (K1), int8 cache (K2), 8 slots, quantum 8: 16 requests
+   of 64 + 64 tokens, then 8 of 2048 + 16 at a 4096 cache (K3), each JSON line
+   checked, tok/s, TTFT and peak memory; (b) ``generate.load_and_prepare`` of
+   phase 12's 2-layer directory with its QLoRA delta merged (the dense merge
+   within one bf16 step of W + (A @ B) scale) and quantized to bnb.nf4, the
+   engine greedy over a 64-token prompt (K1, K2), logits kernels vs plain; (c)
+   ``chat.StreamingSession`` on the same weights with a bf16 cache, its tokens
+   against (b)'s (near-tie rule) and cut by a two-token stop sequence; (d) the
+   entries that build a tokenizer: where ``tokenizers`` imports,
+   ``generate.main``, ``chat.main`` (one prompt), ``run_eval_harness`` (a
+   local task, perplexity) and ``prepare_alpaca`` end to end with a BPE
+   tokenizer trained here on the repository's text; where it does not,
+   ``generate.main``, ``server.main`` and ``run_eval_harness`` raising
+   ModuleNotFoundError naming it, as the reference does;
+   (e) ``merge_lora``, ``convert_lit_checkpoint`` and ``convert_hf_checkpoint``
+   back, bit for bit, with their rates, and ``lora.merge_lora`` into an NF4
+   base on the card against the dense merge requantized; (f) ``FastmaxLM`` in
+   float32 on token ids: 16 requests of 64-1984 context tokens (K6 at the
+   buckets of 1024 tokens and more), batched vs serial and kernels vs plain,
+   log-probs at (8, 2048) kernels vs plain, perplexity over 4096 tokens; (g)
+   ``convert_pretrained_checkpoint`` on phase 12's pretraining out_dir, loaded
+   back to its ``final`` bit for bit.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -3687,9 +3711,12 @@ def hf_llama_flat(cfg, flat: dict, conv) -> dict:
     return out
 
 
-def command_path(torch, results, card):
+def command_path(torch, results, card, then=None):
     """Phase 12: the pretraining, conversion and finetuning command lines,
-    each through the port's own entry point."""
+    each through the port's own entry point. ``then(tmp, ckpt, lora_file,
+    pretrain_out)`` runs inside the phase's temporary directory, on what the
+    phase wrote, before it is removed; its result is returned beside the
+    phase's launch counts."""
     import gzip
     import tempfile
 
@@ -3824,14 +3851,411 @@ def command_path(torch, results, card):
                                  f"reloaded {reloaded}, losses {run['losses']}")
         out["full"] = dict(run, module=module, flags=flags)
         del state, written, source
+        counts = {}
+        for name in ("pretrain", "qlora", "full"):
+            for k, v in out[name]["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"  the phase in {out['phase_s']:.1f} s; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        results["commands"] = out
+        after = None if then is None else then(
+            tmp, ckpt, tmp / "qlora" / "lora_weights.safetensors", tmp / "pt")
     quant.set_quant_backend(backend)
-    counts = {}
-    for name in ("pretrain", "qlora", "full"):
-        for k, v in out[name]["launches"].items():
-            counts[k] = counts.get(k, 0) + v
+    return counts, after
+
+
+# ----------------------------------------------------------------- phase 13
+# The inference and eval command lines, inside phase 12's temporary directory, on what
+# phase 12 wrote: its 2-layer checkpoint of Llama-2-7B's full width, the QLoRA run's
+# lora_weights.safetensors and the pretraining out_dir. bench_serving draws its 7B at full
+# depth on the card. Its first load names --max_seq_length 256: without it the cache
+# length is prompt + new + quantum = 136, not the multiple of 128 that K2 takes.
+INF_BENCH_MODEL = ["--model_name", "Llama-2-7b-hf", "--quantize", "bnb.nf4",
+                   "--kv_cache_dtype", "int8", "--n_slots", str(N_SLOTS), "--decode_quantum", "8"]
+INF_BENCH_LOADS = (
+    ("decode", ["--n_requests", "16", "--prompt_len", "64", "--max_new_tokens", "64",
+                "--max_seq_length", "256"], ("int4_rank1_matmul", "int8_decode_attention")),
+    ("long prompts", ["--prompt_len", "2048", "--max_seq_length", "4096", "--n_requests", "8",
+                      "--max_new_tokens", "16"],
+     ("int4_rank1_matmul", "int8_decode_attention", "flash_attention")),
+)
+INF_PROMPT, INF_NEW = 64, 64
+EVAL_F32_ATOL = 1e-4     # the port's f32 logits tolerance (log-probs, kernels vs plain)
+EVAL_REL = 1e-4          # summed log-probs: batched vs serial, kernels vs plain
+EVAL_REQUESTS, EVAL_CONT = 16, 16
+EVAL_PPL_TOKENS, EVAL_PPL_STRIDE = 4096, 512
+
+
+def launched(torch, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just after:
+    (its result, the non-zero counts, seconds)."""
+    from fastmax_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, {k: v for k, v in build.launch_counts().items() if v}, dt
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def bf16_steps(torch, got, want, scale) -> float:
+    """The largest |got - want| in bf16 steps (2^-7) of ``scale``, the larger of
+    the two terms summed at each element: the f32 sums of the merge, taken in
+    two orders, differ by a rounding of the terms, and a value that cancels to
+    near 0 has no bf16 step of its own to be held to."""
+    err = (got.float() - want).abs()
+    return float((err / (scale * 2.0 ** -7).clamp_min(1e-30)).max())
+
+
+def inference_path(torch, results, card, tmp, ckpt, lora_file, pt_out) -> dict:
+    """Phase 13: the inference and eval command lines through the port's own
+    entry points; returns the phase's launch counts."""
+    import builtins
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from fastmax_tpu_torch.eval import harness
+    from fastmax_tpu_torch.inference import bench_serving, chat, generate, server
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models import lora
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.scripts import convert_hf_checkpoint as conv
+    from fastmax_tpu_torch.scripts import convert_lit_checkpoint, convert_pretrained_checkpoint
+    from fastmax_tpu_torch.scripts import merge_lora, prepare_alpaca
+    from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint, load_model_params
+
+    log("[13] the inference and eval command lines through the port's entry points: "
+        "bench_serving at full depth, generate's load, chat's stream, the tokenizer entries, "
+        "merge and convert, the eval harness, the pretrained converter")
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) bench_serving.main: random Llama-2-7B weights on the card, all 32 layers
+    out["bench_serving"] = []
+    for what, load, must in INF_BENCH_LOADS:
+        flags = INF_BENCH_MODEL + load
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got, launches, wall = launched(torch, lambda f=flags: bench_serving.main(f))
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        add_counts(counts, launches)
+        log(f"  (a) bench_serving {' '.join(flags)}")
+        log(f"      {what}: {line['generated_tokens']} tokens, {line['aggregate_tok_s']} tok/s; "
+            f"TTFT p50 {line['ttft_p50_ms']} ms, p95 {line['ttft_p95_ms']} ms; latency p50 "
+            f"{line['latency_p50_s']} s, p95 {line['latency_p95_s']} s; peak {peak:.3f} GB; "
+            f"{wall:.1f} s with the 7B drawn and quantized; launches {launches}   [{card}]")
+        want = {"metric", "model", "n_slots", "decode_quantum", "n_requests",
+                "generated_tokens", "aggregate_tok_s", "wall_s", "ttft_p50_ms", "ttft_p95_ms",
+                "latency_p50_s", "latency_p95_s"}
+        n_req, n_new = int(load[load.index("--n_requests") + 1]), int(
+            load[load.index("--max_new_tokens") + 1])
+        if not (line == got and set(line) == want and line["generated_tokens"] == n_req * n_new
+                and all(launches.get(k, 0) for k in must)):
+            raise AssertionError(f"bench_serving ({what}): line {line}, launches {launches}, "
+                                 f"kernels that must launch {must}")
+        out["bench_serving"].append(dict(line, what=what, flags=flags, peak_gb=peak,
+                                         launches=launches, wall_s=wall, card=card))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) generate.load_and_prepare: the 2-layer directory with the QLoRA delta merged,
+    # then quantized; the engine greedy over a 64-token prompt of the repository's text
+    tokens, _ = repo_text_tokens(np)
+    prompt = torch.as_tensor(tokens[:INF_PROMPT].astype(np.int64), device="cuda")
+    delta = load_flat_checkpoint(lora_file)
+    _, base = load_model_params(ckpt, dtype=torch.bfloat16, device="cuda")
+    cfg, dense = generate.load_and_prepare(ckpt, finetuned_path=lora_file, method="lora")
+    a, b = (delta[f"blocks.attn.attn.lora_{k}"].cuda().float() for k in "AB")
+    w = base["blocks"]["attn"]["attn"]["kernel"].float()
+    dw = (torch.matmul(a, b) * delta["blocks.attn.attn.lora_scale"].cuda().float()
+          .reshape(-1, 1, 1) * delta["blocks.attn.attn.lora_mask"].cuda().float()[:, None, :])
+    ulps = bf16_steps(torch, dense["blocks"]["attn"]["attn"]["kernel"], w + dw,
+                      torch.maximum(w.abs(), dw.abs()))
+    moved = not torch.equal(dense["blocks"]["attn"]["attn"]["kernel"],
+                            base["blocks"]["attn"]["attn"]["kernel"])
+    del dense, w, dw
+    (cfg, nf4), _, load_s = launched(torch, lambda: generate.load_and_prepare(
+        ckpt, quantize="bnb.nf4", finetuned_path=lora_file, method="lora"))
+    engine = InferenceEngine(cfg, nf4, max_seq_length=INF_PROMPT + INF_NEW,
+                             cache_dtype=torch.int8)
+    gen, launches, gen_s = launched(torch, lambda: engine.generate(prompt, INF_PROMPT + INF_NEW))
+    add_counts(counts, launches)
+    engine_tokens = gen[0, INF_PROMPT:].tolist()
+    rel, _ = kernels_vs_plain(torch, engine, prompt, None)
+    log(f"  (b) generate.load_and_prepare(bnb.nf4, the QLoRA delta merged) in {load_s:.2f} s: "
+        f"merged qkv kernel vs W + (A @ B) scale, at most {ulps:.3f} bf16 step of the "
+        f"larger term apart "
+        f"(moved off W: {moved}); engine (auto, int8 cache) {INF_PROMPT} + {INF_NEW} greedy in "
+        f"{gen_s:.2f} s, launches {launches}; logits kernels vs plain, max|diff|/max|plain|: "
+        f"prefill {rel['prefill']:.3e}, decode step {rel['decode_step']:.3e} (tolerance "
+        f"{LOGITS_REL_TOL})   [{card}]")
+    if not (ulps <= 1 and moved and launches.get("int4_rank1_matmul")
+            and launches.get("int8_decode_attention") and len(engine_tokens) == INF_NEW
+            and max(rel.values()) <= LOGITS_REL_TOL):
+        raise AssertionError(f"generate's load and engine: {ulps} ulps, moved {moved}, "
+                             f"launches {launches}, logits {rel}")
+    out["generate"] = {"merge_ulps": ulps, "load_s": load_s, "generate_s": gen_s,
+                       "launches": launches, "logits_rel": rel, "card": card}
+
+    # (c) chat's streaming session on prepare_params(..., "auto"), dense bf16 cache
+    session = chat.StreamingSession(cfg, InferenceEngine.prepare_params(nf4, "auto"),
+                                    cfg.block_size)
+    prompt_np = prompt.cpu().numpy()
+    stream, launches, stream_s = launched(torch, lambda: [
+        int(t) for c in session.generate_stream(prompt_np, INF_PROMPT + INF_NEW,
+                                                temperature=0.0) for t in c])
+    add_counts(counts, launches)
+    div = first_divergence(torch, engine, prompt.tolist(), engine_tokens, stream)
+    near = div is None or div[1] <= NEAR_TIE_REL * div[2]
+    pair = stream[2:4]
+    cut = [int(t) for c in session.generate_stream(prompt_np, INF_PROMPT + INF_NEW,
+                                                   temperature=0.0, stop_tokens=(pair,))
+           for t in c]
+    first = next(i for i in range(len(stream) - 1) if stream[i:i + 2] == pair)
+    log(f"  (c) chat.StreamingSession (auto, bf16 cache): {len(stream)} tokens in "
+        f"{stream_s:.2f} s ({len(stream) / stream_s:.1f} tok/s, a host read a token), launches "
+        f"{launches}; equal to the engine's (int8 cache): {div is None}"
+        + ("" if div is None else f", first divergence at step {div[0]}, top-2 margin "
+           f"{div[1]:.4f} of max|logit| {div[2]:.4f} "
+           f"({'a near-tie' if near else 'NOT a near-tie'})")
+        + f"; stop pair {pair} cuts it to {len(cut)} tokens (first match at {first})   [{card}]")
+    if not (len(stream) == INF_NEW and near and cut == stream[:first]
+            and launches.get("int4_rank1_matmul")):
+        raise AssertionError(f"chat stream: {len(stream)} tokens, divergence {div}, cut {cut} "
+                             f"vs {stream[:first]}, launches {launches}")
+    out["chat"] = {"tokens": len(stream), "stream_s": stream_s, "divergence": div,
+                   "launches": launches, "card": card}
+    del engine, session, nf4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the entries that build a Tokenizer, on the directory with a tokenizer.json
+    have_tokenizers, have_sentencepiece = (importlib.util.find_spec(m) is not None
+                                           for m in ("tokenizers", "sentencepiece"))
+    (ckpt / "tokenizer_config.json").write_text(json.dumps({"eos_token": "</s>"}))
+    if not have_tokenizers:
+        # a placeholder: the backend's import fails before the file is read
+        (ckpt / "tokenizer.json").write_text("{}")
+        entries = {"generate.main": lambda: generate.main(checkpoint_dir=ckpt),
+                   "server.main": lambda: server.main(checkpoint_dir=ckpt),
+                   "run_eval_harness": lambda: harness.run_eval_harness(ckpt)}
+        raised = {}
+        for name, fn in entries.items():
+            try:
+                fn()
+            except ModuleNotFoundError as e:
+                raised[name] = e.name
+            else:
+                raise AssertionError(f"{name} ran without the tokenizers package")
+        log(f"  (d) this machine has no tokenizers package (sentencepiece: "
+            f"{have_sentencepiece}): each entry raises "
+            f"ModuleNotFoundError naming it, as the reference does: {raised}")
+        if set(raised.values()) != {"tokenizers"}:
+            raise AssertionError(f"tokenizer entries raised {raised}")
+        out["tokenizer_entries"] = {"tokenizers": False, "raised": raised}
+    else:
+        from tokenizers import Tokenizer as HFTok
+        from tokenizers.models import BPE
+        from tokenizers.pre_tokenizers import Whitespace
+        from tokenizers.trainers import BpeTrainer
+
+        tok = HFTok(BPE(unk_token="<unk>"))
+        tok.pre_tokenizer = Whitespace()
+        text = bytes(tokens[:200_000].astype(np.uint8)).decode("latin-1")
+        tok.train_from_iterator(text.splitlines(), BpeTrainer(
+            special_tokens=["<unk>", "</s>"], vocab_size=min(2000, cfg.vocab_size)))
+        tok.save(str(ckpt / "tokenizer.json"))
+        text = text[:60_000]
+        task = json.loads((REPO / "eval_assets" / "tasks" / "code_cloze.json").read_text())[:4]
+        (tmp / "task.json").write_text(json.dumps(task))
+        (tmp / "ppl.txt").write_text(text[:20_000])
+        (tmp / "records.json").write_text(json.dumps(
+            [{"instruction": text[i:i + 100], "input": "", "output": text[i + 100:i + 300]}
+             for i in range(0, 9600, 300)]))
+        answers = iter(["def main", ""])
+        real_input = builtins.input
+        builtins.input = lambda prompt="": next(answers)
+        entries = {
+            "generate.main": lambda: generate.main(prompt="def main", checkpoint_dir=ckpt,
+                                                   max_new_tokens=16, temperature=0.0),
+            "chat.main": lambda: chat.main(checkpoint_dir=ckpt, max_new_tokens=16,
+                                           temperature=0.0),
+            "run_eval_harness": lambda: harness.run_eval_harness(
+                ckpt, local_task_file=tmp / "task.json", ppl_text_file=tmp / "ppl.txt"),
+            "prepare_alpaca": lambda: prepare_alpaca.prepare(
+                tmp / "records.json", ckpt, tmp / "alpaca", max_seq_length=512)}
+        ran, printed = {}, {}
+        try:
+            for name, fn in entries.items():
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+                    ran[name], launches, _ = launched(torch, fn)
+                add_counts(counts, launches)
+                printed[name] = buf.getvalue()
+        finally:
+            builtins.input = real_input
+        from fastmax_tpu_torch.data.lm_datasets import SFTDataset
+
+        n_sft = len(SFTDataset.load(tmp / "alpaca" / "train.npz").examples)
+        ev = ran["run_eval_harness"]
+        log(f"  (d) tokenizers imports (sentencepiece: {have_sentencepiece}): with a BPE "
+            f"tokenizer of {tok.get_vocab_size()} tokens trained here on the repository's "
+            f"text, end to end: generate.main printed {printed['generate.main'].strip()!r}; "
+            f"chat.main replied to one prompt ({printed['chat.main'].count('>> Reply: ')} "
+            f"reply); run_eval_harness: local task {ev['local_task']}, perplexity "
+            f"{ev['perplexity']:.1f}; prepare_alpaca wrote {n_sft} training examples")
+        if not (printed["generate.main"].strip() and printed["chat.main"].count(">> Reply: ") == 1
+                and ev["local_task"]["n"] == len(task) and math.isfinite(ev["perplexity"])
+                and n_sft > 0):
+            raise AssertionError(f"tokenizer entries: printed {printed}, eval {ev}, sft {n_sft}")
+        out["tokenizer_entries"] = {"tokenizers": True, "eval": ev, "sft_examples": n_sft}
+
+    # (e) merge_lora, then lit -> HF -> lit, bit for bit; then the merge into an NF4 base
+    merged, hf_dir, back = tmp / "merged", tmp / "hf_merged", tmp / "back"
+    hf_dir.mkdir()
+    steps = {}
+    for name, fn in (
+            ("merge_lora", lambda: merge_lora.main([
+                "--checkpoint_dir", str(ckpt), "--lora_path", str(lora_file), "--out_dir",
+                str(merged), "--precision", "bfloat16"])),
+            ("convert_lit_checkpoint", lambda: convert_lit_checkpoint.main([
+                "--checkpoint_path", str(merged), "--output_path",
+                str(hf_dir / "model.safetensors")])),
+            ("convert_hf_checkpoint", lambda: conv.main([
+                "--checkpoint_dir", str(hf_dir), "--model_name", "Llama-2-7b-hf",
+                "--out_dir", str(back)]))):
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, launches, steps[name] = launched(torch, fn)
+        add_counts(counts, launches)
+    a_flat, b_flat = load_flat_checkpoint(merged), load_flat_checkpoint(back)
+    nbytes = sum(t.numel() * t.element_size() for t in a_flat.values())
+    same = sorted(a_flat) == sorted(b_flat) and all(
+        a_flat[n].dtype == b_flat[n].dtype and torch.equal(a_flat[n], b_flat[n]) for n in a_flat)
+    log(f"  (e) {nbytes / 1e9:.3f} GB: " + "; ".join(
+        f"{n} {s:.2f} s ({nbytes / s / 1e9:.2f} GB/s)" for n, s in steps.items())
+        + f"; the round trip equals the merged checkpoint bit for bit: {same} (file cache "
+        f"warm)   [{card}]")
+    if not same:
+        raise AssertionError("merged -> HF -> lit does not give the merged checkpoint back")
+    del a_flat, b_flat
+    for d in (merged, hf_dir, back):
+        shutil.rmtree(d)
+
+    nf4_qkv = quant.quantize_model(
+        {"blocks": {"attn": {"attn": {"kernel": base["blocks"]["attn"]["attn"]["kernel"]}}}},
+        "bnb.nf4")["blocks"]["attn"]["attn"]
+
+    def qlora_tree(device):
+        """The QLoRA tree's qkv linear: its NF4 base and the delta's leaves (in bf16,
+        as ``apply_finetuned`` sets them), on ``device``."""
+        p = {k: v.to(device) for k, v in nf4_qkv.items()}
+        for k in ("A", "B", "scale", "mask"):
+            p[f"lora_{k}"] = delta[f"blocks.attn.attn.lora_{k}"].to(device=device,
+                                                                    dtype=torch.bfloat16)
+        return {"blocks": {"attn": {"attn": p}}}
+
+    def both_merges(tree):
+        """(the merge into the NF4 base, the dense merge of its dequantized kernel
+        requantized)."""
+        p = tree["blocks"]["attn"]["attn"]
+        into = lora.merge_lora(tree)["blocks"]["attn"]["attn"]
+        dq = quant.dequantize_model({"l": {k: v for k, v in p.items()
+                                           if not k.startswith("lora_")}}, torch.float32)["l"]
+        dq.update({k: v for k, v in p.items() if k.startswith("lora_")})
+        dense = lora.merge_lora({"l": dq})["l"]
+        return into, quant.quantize_model({"blocks": {"l": dense}}, "bnb.nf4")["blocks"]["l"]
+
+    (into, dense_q), launches, merge_s = launched(torch, lambda: both_merges(qlora_tree("cuda")))
+    add_counts(counts, launches)
+    diff = (into["q4"] != dense_q["q4"]).nonzero().cpu()
+    ties = None
+    if diff.numel():  # the same positions must differ on the CPU
+        cpu_into, cpu_dense = both_merges(qlora_tree("cpu"))
+        ties = torch.equal((cpu_into["q4"] != cpu_dense["q4"]).nonzero(), diff)
+    log(f"  (e) lora.merge_lora into the NF4 base of the QLoRA tree on the card in "
+        f"{merge_s:.2f} s: q4 codes equal to the dense merge requantized: "
+        f"{diff.numel() == 0} ({diff.shape[0]} bytes differ"
+        + ("" if ties is None else f", at the CPU's positions: {ties}") + "); absmax equal: "
+        f"{torch.equal(into['absmax'], dense_q['absmax'])}   [{card}]")
+    if not ((diff.numel() == 0 or ties) and torch.equal(into["absmax"], dense_q["absmax"])):
+        raise AssertionError("the NF4 merge differs from the dense merge requantized")
+    out["merge_convert"] = {"bytes": nbytes, "steps_s": steps, "nf4_merge_s": merge_s,
+                            "nf4_codes_differ": int(diff.shape[0]), "card": card}
+    del base, into, dense_q, nf4_qkv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) FastmaxLM on token ids, float32, batch_size 8: contexts of 64-1984 tokens
+    cfg, f32 = load_model_params(ckpt, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = np.linspace(64, 1984, EVAL_REQUESTS).astype(int)
+    starts = rng.integers(0, tokens.size - 2048, EVAL_REQUESTS)
+    reqs = [(tokens[s:s + n].tolist(), tokens[s + n:s + n + EVAL_CONT].tolist())
+            for s, n in zip(starts, lens)]
+    lm = harness.FastmaxLM(cfg, f32, None, batch_size=8)
+    batched, launches, eval_s = launched(torch, lambda: lm.loglikelihood_tokens_batch(reqs))
+    add_counts(counts, launches)
+    serial = harness.FastmaxLM(cfg, f32, None, batch_size=1).loglikelihood_tokens_batch(reqs)
+    plain = harness.FastmaxLM(cfg, f32, None, batch_size=8,
+                              plain=True).loglikelihood_tokens_batch(reqs)
+    b_rel = max(abs(x - y) / abs(y) for (x, _), (y, _) in zip(batched, serial))
+    p_rel = max(abs(x - y) / abs(y) for (x, _), (y, _) in zip(batched, plain))
+    idx = torch.as_tensor(np.stack([tokens[s:s + 2048] for s in starts[:8]]).astype(np.int32),
+                          device="cuda")
+    lp_k = lm._fwd(idx)
+    lp_p = harness.FastmaxLM(cfg, f32, None, plain=True)._fwd(idx)
+    lp_err = float((lp_k - lp_p).abs().max())
+    del lp_k, lp_p
+    ppl = harness.perplexity_on_tokens(lm, tokens[:EVAL_PPL_TOKENS], EVAL_PPL_STRIDE)
+    log(f"  (f) FastmaxLM (f32, batch 8) over {EVAL_REQUESTS} requests, contexts {lens[0]}-"
+        f"{lens[-1]} + {EVAL_CONT}: {eval_s:.2f} s, launches {launches}; batched vs serial "
+        f"{b_rel:.3e}, kernels vs plain {p_rel:.3e} (relative, tolerance {EVAL_REL}); log-probs "
+        f"at (8, 2048) kernels vs plain max|diff| {lp_err:.3e} (tolerance {EVAL_F32_ATOL}); "
+        f"perplexity over {EVAL_PPL_TOKENS} tokens at stride {EVAL_PPL_STRIDE}: {ppl:.2f}   "
+        f"[{card}]")
+    if not (launches.get("flash_train_fwd") and b_rel <= EVAL_REL and p_rel <= EVAL_REL
+            and lp_err <= EVAL_F32_ATOL and math.isfinite(ppl)
+            and [g for _, g in batched] == [g for _, g in serial]):
+        raise AssertionError(f"eval: launches {launches}, batched {b_rel}, plain {p_rel}, "
+                             f"log-probs {lp_err}, perplexity {ppl}")
+    out["eval"] = {"eval_s": eval_s, "launches": launches, "batched_rel": b_rel,
+                   "plain_rel": p_rel, "logprob_err": lp_err, "perplexity": ppl, "card": card}
+    del lm, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the pretraining out_dir of phase 12 (a) as a deployable directory
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_pretrained_checkpoint.main(["--checkpoint_dir", str(pt_out), "--output_dir",
+                                            str(tmp / "pt_deploy")])
+    _, deploy = load_model_params(tmp / "pt_deploy", device="cuda")
+    _, final = load_model_params(pt_out / "final", device="cuda")
+    same = trees_equal(torch, deploy, final)
+    log(f"  (g) convert_pretrained_checkpoint on the pretraining out_dir (its state/): loads to "
+        f"final/'s tree bit for bit: {same}")
+    if not same:
+        raise AssertionError("the converted pretraining state differs from final/")
+    del deploy, final
+
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"  the phase in {out['phase_s']:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
-    results["commands"] = out
+    out["launches"] = counts
+    log(f"  the phase in {out['phase_s']:.1f} s; launches {counts}")
+    results["inference_commands"] = out
     return counts
 
 
@@ -3903,11 +4327,12 @@ def main() -> int:
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
-    counts_cmd = command_path(torch, results, card)
+    counts_cmd, counts_inf = command_path(
+        torch, results, card, lambda *a: inference_path(torch, results, card, *a))
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
-                           "command_path": counts_cmd}
+                           "command_path": counts_cmd, "inference_path": counts_inf}
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,

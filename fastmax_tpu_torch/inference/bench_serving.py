@@ -1,21 +1,31 @@
-"""Serving load over the continuous batcher: aggregate throughput and
-latency percentiles (counterpart of ``run_load`` in
-``fastmax_tpu/inference/bench_serving.py``).
+"""Serving benchmark: aggregate throughput and latency over the continuous
+batcher (counterpart of ``fastmax_tpu/inference/bench_serving.py``).
 
 ``run_load`` drives a batcher through a closed-loop load (every request
 queued up front: the peak-throughput number) or an open-loop Poisson
 arrival process (latency under load), timing on the host clock around
 ``step()``, the loop a server runs, so the host's own overheads count.
-The reference's command line (``run``/``main``) builds its model from a
-checkpoint or from the JAX package's initializer; it waits for the
-tokenizer and the inference command lines (ROADMAP.md queue A, A7 slice 2).
+``run`` builds the model (a checkpoint directory through
+``generate.load_and_prepare``, or ``model_name``'s config with random
+weights drawn on the device from ``seed``, then quantized), runs one warm-up
+request, then one load of random prompts, and prints one JSON line:
+
+    python -m fastmax_tpu_torch.inference.bench_serving --model_name Llama-2-7b-hf \
+        --quantize bnb.nf4 --kv_cache_dtype int8 --n_slots 8 --decode_quantum 8 \
+        --n_requests 16 --prompt_len 64 --max_new_tokens 64 [--device cpu]
+
+``--speculative_k`` (A1) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
+import torch
 
 
 def run_load(batcher, prompts, max_new_tokens: int, *, arrival_rate: float = 0.0,
@@ -70,3 +80,81 @@ def run_load(batcher, prompts, max_new_tokens: int, *, arrival_rate: float = 0.0
         "latency_p50_s": round(float(np.percentile(lat, 50)), 3),
         "latency_p95_s": round(float(np.percentile(lat, 95)), 3),
     }
+
+
+def run(
+    checkpoint_dir: Optional[Path] = None,
+    model_name: Optional[str] = None,
+    quantize: Optional[str] = None,
+    attn_alg: Optional[str] = None,
+    precision: str = "bfloat16",
+    weights_mode: str = "auto",
+    n_slots: int = 8,
+    decode_quantum: int = 1,
+    speculative_k: int = 0,
+    prefill_chunk: int = 0,
+    kv_cache_dtype: Optional[str] = None,
+    max_seq_length: Optional[int] = None,
+    n_requests: int = 32,
+    prompt_len: int = 64,
+    max_new_tokens: int = 128,
+    arrival_rate: float = 0.0,
+    seed: int = 0,
+    device=None,
+) -> dict:
+    """Build the model (random weights with ``model_name``, a checkpoint with
+    ``checkpoint_dir``) on the card (``device="cpu"`` for the CPU), run one
+    load, print one JSON line and return it."""
+    from ..models import gpt
+    from ..models.config import Config
+    from .continuous import ContinuousBatcher
+    from .engine import default_device
+    from .generate import check_unported, load_and_prepare
+
+    check_unported(speculative_k=speculative_k)
+    device = default_device(device)
+    if checkpoint_dir is not None:
+        cfg, params = load_and_prepare(Path(checkpoint_dir), quantize=quantize,
+                                       attn_alg=attn_alg, precision=precision, device=device)
+    else:
+        kw = {"attn_alg": attn_alg} if attn_alg else {}
+        cfg = Config.from_name(model_name or "pythia-14m", **kw)
+        params = gpt.init_params(cfg, seed, getattr(torch, precision), device)
+        if quantize:
+            from ..ops.quant import quantize_model
+
+            params = quantize_model(params, quantize)
+
+    seq_need = prompt_len + max_new_tokens + max(speculative_k + 1, decode_quantum)
+    cfg.block_size = max(cfg.block_size, seq_need)
+    batcher = ContinuousBatcher(
+        cfg, params, n_slots=n_slots, max_seq_length=max_seq_length or seq_need,
+        weights_mode=weights_mode, decode_quantum=decode_quantum, prefill_chunk=prefill_chunk,
+        cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None, device=device)
+    del params
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.padded_vocab_size, size=(prompt_len,)).astype(np.int32)
+               for _ in range(n_requests)]
+
+    # warm-up: the kernels' builds and the first calls, outside the measured load
+    w = batcher.submit(prompts[0], 4, temperature=0.0, return_request=True)
+    while not w.done:
+        batcher.step()
+
+    result = run_load(batcher, prompts, max_new_tokens, arrival_rate=arrival_rate, seed=seed)
+    result = {"metric": "serving_aggregate_decode", "model": cfg.name, "n_slots": n_slots,
+              "decode_quantum": decode_quantum, **result}
+    print(json.dumps(result))
+    return result
+
+
+def main(args=None) -> dict:
+    """The command line: ``run``'s parameters as flags (``utils/cli.py``)."""
+    from ..utils.cli import CLI
+
+    return CLI(run, args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,189 @@
+"""Generation command line (counterpart of ``fastmax_tpu/inference/generate.py``).
+
+  python -m fastmax_tpu_torch.inference.generate --checkpoint_dir ckpt \\
+      --prompt "Hello, my name is" --quantize bnb.nf4 [--device cpu]
+
+``load_and_prepare`` reads a checkpoint directory (``lit_config.json``, the
+weights through ``utils/checkpoint.load_model_params``, one tensor at a
+time onto the device), attaches a finetuned file (``apply_finetuned``:
+``full`` replaces the weights, ``lora`` sets the delta leaves and merges
+them) and quantizes. ``main`` wraps the prompt (``--prompt_style``), runs
+``InferenceEngine.generate`` ``num_samples`` times and prints each text, then
+``Time for inference ...`` with tokens/sec and, on the card, the peak memory
+to stderr.
+
+Sampling noise comes from a ``torch.Generator`` seeded with ``--seed`` where
+the reference splits a ``jax.random`` key, so sampled text (temperature > 0)
+differs from the JAX package's for the same seed; greedy text (temperature
+0) does not depend on it.
+
+Not ported yet, each raising ``NotImplementedError``: ``--tp``/``--fsdp``
+above 1 (the multi-GPU load, A8), ``--speculative_k`` (A1) and
+``--gptq_calib`` (A3). ``adapter``/``adapter_v2`` finetuned files need
+``models/adapter.py`` (A4).
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ..models.config import Config
+from ..models.tokenizer import Tokenizer
+from .engine import InferenceEngine, default_device
+
+
+def check_unported(*, tp: int = 1, fsdp: int = 1, speculative_k: int = 0,
+                   gptq_calib=None) -> None:
+    """Raise for the flags whose items are not ported yet, naming the item."""
+    if tp > 1 or fsdp > 1:
+        raise NotImplementedError("tp/fsdp > 1 (the sharded load and the mesh) come with the "
+                                  "multi-GPU item (ROADMAP queue A, A8)")
+    if speculative_k:
+        raise NotImplementedError("speculative decoding (inference/speculative.py) is not "
+                                  "ported yet (ROADMAP queue A, A1)")
+    if gptq_calib is not None:
+        raise NotImplementedError("GPTQ calibration (ops/gptq.py) is not ported yet (ROADMAP "
+                                  "queue A, A3)")
+
+
+def load_and_prepare(
+    checkpoint_dir: Path,
+    *,
+    quantize: Optional[str] = None,
+    attn_alg: Optional[str] = None,
+    finetuned_path: Optional[Path] = None,
+    method: str = "lora",
+    precision: str = "bfloat16",
+    tp: int = 1,
+    fsdp: int = 1,
+    gptq_calib_tokens=None,
+    device=None,
+):
+    """(config, params) of ``checkpoint_dir`` in ``precision`` on ``device``
+    (default: the card), with ``finetuned_path`` attached, then quantized."""
+    from ..utils.checkpoint import load_model_params
+
+    check_unported(tp=tp, fsdp=fsdp, gptq_calib=gptq_calib_tokens)
+    device = default_device(device)
+    checkpoint_dir = Path(checkpoint_dir)
+    kw = {"attn_alg": attn_alg} if attn_alg else {}
+    cfg = Config.from_checkpoint(checkpoint_dir, **kw)
+    dtype = getattr(torch, precision)
+    _, params = load_model_params(checkpoint_dir, cfg, dtype, device)
+    if finetuned_path is not None:
+        params = apply_finetuned(params, cfg, Path(finetuned_path), method, dtype)
+    if quantize:
+        from ..ops.quant import quantize_model
+
+        params = quantize_model(params, quantize)
+    return cfg, params
+
+
+def apply_finetuned(params, cfg, finetuned_path: Path, method: str, dtype):
+    """Attach finetuned weights, on the parameters' device.
+
+    method "full": the file holds a complete lit-named state dict, which
+    replaces every parameter. "lora": the file holds delta leaves named by
+    their tree paths ("blocks.attn.attn.lora_A", as ``training/finetune.py``
+    writes them), set in ``dtype`` and merged into the base."""
+    from ..models import lora as lora_mod
+    from ..utils.checkpoint import load_flat_checkpoint
+
+    if method in ("adapter", "adapter_v2"):
+        raise NotImplementedError(f"method {method!r} (models/adapter.py) is not ported yet "
+                                  "(ROADMAP queue A, A4)")
+    if method not in ("full", "lora"):
+        raise ValueError(f"unknown finetuning method {method!r}")
+    device = params["wte"].device
+    delta = load_flat_checkpoint(Path(finetuned_path))
+    if method == "full":
+        from ..models.params import flat_to_params
+
+        return flat_to_params(delta, cfg, dtype, device)
+    for name, value in delta.items():
+        *parents, leaf = name.split(".")
+        node = params
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value.to(device=device, dtype=dtype)
+    return lora_mod.merge_lora(params)
+
+
+def main(
+    prompt: str = "Hello, my name is",
+    checkpoint_dir: Path = Path("checkpoints"),
+    num_samples: int = 1,
+    max_new_tokens: int = 50,
+    top_k: Optional[int] = 200,
+    temperature: float = 0.8,
+    quantize: Optional[str] = None,
+    attn_alg: Optional[str] = None,
+    finetuned_path: Optional[Path] = None,
+    method: str = "lora",
+    prompt_style: Optional[str] = None,
+    precision: str = "bfloat16",
+    tp: int = 1,
+    fsdp: int = 1,
+    seed: int = 1234,
+    weights_mode: str = "auto",
+    kv_cache_dtype: Optional[str] = None,
+    speculative_k: int = 0,
+    draft_checkpoint_dir: Optional[Path] = None,
+    gptq_calib: Optional[Path] = None,
+    device=None,
+) -> None:
+    """Generate text samples from a checkpoint on the card (``device="cpu"``
+    for the CPU). weights_mode: see ``InferenceEngine``; kv_cache_dtype:
+    int8 for the quantized KV cache, bfloat16, ...; speculative_k,
+    draft_checkpoint_dir and gptq_calib are not ported yet."""
+    check_unported(tp=tp, fsdp=fsdp, speculative_k=speculative_k, gptq_calib=gptq_calib)
+    device = default_device(device)
+    tokenizer = Tokenizer(Path(checkpoint_dir))
+    cfg, params = load_and_prepare(
+        checkpoint_dir, quantize=quantize, attn_alg=attn_alg, finetuned_path=finetuned_path,
+        method=method, precision=precision, device=device)
+    if prompt_style:
+        from ..data.prompts import STYLES
+
+        prompt = STYLES[prompt_style]({"instruction": prompt, "input": ""})
+    encoded = tokenizer.encode(prompt)
+    prompt_len = len(encoded)
+    max_returned = prompt_len + max_new_tokens
+    engine = InferenceEngine(
+        cfg, params, max_seq_length=max_returned, batch_size=1, weights_mode=weights_mode,
+        cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None, device=device)
+    print(f"model {cfg.name}: attn_alg={cfg.attn_alg}"
+          + (f", quantized {quantize}" if quantize else ""), file=sys.stderr)
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    for i in range(num_samples):
+        t0 = time.perf_counter()
+        out = engine.generate(torch.from_numpy(encoded), max_returned, temperature=temperature,
+                              top_k=top_k, eos_id=tokenizer.eos_id, generator=generator).cpu()
+        dt = time.perf_counter() - t0
+        print(tokenizer.decode(out[0].numpy()))
+        n_new = out.shape[1] - prompt_len
+        print(f"Time for inference {i + 1}: {dt:.02f} sec total, {n_new / dt:.02f} tokens/sec",
+              file=sys.stderr)
+
+    from ..utils.profiling import device_memory_stats
+
+    peak = device_memory_stats(device)["peak_bytes_in_use"]
+    if peak:
+        print(f"Memory used: {peak / 2**30:.02f} GB", file=sys.stderr)
+
+
+def cli(args=None) -> None:
+    """The command line: ``main``'s parameters as flags (``utils/cli.py``)."""
+    from ..utils.cli import CLI
+
+    CLI(main, args)
+
+
+if __name__ == "__main__":
+    cli()

@@ -24,9 +24,16 @@ scheduler thread; HTTP threads reach it only through a submit inbox and
 per-request token queues. Tokens flow out through ``Request.generated``
 watermarks, which also catch the first token, sampled at admission.
 
-The command-line entry (``main``/``cli`` in the reference) loads a
-checkpoint and a tokenizer, so it waits for the tokenizer and the inference
-command lines (ROADMAP.md queue A, A7 slice 2).
+The command line (``main``/``cli``) loads a checkpoint directory and its
+tokenizer (``inference/generate.load_and_prepare``, ``models/tokenizer.py``),
+builds the batcher, optionally registers a system prompt in its prefix cache,
+and serves until interrupted, on the card unless ``--device cpu``:
+
+    python -m fastmax_tpu_torch.inference.server --checkpoint_dir ckpt \
+        --quantize bnb.nf4 --n_slots 8 --kv_cache_dtype int8 --port 8000
+
+``--speculative_k`` (A1) and ``--tp``/``--fsdp`` above 1 (A8) are not ported
+yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ import threading
 import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .continuous import ContinuousBatcher
 
@@ -258,3 +267,70 @@ class Server:
         self.httpd.shutdown()
         self.httpd.server_close()
         self.scheduler.stop()
+
+
+# ------------------------------------------------------------------- CLI
+
+
+def main(
+    checkpoint_dir: Path = Path("checkpoints"),
+    host: str = "0.0.0.0",
+    port: int = 8000,
+    n_slots: int = 8,
+    max_seq_length: Optional[int] = None,
+    quantize: Optional[str] = None,
+    attn_alg: Optional[str] = None,
+    precision: str = "bfloat16",
+    weights_mode: str = "auto",
+    tp: int = 1,
+    fsdp: int = 1,
+    kv_cache_dtype: Optional[str] = None,
+    decode_quantum: int = 1,
+    speculative_k: int = 0,
+    prefix_cache_size: int = 0,
+    prefill_chunk: int = 0,
+    system_prompt: Optional[str] = None,
+    device=None,
+) -> None:
+    """Serve a checkpoint over HTTP with continuous batching, on the card
+    (``device="cpu"`` for the CPU), until interrupted.
+
+    system_prompt: when set (with prefix_cache_size > 0), its KV rows are
+    prefilled once and shared by every request that starts with it."""
+    from ..models.tokenizer import Tokenizer
+    from .engine import default_device
+    from .generate import check_unported, load_and_prepare
+
+    check_unported(tp=tp, fsdp=fsdp, speculative_k=speculative_k)
+    device = default_device(device)
+    tokenizer = Tokenizer(Path(checkpoint_dir))
+    cfg, params = load_and_prepare(Path(checkpoint_dir), quantize=quantize, attn_alg=attn_alg,
+                                   precision=precision, device=device)
+    batcher = ContinuousBatcher(
+        cfg, params, n_slots=n_slots, max_seq_length=max_seq_length, weights_mode=weights_mode,
+        cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None,
+        decode_quantum=decode_quantum, prefix_cache_size=prefix_cache_size,
+        prefill_chunk=prefill_chunk, device=device)
+    if system_prompt:
+        batcher.register_prefix(np.asarray(tokenizer.encode(system_prompt), np.int32))
+    server = Server(batcher, tokenizer, host=host, port=port, model_name=cfg.name,
+                    eos_id=tokenizer.eos_id)
+    print(f"serving {cfg.name} on http://{host}:{server.port} "
+          f"({n_slots} slots, quantize={quantize or 'none'})")
+    server.start()
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.stop()
+
+
+def cli(args=None) -> None:
+    """The command line: ``main``'s parameters as flags (``utils/cli.py``)."""
+    from ..utils.cli import CLI
+
+    CLI(main, args)
+
+
+if __name__ == "__main__":
+    cli()

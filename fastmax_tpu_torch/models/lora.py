@@ -11,7 +11,8 @@ features in the grouped layout [per group: q x q_per_kv | k | v]. Block
 leaves stack on the (n_layer,) axis like the base weights. Only ``lora_A``
 and ``lora_B`` train (``trainable_mask``). The numbers of ``lora_A`` come
 from a ``torch.Generator`` and differ from the JAX package's; tests bring
-the JAX package's LoRA leaves over instead.
+the JAX package's LoRA leaves over instead. ``merge_lora`` folds the deltas
+into dense, int8 and packed 4-bit bases (dequantize, add, requantize).
 """
 
 from __future__ import annotations
@@ -133,24 +134,69 @@ def split_lora_state(params: dict):
     return base, lora
 
 
+def _lora_delta(p: dict) -> torch.Tensor:
+    """(A @ B) * scale [* mask] in f32, summed over the rank in order, a
+    product then a sum (as numpy's einsum does), so that the merge is the
+    reference's bit for bit."""
+    a, b = p["lora_A"].float(), p["lora_B"].float()
+    lead = tuple(a.shape[:-2])
+    delta = a[..., :, 0, None] * b[..., 0, None, :]
+    for i in range(1, a.shape[-1]):
+        delta = delta + a[..., :, i, None] * b[..., i, None, :]
+    delta = delta * p["lora_scale"].float().reshape(lead + (1, 1))
+    if "lora_mask" in p:
+        delta = delta * p["lora_mask"].float()[..., None, :]
+    return delta
+
+
+def _quant_mode(p: dict) -> str:
+    """The ``quantize_model`` mode of a quantized linear: "bnb.int8" for q8,
+    else its codebook (matched against ``quant.CODEBOOKS``), "-dq" when its
+    scales are double-quantized."""
+    from ..ops import quant
+
+    if "q8" in p:
+        return "bnb.int8"
+    if "q4" not in p:
+        raise NotImplementedError(f"merging LoRA into a {sorted(p)} linear: only dense, int8 "
+                                  "and packed 4-bit bases merge, as in the reference")
+    code = np.sort(p["code"].detach().float().cpu().numpy().reshape(-1, 16)[0])
+    kind = next((name for name, table in quant.CODEBOOKS.items()
+                 if np.allclose(code, np.sort(table))), "nf4")
+    mode = {"nf4": "bnb.nf4", "fp4": "bnb.fp4", "int4": "gptq.int4"}[kind]
+    return mode + "-dq" if "absmax_q" in p and mode.startswith("bnb") else mode
+
+
 def merge_lora(params: dict, cfg: Optional[Config] = None) -> dict:
-    """Fold every LoRA delta into its dense base kernel (in f32, then the
-    kernel's dtype) and drop the LoRA leaves. A quantized base (dequantize,
-    add, requantize in the reference) is not ported yet."""
+    """Fold every LoRA delta into its base weight and drop the LoRA leaves.
+
+    A dense kernel takes the delta in f32, then its own dtype. A quantized
+    base (int8, or 4-bit with its codebook and scales, double-quantized or
+    not) is dequantized, merged and requantized in its own mode, one layer
+    at a time where its leaves are stacked, on its device; its bias stays."""
+    from ..ops import quant
+
     def merge_linear(p: dict) -> dict:
         if "lora_A" not in p:
             return p
-        if "kernel" not in p:
-            raise NotImplementedError("merging LoRA into a quantized base is not ported yet "
-                                      "(ROADMAP queue A, A7 slice 2)")
-        a, b = p["lora_A"].float(), p["lora_B"].float()
-        lead = tuple(a.shape[:-2])
-        delta = torch.matmul(a, b) * p["lora_scale"].float().reshape(lead + (1, 1))
-        if "lora_mask" in p:
-            delta = delta * p["lora_mask"].float()[..., None, :]
+        delta = _lora_delta(p)
         out = {k: v for k, v in p.items() if not k.startswith("lora_")}
-        out["kernel"] = (p["kernel"].float() + delta).to(p["kernel"].dtype)
-        return out
+        if "kernel" in p:
+            out["kernel"] = (p["kernel"].float() + delta).to(p["kernel"].dtype)
+            return out
+        mode = _quant_mode(p)
+        lead = tuple(p["lora_A"].shape[:-2])
+        base = {k: v for k, v in out.items() if k != "bias"}
+        slices = []
+        for idx in np.ndindex(*lead):
+            part = {k: v[idx] if v.ndim > quant._RANK.get(k, 0) else v for k, v in base.items()}
+            slices.append(quant.quantize_linear_params(
+                {"kernel": quant.dequantize(part, torch.float32) + delta[idx]}, mode))
+        q = {k: torch.stack([s[k] for s in slices]).reshape(lead + tuple(slices[0][k].shape))
+             for k in slices[0]}
+        if "bias" in p:
+            q["bias"] = p["bias"]
+        return q
 
     def walk(node):
         if isinstance(node, dict):

@@ -1,6 +1,8 @@
 """The port's command lines against the JAX package on the CPU: utils/cli.py,
 ``finetune.main`` (with ``--checkpoint_dir`` and ``--method full``) and
-``pretrain.main`` (with its ``out_dir/final`` checkpoint).
+``pretrain.main`` (with its ``out_dir/final`` checkpoint); the signatures of
+every ported command line against the reference's, and every main that
+computes defaulting to the card.
 
 Every ``launch_scripts/pretrain_*.sh`` and ``finetune_*.sh`` command (its
 ``exec`` wrappers followed, its shell variables substituted, ``NCHIPS=1``:
@@ -33,15 +35,30 @@ from fastmax_tpu.models import config as jconfig_mod
 from fastmax_tpu.models import gpt as jgpt
 from fastmax_tpu.models import params as jparams
 from fastmax_tpu.models.config import Config as JaxConfig
+from fastmax_tpu.eval import harness as jharness
+from fastmax_tpu.inference import bench_serving as jbench
+from fastmax_tpu.inference import chat as jchat
+from fastmax_tpu.inference import generate as jgenerate
+from fastmax_tpu.inference import server as jserver
 from fastmax_tpu.scripts import convert_hf_checkpoint as jconv
+from fastmax_tpu.scripts import convert_lit_checkpoint as jlit
+from fastmax_tpu.scripts import convert_pretrained_checkpoint as jpre
+from fastmax_tpu.scripts import merge_lora as jmerge
+from fastmax_tpu.scripts import prepare_alpaca as jprep
 from fastmax_tpu.training import finetune as jfinetune
 from fastmax_tpu.training import pretrain as jpretrain
 from fastmax_tpu.utils import checkpoint as jckpt
 from fastmax_tpu.utils import cli as jcli
+from fastmax_tpu_torch.eval import harness
+from fastmax_tpu_torch.inference import bench_serving, chat, generate, server
 from fastmax_tpu_torch.models import config as tconfig_mod
 from fastmax_tpu_torch.models.params import flat_to_params
 from fastmax_tpu_torch.models.weights import to_numpy_params
 from fastmax_tpu_torch.scripts import convert_hf_checkpoint as tconv
+from fastmax_tpu_torch.scripts import convert_lit_checkpoint as tlit
+from fastmax_tpu_torch.scripts import convert_pretrained_checkpoint as tpre
+from fastmax_tpu_torch.scripts import merge_lora as tmerge
+from fastmax_tpu_torch.scripts import prepare_alpaca as tprep
 from fastmax_tpu_torch.training import finetune, pretrain
 from fastmax_tpu_torch.utils import cli
 from fastmax_tpu_torch.utils.args import TrainArgs
@@ -95,19 +112,43 @@ def test_launch_script_parses_like_jax(script):
         assert got["checkpoint_dir"] == Path("checkpoints/meta-llama/Llama-2-7b-hf")
 
 
-@pytest.mark.parametrize("pair", ["finetune", "pretrain", "convert_hf_checkpoint"])
+# (JAX function, port function, the flags its required parameters need)
+SIGNATURES = {
+    "finetune": (jfinetune.setup, finetune.setup, []),
+    "pretrain": (jpretrain.setup, pretrain.setup, []),
+    "convert_hf_checkpoint": (jconv.convert_hf_checkpoint, tconv.convert_hf_checkpoint,
+                              ["--checkpoint_dir", "x"]),
+    "generate": (jgenerate.main, generate.main, []),
+    "load_and_prepare": (jgenerate.load_and_prepare, generate.load_and_prepare, None),
+    "chat": (jchat.main, chat.main, []),
+    "server": (jserver.main, server.main, []),
+    "bench_serving": (jbench.run, bench_serving.run, []),
+    "eval_harness": (jharness.run_eval_harness, harness.run_eval_harness,
+                     ["--checkpoint_dir", "x"]),
+    "merge_lora": (jmerge.merge_lora, tmerge.merge_lora,
+                   ["--checkpoint_dir", "x", "--lora_path", "y"]),
+    "convert_lit_checkpoint": (jlit.convert_lit_checkpoint, tlit.convert_lit_checkpoint,
+                               ["--checkpoint_path", "x", "--output_path", "y"]),
+    "convert_pretrained_checkpoint": (jpre.convert_pretrained_checkpoint,
+                                      tpre.convert_pretrained_checkpoint,
+                                      ["--checkpoint_dir", "x", "--output_dir", "y"]),
+    "prepare_alpaca": (jprep.prepare, tprep.prepare,
+                       ["--data_file", "x", "--checkpoint_dir", "y"]),
+}
+
+
+@pytest.mark.parametrize("pair", list(SIGNATURES))
 def test_setup_signatures_hold_the_reference(pair):
-    jfn, tfn = {"finetune": (jfinetune.setup, finetune.setup),
-                "pretrain": (jpretrain.setup, pretrain.setup),
-                "convert_hf_checkpoint": (jconv.convert_hf_checkpoint,
-                                          tconv.convert_hf_checkpoint)}[pair]
+    jfn, tfn, required = SIGNATURES[pair]
     want = inspect.signature(jfn).parameters
     got = inspect.signature(tfn).parameters
     assert list(got)[:len(want)] == list(want)
     for name, p in want.items():
         assert plain(got[name].default) == plain(p.default), name
+        assert got[name].kind == p.kind, name
     assert set(got) - set(want) <= {"device"}
-    required = ["--checkpoint_dir", "x"] if pair == "convert_hf_checkpoint" else []
+    if required is None:  # not a command line
+        return
     kw = cli.parse_kwargs(tfn, required)
     for name, p in got.items():
         if p.default is not inspect.Parameter.empty:
@@ -258,10 +299,21 @@ def test_mains_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.main(["--model_name", "easy-transformer-fastmax", "--io.out_dir",
                        str(tmp_path)])
+    # the inference and eval command lines: the card is asked for before anything is read
+    for main_fn in (generate.cli, chat.cli, server.cli, harness.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main_fn(["--checkpoint_dir", str(tmp_path / "absent")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_serving.main(["--model_name", "pythia-14m"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmerge.main(["--checkpoint_dir", str(tmp_path), "--lora_path", "unused.safetensors"])
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = str(REPO)
-    for module in ("training.pretrain", "training.finetune"):
-        out = subprocess.run([sys.executable, "-m", f"fastmax_tpu_torch.{module}",
-                              "--model_name", "easy-transformer", "--io.out_dir", str(tmp_path)],
+    for module, flags in (("training.pretrain", ["--model_name", "easy-transformer",
+                                                 "--io.out_dir", str(tmp_path)]),
+                          ("training.finetune", ["--model_name", "easy-transformer",
+                                                 "--io.out_dir", str(tmp_path)]),
+                          ("inference.generate", ["--checkpoint_dir", str(tmp_path)])):
+        out = subprocess.run([sys.executable, "-m", f"fastmax_tpu_torch.{module}", *flags],
                              capture_output=True, text=True, env=env, cwd=tmp_path, timeout=120)
         assert out.returncode != 0 and "CUDA" in out.stderr, (module, out.stderr[-2000:])

@@ -179,9 +179,15 @@ def test_merge_lora_folds_the_delta():
     got = lora.merge_lora({"blocks": {"attn": from_numpy_params(p, "cpu")}})
     np.testing.assert_allclose(got["blocks"]["attn"]["kernel"].numpy(),
                                want["blocks"]["attn"]["kernel"], rtol=1e-6, atol=1e-6)
-    q = {"q4": torch.zeros((16, 48), dtype=torch.uint8), "lora_A": torch.zeros(2, 32, 4)}
-    with pytest.raises(NotImplementedError):
-        lora.merge_lora({"blocks": {"attn": q}})
+    # a quantized base: dequantized, merged and requantized in its own mode, as the reference
+    q = jax.tree.map(np.asarray, jquant.quantize_linear_params({"kernel": p["kernel"][0]},
+                                                                "bnb.int8"))
+    q.update({k: v[0] for k, v in p.items() if k.startswith("lora_")})
+    want = jax.tree.map(np.asarray, jlora.merge_lora({"blocks": {"attn": q}}))["blocks"]["attn"]
+    got = lora.merge_lora({"blocks": {"attn": from_numpy_params(q, "cpu")}})["blocks"]["attn"]
+    assert sorted(got) == sorted(want) == ["q8", "scale8"]
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
 
 
 # ------------------------------------------------------------------ model level
