@@ -174,7 +174,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    buckets of 1024 tokens and more), batched vs serial and kernels vs plain,
    log-probs at (8, 2048) kernels vs plain, perplexity over 4096 tokens; (g)
    ``convert_pretrained_checkpoint`` on phase 12's pretraining out_dir, loaded
-   back to its ``final`` bit for bit.
+   back to its ``final`` bit for bit;
+14. the linear arms' serving path (the O(1) running state; no kernel of its
+   own, as the reference has none there), inside phase 12's directory: (a)
+   each arm's state prefill (output and the state entries it reads) and 16
+   in-place decode steps in float32 against the same functions in float64 on
+   the card, fastmax at (1, 8, 512, 64) and (1, 32, 512, 128), linearmax and
+   performer at (1, 32, 512, 128), fastmax's steps also against the full
+   masked ``fastmax()`` (K4 at D = 64, the scan at D = 128), with the prefill
+   and one decode step timed; (b) ``InferenceEngine`` on
+   easy-transformer-fastmax (random f32 weights): 32 greedy tokens after a
+   64-token prompt against recomputing the no-cache forward each step (K4),
+   logits against that forward and kernels against plain; (c) the engine on a
+   random Llama-2-7B at full depth, bnb.nf4 -> preload_int4 (K1), with each of
+   fastmax, linearmax and performer: prompts of 64 and 512 tokens, 32 new
+   tokens, prefill ms, decode ms a token, the device busy share, peak memory,
+   the state's bytes against the reckoning, K1 launches, logits kernels vs
+   plain; (d) a ``ContinuousBatcher`` on that 7B with float32 activations
+   (fastmax 2 slots, the others 8; prompts of different lengths in one
+   bucket), each slot's tokens against the engine's; (e) ``generate.main``, ``bench_serving.main`` and the eval
+   harness's ``greedy_until`` on phase 12's 2-layer checkpoint with
+   ``--attn_alg`` each arm; (f) the batcher refusing the prefix cache,
+   ``prefill_chunk`` and ``speculative_k`` with a linear arm, with the
+   reference's ValueError.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -4259,6 +4281,518 @@ def inference_path(torch, results, card, tmp, ckpt, lora_file, pt_out) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 14
+# The linear arms' serving path: the O(1) running state (ops/fastmax.py's state functions,
+# gpt.forward_linear_cache, the engine, the batcher's slots and the command lines). The
+# reference runs no Pallas kernel there (its state prefill calls the scan at every head size
+# and its decode steps are plain XLA), so neither does the port: the path's one kernel is K1,
+# the linears of the 4-bit 7B. K4 runs only in (b)'s reference, the no-cache forward
+# recomputed at D = 64; its launches are held there and left out of the path's counts.
+# (a) holds each state prefill (output and the entries its arm reads) and 16 decode steps
+# against the same functions in float64 on the card at phase 9 (a)'s forward gate, and the
+# fastmax steps also against the full masked fastmax() over the longer sequence (K4 at
+# D = 64, the scan at D = 128) at LINSERVE_DECODE_REL of the largest output. (b) and (c)
+# gate logits kernels against plain=True: (b) in float32 at LINSERVE_F32_LOGITS_REL of the
+# largest (the two differ by their sums' order only), (c) as phase 10 does (float32
+# activations at LOGITS_REL_TOL, bf16 reported), and hold every linear call of a prefill and
+# a decode step (K1) against plain=True on the same input at phase 3's f32 INT4_RTOL of the
+# largest output. Greedy tokens follow the near-tie rule. (c) also measures, for each arm,
+# how far the model itself carries a change of the linears' size to the logits: plain=True
+# against plain=True with every linear's output moved by noise of the largest relative
+# difference the kernels showed (LINSERVE_PERTURB_SEEDS draws). performer's output is
+# num / den with den floored at 0.05 |q| |sum k| and its sign kept, so a change of den near
+# zero is passed on up to 20-fold, or flips the row's sign; its f32 logits kernels vs plain
+# are gated at LINSERVE_PERTURB_FACTOR times that spread (never under LOGITS_REL_TOL), the
+# other arms' at LOGITS_REL_TOL.
+LINSERVE_OP_CASES = (("fastmax", (1, 8, 512, 64)), ("fastmax", (1, 32, 512, 128)),
+                     ("linearmax", (1, 32, 512, 128)), ("performer", (1, 32, 512, 128)))
+LINSERVE_STEPS = 16
+LINSERVE_DECODE_REL = 1e-4
+LINSERVE_F32_LOGITS_REL = 1e-4
+LINSERVE_PERTURB_SEEDS, LINSERVE_PERTURB_FACTOR = (1, 2, 3), 2.0
+LINSERVE_PROMPTS, LINSERVE_NEW = (64, 512), 32
+# fastmax's p = 2 state is 8.59 GB a sequence at the 7B: 2 slots (the p = 1 arms take 8)
+LINSERVE_SLOTS = {"fastmax": 2, "linearmax": N_SLOTS, "performer": N_SLOTS}
+LINSERVE_BATCH_NEW = 16
+LINSERVE_READS = {"fastmax": ("cnt", "s_v", "s_kv", "s_k", "s_kkv", "s_kk"),
+                  "linearmax": ("cnt", "s_v", "s_kv", "s_k", "q_div", "k_div"),
+                  "performer": ("s_kv", "s_k")}
+# the reference's refusals (fastmax_tpu/inference/continuous.py:160-175)
+LINSERVE_REFUSALS = (("fastmax", {"speculative_k": 4}, "speculative continuous batching "
+                      "requires the KV-cache (quadratic) path"),
+                     ("performer", {"prefix_cache_size": 2}, "prefix caching requires the "
+                      "KV-cache (quadratic) path"),
+                     ("linearmax", {"prefill_chunk": 64}, "chunked prefill requires the "
+                      "KV-cache (quadratic) path"))
+
+
+def linear_state_bytes(cfg, batch: int) -> int:
+    """The reckoned bytes of ``init_linear_cache(cfg, batch)``: float32 entries of
+    (L, B, H) x (1, D, D^2, D, D'D, D') with D' = D^2 at p = 2, else 1; linearmax adds
+    two (L, B, H)."""
+    d, p2 = cfg.head_size, cfg.attn_alg in ("fastmax", "fastmax_cuda")
+    d2 = d * d if p2 else 1
+    per_head = 1 + d + d * d + d + d2 * d + d2 + (2 if cfg.attn_alg == "linearmax" else 0)
+    return 4 * cfg.n_layer * batch * cfg.n_head * per_head
+
+
+def linear_state_case(torch, gen, arm, shape, card) -> dict:
+    """(a) One arm's state prefill over N tokens and 16 decode steps (in place), float32
+    against float64 on the card; fastmax's steps also against fastmax() over N + 16.
+    Times: the prefill and one decode step (one layer's attention), by CUDA events."""
+    from fastmax_tpu_torch.ops import fastmax as fm
+
+    b, h, n, d = shape
+    p = 2 if arm == "fastmax" else 1
+    q, k, v, _ = fastmax_qkv(torch, gen, (b, h, n + LINSERVE_STEPS, d), p, torch.float32)
+    z = 8.0 * math.sqrt(d)
+
+    def prefill(dt):
+        args = [x[:, :, :n].to(dt) for x in (q, k, v)]
+        if arm == "fastmax":
+            return fm.fastmax_prefill_state(*args, p=2)
+        return (fm.linearmax_prefill_state if arm == "linearmax" else
+                fm.performer_prefill_state)(*args)
+
+    def step(state, t, dt):
+        args = [x[:, :, t].to(dt) for x in (q, k, v)]
+        if arm == "fastmax":
+            return fm.linear_attn_decode_step(state, *args, z, 2)
+        return (fm.linearmax_decode_step if arm == "linearmax" else
+                fm.performer_decode_step)(state, *args)
+
+    what = f"{arm} {tuple(shape)}"
+    with torch.no_grad():
+        got, ref = {}, {}
+        for dt, into in ((torch.float32, got), (torch.float64, ref)):
+            o, state = prefill(dt)
+            into["prefill o"] = o
+            into.update({f"prefill {name}": state[name].clone() for name in LINSERVE_READS[arm]})
+            outs = []
+            for t in range(n, n + LINSERVE_STEPS):
+                state, o = step(state, t, dt)
+                outs.append(o)
+            into["decode o"] = torch.stack(outs, 2)
+            into.update({f"decode {name}": state[name] for name in LINSERVE_READS[arm]})
+        rel = {name: linear_rel(torch, f"{what} {name} vs float64", got[name], ref[name],
+                                LINEAR_F32_REL["fwd"]) for name in got}
+        if arm == "fastmax":
+            full = fm.fastmax(q, k, v, mask=True, p=2)[:, :, n:]
+            rel["decode o vs fastmax()"] = linear_rel(
+                torch, f"{what} decode vs fastmax() over N + {LINSERVE_STEPS}", got["decode o"],
+                full.double(), LINSERVE_DECODE_REL)
+        del ref, got
+        _, state = prefill(torch.float32)
+        pre_ms = time_ms(lambda: prefill(torch.float32), 3, warmup=1)
+        step_ms = time_ms(lambda: step(state, n, torch.float32), 20)
+    d2 = d * d if p == 2 else 0
+    # a step reads and writes the state it updates (s_kv, and at p = 2 s_kkv, s_kk) once
+    step_bytes = 2 * 4 * b * h * (d * d + d2 * d + d2 + 3 * d + 1) + 4 * 4 * b * h * d
+    row = {"arm": arm, "shape": list(shape), "rel": rel, "tolerance": {
+        "vs float64": LINEAR_F32_REL["fwd"], "vs fastmax()": LINSERVE_DECODE_REL},
+        "prefill_ms": pre_ms, "decode_step_ms": step_ms, "decode_step_bytes": step_bytes,
+        "decode_step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "card": card}
+    log(f"  (a) {what}: max|f32 - f64| / max|f64| worst "
+        f"{max(v_ for k_, v_ in rel.items() if 'fastmax()' not in k_):.3e} (tolerance "
+        f"{LINEAR_F32_REL['fwd']})"
+        + (f", {LINSERVE_STEPS} decode steps vs fastmax() {rel['decode o vs fastmax()']:.3e} "
+           f"(tolerance {LINSERVE_DECODE_REL})" if arm == "fastmax" else "")
+        + f"; prefill {pre_ms:.2f} ms, one decode step {step_ms:.3f} ms against a bytes bound "
+        f"of {row['decode_step_bound_ms']:.3f} ms   [{card}]")
+    return row
+
+
+def linear_engine_small(torch, results, card) -> dict:
+    """(b) ``InferenceEngine`` on easy-transformer-fastmax (random f32 weights): greedy 32
+    tokens after a 64-token prompt against greedy decoding by recomputing the no-cache
+    forward each step (K4, which must launch there); the state prefill's logits against
+    that forward's, and the forward's with the kernels against plain=True. Returns the row
+    and the engine's launch counts (the recompute's stay in the row)."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+
+    cfg = Config.from_name("easy-transformer-fastmax")
+    params = gpt.init_params(cfg, 0, torch.float32, "cuda")
+    engine = InferenceEngine(cfg, params, max_seq_length=cfg.block_size)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(1, cfg.vocab_size, 64),
+                             dtype=torch.int32, device="cuda")
+    n = 64 + LINSERVE_NEW
+    out, launches_engine, engine_s = launched(torch, lambda: engine.generate(prompt, n))
+
+    def recompute():
+        seq = prompt[None].long()
+        with torch.inference_mode():
+            for _ in range(LINSERVE_NEW):
+                logits, _ = gpt.forward(params, cfg, seq)
+                seq = torch.cat([seq, logits[:, -1].argmax(-1, keepdim=True)], dim=1)
+        return seq
+
+    ref, launches_ref, ref_s = launched(torch, recompute)
+    got, want = out[0, 64:].tolist(), ref[0, 64:].tolist()
+    div = first_divergence(torch, engine, prompt.tolist(), got, want)
+    with torch.inference_mode():
+        state_logits, _ = engine.prefill(prompt[None], engine.new_cache())
+        fwd = {plain: gpt.forward(params, cfg, prompt[None].long(), plain=plain)[0][:, -1]
+               for plain in (False, True)}
+    rel = {"state prefill vs no-cache forward": logits_rel(torch, state_logits, fwd[False]),
+           "no-cache forward, kernels vs plain": logits_rel(torch, fwd[False], fwd[True])}
+    row = {"model": "easy-transformer-fastmax (random f32 weights, seed 0)",
+           "engine_launches": launches_engine, "recompute_launches": launches_ref,
+           "engine_s": engine_s, "recompute_s": ref_s, "equal": got == want,
+           "divergence": div, "logits_rel": rel, "tolerance": LINSERVE_F32_LOGITS_REL,
+           "card": card}
+    log(f"  (b) easy-transformer-fastmax engine: 64 + {LINSERVE_NEW} greedy in {engine_s:.2f} s "
+        f"(launches {launches_engine}); recomputing the no-cache forward each step "
+        f"{ref_s:.2f} s (launches {launches_ref}); tokens equal {got == want}"
+        + (f", first divergence at step {div[0]}, top-2 margin {div[1]:.3e} of max|logit| "
+           f"{div[2]:.3e}" if div else "")
+        + "; logits max|diff|/max: " + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in rel.items())
+        + f" (tolerance {LINSERVE_F32_LOGITS_REL})   [{card}]")
+    if not launches_ref.get("fastmax_fwd"):
+        raise AssertionError(f"the no-cache forward at D = 64 launched no K4: {launches_ref}")
+    if div and div[1] > NEAR_TIE_REL * div[2]:
+        raise AssertionError(f"easy-transformer-fastmax: the state decode diverges from the "
+                             f"recomputed forward at step {div[0]}, not a near-tie: {div}")
+    if max(rel.values()) > LINSERVE_F32_LOGITS_REL:
+        raise AssertionError(f"easy-transformer-fastmax logits: {rel}")
+    del engine, params
+    return row, launches_engine
+
+
+def linears_vs_plain(torch, fn) -> tuple:
+    """``fn()`` with every ``linear`` call of models/gpt.py also taken through plain=True
+    on the same input: (the largest max|kernels - plain| / max|plain| of a call, calls)."""
+    from fastmax_tpu_torch.models import gpt
+
+    real, worst = gpt.linear, [0.0, 0]
+
+    def both(p, x, layer=None, *, plain=False):
+        y = real(p, x, layer, plain=plain)
+        worst[0] = max(worst[0], logits_rel(torch, y.float(), real(p, x, layer, plain=True)
+                                            .float()))
+        worst[1] += 1
+        return y
+
+    gpt.linear = both
+    try:
+        fn()
+    finally:
+        gpt.linear = real
+    return tuple(worst)
+
+
+def perturbed_spread(torch, engine, prompt, step_token, rel) -> list:
+    """How far the model carries a change of ``rel`` in its linears to the logits, with no
+    kernel in either run: the prefill and first decode step logits (as
+    ``kernels_vs_plain``) of plain=True against plain=True with every linear's output moved
+    by clipped Gaussian noise of at most ``rel`` of its largest value, for each seed of
+    LINSERVE_PERTURB_SEEDS: [{step: max|diff|/max|plain|}, ...]."""
+    from fastmax_tpu_torch.models import gpt
+
+    real = gpt.linear
+
+    def logits():
+        cache = engine.new_cache()
+        pre, cache = engine.prefill(prompt[None].cuda(), cache, plain=True)
+        with torch.inference_mode():
+            step, _ = engine._forward(step_token[:, None], cache, len(prompt), plain=True)
+        return pre.float(), step[:, -1].float()
+
+    base, out = logits(), []
+    for seed in LINSERVE_PERTURB_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def moved(p, x, layer=None, *, plain=False):
+            y = real(p, x, layer, plain=plain)
+            noise = torch.randn(y.shape, generator=g, device=y.device).clamp_(-4.0, 4.0)
+            return (y.float() + noise * (rel / 4.0) * y.float().abs().max()).to(y.dtype)
+
+        gpt.linear = moved
+        try:
+            got = logits()
+        finally:
+            gpt.linear = real
+        out.append({name: logits_rel(torch, a, b)
+                    for name, a, b in zip(("prefill", "decode_step"), got, base)})
+    return out
+
+
+def linear_engine_7b(torch, cfg, q4, arm, card) -> tuple:
+    """(c) ``InferenceEngine`` on the 7B (rank-1 int4 linears, K1) with ``arm``: prompts
+    of 64 and 512 tokens, 32 new tokens each (prefill ms, decode ms a token), a profile of
+    the decode, peak memory, the state's bytes, logits kernels vs plain=True."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.ops.sampling import sample
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(cfg, q4, max_seq_length=cfg.block_size)
+    rng = np.random.default_rng(2)
+    row = {"arm": arm, "prompts": {}, "card": card}
+
+    def run():
+        engine.generate(torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32),
+                        64 + 4)  # warm-up
+        for n_prompt in LINSERVE_PROMPTS:
+            prompt = torch.as_tensor(rng.integers(1, 32000, n_prompt), dtype=torch.int32,
+                                     device="cuda")
+            cache = engine.new_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = engine.prefill(prompt[None], cache)
+            first = sample(logits)
+            first.cpu()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            gen, cache = engine.decode(cache, first, n_prompt, LINSERVE_NEW)
+            gen.cpu()
+            dec_ms = (time.perf_counter() - t0) * 1e3 / (LINSERVE_NEW - 1)
+            row["prompts"][n_prompt] = {"prefill_ms": pre_ms, "decode_ms_a_token": dec_ms,
+                                        "tokens": gen[0].tolist()}
+            row["state_bytes"] = sum(x.numel() * x.element_size() for x in cache.values())
+            del cache
+        return first
+
+    first, launches, wall = launched(torch, run)
+    row.update(launches=launches, wall_s=wall,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               state_bytes_reckoned=linear_state_bytes(cfg, 1))
+    tok_s = 1e3 / row["prompts"][64]["decode_ms_a_token"]
+    row["profile"] = profile_decode(torch, engine, first, tok_s, steps=4)
+    prompt = torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32)
+    rel, kern = kernels_vs_plain(torch, engine, prompt, None)
+    saved, engine.params = engine.params, with_f32_activations(torch, engine.params)
+    rel32, _ = kernels_vs_plain(torch, engine, prompt, kern[2])
+    calls_rel, n_calls = linears_vs_plain(torch, lambda: kernels_vs_plain(
+        torch, engine, prompt, kern[2]))
+    spread = perturbed_spread(torch, engine, prompt, kern[2], calls_rel)
+    engine.params = saved
+    widest = max(max(r.values()) for r in spread)
+    limit = (max(LOGITS_REL_TOL, LINSERVE_PERTURB_FACTOR * widest) if arm == "performer"
+             else LOGITS_REL_TOL)
+    row["logits_kernels_vs_plain"] = {"bf16": rel, "f32": rel32, "f32_tolerance": limit}
+    row["linear_calls_vs_plain"] = {"worst": calls_rel, "calls": n_calls,
+                                    "tolerance": INT4_RTOL}
+    row["plain_vs_perturbed_plain"] = {"f32": spread, "perturbation": calls_rel,
+                                       "seeds": list(LINSERVE_PERTURB_SEEDS)}
+    p = row["prompts"]
+    log(f"  (c) Llama-2-7B {arm}: prefill {p[64]['prefill_ms']:.1f} ms (64 tokens), "
+        f"{p[512]['prefill_ms']:.1f} ms (512); decode {p[64]['decode_ms_a_token']:.2f} ms a "
+        f"token after 64, {p[512]['decode_ms_a_token']:.2f} after 512; device busy share "
+        f"{row['profile'].get('busy_share', 'not measured')}; peak {row['peak_gb']:.3f} GB above "
+        f"{base / 1e9:.3f} held; state {row['state_bytes'] / 1e9:.4f} GB a sequence (reckoned "
+        f"{row['state_bytes_reckoned'] / 1e9:.4f}); launches {launches}; logits kernels vs "
+        f"plain, max|diff|/max|plain|: f32 prefill {rel32['prefill']:.3e}, decode step "
+        f"{rel32['decode_step']:.3e} (tolerance {limit:.3e}); bf16 {rel['prefill']:.3e}, "
+        f"{rel['decode_step']:.3e}; each of the {n_calls} linear calls (f32 activations) "
+        f"against plain on its input: at most {calls_rel:.3e} (tolerance {INT4_RTOL}); plain "
+        f"vs plain with every linear moved by {calls_rel:.3e} of its largest, seeds "
+        f"{list(LINSERVE_PERTURB_SEEDS)}: "
+        + ", ".join(f"{r['prefill']:.3e}/{r['decode_step']:.3e}" for r in spread)
+        + f" (prefill/decode step)   [{card}]")
+    if not launches.get("int4_rank1_matmul") or row["state_bytes"] != row["state_bytes_reckoned"]:
+        raise AssertionError(f"7B {arm}: launches {launches}, state bytes {row['state_bytes']} "
+                             f"(reckoned {row['state_bytes_reckoned']})")
+    if calls_rel > INT4_RTOL or max(rel32.values()) > limit:
+        raise AssertionError(f"7B {arm}: f32 logits kernels vs plain {rel32} (tolerance "
+                             f"{limit}; bf16 {rel}), linear calls {calls_rel}, plain vs "
+                             f"perturbed plain {spread}")
+    del engine
+    return row, launches
+
+
+def linear_batcher_7b(torch, cfg, q4, arm, card) -> tuple:
+    """(d) A ``ContinuousBatcher`` on the 7B with ``arm``: one request a slot, prompts of
+    different lengths inside one 128-token bucket (``n_valid``), 16 new tokens; each slot's
+    tokens against the engine's solo run (near-tie rule). Float32 activations, as phase 10's
+    batcher: in bf16 the random 32-layer model carries a linear's one-ulp difference (m = 8
+    against m = 1) into the logits beyond the near-tie margin."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+
+    engine = InferenceEngine(cfg, q4, max_seq_length=cfg.block_size)
+    slots = LINSERVE_SLOTS[arm]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 32000, 100 + 3 * i).astype(np.int32) for i in range(slots)]
+    solo = [engine.generate(torch.as_tensor(p), len(p) + LINSERVE_BATCH_NEW)[0, len(p):]
+            .tolist() for p in prompts]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        b = ContinuousBatcher(cfg, q4, n_slots=slots, max_seq_length=cfg.block_size)
+        rids = [b.submit(p, LINSERVE_BATCH_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        res = b.run_to_completion()
+        return [res[r] for r in rids], time.perf_counter() - t0
+
+    (got, dt), launches, _ = launched(torch, run)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rest = []
+    for p, a, want in zip(prompts, got, solo):
+        div = first_divergence(torch, engine, p.tolist(), a, want)
+        if div is not None:
+            rest.append(div)
+            if div[1] > NEAR_TIE_REL * div[2]:
+                raise AssertionError(f"7B batcher {arm}: slot tokens diverge from the engine's "
+                                     f"at step {div[0]}, not a near-tie: {div}")
+    row = {"arm": arm, "slots": slots, "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": LINSERVE_BATCH_NEW, "seconds": dt,
+           "tok_s": slots * LINSERVE_BATCH_NEW / dt, "peak_gb": peak, "launches": launches,
+           "equal": sum(a == w for a, w in zip(got, solo)), "near_ties": rest, "card": card}
+    log(f"  (d) batcher, 7B {arm} (f32 activations): {slots} slots, prompts of "
+        f"{row['prompt_lens'][0]}-{row['prompt_lens'][-1]} tokens in one 128 bucket, {LINSERVE_BATCH_NEW} new each in "
+        f"{dt:.2f} s ({row['tok_s']:.1f} tok/s, prefill included); peak {peak:.3f} GB above "
+        f"{base / 1e9:.3f} held; tokens == the engine's for {row['equal']} of {slots}; the "
+        f"rest (step, top-2 margin, max|logit|): {rest}; launches {launches}   [{card}]")
+    if not (launches.get("int4_rank1_matmul") and all(len(a) == LINSERVE_BATCH_NEW for a in got)):
+        raise AssertionError(f"7B batcher {arm}: launches {launches}, tokens {got}")
+    del engine
+    return row, launches
+
+
+def linear_commands(torch, card, ckpt) -> tuple:
+    """(e) The command lines on phase 12's 2-layer checkpoint of the 7B's width with
+    ``--attn_alg`` each arm: generate.main's text against the engine's tokens, a short
+    bench_serving load (bnb.nf4, K1) and the eval harness's greedy_until; (f) the batcher's
+    refusals with the reference's messages."""
+    import importlib.util
+    import io
+
+    from fastmax_tpu_torch.eval import harness
+    from fastmax_tpu_torch.inference import bench_serving, generate
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models.tokenizer import Tokenizer
+
+    have_tok = importlib.util.find_spec("tokenizers") is not None
+    rows, counts = {}, {}
+    for arm in LINEAR_ARMS:
+        row = {}
+        if have_tok:
+            tok = Tokenizer(ckpt)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+                _, launches, _ = launched(torch, lambda: generate.main(
+                    prompt="def main", checkpoint_dir=ckpt, max_new_tokens=16, temperature=0.0,
+                    attn_alg=arm))
+            add_counts(counts, launches)
+            cfg, params = generate.load_and_prepare(ckpt, attn_alg=arm)
+            enc = tok.encode("def main")
+            out = InferenceEngine(cfg, params, max_seq_length=len(enc) + 16).generate(
+                torch.as_tensor(enc), len(enc) + 16, eos_id=tok.eos_id)
+            want = tok.decode(out[0].cpu().numpy())
+            lm = harness.FastmaxLM(cfg, params, tok, max_seq_length=256)
+            until = lm.greedy_until("def main", 16)
+            row.update(generate_main=buf.getvalue().strip() == want.strip(),
+                       greedy_until=until == tok.decode(out[0, len(enc):].cpu().numpy()))
+            del params, lm
+        flags = ["--checkpoint_dir", str(ckpt), "--attn_alg", arm, "--quantize", "bnb.nf4",
+                 "--n_slots", "4", "--n_requests", "8", "--prompt_len", "64",
+                 "--max_new_tokens", "16"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got, launches, wall = launched(torch, lambda: bench_serving.main(flags))
+        add_counts(counts, launches)
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        row.update(bench=line, bench_launches=launches, bench_wall_s=wall)
+        none = "(no tokenizers package)"
+        log(f"  (e) {arm}: generate.main == the engine's text {row.get('generate_main', none)}; "
+            f"greedy_until == the engine's {row.get('greedy_until', none)}; "
+            f"bench_serving {' '.join(flags[2:])}: {line['generated_tokens']} tokens, "
+            f"{line['aggregate_tok_s']} tok/s, TTFT p50 {line['ttft_p50_ms']} ms, {wall:.1f} s; "
+            f"launches {launches}   [{card}]")
+        if not (row.get("generate_main", True) and row.get("greedy_until", True)
+                and line == got and line["generated_tokens"] == 8 * 16
+                and launches.get("int4_rank1_matmul")):
+            raise AssertionError(f"command lines with {arm}: {row}")
+        rows[arm] = row
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.utils.checkpoint import load_model_params
+
+    _, params = load_model_params(ckpt, dtype=torch.bfloat16, device="cuda")
+    refused = {}
+    for arm, kw, msg in LINSERVE_REFUSALS:
+        try:
+            ContinuousBatcher(Config.from_checkpoint(ckpt, attn_alg=arm), params, n_slots=1, **kw)
+        except ValueError as e:
+            refused[next(iter(kw))] = str(e)
+            if msg not in str(e):
+                raise AssertionError(f"{arm} with {kw}: {e!r}, not the reference's {msg!r}")
+        else:
+            raise AssertionError(f"the batcher took {kw} with {arm}")
+    log(f"  (f) refused with the reference's ValueError: {refused}")
+    return rows, refused, counts
+
+
+def linear_serving_path(torch, results, card, tmp, ckpt) -> dict:
+    """Phase 14: the linear arms' serving path (see above); returns the launch counts of
+    its serving path ((b)-(e), the references that check it left out): K1's alone."""
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops import quant
+
+    log("[14] the linear arms' serving path: the O(1) state's functions vs float64, the "
+        "engine on easy-transformer-fastmax and on Llama-2-7B with each arm, the batcher's "
+        "slots, the command lines and the refusals")
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out["op_check"] = [linear_state_case(torch, gen, arm, shape, card)
+                       for arm, shape in LINSERVE_OP_CASES]
+    out["easy_transformer"], launches = linear_engine_small(torch, results, card)
+    add_counts(counts, launches)
+
+    cfg0 = Config.from_name("Llama-2-7b-hf")
+    cfg0.block_size = 1024
+    t0 = time.perf_counter()
+    dense = gpt.init_params(cfg0, 0, torch.bfloat16, "cuda")
+    nf4 = quant.quantize_model(dense, "bnb.nf4")
+    del dense
+    q4 = InferenceEngine.prepare_params(nf4, "preload_int4")
+    del nf4
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  random bf16 Llama-2-7B (seed 0) -> bnb.nf4 -> preload_int4 (K1) on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+    out["engine_7b"], out["batcher_7b"] = {}, {}
+    q4_f32 = with_f32_activations(torch, q4)
+    for arm in LINEAR_ARMS:
+        cfg = Config.from_name("Llama-2-7b-hf", attn_alg=arm)
+        cfg.block_size = 1024
+        out["engine_7b"][arm], launches = linear_engine_7b(torch, cfg, q4, arm, card)
+        add_counts(counts, launches)
+        out["batcher_7b"][arm], launches = linear_batcher_7b(torch, cfg, q4_f32, arm, card)
+        add_counts(counts, launches)
+    del q4, q4_f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["commands"], out["refusals"], launches = linear_commands(torch, card, ckpt)
+    add_counts(counts, launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = counts
+    log(f"  the phase in {out['phase_s']:.1f} s; launches of its serving path {counts} (the "
+        f"K4 launches of (b)'s recomputed reference are not among them)")
+    if set(counts) != {"int4_rank1_matmul"}:
+        raise AssertionError(f"phase 14's serving path launched {counts}, not K1 alone")
+    results["linear_serving"] = out
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4327,12 +4861,15 @@ def main() -> int:
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
-    counts_cmd, counts_inf = command_path(
-        torch, results, card, lambda *a: inference_path(torch, results, card, *a))
+    counts_cmd, (counts_inf, counts_lin) = command_path(
+        torch, results, card, lambda tmp, ckpt, *a: (
+            inference_path(torch, results, card, tmp, ckpt, *a),
+            linear_serving_path(torch, results, card, tmp, ckpt)))
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
-                           "command_path": counts_cmd, "inference_path": counts_inf}
+                           "command_path": counts_cmd, "inference_path": counts_inf,
+                           "linear_serving_path": counts_lin}
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -4342,7 +4879,8 @@ def main() -> int:
     # dk, dv); K6, K7: one call at the finetune shape (bf16, the path's type), with their
     # own max abs errors there (K6: out, lse; K7: dq, dk, dv); their library time is SDPA's
     # causal forward, and for K7 its forward + backward less that forward. Launches: the
-    # serving path (K1-K3), the training path (K4, K5), the finetune path (K6, K7).
+    # serving path (K1-K3), the training path (K4, K5), the finetune path (K6, K7), with the
+    # linear arms' serving path (phase 14, K1 alone) added to K1.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
@@ -4366,7 +4904,8 @@ def main() -> int:
                              "ms": sum(r["fma_ms"] for r in layer)})
     kernels = [
         {"name": k1.name, "route": "cuda", "source": str(k1.source.relative_to(REPO)),
-         "replaces": k1.replaces, "launches": counts[k1.name], "max_abs_err": int4_err,
+         "replaces": k1.replaces, "launches": counts[k1.name] + counts_lin.get(k1.name, 0),
+         "max_abs_err": int4_err,
          "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
          "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
          "library_ms": None, "by_path": k1_paths},
@@ -4393,7 +4932,8 @@ def main() -> int:
              k5_bound(train_row, train_row["k5_path"]))):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_train[kern.name], "max_abs_err": fm_err[kern.name],
+                        "launches": counts_train[kern.name],
+                        "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                         "library_ms": None})
     # K4 and K5 at p = 2 by kernel, type and chunk, each with its kernel's bound and both

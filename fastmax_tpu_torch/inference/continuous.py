@@ -27,9 +27,17 @@ sampled on the device (``ops.sampling.sample_traced``); an all-greedy batch
 skips the sort and the noise, which the host knows from its requests, so
 no device value is read to decide it.
 
-Not ported yet: ``speculative_k > 0`` (ROADMAP.md queue A, A1), the
-multi-GPU ``mesh`` (A8) and the linear-attention slots (A5 slice 2) raise
-``NotImplementedError``.
+With a linear ``attn_alg`` each slot holds an O(1) running state
+(``gpt.init_linear_cache``, n_slots rows) instead of KV rows: admission
+prefills the prompt padded to its bucket straight into the slot's rows,
+overwriting what its arm reads (``n_valid`` keeps the padding out of the sums), and decode
+advances every slot's state by one token. Such slots never take the batched
+admission wave, and speculative decoding, the prefix cache and chunked
+prefill refuse a linear arm with the reference's ``ValueError``: a running
+state cannot roll back, share a prefix, or absorb a prompt in pieces.
+
+Not ported yet: ``speculative_k > 0`` (ROADMAP.md queue A, A1) and the
+multi-GPU ``mesh`` (A8) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -86,16 +94,23 @@ class ContinuousBatcher:
         with 0, as the reference starts from PRNGKey(0)), and ``plain``, a
         test hook that sends every forward through the kernels' plain
         PyTorch versions, as ``InferenceEngine._forward``'s."""
+        self._linear_alg = cfg.attn_alg in gpt.LINEAR_ALGS
+        if speculative_k and self._linear_alg:
+            raise ValueError(
+                "speculative continuous batching requires the KV-cache (quadratic) path: "
+                "linear-attention running state cannot roll back rejected drafts")
+        if prefix_cache_size and self._linear_alg:
+            raise ValueError("prefix caching requires the KV-cache (quadratic) path")
+        if prefill_chunk and self._linear_alg:
+            raise ValueError(
+                "chunked prefill requires the KV-cache (quadratic) path: linear-state prefill "
+                "must absorb the exact prompt in one pass")
         if speculative_k:
             raise NotImplementedError(
                 "speculative continuous batching is not ported yet (ROADMAP.md queue A, A1)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-GPU serving is not ported yet (ROADMAP.md queue A, A8)")
-        if cfg.attn_alg != "quadratic":
-            raise NotImplementedError(
-                f"linear-attention slots ({cfg.attn_alg}) are not ported yet (ROADMAP.md queue "
-                "A, A5 slice 2)")
         self.cfg = cfg
         self.plain = bool(plain)
         self.device = default_device(device)
@@ -123,9 +138,12 @@ class ContinuousBatcher:
         self.prefix_cache_hits = 0  # tokens whose prefill a cached prefix saved
         self.rope = build_rope_cache(self.max_seq_length, cfg.rope_n_elem, cfg.rope_base,
                                      cfg.rope_condense_ratio, device=self.device)
-        self.cache = gpt.init_kv_cache(cfg, n_slots, self.max_seq_length,
-                                       cache_dtype or self.params["wte"].dtype,
-                                       device=self.device)
+        if self._linear_alg:
+            self.cache = gpt.init_linear_cache(cfg, n_slots, device=self.device)
+        else:
+            self.cache = gpt.init_kv_cache(cfg, n_slots, self.max_seq_length,
+                                           cache_dtype or self.params["wte"].dtype,
+                                           device=self.device)
         self.positions = np.zeros(n_slots, np.int32)  # next write position
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
@@ -171,6 +189,15 @@ class ContinuousBatcher:
                                 rope_cache=self.rope, plain=self.plain)
         return logits[:, min(n_valid - p0, idx.shape[1]) - 1]
 
+    def _prefill_linear(self, tokens: np.ndarray, n_valid: int, row: dict) -> torch.Tensor:
+        """A prompt padded to its bucket into a slot's running state ``row``
+        (views, overwritten in place); returns the logits (1, V) at n_valid - 1."""
+        idx = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)[None]
+        logits, _ = gpt.forward_linear_cache(self.params, self.cfg, idx, state=row, input_pos=0,
+                                             rope_cache=self.rope, is_prefill=True,
+                                             n_valid=n_valid, plain=self.plain)
+        return logits[:, n_valid - 1]
+
     def _slot_row(self, slot: int) -> dict:
         return {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
 
@@ -186,21 +213,26 @@ class ContinuousBatcher:
             req = self.queue.pop(0)
             t = len(req.prompt)
             row = self._slot_row(slot)
-            p0 = self._apply_prefix(req.prompt[:t], row) if self.prefix_cache_size else 0
-            if self.prefill_chunk:
-                # chunked admission: claim the slot, start at the shared prefix
-                # (if cached); _prefill_tick does the work
-                self._prefilling[slot] = p0
-                self.positions[slot] = p0
-                self.slots[slot] = req
-                continue
-            n_suffix = t - p0
-            bucket = self._bucket(n_suffix, self.max_seq_length - p0)
-            padded = np.zeros(bucket, np.int32)
-            padded[:n_suffix] = req.prompt[p0:p0 + bucket][:n_suffix]
-            last = self._prefill(padded, t, row, p0)
-            if self.prefix_cache_size:
-                self._prefix_insert(req.prompt[:t], row)
+            if self._linear_alg:
+                padded = np.zeros(self._bucket(t, self.max_seq_length), np.int32)
+                padded[:t] = req.prompt[:padded.size]
+                last = self._prefill_linear(padded, t, row)
+            else:
+                p0 = self._apply_prefix(req.prompt[:t], row) if self.prefix_cache_size else 0
+                if self.prefill_chunk:
+                    # chunked admission: claim the slot, start at the shared prefix
+                    # (if cached); _prefill_tick does the work
+                    self._prefilling[slot] = p0
+                    self.positions[slot] = p0
+                    self.slots[slot] = req
+                    continue
+                n_suffix = t - p0
+                bucket = self._bucket(n_suffix, self.max_seq_length - p0)
+                padded = np.zeros(bucket, np.int32)
+                padded[:n_suffix] = req.prompt[p0:p0 + bucket][:n_suffix]
+                last = self._prefill(padded, t, row, p0)
+                if self.prefix_cache_size:
+                    self._prefix_insert(req.prompt[:t], row)
             first = self._first_token(req, last)
             req.generated.append(first)
             self.positions[slot] = t
@@ -213,7 +245,7 @@ class ContinuousBatcher:
         slot's positions >= its prompt length are never attended before
         decode overwrites them). Prefix-cache hits and chunked admission
         take the per-request path; only full P-bucket groups run here."""
-        if self.prefill_chunk or not self.prefill_batch_buckets:
+        if self._linear_alg or self.prefill_chunk or not self.prefill_batch_buckets:
             return
         while True:
             free = [s for s in range(self.n_slots) if self.slots[s] is None]
@@ -379,8 +411,14 @@ class ContinuousBatcher:
     def _decode_step(self, tokens, positions, temps, topk, hot: bool) -> torch.Tensor:
         """One token for every slot: tokens, positions (n_slots,) on the
         device; returns the next tokens (n_slots,) int32 on the device."""
-        logits, _ = gpt.forward(self.params, self.cfg, tokens[:, None], input_pos=positions,
-                                kv_cache=self.cache, rope_cache=self.rope, plain=self.plain)
+        if self._linear_alg:
+            logits, _ = gpt.forward_linear_cache(self.params, self.cfg, tokens[:, None],
+                                                 state=self.cache, input_pos=positions,
+                                                 rope_cache=self.rope, is_prefill=False,
+                                                 plain=self.plain)
+        else:
+            logits, _ = gpt.forward(self.params, self.cfg, tokens[:, None], input_pos=positions,
+                                    kv_cache=self.cache, rope_cache=self.rope, plain=self.plain)
         return sample_traced(logits[:, -1], temps, topk, generator=self.generator, hot=hot)
 
     def _slot_inputs(self, decodable):

@@ -6,8 +6,13 @@ greedy or sampled (temperature, top-k) from an explicit ``torch.Generator``.
 The decode loop keeps the token buffer and the sampling on the device and
 reads nothing back per token when ``eos_id`` is None: the host learns the
 result once, at the end. With an ``eos_id`` it checks the new token each
-step, as the reference's eos test does. The linear-attention state cache
-comes with ROADMAP A5 slice 2.
+step, as the reference's eos test does.
+
+With a linear ``attn_alg`` (fastmax, fastmax_cuda, linearmax, performer) the
+cache is the O(1) running state (``gpt.init_linear_cache``): the prompt is
+prefilled exactly, in one pass (never in chunks: the state must absorb the
+whole prompt at once), and each decode step advances the state through
+``gpt.forward_linear_cache``, as the reference's engine does.
 """
 
 from __future__ import annotations
@@ -123,6 +128,7 @@ class InferenceEngine:
         the autotune run there."""
         self.cfg = cfg
         self.device = default_device(device)
+        self._linear_alg = cfg.attn_alg in gpt.LINEAR_ALGS
         self.params = self.prepare_params(_to_device(params, self.device), weights_mode)
         self.max_seq_length = min(max_seq_length or cfg.block_size, cfg.block_size)
         self.batch_size = batch_size
@@ -168,20 +174,28 @@ class InferenceEngine:
         return quant.requantize_int4_model(params, "rank1")
 
     def new_cache(self) -> dict:
-        if self.cfg.attn_alg != "quadratic":
-            raise NotImplementedError(f"attn_alg {self.cfg.attn_alg!r} needs the linear-attention "
-                                      "state cache (ROADMAP A5 slice 2)")
+        """The KV cache, or for a linear arm the running state."""
+        if self._linear_alg:
+            return gpt.init_linear_cache(self.cfg, self.batch_size, device=self.device)
         return gpt.init_kv_cache(self.cfg, self.batch_size, self.max_seq_length,
                                  self.cache_dtype, device=self.device)
 
-    def _forward(self, tokens, cache, input_pos: int, plain: bool = False):
+    def _forward(self, tokens, cache, input_pos: int, plain: bool = False,
+                 is_prefill: Optional[bool] = None):
+        if self._linear_alg:
+            return gpt.forward_linear_cache(self.params, self.cfg, tokens, state=cache,
+                                            input_pos=input_pos, rope_cache=self.rope_cache,
+                                            is_prefill=is_prefill, plain=plain)
         return gpt.forward(self.params, self.cfg, tokens, input_pos=input_pos, kv_cache=cache,
                            rope_cache=self.rope_cache, plain=plain)
 
     @torch.inference_mode()
     def prefill(self, prompt: torch.Tensor, cache: dict, plain: bool = False):
-        """Run the (B, T) prompt through the model in PREFILL_CHUNK pieces;
-        returns (last-position logits (B, V), cache)."""
+        """Run the (B, T) prompt through the model in PREFILL_CHUNK pieces (a
+        linear arm: in one pass); returns (last-position logits (B, V), cache)."""
+        if self._linear_alg:
+            logits, cache = self._forward(prompt, cache, 0, plain, is_prefill=True)
+            return logits[:, -1, :], cache
         t = prompt.shape[1]
         c = self.PREFILL_CHUNK
         pos = 0

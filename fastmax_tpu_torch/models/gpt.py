@@ -23,9 +23,16 @@ their chunked scans (ops/fastmax.py), and ``quadratic`` at T >= 1024 through
 the trainable flash kernels K6 (forward) and K7 (backward); ``remat=True``
 recomputes each block in the backward (``torch.utils.checkpoint``).
 ``init_params`` gives the GPT-NeoX initialisation from a seed; the GPT-NeoX
-MLP (exact or tanh GELU) and bias leaves are ported. The linear-attention
-state cache (the cached forward with a linear arm, ROADMAP A5 slice 2), MoE
-and the XLA remat policies come in later slices.
+MLP (exact or tanh GELU) and bias leaves are ported. MoE and the XLA remat
+policies come in later slices.
+
+The cached forward with a linear arm reads the dense cache as the reference
+does (``ops/attention.attention(..., is_decode=True)``: unmasked over the
+padded cache). The serving path of the linear arms is the running state
+instead: ``init_linear_cache`` gives one stacked (L, B, H, ...) float32 state
+(``ops/fastmax.STATE_NAMES``, and linearmax's frozen ``q_div``/``k_div``)
+whose size does not grow with the sequence, and ``forward_linear_cache``
+prefills a prompt into it or advances it by one token, updating it in place.
 """
 
 from __future__ import annotations
@@ -35,7 +42,9 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention, int8_cache_attention, scaled_dot_product_attention
+from ..ops import fastmax as fm
+from ..ops.attention import (attention, int8_cache_attention, repeat_kv_heads,
+                             scaled_dot_product_attention)
 from ..ops.decode_attention import int8_decode_attention_stacked, int8_decode_eligible
 from ..ops.flash_attention import BLOCK_Q as FLASH_BLOCK_Q
 from ..ops.flash_attention import flash_attention, flash_eligible
@@ -230,8 +239,8 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
         _write(kv_cache["v"], v.to(kv_cache["v"].dtype), layer, input_pos)
         k, v = kv_cache["k"][layer], kv_cache["v"][layer]
     if cfg.attn_alg != "quadratic":
-        raise NotImplementedError(f"attn_alg {cfg.attn_alg!r} over a KV cache needs the "
-                                  "linear-attention state cache (ROADMAP A5 slice 2)")
+        y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=hs, is_decode=True, plain=plain)
+        return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
     s_len = k.shape[2]
     if t > 1 and isinstance(input_pos, int) and \
             flash_eligible(t + (-t) % FLASH_BLOCK_Q, s_len, hs):
@@ -398,3 +407,126 @@ def forward(
     if logits_at is not None:
         x = x[torch.arange(b, device=device), logits_at.to(device).long()][:, None]
     return linear(params["lm_head"], x), kv_cache
+
+
+# ------------------------------------------------------- the linear-attention state cache
+# O(1)-per-token decode for the linear arms (counterpart of the reference's
+# init_linear_cache, _attn_linear_state and forward_linear_cache).
+
+LINEAR_ALGS = ("fastmax", "fastmax_cuda", "linearmax", "performer")
+
+
+def _degree(attn_alg: str) -> int:
+    return 2 if attn_alg in ("fastmax", "fastmax_cuda") else 1
+
+
+def init_linear_cache(cfg: Config, batch_size: int, device=None) -> dict:
+    """The stacked running state (L, B, n_head, ...) in float32, for the full
+    head count (the linear arms run on repeated KV heads). At p = 2 ``s_kkv``
+    is (L, B, H, D^2, D): 8.59 GB a sequence at Llama-2-7B's 32 layers, 32
+    heads and D = 128."""
+    n = cfg.n_layer
+    flat = fm.linear_attn_state_init(n * batch_size, cfg.n_head, cfg.head_size,
+                                     _degree(cfg.attn_alg), device=device)
+    state = {name: x.view(n, batch_size, *x.shape[1:]) for name, x in flat.items()}
+    if cfg.attn_alg == "linearmax":
+        for name in ("q_div", "k_div"):
+            state[name] = torch.ones(state["cnt"].shape, dtype=torch.float32, device=device)
+    return state
+
+
+def _attn_linear_state(p: dict, x: torch.Tensor, cfg: Config, cos, sin, state: dict, layer: int,
+                       is_prefill: bool, n_valid, plain: bool):
+    """Attention of layer ``layer`` through the running state, which it
+    updates in place. With ``n_valid`` (prefill only) the rows at or past it
+    are padding: their q, k and v are zeroed after RoPE, so that they add
+    nothing to the sums but a count, which the caller overwrites."""
+    b, t, _ = x.shape
+    hs = cfg.head_size
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, layer, plain)
+    k, v = repeat_kv_heads(k, cfg.n_head), repeat_kv_heads(v, cfg.n_head)
+    if n_valid is not None:
+        keep = (torch.arange(t, device=x.device) < n_valid)[:, None]
+        q, k, v = (torch.where(keep, a, 0.0) for a in (q, k, v))
+    st = {name: a[layer] for name, a in state.items()}
+    alg = cfg.attn_alg
+    if is_prefill:
+        if alg == "linearmax":
+            y, new = fm.linearmax_prefill_state(q, k, v, p=1)
+        elif alg == "performer":
+            y, new = fm.performer_prefill_state(q, k, v)
+        else:
+            y, new = fm.fastmax_prefill_state(q, k, v, p=_degree(alg))
+        for name, val in new.items():
+            st[name].copy_(val)
+    else:
+        q1, k1, v1 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+        if alg == "linearmax":
+            _, o = fm.linearmax_decode_step(st, q1, k1, v1, p=1)
+        elif alg == "performer":
+            _, o = fm.performer_decode_step(st, q1, k1, v1)
+        else:
+            _, o = fm.linear_attn_decode_step(st, q1, k1, v1, 8.0 * hs ** 0.5, _degree(alg))
+        y = o[:, :, None, :]
+    return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
+
+
+def forward_linear_cache(
+    params: dict,
+    cfg: Config,
+    idx: torch.Tensor,
+    *,
+    state: dict,
+    input_pos,
+    rope_cache: Optional[tuple] = None,
+    max_seq_length: Optional[int] = None,
+    is_prefill: Optional[bool] = None,
+    n_valid: Optional[int] = None,
+    plain: bool = False,
+):
+    """The forward through the linear-attention state (``init_linear_cache``),
+    updated in place. ``is_prefill=True`` runs the T tokens of idx (B, T) and
+    overwrites every entry of the state that the arm reads (the engine passes
+    it, so that a one-token prompt prefills too; the default is T > 1);
+    ``is_prefill=False`` is one decode step
+    (T = 1). ``input_pos``: the position of idx[:, 0], a Python int, or a (B,)
+    tensor of per-slot positions at T = 1. ``n_valid`` (prefill): the prompt's
+    true length inside a padded bucket; the count is set to it after the
+    layers. ``plain=True`` sends the linears' kernel calls to their plain
+    versions. Returns (logits (B, T, padded_vocab), state)."""
+    b, t = idx.shape
+    device = idx.device
+    if rope_cache is None:
+        n = max_seq_length or cfg.block_size
+        rope_cache = build_rope_cache(n, cfg.rope_n_elem, cfg.rope_base,
+                                      cfg.rope_condense_ratio, device=device)
+    n_rope = rope_cache[0].shape[0]
+    if isinstance(input_pos, torch.Tensor) and input_pos.ndim == 1:
+        if t != 1:
+            raise ValueError("vector input_pos requires single-token decode")
+        # an out-of-range gather clamps in the reference; garbage rows of idle slots only
+        rows = torch.clamp(input_pos.to(device).long(), 0, n_rope - 1)
+        cos, sin = rope_cache[0][rows][:, None, None], rope_cache[1][rows][:, None, None]
+        if is_prefill is None:
+            is_prefill = False
+    else:
+        start = min(max(int(input_pos), 0), n_rope - t)  # the reference's dynamic_slice clamp
+        cos, sin = rope_cache[0][start:start + t], rope_cache[1][start:start + t]
+    if is_prefill is None:
+        is_prefill = t > 1
+    if not is_prefill:
+        n_valid = None
+
+    x = embedding(params["wte"], idx)
+    if cfg.scale_embeddings:
+        x = x * (cfg.n_embd ** 0.5)
+    for layer in range(cfg.n_layer):
+        def attn_fn(ap, n1, layer=layer):
+            return _attn_linear_state(ap, n1, cfg, cos, sin, state, layer, is_prefill, n_valid,
+                                      plain)
+        x = apply_block(params["blocks"], x, cfg, layer, attn_fn, plain=plain)
+    if n_valid is not None:
+        # the padded rows counted in the scan: the true length
+        state["cnt"].fill_(float(n_valid))
+    x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
+    return linear(params["lm_head"], x), state

@@ -41,6 +41,16 @@ def from_numpy_params(tree: dict, device=None) -> dict:
     return walk(tree)
 
 
+def from_numpy_state(state: dict, device=None) -> dict:
+    """A linear-attention running state of the JAX package (``init_linear_cache``
+    or a prefill's, as numpy arrays) -> float32 tensors on ``device``, writable
+    copies that a decode step may update in place. Entries keep their shapes:
+    the reference's p = 1 placeholders ``s_kkv`` (..., 1, 1) and ``s_kk``
+    (..., 1), which no p = 1 step reads, stay as they are."""
+    device = default_device(device)
+    return {name: _tensor(np.asarray(a, np.float32), device) for name, a in state.items()}
+
+
 def to_numpy_params(tree: dict) -> dict:
     """Torch parameter tree -> numpy arrays on the host."""
     if isinstance(tree, dict):

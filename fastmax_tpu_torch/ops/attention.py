@@ -9,7 +9,12 @@ full-sequence forward: ``quadratic``, and the linear arms of
 ``fastmax``/``fastmax_cuda`` (degree 2: the kernel pair K4/K5 at head sizes up
 to 64, the reversible float32 scan above), ``linearmax`` (degree 1) and
 ``performer`` (k and v cut to the query length, as the reference cuts them).
-The linear arms over a KV cache come with ROADMAP A5 slice 2.
+Over a KV cache (``is_decode``) the linear arms run as the reference runs
+them there: fastmax and linearmax unmasked over the whole padded cache (the
+global-sum formula, whose count term is the query length), performer causal
+over the cache's first T positions. That differs from the causal forward on
+purpose, as it does in the reference; the serving path takes the running
+state instead (``models/gpt.forward_linear_cache``).
 
 Quadratic attention at T >= ``BLOCKWISE_MIN_T`` takes the reference's
 trainable route (``fastmax_tpu/ops/attention.py:289-347``) with its constants
@@ -137,13 +142,15 @@ def attention(
     *,
     attn_alg: str,
     head_size: int,
+    is_decode: bool = False,
     plain: bool = False,
 ) -> torch.Tensor:
     """Dispatch on ``attn_alg`` for the causal full-sequence forward (the
-    reference's ``mask=None``). q: (B, Hq, T, D); k, v: (B, G, T, D). For the
-    linear algorithms the grouped KV heads are repeated to the full head count
-    first. An explicit mask and the reference's ``is_decode`` (the linear
-    algorithms unmasked over a KV cache, ROADMAP A5 slice 2) are not ported."""
+    reference's ``mask=None``). q: (B, Hq, T, D); k, v: (B, G, T, D), or
+    (B, G, S, D) over a KV cache with ``is_decode`` (the linear algorithms
+    only: fastmax and linearmax then run unmasked). For the linear algorithms
+    the grouped KV heads are repeated to the full head count first. An
+    explicit mask (ROADMAP A1's batched verify) is not ported."""
     if attn_alg == "quadratic":
         if q.shape[2] >= BLOCKWISE_MIN_T:
             return _long_causal(q, k, v, head_size, plain)
@@ -156,9 +163,9 @@ def attention(
         t = q.shape[2]
         return performer(q, k[:, :, :t], v[:, :, :t])
     if attn_alg == "linearmax":
-        return linearmax(q, k, v, p=1)
+        return linearmax(q, k, v, p=1, mask=not is_decode)
     if attn_alg in ("fastmax", "fastmax_cuda"):
-        return fastmax(q, k, v, p=2, mask=True, plain=plain)
+        return fastmax(q, k, v, p=2, mask=not is_decode, plain=plain)
     raise ValueError(f"Attention algorithm {attn_alg} not supported")
 
 

@@ -27,8 +27,17 @@ The causal form has two routes, as the reference has on its chip:
 ``performer`` (causal dot-product attention with a sign-keeping denominator
 clamp) run the scan's idea with autograd through the chunk loop, as the
 reference differentiates them; neither takes the fastmax kernels. The
-unmasked form is the global-sum formula. The recurrent decode state comes
-with the linear-attention state cache (ROADMAP A5 slice 2).
+unmasked form is the global-sum formula.
+
+The recurrent decode state (the serving path's O(1) cache, counterpart of
+the reference's ``fastmax_prefill_state`` .. ``linear_attn_decode_step``):
+a prefill runs the scan over the prompt and keeps its final state (at every
+head size: it never takes the kernel pair), and each decode step absorbs the
+new (k, v) into the state, then reads it with the new q. A step updates
+the state in place (where the reference returns a new one, its buffers
+donated): the outer products are added by ``baddbmm_`` without being
+materialised, which spares the p = 2 state's (D^2, D) a copy. Plain
+PyTorch, as the reference is plain XLA here.
 """
 
 from __future__ import annotations
@@ -59,6 +68,11 @@ def _clamp_den(den, floor):
     """|den| floored at ``floor``, its sign kept (0 counts as positive)."""
     sign = torch.where(den >= 0.0, 1.0, -1.0)
     return sign * torch.maximum(den.abs(), floor)
+
+
+def _wide(x):
+    """float32, or float64 for a float64 input (a yardstick for the float32 path)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _auto_chunk(chunk: int, n: int) -> int:
@@ -359,20 +373,20 @@ def performer(q, k, v, eps: float = 1e-6, chunk: int = DEFAULT_CHUNK,
               den_floor: float = DEN_FLOOR):
     """Causal dot-product linear attention, the reference's ``performer``
     branch: o_i = sum_{j<=i} (q_i . k_j) v_j / (q_i . (cumsum(k)_i + eps)), by
-    chunks carrying sum k (x) v and sum k, in float32, cast back. The
+    chunks carrying sum k (x) v and sum k, in float32 (``_wide``), cast back. The
     denominator crosses zero for real activations, so its magnitude is
     floored at max(DEN_REL_FLOOR |q_i| |cumsum(k)_i + eps|, den_floor), its
     sign kept, and the output clipped to +-OUT_CLIP (zero gradient outside);
     on well-conditioned rows neither acts."""
     dtype = q.dtype
-    q, k, v = q.float(), k.float(), v.float()
+    q, k, v = _wide(q), _wide(k), _wide(v)
     b, h, n, d = q.shape
     c = min(chunk, n)
     n_pad = (-n) % c
     qf, kf, vf = (_fold(x, n_pad) for x in (q, k, v))
     causal = _causal(c, q.device)
-    s_kv = torch.zeros(b * h, d, d, dtype=torch.float32, device=q.device)
-    s_k = torch.zeros(b * h, d, dtype=torch.float32, device=q.device)
+    s_kv = qf.new_zeros((b * h, d, d))
+    s_k = qf.new_zeros((b * h, d))
     outs = []
     for i in range(0, n + n_pad, c):
         qi, ki, vi = (x[:, i:i + c] for x in (qf, kf, vf))
@@ -387,3 +401,116 @@ def performer(q, k, v, eps: float = 1e-6, chunk: int = DEFAULT_CHUNK,
         s_k = s_k + ki.sum(1)
     o = torch.cat(outs, dim=1)[:, :n].reshape(b, h, n, d)
     return o.to(dtype)
+
+
+# ---------------------------------------------------------------- the decode state
+# A prompt's running state, then one token at a time (the serving path). The
+# state is a dict of STATE_NAMES entries of shape (B, H, ...) in float32;
+# linearmax adds the prompt's frozen normalisers q_div, k_div (B, H). Inputs in
+# float64 stay in float64 (``_wide``). A decode step updates the state's
+# tensors in place and returns the same dict.
+
+
+def _add_outer_(s, a, b):
+    """s (..., M, N) += a (..., M) (x) b (..., N), in place, by a batched
+    product of depth 1 (``baddbmm_``: the outer products are not materialised)."""
+    m, n = s.shape[-2:]
+    s.view(-1, m, n).baddbmm_(a.reshape(-1, m, 1), b.reshape(-1, 1, n))
+    return s
+
+
+def _read(x, s):
+    """x (B, H, M) . s (B, H, M, N) -> (B, H, N)."""
+    return (x.unsqueeze(-2) @ s).squeeze(-2)
+
+
+def fastmax_prefill_state(q, k, v, *, p: int, normalize_term: float = 8.0,
+                          tensors_normalized: bool = False, chunk: int = DEFAULT_CHUNK):
+    """Masked fastmax over a prompt through the scan in float32 (at every head
+    size), returning (output in q's type, the final state)."""
+    dtype = q.dtype
+    q, k, v = _wide(q), _wide(k), _wide(v)
+    d = q.shape[-1]
+    z = 1.0 if tensors_normalized else float(normalize_term) * math.sqrt(d)
+    o, state = _masked_chunked(q, k, v, z, p, chunk, return_state=True)
+    return o.to(dtype), state
+
+
+def linearmax_prefill_state(q, k, v, *, p: int = 1, chunk: int = DEFAULT_CHUNK):
+    """linearmax over a prompt, with its state. The normalisers (the largest
+    token norm of the whole sequence, an acausal statistic) are measured on
+    the prompt and frozen in the state as q_div, k_div (floored at 1e-6):
+    decode keeps dividing by them, and the prompt's output is linearmax's."""
+    dtype = q.dtype
+    q, k, v = _wide(q), _wide(k), _wide(v)
+    q = q - q.mean(-1, keepdim=True)
+    k = k - k.mean(-1, keepdim=True)
+    q_div = torch.sqrt(torch.sum(q * q, dim=-1)).amax(-1).clamp_min(1e-6)  # (B, H)
+    k_div = torch.sqrt(torch.sum(k * k, dim=-1)).amax(-1).clamp_min(1e-6)
+    o, state = _masked_chunked(q / q_div[..., None, None], k / k_div[..., None, None], v,
+                               1.0, p, chunk, return_state=True)
+    state["q_div"], state["k_div"] = q_div, k_div
+    return o.to(dtype), state
+
+
+def linear_attn_state_init(batch: int, heads: int, d: int, p: int, device=None) -> dict:
+    """The empty state in float32; at p = 1 the two p = 2 entries are
+    placeholders that no step reads."""
+    d2 = d * d if p == 2 else 1
+    shapes = {"cnt": (batch, heads), "s_v": (batch, heads, d), "s_kv": (batch, heads, d, d),
+              "s_k": (batch, heads, d), "s_kkv": (batch, heads, d2, d), "s_kk": (batch, heads, d2)}
+    return {name: torch.zeros(shape, dtype=torch.float32, device=device)
+            for name, shape in shapes.items()}
+
+
+def linear_attn_decode_step(state, q, k, v, z: float, p: int):
+    """One causal step: absorb (k, v) into the state first (the token attends
+    to itself), then emit the output for q, the masked fastmax formula at
+    position cnt. q, k, v: (B, H, D). Returns (state, o (B, H, D) float32)."""
+    b, h, d = q.shape
+    q, k, v = _wide(q), _wide(k), _wide(v)
+    cnt = state["cnt"].add_(1.0)
+    s_v = state["s_v"].add_(v)
+    s_kv = _add_outer_(state["s_kv"], k, v)
+    s_k = state["s_k"].add_(k)
+    f = s_v + _read(q, s_kv) / z
+    g = cnt + torch.sum(q * s_k, dim=-1) / z
+    if p == 2:
+        kk = (k[..., :, None] * k[..., None, :]).reshape(b, h, d * d)
+        qq = (q[..., :, None] * q[..., None, :]).reshape(b, h, d * d)
+        s_kkv = _add_outer_(state["s_kkv"], kk, v)
+        s_kk = state["s_kk"].add_(kk)
+        f = f + _read(qq, s_kkv) / (2.0 * z * z)
+        g = g + torch.sum(qq * s_kk, dim=-1) / (2.0 * z * z)
+    return state, f / g[..., None]
+
+
+def linearmax_decode_step(state, q, k, v, p: int = 1):
+    """One linearmax step with the prompt's frozen normalisers."""
+    q, k = _wide(q), _wide(k)
+    q = (q - q.mean(-1, keepdim=True)) / state["q_div"][..., None]
+    k = (k - k.mean(-1, keepdim=True)) / state["k_div"][..., None]
+    return linear_attn_decode_step(state, q, k, v, 1.0, p)
+
+
+def performer_prefill_state(q, k, v, eps: float = 1e-6, chunk: int = DEFAULT_CHUNK):
+    """Causal performer over a prompt, with the state s_kv = sum k (x) v and
+    s_k = sum k over the whole of k, v."""
+    o = performer(q, k, v, eps=eps, chunk=chunk)
+    k32, v32 = _wide(k), _wide(v)
+    state = {"s_kv": torch.einsum("bhnm,bhnj->bhmj", k32, v32), "s_k": k32.sum(-2)}
+    return o.to(q.dtype), state
+
+
+def performer_decode_step(state, q, k, v, eps: float = 1e-6, den_floor: float = DEN_FLOOR):
+    """One performer step: absorb (k, v), then q's numerator over its
+    denominator with ``performer``'s sign-keeping floor and output clip."""
+    q, k, v = _wide(q), _wide(k), _wide(v)
+    s_kv = _add_outer_(state["s_kv"], k, v)
+    s_k = state["s_k"].add_(k)
+    num = _read(q, s_kv)
+    den = torch.sum(q * (s_k + eps), dim=-1)
+    qn = torch.sqrt(torch.sum(q * q, dim=-1))
+    kn = torch.sqrt(torch.sum((s_k + eps) ** 2, dim=-1))
+    floor = torch.clamp(DEN_REL_FLOOR * qn * kn, min=den_floor)
+    return state, torch.clamp(num / _clamp_den(den, floor)[..., None], -OUT_CLIP, OUT_CLIP)

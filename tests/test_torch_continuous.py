@@ -300,8 +300,13 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A8"):
         _make("torch", mesh=object())
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="A5"):
-        ContinuousBatcher(Config(**TINY, attn_alg="fastmax"), tp, device="cpu")
+    # the linear arms are served (tests/test_torch_linear_serving.py): an O(1) state a slot
+    linear = ContinuousBatcher(Config(**TINY, attn_alg="fastmax"), tp, n_slots=2, device="cpu")
+    assert linear.cache["s_kkv"].shape == (TINY["n_layer"], 2, TINY["n_head"], 32 * 32, 32)
+    rid = linear.submit(np.arange(1, 6, dtype=np.int32), 3)
+    assert len(linear.run_to_completion()[rid]) == 3
+    with pytest.raises(ValueError, match="quadratic"):
+        ContinuousBatcher(Config(**TINY, attn_alg="fastmax"), tp, speculative_k=4, device="cpu")
     with pytest.raises(ValueError):
         _make("torch", decode_quantum=1, adaptive_quantum=True)
     with pytest.raises(ValueError, match="prefill_chunk must be >="):

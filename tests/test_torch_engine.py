@@ -93,10 +93,12 @@ def test_eos_truncates():
 
 def test_unported_modes_raise():
     """Every weights mode of the reference is ported (tests/test_torch_quant_serving.py);
-    an unknown one raises, and so does the linear-attention cache."""
+    an unknown one raises. A linear arm is served through its running state
+    (tests/test_torch_linear_serving.py holds its tokens against the JAX engine)."""
     _, tp = _params()
     with pytest.raises(ValueError, match="weights_mode"):
         InferenceEngine(Config(**TINY), tp, weights_mode="preload_int3", device="cpu")
     teng = InferenceEngine(Config(**TINY, attn_alg="fastmax"), tp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        teng.generate(torch.arange(1, 5), 8)
+    assert set(teng.new_cache()) == {"cnt", "s_v", "s_kv", "s_k", "s_kkv", "s_kk"}
+    out = teng.generate(torch.arange(1, 5), 8)
+    assert out.shape == (1, 8) and out[0, :4].tolist() == [1, 2, 3, 4]

@@ -155,8 +155,10 @@ def test_unmasked_and_reference_match_jax(p):
 
 def test_where_this_slice_stops():
     """Masked fastmax at d = 128 computes (the reversible scan; its values are
-    held in tests/test_torch_linear_attention.py); p = 3, and the cached
-    forward and the engine with a linear arm, still raise (ROADMAP A5 slice 2)."""
+    held in tests/test_torch_linear_attention.py); the cached forward and the
+    engine with a linear arm compute (their values are held in
+    tests/test_torch_linear_cache.py and tests/test_torch_linear_serving.py);
+    p = 3 still raises."""
     x = torch.randn((1, 1, 128, 128), generator=torch.Generator().manual_seed(0))
     o = tfm.fastmax(x, x, x, mask=True, p=2)
     assert o.shape == x.shape and bool(torch.isfinite(o).all())
@@ -168,10 +170,11 @@ def test_where_this_slice_stops():
     params = gpt.init_params(cfg, seed=0, device="cpu")
     idx = torch.arange(1, 9)[None]
     cache = gpt.init_kv_cache(cfg, 1, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5 slice 2"):
-        gpt.forward(params, cfg, idx, input_pos=0, kv_cache=cache)
-    with pytest.raises(NotImplementedError, match="A5 slice 2"):
-        InferenceEngine(cfg, params, device="cpu").generate(idx[0], 4)
+    logits, _ = gpt.forward(params, cfg, idx, input_pos=0, kv_cache=cache)
+    assert logits.shape == (1, 8, 128) and bool(torch.isfinite(logits).all())
+    assert cache["k"][:, :, :, 8:].abs().sum() == 0 and cache["k"][:, :, :, :8].abs().sum() > 0
+    out = InferenceEngine(cfg, params, device="cpu").generate(idx[0], 12)
+    assert out.shape == (1, 12) and out[0, :8].tolist() == idx[0].tolist()
     with pytest.raises(ValueError, match="chunk"):
         fk.fastmax_forward(x[..., :64], x[..., :64], x[..., :64], 2, 8.0, 96)
     z = torch.zeros((2, 128, 64))
