@@ -95,8 +95,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    reversible float32 scan at the finetune shape (no K4/K5 launch) against
    the same scan in float64 on the card (output, dq, dk, dv) and the O(N^2)
    formula in float64 (output), its forward and forward + backward times and
-   TFLOP/s; (b) ``finetune.setup`` QLoRA on the same NF4 Llama-2-7B with
-   fastmax, linearmax and performer, 2 steps each: step time, tokens/s, peak
+   TFLOP/s; (b) ``finetune.setup`` QLoRA on the same NF4 Llama-2-7B cut to 8
+   of its 32 layers with fastmax, linearmax and performer, 2 steps each: step time, tokens/s, peak
    memory, the losses, lora_B moved, no K4-K7 launch, and for fastmax one
    micro-batch on the host clock, its device time and busy share profiled,
    and the scan's part of it;
@@ -196,7 +196,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    harness's ``greedy_until`` on phase 12's 2-layer checkpoint with
    ``--attn_alg`` each arm; (f) the batcher refusing the prefix cache,
    ``prefill_chunk`` and ``speculative_k`` with a linear arm, with the
-   reference's ValueError.
+   reference's ValueError;
+15. Gemma's GeGLU and Mixtral's MoE, the adapter methods and the optimizers:
+   (a) a random Gemma-7B at full width and depth (28 layers, 16 heads of 256,
+   vocab 256000) bnb.nf4 -> ``preload_int4`` (K1), int8 cache, 4096 context:
+   prompts of 64 and 512 tokens (K3 at D = 256) + 32 new, prefill ms, decode
+   ms a token, busy share, peak memory, logits kernels vs plain (max and mean,
+   float32 activations, gated against the model's own spread under a moved
+   linear), a 4-slot batcher against the engine (near-tie rule); K3 at (1, 16,
+   512, S 4096, 256) and K6/K7 at (1, 16, 1024, 256) against plain and SDPA;
+   (b) Gemma-7B QLoRA (LoRA on query, value and the GeGLU MLP, T = 1024: K6/K7
+   at D = 256), 2 steps, a falling loss; (c) Mixtral-8x7B at full width cut
+   to 8 of its 32 layers (its bf16 experts, 2.82 GB a layer, stay dense as in
+   the reference): the same serving measures (K1, K2), the MoE host reads a
+   layer, the sorted route twice bit for bit and against the dense one, QLoRA
+   on qkv and the router (K6/K7 at D = 128); (d) the adapter methods on an NF4
+   Llama-2-7B at T = 2048 (adapter, adapter_v2, adapter_v2 with adamw8bit),
+   the optimizer state's bytes; (e) adamw8bit, lion and adafactor, 10 steps
+   each of phase 8's pretraining (K4/K5), the loss falling; (f) inside phase
+   12's directory, ``finetune`` main with ``--method adapter_v2`` and
+   ``generate.main`` on its delta, whose text must equal the engine's.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -206,6 +225,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -294,6 +314,9 @@ JAX_SCAN_F32_GRAD_REL = 7.519e-05
 LINEAR_F32_REL = {"fwd": 1e-5, "grad": max(FASTMAX_F32_REL["grad"], 2.0 * JAX_SCAN_F32_GRAD_REL)}
 LINEAR_ARMS = ("fastmax", "linearmax", "performer")
 LINEAR_FT_STEPS = 2        # QLoRA steps of each arm: the fewest that time a step after the first
+# the arms' QLoRA model: Llama-2-7B at full width cut to 8 of its 32 layers, so that phase 15
+# fits in the run's time (fastmax's two steps took 112.7 s at full depth on one H100 at 700 W)
+LINEAR_FT_LAYERS = 8
 LINEAR_TRAIN_STEPS = 10    # pretraining steps of linearmax and performer
 FASTMAX_KERNELS = ("fastmax_fwd", "fastmax_bwd")
 
@@ -968,18 +991,19 @@ def flash_repeats(torch, gen, t=512, pos0=3584, runs: int = 3) -> None:
 FLASH_TIMED = ((512, 0), (512, 1536), (512, 3584), (2048, 0), (1024, 2048))
 
 
-def flash_times(torch, gen, shapes, n_sets: int = 4) -> list:
+def flash_times(torch, gen, shapes, n_sets: int = 4, heads: int = 32, label: str = "7B") -> list:
     """Device time of K3 a call in a CUDA graph, k/v cold (n_sets layers' k/v: 256 MB at
-    D = 128 in bf16), at B=1 Hq=G=32 S=4096, for each (dtype, D, T, pos0) of ``shapes``,
-    beside its plain version, one scaled_dot_product_attention call and the bound."""
+    D = 128 in bf16), at B=1 Hq=G=``heads`` S=4096, for each (dtype, D, T, pos0) of
+    ``shapes``, beside its plain version, one scaled_dot_product_attention call and the
+    bound."""
     from fastmax_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     rows = []
     for dt, d, t, pos0 in shapes:
-        kv = [tuple(torch.randn((1, 32, 4096, d), generator=gen, device=dev).to(dt)
+        kv = [tuple(torch.randn((1, heads, 4096, d), generator=gen, device=dev).to(dt)
                     for _ in range(2)) for _ in range(n_sets)]
-        q = torch.randn((1, 32, t, d), generator=gen, device=dev).to(dt)
+        q = torch.randn((1, heads, t, d), generator=gen, device=dev).to(dt)
         kv_len = pos0 + t
         it = iter(range(10**9))
 
@@ -999,11 +1023,12 @@ def flash_times(torch, gen, shapes, n_sets: int = 4) -> list:
                                                                     scale=d ** -0.5)
 
         lib_ms = graph_ms(library, calls=2 * n_sets)
-        bnd = flash_bound(1, 32, 32, t, d, pos0, kv_len, bf16=dt == torch.bfloat16)
-        rows.append({"dtype": str(dt)[6:], "d": d, "pos0": pos0, "t": t, "kv_len": kv_len,
+        bnd = flash_bound(1, heads, heads, t, d, pos0, kv_len, bf16=dt == torch.bfloat16)
+        rows.append({"dtype": str(dt)[6:], "heads": heads, "d": d, "pos0": pos0, "t": t,
+                     "kv_len": kv_len,
                      "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "library_backend": backend, **bnd})
-        log(f"  flash 7B {str(dt)[6:]:8s} D={d} T={t:4d} pos0={pos0:4d}: kernel "
+        log(f"  flash {label} {str(dt)[6:]:8s} D={d} T={t:4d} pos0={pos0:4d}: kernel "
             f"{kern_ms * 1e3:8.1f} us ({bnd['flops'] / (kern_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
             f"{bnd['bound_ms'] / kern_ms:.3f} of the bound)  plain {plain_ms * 1e3:8.1f} us  "
             f"SDPA ({backend}) {lib_ms * 1e3:8.1f} us  bound {bnd['bound_ms'] * 1e3:6.1f} us "
@@ -1699,10 +1724,10 @@ def train_args(steps: int = TRAIN_STEPS):
 
 
 def training_run(torch, pretrain, build, data, out, model_name, card, attn_alg=None,
-                 n_steps: int = TRAIN_STEPS):
-    """``n_steps`` steps of ``pretrain.setup`` with its defaults (``attn_alg``
-    None: the model's own); the step time from step 10 on (step 2 on for
-    runs of 10 steps or fewer)."""
+                 train=None):
+    """``pretrain.setup`` with its defaults (``attn_alg`` None: the model's own;
+    ``train`` None: ``train_args()``); the step time from step 10 on (step 2 on
+    for runs of 10 steps or fewer)."""
     import csv
 
     from fastmax_tpu_torch.utils.args import IOArgs
@@ -1712,9 +1737,12 @@ def training_run(torch, pretrain, build, data, out, model_name, card, attn_alg=N
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
+    train = train or train_args()
+    n_steps = train.max_iters
     t0 = time.perf_counter()
     state = pretrain.setup(model_name=model_name, data_format="openwebtext", attn_alg=attn_alg,
-                           train=train_args(n_steps), io=IOArgs(train_data_dir=data, out_dir=out))
+                           train=train,
+                           io=IOArgs(train_data_dir=data, out_dir=out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
@@ -1854,7 +1882,7 @@ def training_path(torch, results, card):
         for arm in ("linearmax", "performer"):
             _, lin = training_run(torch, pretrain, build, data, Path(tmp) / arm,
                                   "easy-transformer-fastmax", card, attn_alg=arm,
-                                  n_steps=LINEAR_TRAIN_STEPS)
+                                  train=train_args(LINEAR_TRAIN_STEPS))
             out[arm] = lin
             fused = {k: lin["launches"][k] for k in FASTMAX_KERNELS}
             if any(fused.values()):
@@ -2002,18 +2030,19 @@ def flash_train_work(b, h, t, d, elem, backward: bool) -> tuple:
     return elem * 4 * n + 4 * b * h * t, 4 * d * pairs
 
 
-def flash_train_times(torch, gen, dtype, n_sets: int = 4) -> dict:
+def flash_train_times(torch, gen, dtype, n_sets: int = 4, shape=FT_SHAPE) -> dict:
     """Device time per call in a CUDA graph, inputs cold (n_sets input sets,
-    128 MB in bf16), at the finetune shape: K6 (the fused entry's block, and
-    the other entry's 128-key block), K7, their plain versions, and SDPA's
-    causal forward and forward + backward (autograd captured in the graph)."""
+    128 MB in bf16 at the finetune shape), at ``shape`` (B, H, T, D): K6 (the
+    fused entry's block, and the other entry's 128-key block), K7, their plain
+    versions, and SDPA's causal forward and forward + backward (autograd
+    captured in the graph)."""
     from fastmax_tpu_torch.ops import flash_attention as fa
 
-    b, h, t, d = FT_SHAPE
+    b, h, t, d = shape
     scale, blk = d ** -0.5, fa._fused_block(t)
     sets = []
     for _ in range(n_sets):
-        q, k, v, w = flash_train_inputs(torch, gen, FT_SHAPE, dtype)
+        q, k, v, w = flash_train_inputs(torch, gen, shape, dtype)
         out, lse = fa._train_fwd(q, k, v, scale, blk, False)
         sets.append((q, k, v, w, lse, torch.sum(w.float() * out.float(), dim=-1)))
     it = iter(range(10**9))
@@ -2038,7 +2067,7 @@ def flash_train_times(torch, gen, dtype, n_sets: int = 4) -> dict:
                                                          scale=scale).backward(w)
 
     elem = 2 if dtype == torch.bfloat16 else 4
-    row = {"dtype": str(dtype)[6:], "shape": FT_SHAPE,
+    row = {"dtype": str(dtype)[6:], "shape": shape,
            "k6_ms": graph_ms(fwd, calls=2 * n_sets),
            "k6_block128_ms": graph_ms(lambda: fwd(block=fa.DEFAULT_BLOCK_K), calls=2 * n_sets),
            "plain_fwd_ms": graph_ms(lambda: fwd(plain=True), calls=n_sets, reps=1),
@@ -2169,7 +2198,16 @@ def finetune_step_vs_plain(torch, batch, dtype, seed: int = 1337) -> dict:
             "worst_grad_rel": grad_rel, "qkv_weight_std_before": w_std}
 
 
-def qlora_run(torch, data, out, attn_alg, train) -> tuple:
+def cut_model(name: str, n_layer: int) -> str:
+    """A registry entry of ``name`` cut to ``n_layer`` layers (full width); its name."""
+    from fastmax_tpu_torch.models.config import registry
+
+    cut = f"{name}-{n_layer}-layers"
+    registry()[cut] = {**registry()[name], "name": cut, "n_layer": n_layer}
+    return cut
+
+
+def qlora_run(torch, data, out, attn_alg, train, model_name="Llama-2-7b-hf") -> tuple:
     """``finetune.setup`` QLoRA on the full-width Llama-2-7B (random weights in
     bnb.nf4, bf16, LoRA r 8, alpha 16 on query and value) with ``attn_alg``
     over the SFT examples at ``data``: (state, {wall_s (setup included),
@@ -2187,7 +2225,7 @@ def qlora_run(torch, data, out, attn_alg, train) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    state = finetune.setup(method="lora", model_name="Llama-2-7b-hf", data_path=data,
+    state = finetune.setup(method="lora", model_name=model_name, data_path=data,
                            quantize="bnb.nf4", attn_alg=attn_alg, precision="bfloat16",
                            lora_r=8, lora_alpha=16.0, lora_query=True, lora_value=True,
                            train=train, io=IOArgs(out_dir=out))
@@ -2390,9 +2428,9 @@ def linear_op_check(torch, gen, results, card) -> dict:
 
 
 def linear_finetune_path(torch, results, card, op_row):
-    """(b) ``finetune.setup`` QLoRA on the full-width Llama-2-7B (random
-    weights in bnb.nf4, bf16, LoRA r 8 on query and value, T <= 2048, batch 8,
-    micro-batch 2) with each linear arm, LINEAR_FT_STEPS steps each: step time,
+    """(b) ``finetune.setup`` QLoRA on the full-width Llama-2-7B cut to
+    LINEAR_FT_LAYERS layers (random weights in bnb.nf4, bf16, LoRA r 8 on query
+    and value, T <= 2048, batch 8, micro-batch 2) with each linear arm, LINEAR_FT_STEPS steps each: step time,
     tokens/s, peak memory, the losses, lora_B moved, and no launch of K4-K7
     (at D = 128 no arm takes a kernel route in the reference). fastmax also:
     one micro-batch's host time, device time and busy share, and the part the
@@ -2408,15 +2446,16 @@ def linear_finetune_path(torch, results, card, op_row):
                       learning_rate=3e-4, save_interval=1000, log_interval=1,
                       max_seq_length=2048)
     banned = FASTMAX_KERNELS + ("flash_train_fwd", "flash_train_bwd")
+    name = cut_model("Llama-2-7b-hf", LINEAR_FT_LAYERS)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         data = Path(tmp) / "sft.npz"
         np.savez(data, examples=np.array(examples, dtype=object))
         for arm in LINEAR_ARMS:
-            state, run = qlora_run(torch, data, Path(tmp) / arm, arm, train)
-            run.update(arm=arm, card=card)
+            state, run = qlora_run(torch, data, Path(tmp) / arm, arm, train, name)
+            run.update(arm=arm, card=card, layers=LINEAR_FT_LAYERS)
             counts, losses, moved = run["launches"], run["losses"], run["lora_b_max"]
-            log(f"  (b) QLoRA Llama-2-7B, {arm}: {state.step} steps in {run['wall_s']:.2f} s "
+            log(f"  (b) QLoRA Llama-2-7B cut to {LINEAR_FT_LAYERS} layers, {arm}: {state.step} steps in {run['wall_s']:.2f} s "
                 f"(setup included); step {LINEAR_FT_STEPS}: {run['step_s']:.2f} s, "
                 f"{run['tokens_per_s']:.1f} tokens/s; loss "
                 f"{' -> '.join(f'{x:.4f}' for x in losses)}; peak {run['peak_gb']:.3f} GB above "
@@ -2429,14 +2468,14 @@ def linear_finetune_path(torch, results, card, op_row):
                 raise AssertionError(f"{arm}: losses {losses}, max|lora_B| {moved}")
             if arm == "fastmax":
                 run["profile_micro_batch"] = linear_step_profile(torch, state, data, op_row,
-                                                                 card)
+                                                                 card, name)
             out[arm] = run
             del state
     results["linear_finetune"] = out
     return out
 
 
-def linear_step_profile(torch, state, data, op_row, card) -> dict:
+def linear_step_profile(torch, state, data, op_row, card, name="Llama-2-7b-hf") -> dict:
     """One micro-batch of a fastmax QLoRA step (forward and backward of the
     loss on 2 examples, cut at T = 2048) on the host clock, then the same
     micro-batch profiled: device time and busy share. The window is a quarter
@@ -2449,7 +2488,7 @@ def linear_step_profile(torch, state, data, op_row, card) -> dict:
     from fastmax_tpu_torch.ops import fastmax as fm
     from fastmax_tpu_torch.training import finetune
 
-    cfg = Config.from_name("Llama-2-7b-hf", attn_alg="fastmax")
+    cfg = Config.from_name(name, attn_alg="fastmax")
     batch = tuple(torch.as_tensor(x, device="cuda")
                   for x in SFTDataset.load(data, 7).sample_batch(2, 2048))
     loss_fn = finetune.sft_loss_fn(cfg)
@@ -2800,24 +2839,35 @@ def with_f32_activations(torch, params: dict) -> dict:
     return walk(params, ())
 
 
-def kernels_vs_plain(torch, engine, prompt, step_token):
-    """The engine's prefill logits and first decode step's, kernels against
-    plain=True, both steps on the same token (``step_token``, else the kernel
-    route's first token). Returns ({step: max|diff|/max|plain|}, the kernel
-    route's (prefill logits, step logits, token))."""
+def kernels_vs_plain(torch, engine, prompt, step_token, moved=None):
+    """The engine's prefill logits and first decode step's (at the prompt's length),
+    kernels against plain=True, both steps on the same token (``step_token``, else the
+    first route's first token). With ``moved`` (a stand-in for ``gpt.linear``), the first
+    route is plain=True with it in place. Returns ({step: max|diff|/max|plain|}, {step:
+    mean|diff|/mean|plain|}, the first route's (prefill logits, step logits, token))."""
+    from fastmax_tpu_torch.models import gpt
     from fastmax_tpu_torch.ops.sampling import sample
 
-    cmp, tok = {}, step_token
+    cmp, tok, real, prompt = {}, step_token, gpt.linear, prompt.cuda()
     for plain in (False, True):
-        cache = engine.new_cache()
-        logits, cache = engine.prefill(prompt[None].cuda(), cache, plain=plain)
-        tok = sample(logits) if tok is None else tok
-        with torch.inference_mode():
-            step, _ = engine._forward(tok[:, None], cache, 64, plain=plain)
+        if moved is not None and not plain:
+            gpt.linear = moved
+        try:
+            cache = engine.new_cache()
+            logits, cache = engine.prefill(prompt[None], cache, plain=plain or moved is not None)
+            tok = sample(logits) if tok is None else tok
+            with torch.inference_mode():
+                step, _ = engine._forward(tok[:, None], cache, prompt.numel(),
+                                          plain=plain or moved is not None)
+        finally:
+            gpt.linear = real
         cmp[plain] = (logits.float(), step[:, -1].float(), tok)
-    rel = {name: logits_rel(torch, cmp[False][i], cmp[True][i])
-           for i, name in enumerate(("prefill", "decode_step"))}
-    return rel, cmp[False]
+        del cache
+    pairs = {name: (cmp[False][i], cmp[True][i]) for i, name in enumerate(("prefill",
+                                                                          "decode_step"))}
+    rel = {name: logits_rel(torch, a, b) for name, (a, b) in pairs.items()}
+    mean = {name: float((a - b).abs().mean() / b.abs().mean()) for name, (a, b) in pairs.items()}
+    return rel, mean, cmp[False]
 
 
 def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
@@ -2886,9 +2936,9 @@ def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
     # kernels vs plain: in the path's bf16, reported (a random 32-layer model carries a
     # one-ulp difference of a linear's output into the logits with a gain of ~15), and
     # gated with float32 activations, where both routes differ by their sums' order only
-    rel, kern = kernels_vs_plain(torch, engine, prompt, step_token)
+    rel, _, kern = kernels_vs_plain(torch, engine, prompt, step_token)
     saved, engine.params = engine.params, with_f32_activations(torch, engine.params)
-    rel32, _ = kernels_vs_plain(torch, engine, prompt, kern[2])
+    rel32, _, _ = kernels_vs_plain(torch, engine, prompt, kern[2])
     engine.params = saved
     if max(rel32.values()) > LOGITS_REL_TOL:
         raise AssertionError(f"{mode}: f32 logits kernels vs plain differ beyond "
@@ -4018,7 +4068,7 @@ def inference_path(torch, results, card, tmp, ckpt, lora_file, pt_out) -> dict:
     gen, launches, gen_s = launched(torch, lambda: engine.generate(prompt, INF_PROMPT + INF_NEW))
     add_counts(counts, launches)
     engine_tokens = gen[0, INF_PROMPT:].tolist()
-    rel, _ = kernels_vs_plain(torch, engine, prompt, None)
+    rel, _, _ = kernels_vs_plain(torch, engine, prompt, None)
     log(f"  (b) generate.load_and_prepare(bnb.nf4, the QLoRA delta merged) in {load_s:.2f} s: "
         f"merged qkv kernel vs W + (A @ B) scale, at most {ulps:.3f} bf16 step of the "
         f"larger term apart "
@@ -4486,22 +4536,13 @@ def linears_vs_plain(torch, fn) -> tuple:
 
 def perturbed_spread(torch, engine, prompt, step_token, rel) -> list:
     """How far the model carries a change of ``rel`` in its linears to the logits, with no
-    kernel in either run: the prefill and first decode step logits (as
-    ``kernels_vs_plain``) of plain=True against plain=True with every linear's output moved
-    by clipped Gaussian noise of at most ``rel`` of its largest value, for each seed of
-    LINSERVE_PERTURB_SEEDS: [{step: max|diff|/max|plain|}, ...]."""
+    kernel in either run: ``kernels_vs_plain``'s measures of plain=True against plain=True
+    with every linear's output moved by clipped Gaussian noise of at most ``rel`` of its
+    largest value, for each seed of LINSERVE_PERTURB_SEEDS: [({step: max|diff|/max|plain|},
+    {step: mean|diff|/mean|plain|}), ...]."""
     from fastmax_tpu_torch.models import gpt
 
-    real = gpt.linear
-
-    def logits():
-        cache = engine.new_cache()
-        pre, cache = engine.prefill(prompt[None].cuda(), cache, plain=True)
-        with torch.inference_mode():
-            step, _ = engine._forward(step_token[:, None], cache, len(prompt), plain=True)
-        return pre.float(), step[:, -1].float()
-
-    base, out = logits(), []
+    real, out = gpt.linear, []
     for seed in LINSERVE_PERTURB_SEEDS:
         g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -4510,14 +4551,34 @@ def perturbed_spread(torch, engine, prompt, step_token, rel) -> list:
             noise = torch.randn(y.shape, generator=g, device=y.device).clamp_(-4.0, 4.0)
             return (y.float() + noise * (rel / 4.0) * y.float().abs().max()).to(y.dtype)
 
-        gpt.linear = moved
-        try:
-            got = logits()
-        finally:
-            gpt.linear = real
-        out.append({name: logits_rel(torch, a, b)
-                    for name, a, b in zip(("prefill", "decode_step"), got, base)})
+        out.append(kernels_vs_plain(torch, engine, prompt, step_token, moved=moved)[:2])
     return out
+
+
+def timed_prompts(torch, engine, warm, prompts: dict, n_new: int) -> tuple:
+    """``engine.generate`` on ``warm`` (a warm-up); then for each of ``prompts`` ({length:
+    int32 tokens on the card}) the prefill's ms to its first token on the host, and
+    ``n_new`` greedy tokens with their decode ms a token: ({length: {...}}, the last
+    prompt's first token)."""
+    from fastmax_tpu_torch.ops.sampling import sample
+
+    engine.generate(warm, warm.numel() + 4)
+    rows = {}
+    for n, prompt in prompts.items():
+        cache = engine.new_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(prompt[None], cache)
+        first = sample(logits)
+        first.cpu()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        gen, cache = engine.decode(cache, first, n, n_new)
+        gen.cpu()
+        rows[n] = {"prefill_ms": pre_ms, "tokens": gen[0].tolist(),
+                   "decode_ms_a_token": (time.perf_counter() - t0) * 1e3 / (n_new - 1)}
+        del cache
+    return rows, first
 
 
 def linear_engine_7b(torch, cfg, q4, arm, card) -> tuple:
@@ -4527,7 +4588,6 @@ def linear_engine_7b(torch, cfg, q4, arm, card) -> tuple:
     import numpy as np
 
     from fastmax_tpu_torch.inference.engine import InferenceEngine
-    from fastmax_tpu_torch.ops.sampling import sample
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4535,44 +4595,25 @@ def linear_engine_7b(torch, cfg, q4, arm, card) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     engine = InferenceEngine(cfg, q4, max_seq_length=cfg.block_size)
     rng = np.random.default_rng(2)
-    row = {"arm": arm, "prompts": {}, "card": card}
-
-    def run():
-        engine.generate(torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32),
-                        64 + 4)  # warm-up
-        for n_prompt in LINSERVE_PROMPTS:
-            prompt = torch.as_tensor(rng.integers(1, 32000, n_prompt), dtype=torch.int32,
-                                     device="cuda")
-            cache = engine.new_cache()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = engine.prefill(prompt[None], cache)
-            first = sample(logits)
-            first.cpu()
-            pre_ms = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            gen, cache = engine.decode(cache, first, n_prompt, LINSERVE_NEW)
-            gen.cpu()
-            dec_ms = (time.perf_counter() - t0) * 1e3 / (LINSERVE_NEW - 1)
-            row["prompts"][n_prompt] = {"prefill_ms": pre_ms, "decode_ms_a_token": dec_ms,
-                                        "tokens": gen[0].tolist()}
-            row["state_bytes"] = sum(x.numel() * x.element_size() for x in cache.values())
-            del cache
-        return first
-
-    first, launches, wall = launched(torch, run)
+    warm = torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32)
+    prompts = {n: torch.as_tensor(rng.integers(1, 32000, n), dtype=torch.int32, device="cuda")
+               for n in LINSERVE_PROMPTS}
+    row = {"arm": arm, "card": card}
+    (row["prompts"], first), launches, wall = launched(
+        torch, lambda: timed_prompts(torch, engine, warm, prompts, LINSERVE_NEW))
     row.update(launches=launches, wall_s=wall,
                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               state_bytes=sum(x.numel() * x.element_size() for x in engine.new_cache().values()),
                state_bytes_reckoned=linear_state_bytes(cfg, 1))
     tok_s = 1e3 / row["prompts"][64]["decode_ms_a_token"]
     row["profile"] = profile_decode(torch, engine, first, tok_s, steps=4)
     prompt = torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32)
-    rel, kern = kernels_vs_plain(torch, engine, prompt, None)
+    rel, _, kern = kernels_vs_plain(torch, engine, prompt, None)
     saved, engine.params = engine.params, with_f32_activations(torch, engine.params)
-    rel32, _ = kernels_vs_plain(torch, engine, prompt, kern[2])
+    rel32, _, _ = kernels_vs_plain(torch, engine, prompt, kern[2])
     calls_rel, n_calls = linears_vs_plain(torch, lambda: kernels_vs_plain(
         torch, engine, prompt, kern[2]))
-    spread = perturbed_spread(torch, engine, prompt, kern[2], calls_rel)
+    spread = [r for r, _ in perturbed_spread(torch, engine, prompt, kern[2], calls_rel)]
     engine.params = saved
     widest = max(max(r.values()) for r in spread)
     limit = (max(LOGITS_REL_TOL, LINSERVE_PERTURB_FACTOR * widest) if arm == "performer"
@@ -4793,6 +4834,499 @@ def linear_serving_path(torch, results, card, tmp, ckpt) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 15
+# Gemma's GeGLU and Mixtral's top-k MoE, the adapter methods and the optimizers of
+# --train.optimizer. Gemma-7B serves at full width and depth (28 layers, 16 heads of
+# 256, intermediate 24576, vocab 256000); Mixtral-8x7B at full width, cut to
+# MIXTRAL_LAYERS of its 32 layers: its experts stay dense bf16 in every weights mode,
+# as the reference keeps them (2.82 GB a layer; all 32 need 90 GB, more than the card
+# holds). Kernels against plain are held, by gates fixed before the run, on a second
+# engine over the same linears with float32 activations and a float32 cache; the path's
+# own (int8 cache, bf16) logits are reported. The int8 cache is left out of the gates
+# because it makes any difference chaotic: a code at a rounding edge flips by 1/127 of its
+# row's absmax, so that every linear moved by 3e-6 moved Gemma-7B's logits by ~2e-2, and
+# every linear moved by 3e-5 moved Mixtral's by up to 0.37 (an expert choice flips) (on
+# an H100 80GB HBM3 at 700 W). (1) Each linear call against plain=True on its own input,
+# at most FAMILY_CALL_REL of its largest output: ten times the largest the kernels showed
+# (3.04e-06 over Gemma-7B's 452 calls, 1.67e-06 over Mixtral's 100, same card). (2) The
+# logits at the longest prompt, max|diff| over max|plain| at LOGITS_REL_TOL and
+# mean|diff| over mean|plain| at FAMILY_MEAN_REL. (3) FAMILY_CHECK_NEW greedy tokens of
+# each prompt against plain=True's, and the batcher's slots (int8 cache, float32
+# activations) against the plain engine's, by the near-tie rule (NEAR_TIE_REL). A
+# finetuning run trains on copies of one example, so that its second step sees the first
+# step's batch and a falling loss is the update's own doing; its learning rate is set so
+# that one update moves the trained leaves by more than a bf16 step of the activations
+# (LoRA 3e-3, the adapter's gates 1e-2, v2's scales 3e-3). v1 trains in float32: one step
+# of its gates moves the bf16 loss by less than the loss's own rounding (11.08459 ->
+# 11.08406 in one run, 11.08506 -> 11.08548 in another, on an H100 80GB HBM3 at 700 W), so
+# only float32 shows that step's fall.
+GEMMA, MIXTRAL = "Gemma-7b", "Mixtral-8x7B-v0.1"
+MIXTRAL_LAYERS = 8
+FAMILY_PROMPTS = (64, 512)   # the 512-token prefill takes K3 at D = 256 over S = 4096
+FAMILY_NEW = 32
+FAMILY_SLOTS, FAMILY_CHECK_NEW = 4, 16
+FAMILY_MEAN_REL = 1e-3
+FAMILY_CALL_REL = 3e-5
+FAMILY_FT_T = 1024           # K6/K7's fused route at D = 256 takes T * D <= 4096 * 64
+FAMILY_FT_STEPS = 2
+FAMILY_LR = {"lora": 3e-3, "adapter": 1e-2, "adapter_v2": 3e-3}
+ADAPTER_T = 2048
+OPT_STEPS = 10
+# pretraining learning rates, no warmup: adamw8bit at adamw's; lion at a tenth (its
+# updates are signs); adafactor on its own scale (it multiplies by each leaf's RMS)
+OPT_LR = {"adamw8bit": 6e-4, "lion": 6e-5, "adafactor": 1e-2}
+
+
+def one_example_npz(np, path: Path, length: int, copies: int = 8) -> Path:
+    """``copies`` of one SFT example of exactly ``length`` tokens of the repository's
+    text (Llama's byte-fallback ids), its first quarter of labels masked."""
+    tokens, _ = repo_text_tokens(np)
+    x = tokens[:length].astype(np.int64) + 3
+    y = x.copy()
+    y[: length // 4] = -1
+    np.savez(path, examples=np.array([{"input_ids": x, "labels": y}] * copies, dtype=object))
+    return path
+
+
+def family_engine(torch, cfg, tree, name, card) -> tuple:
+    """``InferenceEngine`` (int8 cache) on ``tree``: prompts of FAMILY_PROMPTS tokens (up
+    to the block size), FAMILY_NEW new each (prefill ms, decode ms a token), the decode's
+    device busy share, peak memory, the MoE layers' host reads; kernels against plain by
+    the three gates above (on float32 activations and cache; the path's bf16 logits with
+    the int8 cache reported): the linear calls and the logits at the longest prompt, the
+    greedy tokens at each. Returns (the engine, the measures, the launches)."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models import gpt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(cfg, tree, max_seq_length=cfg.block_size, cache_dtype=torch.int8)
+    rng = np.random.default_rng(15)
+    lens = [n for n in FAMILY_PROMPTS if n + FAMILY_NEW <= cfg.block_size]
+    prompts = {n: torch.as_tensor(rng.integers(1, cfg.vocab_size, n), dtype=torch.int32,
+                                  device="cuda") for n in lens}
+    row = {"model": name, "layers": cfg.n_layer, "block_size": cfg.block_size, "card": card}
+    reads = gpt.MOE_HOST_READS[0]
+    (row["prompts"], first), launches, wall = launched(
+        torch, lambda: timed_prompts(torch, engine, prompts[lens[0]], prompts, FAMILY_NEW))
+    forwards = 4 + len(lens) * FAMILY_NEW  # warm-up: a prefill, 3 steps; each prompt 1 + 31
+    reads = gpt.MOE_HOST_READS[0] - reads
+    row.update(launches=launches, wall_s=wall,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, held_gb=base / 1e9,
+               moe_host_reads=reads, moe_reads_a_layer_a_forward=reads / (forwards * cfg.n_layer))
+    tok_s = 1e3 / row["prompts"][lens[0]]["decode_ms_a_token"]
+    row["profile"] = profile_decode(torch, engine, first, tok_s, steps=4)
+    prompt = prompts[lens[-1]]
+    bf16, bf16_mean, _ = kernels_vs_plain(torch, engine, prompt, None)
+    check = InferenceEngine(cfg, with_f32_activations(torch, tree), max_seq_length=cfg.block_size)
+    got = []
+    calls_rel, n_calls = linears_vs_plain(
+        torch, lambda: got.extend(kernels_vs_plain(torch, check, prompt, None)))
+    rel, mean, _ = got
+    row["tokens_f32"] = {}
+    for n, p in prompts.items():
+        a, b = (check.generate(p, n + FAMILY_CHECK_NEW, plain=plain)[0, n:].tolist()
+                for plain in (False, True))
+        div = first_divergence(torch, check, p.tolist(), a, b)
+        row["tokens_f32"][n] = {"equal": div is None, "divergence": div}
+    del check
+    row.update(logits_f32={"max": rel, "mean": mean},
+               f32_tolerance={"max": LOGITS_REL_TOL, "mean": FAMILY_MEAN_REL},
+               logits_bf16_int8_cache={"max": bf16, "mean": bf16_mean},
+               linear_calls_vs_plain={"worst": calls_rel, "calls": n_calls,
+                                      "tolerance": FAMILY_CALL_REL})
+    p = row["prompts"]
+    log(f"  {name}, {cfg.n_layer} layers: " + "; ".join(
+        f"prefill {p[n]['prefill_ms']:.1f} ms ({n} tokens), decode "
+        f"{p[n]['decode_ms_a_token']:.2f} ms a token after it" for n in lens)
+        + f"; device busy share {row['profile'].get('busy_share', 'not measured')}; peak "
+        f"{row['peak_gb']:.3f} GB above {row['held_gb']:.3f} held; launches {launches}; MoE host "
+        f"reads {reads} ({row['moe_reads_a_layer_a_forward']:.3f} a layer a forward); each of "
+        f"the {n_calls} linear calls (f32) against plain on its input: at most {calls_rel:.3e} "
+        f"(gate {FAMILY_CALL_REL}); logits kernels vs plain at {lens[-1]} tokens, "
+        f"max|diff|/max|plain| (mean|diff|/mean|plain|), f32 with an f32 cache: "
+        + ", ".join(f"{k} {rel[k]:.3e} ({mean[k]:.3e})" for k in rel)
+        + f" (gates {LOGITS_REL_TOL}, {FAMILY_MEAN_REL}); the path's, bf16 with the int8 cache: "
+        + ", ".join(f"{k} {bf16[k]:.3e} ({bf16_mean[k]:.3e})" for k in bf16)
+        + f"; {FAMILY_CHECK_NEW} f32 greedy tokens kernels vs plain (step, top-2 margin, "
+        f"max|logit|): " + ", ".join(f"{n}: {'equal' if t['equal'] else t['divergence']}"
+                                     for n, t in row["tokens_f32"].items()) + f"   [{card}]")
+    if (calls_rel > FAMILY_CALL_REL or max(rel.values()) > LOGITS_REL_TOL
+            or max(mean.values()) > FAMILY_MEAN_REL):
+        raise AssertionError(f"{name}: linear calls {calls_rel} (gate {FAMILY_CALL_REL}), f32 "
+                             f"logits kernels vs plain {rel}, {mean} (gates {LOGITS_REL_TOL}, "
+                             f"{FAMILY_MEAN_REL})")
+    for n, t in row["tokens_f32"].items():
+        div = t["divergence"]
+        if div is not None and div[1] > NEAR_TIE_REL * div[2]:
+            raise AssertionError(f"{name}: greedy tokens after {n}, kernels vs plain, diverge "
+                                 f"at step {div[0]}, not a near-tie: {div}")
+    if not launches.get("int4_rank1_matmul"):
+        raise AssertionError(f"{name}: launches {launches}")
+    return engine, row, launches
+
+
+def family_batcher(torch, cfg, tree32, name, card) -> tuple:
+    """A FAMILY_SLOTS-slot ``ContinuousBatcher`` (int8 cache, float32 activations, as
+    phase 14's) on ``tree32``: prompts of 100-121 tokens, FAMILY_CHECK_NEW new each, every
+    slot's tokens against the engine's plain=True run (near-tie rule)."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+
+    engine = InferenceEngine(cfg, tree32, max_seq_length=cfg.block_size, cache_dtype=torch.int8)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(1, cfg.vocab_size, 100 + 7 * i).astype(np.int32)
+               for i in range(FAMILY_SLOTS)]
+    solo = [engine.generate(torch.as_tensor(p), len(p) + FAMILY_CHECK_NEW,
+                            plain=True)[0, len(p):].tolist() for p in prompts]
+
+    def run():
+        b = ContinuousBatcher(cfg, tree32, n_slots=FAMILY_SLOTS, max_seq_length=cfg.block_size,
+                              cache_dtype=torch.int8)
+        rids = [b.submit(p, FAMILY_CHECK_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        res = b.run_to_completion()
+        return [res[r] for r in rids], time.perf_counter() - t0
+
+    (got, dt), launches, _ = launched(torch, run)
+    rest = []
+    for p, a, want in zip(prompts, got, solo):
+        div = first_divergence(torch, engine, p.tolist(), a, want)
+        if div is not None:
+            rest.append(div)
+            if div[1] > NEAR_TIE_REL * div[2]:
+                raise AssertionError(f"{name} batcher: slot tokens diverge from plain's at step "
+                                     f"{div[0]}, not a near-tie: {div}")
+    row = {"slots": FAMILY_SLOTS, "new_tokens": FAMILY_CHECK_NEW, "seconds": dt,
+           "tok_s": FAMILY_SLOTS * FAMILY_CHECK_NEW / dt, "launches": launches,
+           "equal": sum(a == w for a, w in zip(got, solo)), "near_ties": rest, "card": card}
+    log(f"  {name} batcher (f32 activations, int8 cache): {FAMILY_SLOTS} slots, "
+        f"{FAMILY_CHECK_NEW} new tokens each in {dt:.2f} s ({row['tok_s']:.1f} tok/s, prefill "
+        f"included); tokens == the engine's plain=True run's for {row['equal']} of "
+        f"{FAMILY_SLOTS}; the rest (step, top-2 margin, max|logit|): "
+        f"{rest}; launches {launches}   [{card}]")
+    if not (launches.get("int4_rank1_matmul")
+            and all(len(a) == FAMILY_CHECK_NEW for a in got)):
+        raise AssertionError(f"{name} batcher: launches {launches}, tokens {got}")
+    del engine
+    return row, launches
+
+
+def finetune_run(torch, model_name, data, out, card, method="lora", optimizer="adamw",
+                 t=FAMILY_FT_T, micro=1, precision="bfloat16", **kw) -> tuple:
+    """``finetune.setup`` on an NF4 base (quadratic) for FAMILY_FT_STEPS steps over
+    ``data`` (copies of one example), one micro-batch a step: (state, the run's numbers);
+    raises unless the loss is finite and falls, and K6 launched 2 a layer a micro-batch
+    (under remat) and K7 1 a layer whose attention's input needs a gradient: every layer
+    but, for ``adapter`` (v1), layer 0, below which nothing trains."""
+    import csv
+
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.training.quant_optim import state_nbytes
+    from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train = TrainArgs(global_batch_size=micro, micro_batch_size=micro,
+                      max_iters=FAMILY_FT_STEPS, learning_rate=FAMILY_LR[method],
+                      lr_warmup_steps=0, save_interval=1000, log_interval=1, max_seq_length=t,
+                      optimizer=optimizer)
+    state, launches, wall = launched(torch, lambda: finetune.setup(
+        method=method, model_name=model_name, data_path=data, quantize="bnb.nf4",
+        attn_alg="quadratic", precision=precision, train=train, io=IOArgs(out_dir=out), **kw))
+    with open(out / "metrics.csv", newline="") as f:
+        steps = {int(r["step"]): r for r in csv.DictReader(f)}
+    losses = [float(steps[i]["loss"]) for i in sorted(steps)]
+    n_layer = Config.from_name(model_name).n_layer
+    want = {"flash_train_fwd": 2 * n_layer * FAMILY_FT_STEPS,
+            "flash_train_bwd": (n_layer - (method == "adapter")) * FAMILY_FT_STEPS}
+    run = {"model": model_name, "method": method, "optimizer": optimizer, "t": t,
+           "precision": precision,
+           "micro_batch": micro, "lr": FAMILY_LR[method], "wall_s": wall,
+           "step_s": float(steps[FAMILY_FT_STEPS]["time"]) - float(steps[1]["time"]),
+           "losses": losses, "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+           "held_before_gb": held / 1e9, "launches": launches,
+           "optimizer_state_bytes": state_nbytes(state.opt_state), "card": card, **kw}
+    log(f"  {model_name} {method} ({optimizer}, {precision}), T {t}: {FAMILY_FT_STEPS} steps in "
+        f"{wall:.2f} s "
+        f"(setup included); step 2 {run['step_s']:.2f} s; loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}; peak {run['peak_gb']:.3f} GB above {held / 1e9:.3f} held; optimizer "
+        f"state {run['optimizer_state_bytes']} bytes; launches {launches}   [{card}]")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{model_name} {method}: the loss did not fall: {losses}")
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"{model_name} {method}: K6/K7 launches {launches} != {want}")
+    return state, run
+
+
+def moe_dispatch_check(torch, engine, prompt, card) -> dict:
+    """The sorted route twice (the path's bf16 and int8 cache): the same bits; then sorted
+    against dense on the prefill logits, on float32 activations and cache (the int8 cache
+    would pass a code's rounding flip on)."""
+    import functools
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models import gpt
+
+    def logits(eng):
+        return eng.prefill(prompt[None], eng.new_cache())[0].float()
+
+    a, b = logits(engine), logits(engine)
+    same = bool(torch.equal(a, b))
+    check = InferenceEngine(engine.cfg, with_f32_activations(torch, engine.params),
+                            max_seq_length=engine.max_seq_length)
+    real = gpt.apply_moe
+    try:
+        sorted32 = logits(check)
+        gpt.apply_moe = functools.partial(real, sorted_dispatch=False)
+        dense32 = logits(check)
+    finally:
+        gpt.apply_moe = real
+    rel = logits_rel(torch, sorted32, dense32)
+    log(f"  MoE dispatch: sorted route twice bit for bit {same}; sorted vs dense (f32 "
+        f"activations and cache) prefill logits max|diff|/max|dense| {rel:.3e} (tolerance "
+        f"{LOGITS_REL_TOL})   [{card}]")
+    if not same or rel > LOGITS_REL_TOL:
+        raise AssertionError(f"MoE dispatch: repeat {same}, sorted vs dense {rel}")
+    return {"repeat_bitwise": same, "sorted_vs_dense_f32": rel}
+
+
+def families_path(torch, results, card) -> dict:
+    """Phase 15 (a)-(e); (f) runs in phase 12's directory (``adapter_commands``).
+    Returns the launch counts of its main paths."""
+    import tempfile
+
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.training import pretrain
+    from fastmax_tpu_torch.training.step import tree_leaves
+
+    log("[15] Gemma-7B and Mixtral-8x7B serve and finetune; the adapter methods and the "
+        "adamw8bit, adafactor and lion optimizers")
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    # the 4-bit backend is process-global: set here, so that K8 (training's NF4 matmuls
+    # whose input needs no gradient) is on this phase's path whatever ran before it
+    backend = quant.get_quant_backend()
+    quant.set_quant_backend("pallas")
+
+    # (a) Gemma-7B at full width and depth, bnb.nf4 -> preload_int4 (K1), 4096 context
+    cfg = Config.from_name(GEMMA)
+    t0 = time.perf_counter()
+    dense = gpt.init_params(cfg, 0, torch.bfloat16, "cuda")
+    n_params = sum(x.numel() for x in tree_leaves(dense))
+    nf4 = quant.quantize_model(dense, "bnb.nf4")
+    del dense
+    q4 = InferenceEngine.prepare_params(nf4, "preload_int4")
+    del nf4
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) random bf16 {GEMMA} ({n_params / 1e9:.3f} B parameters, seed 0) -> bnb.nf4 -> "
+        f"preload_int4 on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+    engine, row, launches = family_engine(torch, cfg, q4, GEMMA, card)
+    add_counts(counts, launches)
+    if not launches.get("flash_attention"):
+        raise AssertionError(f"{GEMMA}: K3 did not launch at D = 256: {launches}")
+    del engine
+    q4_f32 = with_f32_activations(torch, q4)
+    row["batcher"], launches = family_batcher(torch, cfg, q4_f32, GEMMA, card)
+    add_counts(counts, launches)
+    row["params"] = n_params
+    out["gemma_serve"] = row
+    # K3 at Gemma's prefill shape, and K6/K7 at its finetune shape, against plain and SDPA
+    kc = flash_case(torch, gen, 1, 16, 16, 4096, 256, torch.bfloat16, 512, 0)
+    out["k3_gemma"] = flash_times(torch, gen, ((torch.bfloat16, 256, 512, 0),), heads=16,
+                                  label="Gemma-7B")[0]
+    out["k3_gemma"]["max_abs_err"], out["k3_gemma"]["mean_err"] = kc["max_abs_err"], kc["mean_err"]
+    shape = (1, 16, FAMILY_FT_T, 256)
+    c = flash_train_case(torch, gen, "fused", shape, torch.bfloat16, f64=False)
+    r = flash_train_times(torch, gen, torch.bfloat16, shape=shape)
+    r["errors"] = c["errors"]
+    out["k6_k7_gemma"] = r
+    fb, bb = r["fwd_bound"], r["bwd_bound"]
+    log(f"  K6/K7 at {shape} bf16: K6 {r['k6_ms'] * 1e3:.1f} us (plain {r['plain_fwd_ms'] * 1e3:.1f}, "
+        f"SDPA ({r['sdpa_backend']}) {r['sdpa_fwd_ms'] * 1e3:.1f}, bound {fb['bound_ms'] * 1e3:.1f}, "
+        f"{fb['bound_by']}); K7 {r['k7_ms'] * 1e3:.1f} us (plain {r['plain_bwd_ms'] * 1e3:.1f}, "
+        f"SDPA backward {(r['sdpa_fwd_bwd_ms'] - r['sdpa_fwd_ms']) * 1e3:.1f}, bound "
+        f"{bb['bound_ms'] * 1e3:.1f}, {bb['bound_by']}); errors "
+        + ", ".join(f"{k} {a:.2e}" for k, (a, _, _) in c["errors"].items()) + f"   [{card}]")
+    del q4, q4_f32
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) Gemma-7B QLoRA: LoRA on query, value and the GeGLU MLP, T = 1024 (K6/K7 at D = 256)
+        data = one_example_npz(np, tmp / "t1024.npz", FAMILY_FT_T)
+        state, run = finetune_run(torch, GEMMA, data, tmp / "gemma", card, lora_r=8,
+                                  lora_alpha=16.0, lora_query=True, lora_value=True,
+                                  lora_mlp=True)
+        moved = float(state.params["blocks"]["mlp"]["fc_1"]["lora_B"].detach().float().abs()
+                      .max())
+        run["mlp_lora_b_max"] = moved
+        if not moved > 0:
+            raise AssertionError(f"{GEMMA} QLoRA: the MLP's lora_B did not move")
+        add_counts(counts, run["launches"])
+        out["gemma_qlora"] = run
+        del state
+
+        # (c) Mixtral-8x7B, full width, MIXTRAL_LAYERS layers
+        cut = cut_model(MIXTRAL, MIXTRAL_LAYERS)
+        mcfg = Config.from_name(cut)
+        mcfg.block_size = 1024
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dense = gpt.init_params(mcfg, 0, torch.bfloat16, "cuda")
+        m_params = sum(x.numel() for x in tree_leaves(dense))
+        q4 = InferenceEngine.prepare_params(quant.quantize_model(dense, "bnb.nf4"), "preload_int4")
+        del dense
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  (c) random bf16 {MIXTRAL} cut to {MIXTRAL_LAYERS} layers ({m_params / 1e9:.3f} B "
+            f"parameters) -> bnb.nf4 (attention and router; the experts stay bf16) -> "
+            f"preload_int4 in {time.perf_counter() - t0:.2f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+        engine, row, launches = family_engine(torch, mcfg, q4, cut, card)
+        add_counts(counts, launches)
+        if row["moe_reads_a_layer_a_forward"] != 1.0:
+            raise AssertionError(f"{cut}: MoE host reads {row['moe_host_reads']}")
+        prompt = torch.as_tensor(np.random.default_rng(17).integers(1, 32000, 64),
+                                 dtype=torch.int32, device="cuda")
+        row["dispatch"] = moe_dispatch_check(torch, engine, prompt, card)
+        row["params"] = m_params
+        out["mixtral_serve"] = row
+        del engine, q4
+        state, run = finetune_run(torch, cut, data, tmp / "mixtral", card, lora_r=8,
+                                  lora_alpha=16.0, lora_query=True, lora_value=True,
+                                  lora_mlp=True)
+        moved = float(state.params["blocks"]["mlp"]["gate"]["lora_B"].detach().float().abs()
+                      .max())
+        run["router_lora_b_max"] = moved
+        if not moved > 0:
+            raise AssertionError(f"{cut} QLoRA: the router's lora_B did not move")
+        add_counts(counts, run["launches"])
+        out["mixtral_qlora"] = run
+        del state
+
+        # (d) the adapter methods and adamw8bit on Llama-2-7B QLoRA, T = 2048
+        data = one_example_npz(np, tmp / "t2048.npz", ADAPTER_T)
+        out["adapters"] = {}
+        for method, opt in (("adapter", "adamw"), ("adapter_v2", "adamw"),
+                            ("adapter_v2", "adamw8bit")):
+            state, run = finetune_run(torch, "Llama-2-7b-hf", data, tmp / f"{method}-{opt}",
+                                      card, method=method, optimizer=opt, t=ADAPTER_T, micro=2,
+                                      precision="float32" if method == "adapter" else "bfloat16")
+            gate = state.params["blocks"]["attn"]["adapter"]["gating"]
+            run["gating_max"] = float(gate.detach().float().abs().max())
+            if not run["gating_max"] > 0:
+                raise AssertionError(f"{method} ({opt}): the gates did not move")
+            add_counts(counts, run["launches"])
+            out["adapters"][f"{method}-{opt}"] = run
+            del state
+        a8, a32 = (out["adapters"][f"adapter_v2-{o}"] for o in ("adamw8bit", "adamw"))
+        log(f"  adapter_v2 optimizer state: adamw8bit {a8['optimizer_state_bytes']} bytes, adamw "
+            f"{a32['optimizer_state_bytes']} ({a8['optimizer_state_bytes'] / a32['optimizer_state_bytes']:.4f}); "
+            f"peak {a8['peak_gb']:.3f} vs {a32['peak_gb']:.3f} GB   [{card}]")
+
+        # (e) adafactor, lion and adamw8bit on phase 8's pretraining (K4/K5)
+        tokens, _ = repo_text_tokens(np)
+        pdata = tmp / "data"
+        pdata.mkdir()
+        tokens.tofile(pdata / "train.bin")
+        (pdata / "meta.json").write_text('{"dtype": "uint16"}')
+        out["optimizers"] = {}
+        for name, lr in OPT_LR.items():
+            train = dataclasses.replace(train_args(OPT_STEPS), learning_rate=lr,
+                                        lr_warmup_steps=0, min_lr=lr / 10, optimizer=name)
+            state, run = training_run(torch, pretrain, build, pdata, tmp / name,
+                                      "easy-transformer-fastmax", card, train=train)
+            run.update(optimizer=name, lr=lr)
+            n_layer = Config.from_name("easy-transformer-fastmax").n_layer
+            want = {"fastmax_fwd": 2 * n_layer * 2 * OPT_STEPS,  # 2 micro-batches a step
+                    "fastmax_bwd": n_layer * 2 * OPT_STEPS}
+            got = {k: run["launches"].get(k, 0) for k in want}
+            log(f"    {name} (lr {lr}, no warmup): K4/K5 launches {got} (want {want})")
+            if not (all(math.isfinite(x) for x in run["losses"])
+                    and run["last_loss"] < run["first_loss"]) or got != want:
+                raise AssertionError(f"{name}: losses {run['losses']}, launches {got}")
+            add_counts(counts, {k: v for k, v in run["launches"].items() if v})
+            out["optimizers"][name] = run
+            del state
+    quant.set_quant_backend(backend)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = counts
+    log(f"  (a)-(e) in {out['phase_s']:.1f} s; launches {counts}")
+    results["families"] = out
+    return counts
+
+
+def adapter_commands(torch, results, card, tmp, ckpt) -> dict:
+    """Phase 15 (f), inside phase 12's directory: ``finetune`` main with ``--method
+    adapter_v2`` on its 2-layer checkpoint of Llama-2-7B's width, then ``generate.main
+    --method adapter_v2`` on the delta, whose text must equal the engine's on the tree
+    ``generate.load_and_prepare`` gives (the base with the delta's leaves set)."""
+    import importlib.util
+    import io
+
+    from fastmax_tpu_torch.inference import generate
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models.tokenizer import Tokenizer
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint
+
+    flags = ["--method", "adapter_v2", "--checkpoint_dir", str(ckpt), "--data_path",
+             str(tmp / "sft.npz"), "--precision", "bfloat16", "--adapter_start_layer", "1",
+             "--train.max_iters", "2", "--train.global_batch_size", "2",
+             "--train.micro_batch_size", "2", "--train.max_seq_length", "512",
+             "--train.lr_warmup_steps", "0", "--train.learning_rate", "3e-3",
+             "--io.out_dir", str(tmp / "adapter_v2")] + CMD_LOG
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, launches, wall = launched(torch, lambda: finetune.main(flags))
+    delta = tmp / "adapter_v2" / "adapter_v2_weights.safetensors"
+    written = load_flat_checkpoint(delta)
+    row = {"flags": flags, "steps": state.step, "wall_s": wall, "launches": launches,
+           "delta_tensors": len(written), "card": card}
+    del state
+    if importlib.util.find_spec("tokenizers") is not None:
+        tok = Tokenizer(ckpt)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            _, gl, _ = launched(torch, lambda: generate.main(
+                prompt="def main", checkpoint_dir=ckpt, max_new_tokens=16, temperature=0.0,
+                method="adapter_v2", finetuned_path=delta))
+        cfg, params = generate.load_and_prepare(ckpt, finetuned_path=delta, method="adapter_v2")
+        enc = tok.encode("def main")
+        outs = InferenceEngine(cfg, params, max_seq_length=len(enc) + 16).generate(
+            torch.as_tensor(enc), len(enc) + 16, eos_id=tok.eos_id)
+        want = tok.decode(outs[0].cpu().numpy())
+        row.update(generate_main=buf.getvalue().strip() == want.strip(), generate_launches=gl,
+                   text=want)
+        del params
+    log(f"  (f) finetune --method adapter_v2 on phase 12's 2-layer directory: {row['steps']} "
+        f"steps in {wall:.2f} s, {len(written)} tensors in adapter_v2_weights.safetensors; "
+        f"generate.main --method adapter_v2 == the engine's text on the loaded tree "
+        f"{row.get('generate_main', '(no tokenizers package)')}; launches {launches}   [{card}]")
+    if row["steps"] != 2 or not written or not row.get("generate_main", True):
+        raise AssertionError(f"the adapter command lines: {row}")
+    results.setdefault("families", {})["adapter_commands"] = row
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -4861,15 +5395,17 @@ def main() -> int:
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
-    counts_cmd, (counts_inf, counts_lin) = command_path(
+    counts_cmd, (counts_inf, counts_lin, _) = command_path(
         torch, results, card, lambda tmp, ckpt, *a: (
             inference_path(torch, results, card, tmp, ckpt, *a),
-            linear_serving_path(torch, results, card, tmp, ckpt)))
+            linear_serving_path(torch, results, card, tmp, ckpt),
+            adapter_commands(torch, results, card, tmp, ckpt)))
+    counts_fam = families_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
                            "command_path": counts_cmd, "inference_path": counts_inf,
-                           "linear_serving_path": counts_lin}
+                           "linear_serving_path": counts_lin, "families_path": counts_fam}
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -4880,7 +5416,9 @@ def main() -> int:
     # own max abs errors there (K6: out, lse; K7: dq, dk, dv); their library time is SDPA's
     # causal forward, and for K7 its forward + backward less that forward. Launches: the
     # serving path (K1-K3), the training path (K4, K5), the finetune path (K6, K7), with the
-    # linear arms' serving path (phase 14, K1 alone) added to K1.
+    # linear arms' serving path (phase 14, K1 alone) added to K1, and phase 15's main paths
+    # (Gemma-7B and Mixtral serving and finetuning, the adapters, the optimizers) added to
+    # K1, K3, K4, K5, K6, K7 and K8.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
@@ -4904,20 +5442,23 @@ def main() -> int:
                              "ms": sum(r["fma_ms"] for r in layer)})
     kernels = [
         {"name": k1.name, "route": "cuda", "source": str(k1.source.relative_to(REPO)),
-         "replaces": k1.replaces, "launches": counts[k1.name] + counts_lin.get(k1.name, 0),
+         "replaces": k1.replaces,
+         "launches": counts[k1.name] + counts_lin.get(k1.name, 0) + counts_fam.get(k1.name, 0),
          "max_abs_err": int4_err,
          "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
          "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
          "library_ms": None, "by_path": k1_paths},
         {"name": k2.name, "route": "cuda", "source": str(k2.source.relative_to(REPO)),
-         "replaces": k2.replaces, "launches": counts[k2.name], "max_abs_err": attn_err,
+         "replaces": k2.replaces, "launches": counts[k2.name] + counts_fam.get(k2.name, 0),
+         "max_abs_err": attn_err,
          "mean_err": attn_mean, "ms": att["ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": None,
          "by_path": [{"path": r["route"], "shape": r["shape"], "pos": r["pos"],
                       "nsplit": r["nsplit"], "ms": r["ms"], "bound_ms": r["bound_ms"],
                       "plain_ms": r["plain_ms"]} for r in attn_rows]},
         {"name": k3.name, "route": "cuda", "source": str(k3.source.relative_to(REPO)),
-         "replaces": k3.replaces, "launches": counts[k3.name], "max_abs_err": flash_err,
+         "replaces": k3.replaces, "launches": counts[k3.name] + counts_fam.get(k3.name, 0),
+         "max_abs_err": flash_err,
          "mean_err": flash_mean,
          "ms": sum(r["ms"] for r in flash_rows), "plain_ms": sum(r["plain_ms"] for r in flash_rows),
          "bound_ms": sum(r["bound_ms"] for r in flash_rows),
@@ -4932,7 +5473,7 @@ def main() -> int:
              k5_bound(train_row, train_row["k5_path"]))):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_train[kern.name],
+                        "launches": counts_train[kern.name] + counts_fam.get(kern.name, 0),
                         "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                         "library_ms": None})
@@ -4960,7 +5501,8 @@ def main() -> int:
              ft["sdpa_fwd_bwd_ms"] - ft["sdpa_fwd_ms"])):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_ft[kern.name], "max_abs_err": ft_err[kern.name],
+                        "launches": counts_ft[kern.name] + counts_fam.get(kern.name, 0),
+                        "max_abs_err": ft_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
                         "bound_by": bnd["bound_by"], "library_ms": lib})
     # K8, K9: one decode step of one layer at m=1, bf16 x (K8: qkv, attn.proj and fc_12,
@@ -4970,7 +5512,8 @@ def main() -> int:
             "K8" if kern.name == "nf4_matmul" else "K9")]
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_q[kern.name], "max_abs_err": q_err[kern.name],
+                        "launches": counts_q[kern.name] + counts_fam.get(kern.name, 0),
+                        "max_abs_err": q_err[kern.name],
                         "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
                         "library_ms": None})

@@ -208,11 +208,13 @@ class InferenceEngine:
     @torch.inference_mode()
     def decode(self, cache: dict, first_token: torch.Tensor, prompt_len: int, max_new: int,
                eos_id: Optional[int] = None, *, temperature: float = 0.0,
-               top_k: Optional[int] = None, generator: Optional[torch.Generator] = None):
+               top_k: Optional[int] = None, generator: Optional[torch.Generator] = None,
+               plain: bool = False):
         """Decode from ``first_token`` (B,) until ``max_new`` tokens (first
         included) or, with ``eos_id``, until every row has emitted it; greedy
-        at temperature 0, else sampled (see ``ops.sampling.sample``).
-        Returns ((B, n) generated tokens on the device, cache)."""
+        at temperature 0, else sampled (see ``ops.sampling.sample``); ``plain``
+        sends every kernel call to its plain version. Returns ((B, n)
+        generated tokens on the device, cache)."""
         b = first_token.shape[0]
         max_new = max(max_new, 1)
         tokens = torch.zeros((b, max_new), dtype=torch.int32, device=self.device)
@@ -222,7 +224,7 @@ class InferenceEngine:
         while n < max_new:
             if done is not None and bool(done.all()):
                 break
-            logits, cache = self._forward(tokens[:, n - 1:n], cache, prompt_len + n - 1)
+            logits, cache = self._forward(tokens[:, n - 1:n], cache, prompt_len + n - 1, plain)
             nxt = sample(logits[:, -1, :], temperature, top_k, generator=generator)
             tokens[:, n] = nxt
             if done is not None:
@@ -233,12 +235,13 @@ class InferenceEngine:
     def generate(self, prompt: torch.Tensor, max_returned_tokens: int, *,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  eos_id: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 plain: bool = False) -> torch.Tensor:
         """Generation, greedy at temperature 0 (the default), else sampled
         with the top_k most likely tokens and noise from ``generator`` (the
         JAX engine's ``key``; None draws from PyTorch's default generator).
-        prompt: (T,) or (B, T) token ids. Returns the (B, n) sequence
-        including the prompt, truncated at eos for batch 1."""
+        prompt: (T,) or (B, T) token ids; ``plain`` as ``decode``'s. Returns
+        the (B, n) sequence including the prompt, truncated at eos for batch 1."""
         prompt = torch.as_tensor(prompt, device=self.device).to(torch.int32)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -248,10 +251,11 @@ class InferenceEngine:
         if max_returned_tokens > self.max_seq_length:
             raise ValueError(f"max_returned_tokens {max_returned_tokens} > max_seq_length "
                              f"{self.max_seq_length}")
-        logits, cache = self.prefill(prompt, self.new_cache())
+        logits, cache = self.prefill(prompt, self.new_cache(), plain)
         first = sample(logits, temperature, top_k, generator=generator)
         gen, _ = self.decode(cache, first, t, max_returned_tokens - t, eos_id,
-                             temperature=temperature, top_k=top_k, generator=generator)
+                             temperature=temperature, top_k=top_k, generator=generator,
+                             plain=plain)
         out = torch.cat([prompt, gen], dim=1)
         if eos_id is not None and b == 1:
             hits = (out[0, t:] == eos_id).nonzero()

@@ -7,7 +7,7 @@
 weights through ``utils/checkpoint.load_model_params``, one tensor at a
 time onto the device), attaches a finetuned file (``apply_finetuned``:
 ``full`` replaces the weights, ``lora`` sets the delta leaves and merges
-them) and quantizes. ``main`` wraps the prompt (``--prompt_style``), runs
+them, ``adapter``/``adapter_v2`` set the adapter leaves) and quantizes. ``main`` wraps the prompt (``--prompt_style``), runs
 ``InferenceEngine.generate`` ``num_samples`` times and prints each text, then
 ``Time for inference ...`` with tokens/sec and, on the card, the peak memory
 to stderr.
@@ -19,8 +19,7 @@ differs from the JAX package's for the same seed; greedy text (temperature
 
 Not ported yet, each raising ``NotImplementedError``: ``--tp``/``--fsdp``
 above 1 (the multi-GPU load, A8), ``--speculative_k`` (A1) and
-``--gptq_calib`` (A3). ``adapter``/``adapter_v2`` finetuned files need
-``models/adapter.py`` (A4).
+``--gptq_calib`` (A3).
 """
 
 from __future__ import annotations
@@ -88,16 +87,16 @@ def apply_finetuned(params, cfg, finetuned_path: Path, method: str, dtype):
     """Attach finetuned weights, on the parameters' device.
 
     method "full": the file holds a complete lit-named state dict, which
-    replaces every parameter. "lora": the file holds delta leaves named by
-    their tree paths ("blocks.attn.attn.lora_A", as ``training/finetune.py``
-    writes them), set in ``dtype`` and merged into the base."""
+    replaces every parameter. "lora", "adapter", "adapter_v2": the file holds
+    leaves named by their tree paths ("blocks.attn.attn.lora_A",
+    "blocks.attn.adapter.wte", ..., as ``training/finetune.py`` writes them),
+    set in ``dtype``; LoRA deltas are merged into the base, adapter leaves
+    stay (the forward applies them; the file has no ``on``, see
+    ``models/adapter.apply_adapter_attention``)."""
     from ..models import lora as lora_mod
     from ..utils.checkpoint import load_flat_checkpoint
 
-    if method in ("adapter", "adapter_v2"):
-        raise NotImplementedError(f"method {method!r} (models/adapter.py) is not ported yet "
-                                  "(ROADMAP queue A, A4)")
-    if method not in ("full", "lora"):
+    if method not in ("full", "lora", "adapter", "adapter_v2"):
         raise ValueError(f"unknown finetuning method {method!r}")
     device = params["wte"].device
     delta = load_flat_checkpoint(Path(finetuned_path))
@@ -111,7 +110,7 @@ def apply_finetuned(params, cfg, finetuned_path: Path, method: str, dtype):
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = value.to(device=device, dtype=dtype)
-    return lora_mod.merge_lora(params)
+    return lora_mod.merge_lora(params) if method == "lora" else params
 
 
 def main(

@@ -11,7 +11,9 @@ Ported here: a scalar ``input_pos`` (a Python int) or per-slot positions
 (a (B,) device tensor, continuous batching) with a dense or int8 cache,
 fused-QKV grouped attention with (partial) RoPE, the flash prefill route
 over the cache (``ops/flash_attention.py``), ``logits_at``, the LLaMA
-SwiGLU MLP (split or fused ``fc_12``), sequential and parallel residual.
+SwiGLU and Gemma GeGLU MLPs (split or fused ``fc_12``), Mixtral's top-k MoE
+(``apply_moe``), sequential and parallel residual, and the LLaMA-Adapter
+prefix attention (``models/adapter.py``) on the quadratic arm.
 
 The no-cache forward (``kv_cache=None``: training and evaluation; and
 ``forward_hidden``, the same without the lm_head) runs every block over the
@@ -23,8 +25,8 @@ their chunked scans (ops/fastmax.py), and ``quadratic`` at T >= 1024 through
 the trainable flash kernels K6 (forward) and K7 (backward); ``remat=True``
 recomputes each block in the backward (``torch.utils.checkpoint``).
 ``init_params`` gives the GPT-NeoX initialisation from a seed; the GPT-NeoX
-MLP (exact or tanh GELU) and bias leaves are ported. MoE and the XLA remat
-policies come in later slices.
+MLP (exact or tanh GELU) and bias leaves are ported. The XLA remat policies
+come in a later slice.
 
 The cached forward with a linear arm reads the dense cache as the reference
 does (``ops/attention.attention(..., is_decode=True)``: unmasked over the
@@ -51,6 +53,7 @@ from ..ops.flash_attention import flash_attention, flash_eligible
 from ..ops.linear import embedding, linear
 from ..ops.norms import apply_norm
 from ..ops.rope import apply_rope, build_rope_cache
+from .adapter import apply_adapter_attention
 from .config import Config
 
 
@@ -69,17 +72,26 @@ def _init_norm(cfg: Config, dtype, dev):
     return p
 
 
+def _init_glu(gen, e, i, bias, dtype) -> dict:
+    return {"fc_1": _init_linear(gen, e, i, bias, dtype),
+            "fc_2": _init_linear(gen, e, i, bias, dtype),
+            "proj": _init_linear(gen, i, e, bias, dtype)}
+
+
 def _init_block(gen, cfg: Config, dtype) -> dict:
     e, i = cfg.n_embd, cfg.intermediate_size
     if cfg.mlp_class_name == "GptNeoxMLP":
         mlp = {"fc": _init_linear(gen, e, i, cfg.bias, dtype),
                "proj": _init_linear(gen, i, e, cfg.bias, dtype)}
-    elif cfg.mlp_class_name == "LLaMAMLP":
-        mlp = {"fc_1": _init_linear(gen, e, i, cfg.bias, dtype),
-               "fc_2": _init_linear(gen, e, i, cfg.bias, dtype),
-               "proj": _init_linear(gen, i, e, cfg.bias, dtype)}
+    elif cfg.mlp_class_name in ("LLaMAMLP", "GemmaMLP"):
+        mlp = _init_glu(gen, e, i, cfg.bias, dtype)
+    elif cfg.mlp_class_name == "LLaMAMoE":
+        # a bias-free router (E outputs) and the experts stacked on (E, ...)
+        mlp = {"gate": _init_linear(gen, e, cfg.n_expert, False, dtype),
+               "experts": _stack([_init_glu(gen, e, i, cfg.bias, dtype)
+                                  for _ in range(cfg.n_expert)])}
     else:
-        raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet")
+        raise ValueError(cfg.mlp_class_name)
     block = {
         "norm_1": _init_norm(cfg, dtype, gen.device),
         "attn": {"attn": _init_linear(gen, e, cfg.qkv_shape, cfg.bias, dtype),
@@ -157,21 +169,101 @@ def _rope(x, cos, sin, nre):
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool = False):
-    if cfg.mlp_class_name == "GptNeoxMLP":
+    """``layer`` selects the stacked-weights mode (see ops/linear.linear)."""
+    name = cfg.mlp_class_name
+    if name == "GptNeoxMLP":
         h = linear(p["fc"], x, layer, plain=plain)
         h = torch.nn.functional.gelu(h, approximate="tanh" if cfg.gelu_approximate == "tanh"
                                      else "none")
         return linear(p["proj"], h, layer, plain=plain)
-    if cfg.mlp_class_name != "LLaMAMLP":
-        raise NotImplementedError(f"{cfg.mlp_class_name} is not ported yet "
-                                  "(GptNeoxMLP and LLaMAMLP)")
-    silu = torch.nn.functional.silu
+    if name == "LLaMAMoE":
+        if layer is not None:
+            p = _slice_tree(p, layer)
+        return apply_moe(p, x, cfg, plain=plain)
+    if name == "LLaMAMLP":
+        act = torch.nn.functional.silu
+    elif name == "GemmaMLP":
+        def act(h):  # exact GELU, as the reference's approximate=False
+            return torch.nn.functional.gelu(h, approximate="none")
+    else:
+        raise ValueError(name)
     if "fc_12" in p:
         h = linear(p["fc_12"], x, layer, plain=plain)
         h1, h2 = torch.chunk(h, 2, dim=-1)
-        return linear(p["proj"], silu(h1) * h2, layer, plain=plain)
-    return linear(p["proj"], silu(linear(p["fc_1"], x, layer, plain=plain))
+        return linear(p["proj"], act(h1) * h2, layer, plain=plain)
+    return linear(p["proj"], act(linear(p["fc_1"], x, layer, plain=plain))
                   * linear(p["fc_2"], x, layer, plain=plain), layer, plain=plain)
+
+
+def _slice_tree(tree: dict, layer: int) -> dict:
+    return {k: _slice_tree(v, layer) if isinstance(v, dict) else v[layer]
+            for k, v in tree.items()}
+
+
+# The sorted MoE route reads the per-expert segment sizes back to the host,
+# once a layer a forward; this counts those reads (reset it to 0 to count a run).
+MOE_HOST_READS = [0]
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: Config, sorted_dispatch: bool = True, *,
+              plain: bool = False) -> torch.Tensor:
+    """Mixtral's top-k MoE, dropless, with the reference's two routes: the
+    router's top k, a float32 softmax over those k cast to x's dtype; then
+
+    * sorted (default, bias-free experts): the N*k token-expert rows put in
+      order of expert by a stable argsort, one ``torch.matmul`` per expert
+      over its contiguous segment (the counterpart of ``lax.ragged_dot``;
+      the segment sizes are read to the host, ``MOE_HOST_READS``), SiLU(fc_1)
+      * fc_2, then proj, weighted by the router, put back in token order by
+      the inverse permutation and summed over k in order (no atomics: the
+      card's runs repeat bit for bit);
+    * dense (experts with biases, or ``sorted_dispatch=False``): every expert
+      over every token, combined by the sparse router weights.
+
+    ``p`` holds one layer: {"gate": linear (C, E), "experts": {fc_1, fc_2,
+    proj} stacked on (E, ...)}."""
+    b, t, c = x.shape
+    xf = x.reshape(-1, c)
+    n = xf.shape[0]
+    k, e = cfg.n_expert_per_token, cfg.n_expert
+    router = linear(p["gate"], xf, plain=plain)  # (N, E)
+    probs, indices = torch.topk(router, k, dim=-1)
+    probs = torch.softmax(probs.float(), dim=-1).to(x.dtype)
+    ex = p["experts"]
+    silu = torch.nn.functional.silu
+
+    if sorted_dispatch and "bias" not in ex["fc_1"]:
+        flat = indices.reshape(-1)  # (N*k,): row i belongs to token i // k
+        order = torch.argsort(flat, stable=True)
+        # a permutation of the k-fold repeated rows: its backward has no duplicate index
+        xs = xf.repeat_interleave(k, dim=0)[order]
+        sizes = torch.bincount(flat, minlength=e).tolist()
+        MOE_HOST_READS[0] += 1
+        segs = []
+        for j, seg in enumerate(torch.split(xs, sizes)):
+            h = silu(seg @ ex["fc_1"]["kernel"][j].to(x.dtype)) \
+                * (seg @ ex["fc_2"]["kernel"][j].to(x.dtype))
+            segs.append(h @ ex["proj"]["kernel"][j].to(x.dtype))
+        ys = torch.cat(segs) * probs.reshape(-1)[order][:, None]
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        y = ys[inv].reshape(n, k, c)
+        out = y[:, 0]
+        for j in range(1, k):
+            out = out + y[:, j]
+        return out.reshape(b, t, c)
+
+    one_hot = torch.nn.functional.one_hot(indices, e).to(x.dtype)  # (N, k, E)
+    combine = torch.einsum("nk,nke->ne", probs, one_hot)
+    h1 = torch.einsum("nc,eci->eni", xf, ex["fc_1"]["kernel"].to(x.dtype))
+    h2 = torch.einsum("nc,eci->eni", xf, ex["fc_2"]["kernel"].to(x.dtype))
+    if "bias" in ex["fc_1"]:
+        h1 = h1 + ex["fc_1"]["bias"][:, None, :]
+        h2 = h2 + ex["fc_2"]["bias"][:, None, :]
+    y = torch.einsum("eni,eic->enc", silu(h1) * h2, ex["proj"]["kernel"].to(x.dtype))
+    if "bias" in ex["proj"]:
+        y = y + ex["proj"]["bias"][:, None, :]
+    return torch.einsum("ne,enc->nc", combine, y).reshape(b, t, c)
 
 
 def _write(cache: torch.Tensor, new: torch.Tensor, layer: int, input_pos) -> None:
@@ -230,7 +322,7 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
             else:
                 y = int8_cache_attention(q, kc[layer], vc[layer], ks[layer], vs[layer],
                                          mask=mask, scale=hs ** -0.5)
-            return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
+            return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
         # prefill reads a dense cache: dequantize once
         k = _dequantize_kv(kc[layer], ks[layer], act_dtype)
         v = _dequantize_kv(vc[layer], vs[layer], act_dtype)
@@ -240,7 +332,7 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
         k, v = kv_cache["k"][layer], kv_cache["v"][layer]
     if cfg.attn_alg != "quadratic":
         y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=hs, is_decode=True, plain=plain)
-        return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
+        return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
     s_len = k.shape[2]
     if t > 1 and isinstance(input_pos, int) and \
             flash_eligible(t + (-t) % FLASH_BLOCK_Q, s_len, hs):
@@ -250,11 +342,15 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
                             kv_len=input_pos + t, plain=plain)
     else:
         y = scaled_dot_product_attention(q, k, v, mask=mask, scale=1.0 / hs ** 0.5)
-    return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
+    return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
 
 
-def _finish_attn(p, y, x, cfg, b, t, hs, layer, plain):
-    """Head merge + output projection, in the activation dtype."""
+def _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain):
+    """The adapter's prefix attention (quadratic arm only, as in the
+    reference), then head merge + output projection in the activation dtype."""
+    if "adapter" in p and cfg.attn_alg == "quadratic":
+        ap = p["adapter"] if layer is None else _slice_tree(p["adapter"], layer)
+        y = y + apply_adapter_attention(ap, p["attn"], q, cfg, hs ** -0.5, layer, plain=plain)
     y = y.permute(0, 2, 1, 3).reshape(b, t, hs * cfg.n_head).to(x.dtype)
     return linear(p["proj"], y, layer, plain=plain)
 
@@ -283,7 +379,7 @@ def apply_attn_nocache(p: dict, x: torch.Tensor, cfg: Config, cos, sin, *,
     b, t, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, cos, sin, None, plain)
     y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=cfg.head_size, plain=plain)
-    return _finish_attn(p, y, x, cfg, b, t, cfg.head_size, None, plain)
+    return _finish_attn(p, y, x, q, cfg, b, t, cfg.head_size, None, plain)
 
 
 def _unstack(tree, n: int) -> list:
@@ -302,8 +398,9 @@ def _check_remat(remat) -> bool:
         return False
     if isinstance(remat, str):
         raise NotImplementedError(
-            f"remat policy {remat!r} is one of the reference's XLA checkpoint policies; the port "
-            "has True/'full' (each block recomputed in the backward) and False")
+            f"remat policy {remat!r} is one of the reference's XLA checkpoint policies, not "
+            "ported yet (ROADMAP queue A, A4 slice 2); the port has True/'full' (each block "
+            "recomputed in the backward) and False")
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
@@ -468,7 +565,7 @@ def _attn_linear_state(p: dict, x: torch.Tensor, cfg: Config, cos, sin, state: d
         else:
             _, o = fm.linear_attn_decode_step(st, q1, k1, v1, 8.0 * hs ** 0.5, _degree(alg))
         y = o[:, :, None, :]
-    return _finish_attn(p, y, x, cfg, b, t, hs, layer, plain)
+    return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
 
 
 def forward_linear_cache(

@@ -90,12 +90,12 @@ def add_lora_params(params: dict, cfg: Config, lora: LoRAConfig, gen: torch.Gene
         if cfg.mlp_class_name == "GptNeoxMLP":
             mlp["fc"].update(stacked_lora(cfg.n_embd, cfg.intermediate_size))
             mlp["proj"].update(stacked_lora(cfg.intermediate_size, cfg.n_embd))
-        elif cfg.mlp_class_name == "LLaMAMLP":
+        elif cfg.mlp_class_name in ("LLaMAMLP", "GemmaMLP"):
             mlp["fc_1"].update(stacked_lora(cfg.n_embd, cfg.intermediate_size))
             mlp["fc_2"].update(stacked_lora(cfg.n_embd, cfg.intermediate_size))
             mlp["proj"].update(stacked_lora(cfg.intermediate_size, cfg.n_embd))
-        else:
-            raise NotImplementedError(f"LoRA on the {cfg.mlp_class_name} MLP is not ported yet")
+        elif cfg.mlp_class_name == "LLaMAMoE":  # the router; the experts stay as they are
+            mlp["gate"].update(stacked_lora(cfg.n_embd, cfg.n_expert))
     if lora.head:
         out["lm_head"].update(_init_lora(gen, cfg.n_embd, cfg.padded_vocab_size, lora, dtype,
                                          device))

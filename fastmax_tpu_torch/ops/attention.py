@@ -182,7 +182,7 @@ def _long_causal(q, k, v, head_size: int, plain: bool) -> torch.Tensor:
     if TRAIN_ATTN == "auto":
         raise NotImplementedError(
             "FASTMAX_TPU_TRAIN_ATTN=auto (the reference's timing probe) is not ported yet "
-            "(ROADMAP queue A, A4): set flash2, flash or blockwise")
+            "(ROADMAP queue A, A4 slice 2): set flash2, flash or blockwise")
     b, h, t, _ = q.shape
     scale = 1.0 / head_size ** 0.5
     kf, vf = repeat_kv_heads(k, h), repeat_kv_heads(v, h)

@@ -351,12 +351,18 @@ def quantized_matmul(x: torch.Tensor, p: dict, *, plain: bool = False) -> torch.
 # ------------------------------------------------------------- model trees
 
 
+# a linear's leaves that every re-representation of its weight keeps as they are
+_KEPT = ("bias", "adapter_scale", "adapter_bias")
+
+
 def _per_layer(node: dict, lead_key: str, fn) -> dict:
-    """``fn`` over one linear dict (its bias aside), one layer at a time
-    when the ``lead_key`` leaf carries stack axes: each result leaf is
-    written into a stack allocated at the first layer, so only one layer's
-    intermediates are alive at once. The bias is kept as it is."""
-    body = {k: v for k, v in node.items() if k != "bias"}
+    """``fn`` over one linear dict (its bias and adapter-v2 leaves aside),
+    one layer at a time when the ``lead_key`` leaf carries stack axes: each
+    result leaf is written into a stack allocated at the first layer, so only
+    one layer's intermediates are alive at once. The leaves set aside are
+    kept as they are (the reference keeps only the bias and drops a v2
+    adapter's scale and bias)."""
+    body = {k: v for k, v in node.items() if k not in _KEPT}
     lead = tuple(node[lead_key].shape[:-2])
     if not lead:
         out = fn(body)
@@ -368,8 +374,7 @@ def _per_layer(node: dict, lead_key: str, fn) -> dict:
                 if key not in out:
                     out[key] = val.new_empty(lead + tuple(val.shape))
                 out[key][idx] = val
-    if "bias" in node:
-        out["bias"] = node["bias"]
+    out.update({k: node[k] for k in _KEPT if k in node})
     return out
 
 
@@ -421,8 +426,7 @@ def quantize_linear_params(p: dict, mode: str) -> dict:
         q = quantize_4bit(kernel, kind="int4")
     else:
         raise ValueError(f"unknown quantization mode {mode!r}; expected one of {QUANT_MODES}")
-    if "bias" in p:
-        q["bias"] = p["bias"]
+    q.update({k: p[k] for k in _KEPT if k in p})
     return q
 
 

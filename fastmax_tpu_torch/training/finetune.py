@@ -1,24 +1,28 @@
 """Finetuning recipe (counterpart of ``fastmax_tpu/training/finetune.py``):
-``method`` "lora" or "full", on a dense base or, with ``quantize`` one of
-``ops.quant.QUANT_MODES`` ("bnb.nf4", "bnb.nf4-dq", ...), on a quantized base
-that stays frozen (QLoRA: the reference's finetune/lora.py flow).
+``method`` "lora", "adapter", "adapter_v2" or "full", on a dense base or,
+with ``quantize`` one of ``ops.quant.QUANT_MODES`` ("bnb.nf4", "bnb.nf4-dq",
+...), on a quantized base that stays frozen (QLoRA: the reference's
+finetune/lora.py flow; the adapters' finetune/adapter*.py).
 
 ``setup`` takes the base from ``checkpoint_dir`` (a converted checkpoint
 directory: ``lit_config.json`` and the weights, read by
 ``utils/checkpoint.load_model_params`` in ``precision`` on the device, one
 tensor at a time) or builds ``model_name`` from the registry with random
-weights from ``seed``; quantizes it, adds the LoRA leaves, and trains with
-``sft_loss_fn`` (``gpt.forward_hidden`` under per-block remat +
-``chunked_cross_entropy`` with the lm_head in chunks of 128) through ``fit``
-and the masked AdamW: only lora_A/lora_B require grad. With
-``attn_alg="quadratic"`` every layer at T >= 1024 takes the trainable flash
-kernels K6/K7 on the card; the fork's linear arms train at every head size
-(``ops/fastmax.py``): ``fastmax`` and ``fastmax_cuda`` at a head size of 128
-(Llama-2-7B) run the reversible float32 scan in head groups, ``linearmax``
-and ``performer`` their chunked scans, each in float32 and cast back to a
-bf16 model's type. LoRA runs save the LoRA leaves to
-``out_dir/lora_weights.safetensors`` by their tree paths
-("blocks.attn.attn.lora_A", ...), ``full`` runs the whole model to
+weights from ``seed``; quantizes it, adds the LoRA or adapter leaves
+(``models/lora.py``, ``models/adapter.py``), and trains with ``sft_loss_fn``
+(``gpt.forward_hidden`` under per-block remat + ``chunked_cross_entropy``
+with the lm_head in chunks of 128) through ``fit`` and the masked optimizer
+of ``--train.optimizer`` (adamw, adamw8bit, adafactor, lion): only the
+method's trainable leaves require grad. With ``attn_alg="quadratic"`` every
+layer at T >= 1024 takes the trainable flash kernels K6/K7 on the card; the
+fork's linear arms train at every head size (``ops/fastmax.py``): ``fastmax``
+and ``fastmax_cuda`` at a head size of 128 (Llama-2-7B) run the reversible
+float32 scan in head groups, ``linearmax`` and ``performer`` their chunked
+scans, each in float32 and cast back to a bf16 model's type. LoRA runs save
+the LoRA leaves to ``out_dir/lora_weights.safetensors`` by their tree paths
+("blocks.attn.attn.lora_A", ...), adapter runs the leaves that
+``adapter.adapter_filter_flat`` keeps to ``out_dir/<method>_weights.
+safetensors`` by the same kind of names, ``full`` runs the whole model to
 ``out_dir/full_weights.safetensors`` by its lit-gpt names
 (``models/params.params_to_flat``), as the reference does.
 
@@ -30,10 +34,9 @@ flags run here unchanged, on the card (``--device cpu`` for the CPU):
         --data_path data/alpaca/train.npz --precision bfloat16 \\
         --train.micro_batch_size 2 --train.max_seq_length 512 --io.out_dir out/qlora
 
-Not ported yet, each raising ``NotImplementedError``: ``adapter``/``adapter_v2``
-(A4; their flags ``adapter_prompt_length`` and ``adapter_start_layer`` parse),
-``gptq_calib`` (A3: gptq.int4 quantizes by rounding to nearest), ``dp``/
-``fsdp``/``tp`` above 1 (A8).
+Not ported yet, each raising ``NotImplementedError``: ``gptq_calib`` (A3:
+gptq.int4 quantizes by rounding to nearest), ``dp``/``fsdp``/``tp`` above 1
+(A8).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 
 from ..data.lm_datasets import SFTDataset
 from ..inference.engine import default_device
+from ..models import adapter as adapter_mod
 from ..models import gpt
 from ..models import lora as lora_mod
 from ..models.config import Config
@@ -117,9 +121,6 @@ def setup(
     to ``out_dir/metrics.csv`` and returns the final TrainState."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
-    if method != "lora" and method != "full":
-        raise NotImplementedError(f"method {method!r} (models/adapter.py) is not ported yet "
-                                  "(ROADMAP queue A, A4)")
     if gptq_calib:
         raise NotImplementedError("gptq_calib (ops/gptq.py) is not ported yet (ROADMAP queue "
                                   "A, A3)")
@@ -149,6 +150,12 @@ def setup(
         gen = torch.Generator(device=device).manual_seed(seed + 1)
         params = lora_mod.add_lora_params(params, cfg, lcfg, gen, dtype)
         trainable = lora_mod.trainable_mask(params)
+    elif method in ("adapter", "adapter_v2"):
+        acfg = adapter_mod.AdapterConfig(adapter_prompt_length, adapter_start_layer)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        v2 = method == "adapter_v2"
+        params = adapter_mod.add_adapter_params(params, cfg, acfg, gen, dtype, v2=v2)
+        trainable = adapter_mod.trainable_mask(params, v2=v2)
     leaves = tree_leaves(params)
     n_all = sum(p.numel() for p in leaves)
     n_train = n_all if trainable is None else sum(
@@ -167,8 +174,11 @@ def setup(
     def checkpoint_fn(s: TrainState) -> None:
         if method == "full":
             flat = params_to_flat(s.params, cfg)
-        else:
+        elif method == "lora":
             flat = _flatten(lora_mod.split_lora_state(s.params)[1])
+        else:
+            flat = {k: v for k, v in _flatten(s.params).items()
+                    if adapter_mod.adapter_filter_flat(k, v2=method == "adapter_v2")}
         save_flat_checkpoint(flat, out_dir / f"{method}_weights.safetensors")
 
     state = fit(cfg, state, optimizer, train_iter, train=train, eval_args=eval, val_iter_fn=None,

@@ -13,8 +13,11 @@ the updates are the same), and ``build_optimizer(train, trainable)`` wraps
 the optimizer in ``MaskedOptimizer``. Batches are (B, T+1) token matrices
 or (inputs, labels) tuples (SFT).
 
-Ported: the ``adamw`` optimizer. ``adamw8bit``, ``adafactor`` and ``lion``
-and a device mesh are not ported yet.
+``--train.optimizer`` takes the reference's four: ``adamw``, ``adamw8bit``
+(``quant_optim.py``), ``adafactor`` and ``lion`` (``step.py``), each after
+the global-norm clip. The saved train state holds each one's state, the
+8-bit moments as their int8/uint8 codes and scales. A device mesh is not
+ported yet (A8).
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ import torch
 from ..models.config import Config
 from ..utils.args import EvalArgs, TrainArgs
 from ..utils.flops import mfu
-from .step import AdamW, MaskedOptimizer, make_loss_fn, tree_leaves, warmup_cosine_decay_schedule
+from .quant_optim import AdamW8bit
+from .step import (Adafactor, AdamW, Lion, MaskedOptimizer, make_loss_fn, tree_leaves,
+                   warmup_cosine_decay_schedule)
 
 STATE_FILE = "train_state.pt"
 
@@ -43,23 +48,32 @@ class TrainState:
 
 
 def build_optimizer(train: TrainArgs, trainable: Optional[dict] = None):
-    """AdamW with the clip and the warmup-cosine schedule of ``train``; with a
+    """The reference's chain: the global-norm clip (``train.max_norm``), then
+    ``train.optimizer`` on the warmup-cosine schedule of ``train``; with a
     ``trainable`` mask tree, only its True leaves are optimized."""
     schedule = warmup_cosine_decay_schedule(
         0.0, train.learning_rate, train.lr_warmup_steps,
         max(train.max_iters, train.lr_warmup_steps + 1), train.min_lr)
-    if train.optimizer != "adamw":
-        raise NotImplementedError(f"optimizer {train.optimizer!r} is not ported yet "
-                                  "(ROADMAP queue A): the port has 'adamw'")
-    opt = AdamW(schedule, train.beta1, train.beta2, weight_decay=train.weight_decay,
-                max_norm=train.max_norm)
+    name = train.optimizer
+    if name == "adamw":
+        opt = AdamW(schedule, train.beta1, train.beta2, weight_decay=train.weight_decay,
+                    max_norm=train.max_norm)
+    elif name == "adamw8bit":
+        opt = AdamW8bit(schedule, train.beta1, train.beta2, weight_decay=train.weight_decay,
+                        max_norm=train.max_norm)
+    elif name == "adafactor":
+        opt = Adafactor(schedule, max_norm=train.max_norm)
+    elif name == "lion":
+        opt = Lion(schedule, weight_decay=train.weight_decay, max_norm=train.max_norm)
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
     return opt if trainable is None else MaskedOptimizer(opt, trainable)
 
 
 def fit(
     cfg: Config,
     state: TrainState,
-    optimizer: AdamW,
+    optimizer,
     train_iter: Iterator[np.ndarray],
     *,
     train: TrainArgs,

@@ -69,7 +69,8 @@ def data_iterators(data_format: str, io: IOArgs, block_size: int, batch_size: in
         train_ds = Enwik8Dataset(src, block_size, "train", seed)
         val_ds = Enwik8Dataset(src, block_size, "val", seed + 1)
     elif data_format == "packed":
-        raise NotImplementedError("the packed data format (native reader) is not ported yet")
+        raise NotImplementedError("the packed data format (native reader) is not ported yet "
+                                  "(ROADMAP queue A, A4 slice 2)")
     else:
         raise ValueError(f"unknown data_format {data_format!r}")
     train_iter = batch_iterator(train_ds, batch_size)
@@ -100,7 +101,7 @@ def setup(
     ``out_dir/metrics.csv`` and returns the final TrainState."""
     if dp * fsdp * tp > 1:
         raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU item of ROADMAP "
-                                  "queue A")
+                                  "queue A, A8")
     device = default_device(device)
     cfg = Config.from_name(model_name, **({"attn_alg": attn_alg} if attn_alg else {}))
     if train.max_seq_length:

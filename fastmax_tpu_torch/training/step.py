@@ -11,8 +11,19 @@ optax's, not ``torch.optim``'s defaults:
   ``norm >= max_norm``, with no epsilon (``clip_grad_norm_`` adds 1e-6);
 - ``adamw`` (eps 1e-8, eps_root 0) adds ``weight_decay * p`` to the Adam
   update of every leaf before the learning rate scales it;
-- ``MaskedOptimizer`` (PEFT) hands only the trainable leaves to it, so the
-  frozen ones have no state and the clip's norm is theirs alone.
+- ``adafactor`` (optax's defaults: second moments factored over the two
+  largest axes where the smaller is at least 128, decay 1 - t^-0.8, eps
+  1e-30, each leaf's update clipped to an RMS of 1, scaled by the learning
+  rate, then by the leaf's own RMS, at least 1e-3);
+- ``lion`` (b1 0.9, b2 0.99: the sign of the interpolated momentum, plus
+  ``weight_decay * p``, times the learning rate);
+- ``MaskedOptimizer`` (PEFT) hands only the trainable leaves to one of them
+  (or to ``quant_optim.AdamW8bit``), so the frozen ones have no state and
+  the clip's norm is theirs alone.
+
+Each takes ``max_norm``: the reference's chain clips by the global norm
+first. Each schedule reads the count of updates before this one, as optax's
+``scale_by_schedule`` does.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..models import gpt
@@ -53,6 +65,21 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
+def clip_by_global_norm(grads: list, max_norm: Optional[float]) -> list:
+    """optax's clip: every gradient scaled by max_norm / norm when norm >=
+    max_norm, with no epsilon; None leaves them as they are."""
+    if max_norm is None:
+        return grads
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+
+
+def f32(x: float) -> torch.Tensor:
+    """A float32 scalar, for the optimizers' arithmetic on float32 scalars."""
+    return torch.tensor(x, dtype=torch.float32)
+
+
 class AdamW:
     """``optax.chain(optax.clip_by_global_norm(max_norm), optax.adamw(schedule,
     b1, b2, eps, weight_decay=weight_decay))`` (no clipping when max_norm is
@@ -75,10 +102,7 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: dict, grads: list, state: dict) -> None:
         leaves = tree_leaves(params)
-        if self.max_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = norm < self.max_norm
-            grads = [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
+        grads = clip_by_global_norm(grads, self.max_norm)
         count = state["count"]
         lr = self.schedule(count)
         state["count"] = count + 1
@@ -92,6 +116,105 @@ class AdamW:
             p.add_(-lr * u)
 
 
+def _factored_dims(shape, min_dim: int):
+    """optax's choice: the two largest axes (second largest, largest), where
+    the second largest is at least ``min_dim``; else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """``optax.chain(optax.clip_by_global_norm(max_norm),
+    optax.adafactor(schedule))`` with optax's defaults (see the module doc).
+    The state is {"count", "v_row", "v_col", "v"}, one entry a leaf in the
+    order of ``tree_leaves(params)``: a factored leaf has its row and column
+    statistics (and v None), the others v (and the two None)."""
+
+    def __init__(self, schedule: Callable, min_dim_size_to_factor: int = 128,
+                 decay_rate: float = 0.8, eps: float = 1e-30, clipping_threshold: float = 1.0,
+                 min_scale: float = 1e-3, max_norm: Optional[float] = None):
+        self.schedule = schedule
+        self.min_dim, self.decay_rate, self.eps = min_dim_size_to_factor, decay_rate, eps
+        self.clipping_threshold, self.min_scale = clipping_threshold, min_scale
+        self.max_norm = max_norm
+
+    def init(self, params: dict) -> dict:
+        state = {"count": 0, "v_row": [], "v_col": [], "v": []}
+        for p in tree_leaves(params):
+            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            if dims is None:
+                row = col = None
+                v = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                row = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+                col = p.new_zeros(shape[:d1] + shape[d1 + 1:])
+                v = None
+            state["v_row"].append(row)
+            state["v_col"].append(col)
+            state["v"].append(v)
+        return state
+
+    @torch.no_grad()
+    def update(self, params: dict, grads: list, state: dict) -> None:
+        leaves = tree_leaves(params)
+        grads = clip_by_global_norm(grads, self.max_norm)
+        count = state["count"]
+        decay = 1.0 - f32(count + 1) ** -self.decay_rate
+        lr = self.schedule(count)
+        state["count"] = count + 1
+        for i, (p, g) in enumerate(zip(leaves, grads)):
+            g2 = g * g + self.eps
+            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            if dims is None:
+                v = decay * state["v"][i] + (1.0 - decay) * g2
+                state["v"][i] = v
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                row = decay * state["v_row"][i] + (1.0 - decay) * g2.mean(dim=d0)
+                col = decay * state["v_col"][i] + (1.0 - decay) * g2.mean(dim=d1)
+                state["v_row"][i], state["v_col"][i] = row, col
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                u = g * row_factor.unsqueeze(d0) * (col ** -0.5).unsqueeze(d1)
+            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.clipping_threshold, min=1.0)
+            u = u * lr
+            u = u * torch.clamp(torch.sqrt(torch.mean(p * p)), min=self.min_scale)
+            p.add_(-u)
+
+
+class Lion:
+    """``optax.chain(optax.clip_by_global_norm(max_norm), optax.lion(schedule,
+    b1, b2, weight_decay=weight_decay))``. The state is {"count", "mu"}, mu in
+    the order of ``tree_leaves(params)``."""
+
+    def __init__(self, schedule: Callable, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 1e-3, max_norm: Optional[float] = None):
+        self.schedule = schedule
+        self.b1, self.b2, self.weight_decay = b1, b2, weight_decay
+        self.max_norm = max_norm
+
+    def init(self, params: dict) -> dict:
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in tree_leaves(params)]}
+
+    @torch.no_grad()
+    def update(self, params: dict, grads: list, state: dict) -> None:
+        leaves = tree_leaves(params)
+        grads = clip_by_global_norm(grads, self.max_norm)
+        lr = self.schedule(state["count"])
+        state["count"] += 1
+        for p, g, mu in zip(leaves, grads, state["mu"]):
+            u = torch.sign((1.0 - self.b1) * g + self.b1 * mu)
+            mu.copy_((1.0 - self.b2) * g + self.b2 * mu)
+            p.add_((u + self.weight_decay * p) * -lr)
+
+
 class MaskedOptimizer:
     """The reference's ``masked_optimizer``, ``optax.multi_transform({"train":
     inner, "freeze": set_to_zero()})`` over a mask tree: only the leaves
@@ -99,7 +222,7 @@ class MaskedOptimizer:
     chain's global-norm clip is taken over them alone. ``update`` takes the
     gradients of every leaf in ``tree_leaves`` order (None for a frozen one)."""
 
-    def __init__(self, inner: AdamW, mask: dict):
+    def __init__(self, inner, mask: dict):
         self.inner = inner
         self.mask = [bool(m) for m in tree_leaves(mask)]
 

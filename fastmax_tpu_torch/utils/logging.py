@@ -50,5 +50,6 @@ def choose_logger(kind: str, out_dir: Path):
     if kind == "csv":
         return CSVLogger(out_dir)
     if kind in ("wandb", "tensorboard"):
-        raise NotImplementedError(f"the {kind} logger is not ported yet: use 'csv'")
+        raise NotImplementedError(f"the {kind} logger is not ported yet (ROADMAP queue A, "
+                                  "A4 slice 2): use 'csv'")
     raise ValueError(kind)

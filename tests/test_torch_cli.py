@@ -246,11 +246,31 @@ def test_finetune_main_from_a_jax_directory_matches_jax(tmp_path, method):
 
 
 def test_setup_takes_the_adapter_flags_and_still_refuses_them(tmp_path):
-    kw = cli.parse_kwargs(finetune.setup, ["--method", "adapter", "--adapter_prompt_length",
-                                           "4", "--adapter_start_layer", "1"])
+    """The adapter flags parse and now run: one adapter_v2 step from a JAX-written
+    directory on an NF4 base gives the JAX command's loss and delta names; the
+    flags still unported (gptq_calib, A3; dp, A8) are refused with their item."""
+    flags = ["--method", "adapter_v2", "--adapter_prompt_length", "4",
+             "--adapter_start_layer", "1"]
+    kw = cli.parse_kwargs(finetune.setup, flags)
     assert kw["adapter_prompt_length"] == 4 and kw["adapter_start_layer"] == 1
-    with pytest.raises(NotImplementedError, match="A4"):
-        finetune.setup(**{**kw, "device": "cpu"})
+    ckpt, data = jax_written_dir(tmp_path), sft_npz(tmp_path / "sft.npz")
+    flags += ["--checkpoint_dir", str(ckpt), "--data_path", str(data), "--precision", "float32",
+              "--quantize", "bnb.nf4", "--train.global_batch_size", "2",
+              "--train.micro_batch_size", "2", "--train.max_iters", "1",
+              "--train.log_interval", "1", "--train.max_seq_length", "128"]
+    jcli.CLI(jfinetune.setup, flags + ["--io.out_dir", str(tmp_path / "j")])
+    state = finetune.main(flags + ["--io.out_dir", str(tmp_path / "t"), "--device", "cpu"])
+    assert state.step == 1
+    np.testing.assert_allclose(logged(tmp_path / "t")[0], logged(tmp_path / "j")[0], rtol=1e-4)
+    from safetensors.numpy import load_file
+
+    f = "adapter_v2_weights.safetensors"
+    assert sorted(load_flat_checkpoint(tmp_path / "t" / f)) == \
+        sorted(load_file(str(tmp_path / "j" / f)))
+    for extra, item in ((["--gptq_calib", "true"], "A3"), (["--dp", "2"], "A8")):
+        with pytest.raises(NotImplementedError, match=item):
+            finetune.main(flags + extra + ["--io.out_dir", str(tmp_path / "x"), "--device",
+                                           "cpu"])
 
 
 # ------------------------------------------------------------------ pretraining

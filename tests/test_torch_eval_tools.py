@@ -508,11 +508,9 @@ UNPORTED = {
         lambda d: generate.main(checkpoint_dir=d, gptq_calib=d / "lit_config.json",
                                 quantize="gptq.int4", device="cpu"), "A3"),
     "load_and_prepare_tp": (lambda d: generate.load_and_prepare(d, tp=2, device="cpu"), "A8"),
-    "generate_adapter": (lambda d: generate.main(checkpoint_dir=d, method="adapter",
-                                                 finetuned_path=d / "model" / "index.json",
-                                                 device="cpu"), "A4"),
-    "generate_adapter_v2": (lambda d: generate.apply_finetuned({}, None, d, "adapter_v2", None),
-                            "A4"),
+    # ported since (A4 slice 1): each call runs and reads its delta back (None below)
+    "generate_adapter": (lambda d: adapter_delta_runs(d, "adapter"), None),
+    "generate_adapter_v2": (lambda d: adapter_delta_runs(d, "adapter_v2"), None),
     "chat_tp": (lambda d: chat.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
     "server_speculative_k": (lambda d: server.main(checkpoint_dir=d, speculative_k=2,
                                                    device="cpu"), "A1"),
@@ -524,8 +522,48 @@ UNPORTED = {
 }
 
 
+def adapter_delta_runs(d: Path, method: str) -> bool:
+    """An adapter delta of the JAX package's layout for the directory's model
+    (gates off zero, v2 scales off one), read back by ``apply_finetuned`` to
+    the same leaves, and ``generate.main`` greedy on it."""
+    import contextlib
+    import io
+
+    from fastmax_tpu.models import adapter as jadapter
+
+    jcfg, jp = jckpt.load_model_params(d)
+    v2 = method == "adapter_v2"
+    tree = jadapter.add_adapter_params(jp, jcfg, jadapter.AdapterConfig(4, 1),
+                                       jax.random.PRNGKey(2), v2=v2)
+    delta = {n: np.asarray(a) + np.float32(0.25) for n, a in _flatten_delta(tree).items()
+             if jadapter.adapter_filter_flat(n, v2)}
+    path = d / f"{method}_delta.safetensors"
+    jckpt.save_flat_checkpoint(delta, path)
+    cfg, tp = load_model_params(d, device="cpu")
+    back = generate.apply_finetuned(tp, cfg, path, method, torch.float32)
+    flat = {}
+    stack = [("", back)]
+    while stack:
+        prefix, node = stack.pop()
+        for k, v in node.items():
+            stack.append((f"{prefix}{k}.", v)) if isinstance(v, dict) else \
+                flat.__setitem__(prefix + k, v)
+    for n, a in delta.items():
+        np.testing.assert_array_equal(flat[n].numpy(), a, err_msg=n)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        generate.main(prompt="ab", checkpoint_dir=d, method=method, finetuned_path=path,
+                      max_new_tokens=4, temperature=0.0, precision="float32", device="cpu")
+    return bool(out.getvalue().strip())
+
+
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_flags_raise_with_their_item(ckpt, case):
+    """Each unported flag raises with its ROADMAP item; a case ported since
+    (item None) runs instead."""
     fn, item = UNPORTED[case]
+    if item is None:
+        assert fn(ckpt[0])
+        return
     with pytest.raises(NotImplementedError, match=rf"\b{item}\b"):
         fn(ckpt[0])
