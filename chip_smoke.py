@@ -33,8 +33,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (B=1, Hq=G=32, D=128, S=4096, bf16: 512-row chunks at pos0 0, 1536 and
    3584, a whole 2048-token prompt, a 1024-token suffix at pos0 2048, and a
    wave of 8 1024-token prompts; a GQA case with ragged T; head sizes 192 and
-   256; an f32 case), bf16 held by its largest error and by its mean error
-   over the mean |plain|; a bit-for-bit repeat at T=512, pos0 3584; device
+   256; an f32 case; kv_len below pos0 + T, cutting the last rows' keys under
+   their causal frontier or, below pos0, every row's), bf16 held by its largest
+   error and by its mean error over the mean |plain|; a bit-for-bit repeat at
+   T=512, pos0 3584; device
    times (k/v cold), bounds and one ``scaled_dot_product_attention`` call as
    yardstick;
 7. the serving path: the same 7B at its full 4096-token context behind a
@@ -215,7 +217,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the optimizer state's bytes; (e) adamw8bit, lion and adafactor, 10 steps
    each of phase 8's pretraining (K4/K5), the loss falling; (f) inside phase
    12's directory, ``finetune`` main with ``--method adapter_v2`` and
-   ``generate.main`` on its delta, whose text must equal the engine's.
+   ``generate.main`` on its delta, whose text must equal the engine's;
+16. the rest of training: (a) one step of TinyLlama (22 layers at full width,
+   bs 8, T 2048, bf16) under each remat policy (none, full, attn, dots,
+   dots_attn, dots@8:full), the loss bit for bit and the gradients against
+   "none", K6 launched once a layer a step and twice where the policy
+   recomputes the attention (full, dots), K7 once; ``bench_mfu.run`` under
+   each policy (adamw, 3 timed steps: step ms, tok/s, MFU against the bf16
+   peak, peak memory, launches), then its fastmax arm under "full" (K4/K5);
+   (b) the ``auto`` probe at (8, 32, 2048, 64): both timings, the winner the
+   faster, a second call from the cache, a step under it launching K6 if and
+   only if flash2 won; (c) ``prepare_packed`` on 4 MB of the repository's text
+   with a BPE tokenizer trained here, the native reader (built here with g++)
+   against ``PackedDataset``, ``pretrain.setup(data_format="packed")`` on
+   easy-transformer-fastmax (K4/K5), the loss falling, logged to TensorBoard;
+   (d) GPTQ (int4, nf4) on the card at Llama-2-7B's width on 2 layers, the
+   hidden states' error below round-to-nearest's, and inside phase 12's
+   directory one QLoRA step of ``finetune.setup(gptq_calib=True)`` and
+   ``generate.main --gptq_calib`` on the "pallas" backend (K8); (e) the W&B
+   logger's branch (the package imported, or the CSV fallback).
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -945,9 +965,10 @@ def sdpa_backend(torch, q, k, v, mask, scale, is_causal: bool = False) -> str:
     return names.get(int(choice), str(choice))
 
 
-def flash_case(torch, gen, b, hq, g, s, d, dtype, t, pos0) -> dict:
+def flash_case(torch, gen, b, hq, g, s, d, dtype, t, pos0, kv_len=None) -> dict:
     """K3 against its plain version on one random input (q, k, v ~ N(0, 1)), T rows at pos0
-    over kv_len = pos0 + T keys. float32: each element within FLASH_F32_ATOL +
+    over kv_len keys (default pos0 + T; below it, the last rows lose keys under their causal
+    frontier, and below pos0 every row does). float32: each element within FLASH_F32_ATOL +
     FLASH_F32_RTOL |plain|; bfloat16: within FLASH_BF16_ATOL, and the mean error within
     FLASH_BF16_MEAN of the mean |plain|. Raises AssertionError naming the case; returns
     the case, its max abs error and its mean error of the mean."""
@@ -957,8 +978,9 @@ def flash_case(torch, gen, b, hq, g, s, d, dtype, t, pos0) -> dict:
     q = torch.randn((b, hq, t, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, g, s, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, g, s, d), generator=gen, device=dev).to(dtype)
-    got = fa.flash_attention(q, k, v, pos0=pos0, kv_len=pos0 + t)
-    ref = fa.flash_attention_plain(q, k, v, pos0=pos0, kv_len=pos0 + t)
+    kv_len = pos0 + t if kv_len is None else kv_len
+    got = fa.flash_attention(q, k, v, pos0=pos0, kv_len=kv_len)
+    ref = fa.flash_attention_plain(q, k, v, pos0=pos0, kv_len=kv_len)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     max_abs = float(err.max())
@@ -967,7 +989,8 @@ def flash_case(torch, gen, b, hq, g, s, d, dtype, t, pos0) -> dict:
         bad = not (max_abs <= FLASH_BF16_ATOL and mean <= FLASH_BF16_MEAN)
     else:
         bad = bool((err > FLASH_F32_ATOL + FLASH_F32_RTOL * ref.float().abs()).any())
-    tag = f"flash B={b} Hq={hq} G={g} S={s} D={d} T={t} pos0={pos0} {str(dtype)[6:]}"
+    tag = (f"flash B={b} Hq={hq} G={g} S={s} D={d} T={t} pos0={pos0}"
+           + ("" if kv_len == pos0 + t else f" kv_len={kv_len}") + f" {str(dtype)[6:]}")
     if bad or got.dtype != dtype or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"K3 {tag}: max abs err {max_abs:.3e}, mean err {mean:.3e} of the "
                              f"mean (bf16 gates {FLASH_BF16_ATOL}, {FLASH_BF16_MEAN})")
@@ -984,6 +1007,14 @@ def flash_repeats(torch, gen, t=512, pos0=3584, runs: int = 3) -> None:
     if not all(torch.equal(outs[0], o) for o in outs[1:]):
         raise AssertionError(f"K3 differs between two calls on the same inputs (T={t} "
                              f"pos0={pos0} bf16)")
+
+
+# K3 with kv_len < pos0 + T, (B, Hq, G, S, D, dtype, T, pos0, kv_len): a 7B chunk whose
+# last 212 rows lose keys, GQA at D = 64 cut mid-chunk and below pos0, and f32
+FLASH_KV_CUT = ((1, 32, 32, 4096, 128, "bfloat16", 512, 1536, 1836),
+                (2, 8, 2, 4096, 64, "bfloat16", 300, 1000, 1100),
+                (2, 8, 2, 4096, 64, "bfloat16", 300, 1000, 900),
+                (1, 32, 32, 4096, 128, "float32", 512, 3584, 3900))
 
 
 # (T, pos0) of the timed 7B bf16 calls: 512-row chunks, a whole 2048-token prompt, a
@@ -1063,6 +1094,17 @@ def check_flash(torch, gen, results):
                 worst_mean = max(worst_mean, c["mean_err"])
             log(f"  {c['case']}: ok, max abs err {c['max_abs_err']:.3e}, mean err "
                 f"{c['mean_err']:.2e} of the mean")
+    # kv_len < pos0 + T: the last rows' keys cut below their causal frontier (the
+    # tensor-core kernel at D = 64 and 128, and the f32 path), and kv_len < pos0 (every row)
+    for b, hq, g, s_, d, dt_name, t, pos0, kv_len in FLASH_KV_CUT:
+        dt = getattr(torch, dt_name)
+        c = flash_case(torch, gen, b, hq, g, s_, d, dt, t, pos0, kv_len)
+        checks.append(c)
+        worst[dt] = max(worst[dt], c["max_abs_err"])
+        if dt == bf16:
+            worst_mean = max(worst_mean, c["mean_err"])
+        log(f"  {c['case']}: ok, max abs err {c['max_abs_err']:.3e}, mean err "
+            f"{c['mean_err']:.2e} of the mean")
     flash_repeats(torch, gen)
     log("  flash B=1 Hq=32 T=512 pos0=3584 bf16: equal bit for bit over 3 calls")
     results["flash_checks"] = {"cases": checks, "repeat_bitwise": True}
@@ -5327,6 +5369,440 @@ def adapter_commands(torch, results, card, tmp, ckpt) -> dict:
     return row
 
 
+# ----------------------------------------------------------------- phase 16
+# The rest of training (no kernel of its own: the reference runs none of it in Pallas).
+# (a) bench_mfu at the reference's own MFU shape (fastmax_tpu/ops/attention.py: TinyLlama
+# bs8 T=2048), all 22 layers at full width, bf16, adamw, under every remat policy; one
+# warm step and MFU_ITERS timed. K6 launches once a layer a step, twice where the layer's
+# policy recomputes the attention forward in the backward; K7 once a layer a step. The
+# gradients of one step under each policy against "none": bit for bit, or each leaf's
+# mean |g - g_none| within the bf16 mean gate FLASH_TRAIN_BF16_MEAN of its mean |g_none|.
+MFU_MODEL = "tiny-llama-1.1b"
+MFU_BATCH, MFU_T, MFU_ITERS = 8, 2048, 3
+REMAT_POLICIES = ("none", "full", "attn", "dots", "dots_attn", "dots@8:full")
+RECOMPUTES_ATTENTION = ("full", "dots")
+# (d) GPTQ at Llama-2-7B's width on 2 of its 32 layers (depth cut for time: ~27k columns a
+# layer, each a few launches), calibrated on 512 tokens of the repository's text
+GPTQ_LAYERS = 2
+GPTQ_CALIB_T = 512
+# (c) packed data: a few MB of the repository's printable text, tokenized by a BPE
+# tokenizer trained here (vocabulary within easy-transformer-fastmax's 205), in chunks of
+# 1024 blocks of 513 tokens; PACKED_STEPS pretraining steps on the native reader
+PACKED_TEXT_BYTES = 4_000_000
+PACKED_CHUNK = 513 * 1024
+PACKED_STEPS = 20
+
+
+def k6_per_step(gpt, policy, n_layer: int) -> int:
+    layers = gpt._layer_policies(False if policy == "none" else policy, n_layer)
+    return sum(2 if p in RECOMPUTES_ATTENTION else 1 for p in layers)
+
+
+def mfu_batch(torch, np, cfg):
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MFU_BATCH, MFU_T + 1))).cuda()
+
+
+def remat_grads_and_probe(torch, np, card) -> dict:
+    """One step's loss and gradients under each policy against "none" (with K6/K7
+    launches a step), then the auto probe at the model's attention shape and one step
+    under it."""
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops import attention as attn
+    from fastmax_tpu_torch.training import bench_mfu
+    from fastmax_tpu_torch.training.step import tree_leaves
+
+    cfg = Config.from_name(MFU_MODEL)
+    cfg.block_size = MFU_T
+    params = gpt.init_params(cfg, 0, torch.bfloat16, "cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = mfu_batch(torch, np, cfg)
+
+    def one_step(remat):
+        loss_fn = bench_mfu.make_bench_loss_fn(cfg, remat)
+        for p in leaves:
+            p.grad = None
+        loss = loss_fn(params, batch)
+        loss.backward()
+        return loss.detach()
+
+    out, ref = {"policies": []}, None
+    for policy in REMAT_POLICIES:
+        loss, launches, dt = launched(torch, lambda: one_step(False if policy == "none"
+                                                              else policy))
+        grads = [p.grad for p in leaves]
+        row = {"policy": policy, "loss": float(loss), "s": dt, "launches": launches}
+        if ref is None:
+            ref = (loss, grads)
+            row.update(bitwise=True, worst_mean_rel=0.0)
+        else:
+            row["bitwise"] = bool(torch.equal(loss, ref[0])) and all(
+                torch.equal(a, b) for a, b in zip(grads, ref[1]))
+            row["worst_mean_rel"] = max(
+                float((a.float() - b.float()).abs().mean() / b.float().abs().mean().clamp_min(1e-30))
+                for a, b in zip(grads, ref[1]))
+        want = {"flash_train_fwd": k6_per_step(gpt, policy, cfg.n_layer),
+                "flash_train_bwd": cfg.n_layer}
+        got = {k: launches.get(k, 0) for k in want}
+        log(f"  (a) {policy:12s} one step {dt:.3f} s: loss {row['loss']!r}, gradients "
+            f"{'equal to none bit for bit' if row['bitwise'] else 'differ from none'} (worst "
+            f"leaf mean |diff| {row['worst_mean_rel']:.3e} of its mean); K6/K7 {got}   [{card}]")
+        if got != want or not (torch.equal(loss, ref[0]) and (
+                row["bitwise"] or row["worst_mean_rel"] <= FLASH_TRAIN_BF16_MEAN)):
+            raise AssertionError(f"remat {policy}: launches {got} != {want}, or the loss "
+                                 f"{row['loss']} / gradients ({row['worst_mean_rel']}) moved")
+        row["k6_k7"] = got
+        out["policies"].append(row)
+        del grads
+    del ref
+
+    # (b) the auto probe at (B, H, T, D) of this model's attention, then one step under it
+    h, d = cfg.n_head, cfg.head_size
+    key = f"{torch.cuda.get_device_name()}|{MFU_BATCH}x{h}x{MFU_T}x{d}"
+    attn._probe_path().unlink(missing_ok=True)
+    attn._PROBE_CACHE.pop(key, None)
+    timer, calls = attn._time_fwd_bwd, []
+    route = attn.TRAIN_ATTN
+
+    def counted(*a):
+        calls.append(1)
+        return timer(*a)
+
+    attn._time_fwd_bwd = counted
+    try:
+        attn.TRAIN_ATTN = "auto"
+        t0 = time.perf_counter()
+        winner = attn._probe_train_kernel(MFU_BATCH, h, MFU_T, d, "cuda")
+        probe_s = time.perf_counter() - t0
+        n_timed = len(calls)
+        again = attn._probe_train_kernel(MFU_BATCH, h, MFU_T, d, "cuda")
+        times = attn.PROBE_TIMES[key]
+        disk = json.loads(attn._probe_path().read_text())
+        _, launches, dt = launched(torch, lambda: one_step("full"))
+    finally:
+        attn.TRAIN_ATTN = route
+        attn._time_fwd_bwd = timer
+    k6 = launches.get("flash_train_fwd", 0)
+    log(f"  (b) auto probe at ({MFU_BATCH}, {h}, {MFU_T}, {d}) bf16, one forward + backward "
+        f"(dq, dk, dv), best of 2 after a warm call: blockwise "
+        f"{times['blockwise'] * 1e3:.3f} ms, flash2 {times['flash2'] * 1e3:.3f} ms -> "
+        f"{winner} ({probe_s:.2f} s, {n_timed} timings); a second call read the cache "
+        f"({len(calls) - n_timed} timings), the disk record says {disk.get(key)}; a step "
+        f"under auto ({dt:.3f} s) launched K6 {k6} times   [{card}]")
+    if not (winner == min(times, key=times.get) and again == winner and n_timed == 2
+            and len(calls) == 2 and disk.get(key) == winner
+            and (k6 > 0) == (winner == "flash2")):
+        raise AssertionError(f"auto probe: winner {winner}, again {again}, times {times}, "
+                             f"timings {n_timed}/{len(calls)}, disk {disk}, K6 {k6}")
+    out["probe"] = {"shape": [MFU_BATCH, h, MFU_T, d], "times_s": times, "winner": winner,
+                    "probe_s": probe_s, "step_k6": k6, "card": card}
+    return out
+
+
+def mfu_runs(torch, card) -> tuple:
+    """``bench_mfu.run`` under each policy, then the fastmax arm under "full"."""
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.training import bench_mfu
+
+    n_layer = Config.from_name(MFU_MODEL).n_layer
+    rows, counts = [], {}
+    for policy in REMAT_POLICIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res, launches, wall = launched(torch, lambda: bench_mfu.run(
+            model_name=MFU_MODEL, seq_len=MFU_T, micro_batch=MFU_BATCH, remat=policy,
+            iters=MFU_ITERS))
+        steps = MFU_ITERS + 1
+        want = {"flash_train_fwd": steps * k6_per_step(gpt, policy, n_layer),
+                "flash_train_bwd": steps * n_layer}
+        got = {k: launches.get(k, 0) for k in want}
+        log(f"  (a) {json.dumps(res)}")
+        log(f"      {policy}: {wall:.1f} s in all; K6/K7 over {steps} steps {got}   [{card}]")
+        if got != want or not math.isfinite(res["loss"]):
+            raise AssertionError(f"bench_mfu {policy}: launches {got} != {want}, loss "
+                                 f"{res['loss']}")
+        add_counts(counts, launches)
+        rows.append({**res, "launches": launches, "wall_s": wall, "card": card})
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, launches, wall = launched(torch, lambda: bench_mfu.run(
+        model_name=MFU_MODEL, seq_len=MFU_T, micro_batch=MFU_BATCH, attn_alg="fastmax",
+        remat="full", iters=1))
+    log(f"  (a) {json.dumps(res)}")
+    log(f"      fastmax arm: {wall:.1f} s in all; launches {launches}   [{card}]")
+    if not (launches.get("fastmax_fwd", 0) > 0 and launches.get("fastmax_bwd", 0) > 0
+            and math.isfinite(res["loss"])):
+        raise AssertionError(f"bench_mfu fastmax: launches {launches}, loss {res['loss']}")
+    add_counts(counts, launches)
+    rows.append({**res, "launches": launches, "wall_s": wall, "card": card})
+    return rows, counts
+
+
+def train_bpe(d: Path, text: str, vocab_size: int, eos: str = "</s>") -> int:
+    """A BPE tokenizer trained on ``text`` into ``d`` (tokenizer.json and its eos);
+    returns its size."""
+    from tokenizers import Tokenizer as HFTok
+    from tokenizers.models import BPE
+    from tokenizers.pre_tokenizers import Whitespace
+    from tokenizers.trainers import BpeTrainer
+
+    tok = HFTok(BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.train_from_iterator(text.splitlines(), BpeTrainer(special_tokens=["<unk>", eos],
+                                                          vocab_size=vocab_size))
+    d.mkdir(parents=True, exist_ok=True)
+    tok.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({"eos_token": eos}))
+    return tok.get_vocab_size()
+
+
+def logged_losses(out: Path) -> tuple:
+    """(the losses a run logged, where from): the TensorBoard events, or the CSV the
+    logger fell back to."""
+    import csv
+
+    events = sorted((out / "tb").glob("events.out.tfevents.*"))
+    if events:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+        acc = EventAccumulator(str(out / "tb"))
+        acc.Reload()
+        return [e.value for e in acc.Scalars("loss")], f"{len(events)} TensorBoard event file"
+    with open(out / "metrics.csv", newline="") as f:
+        return [float(r["loss"]) for r in csv.DictReader(f) if r.get("loss")], "metrics.csv"
+
+
+def packed_path(torch, np, card, tmp: Path) -> tuple:
+    """(c) prepare_packed, the native reader against PackedDataset, pretraining on the
+    packed chunks with the TensorBoard logger; (e) the loggers' branches."""
+    import importlib.util
+    import io
+
+    from fastmax_tpu_torch.data.packed_dataset import PackedDataset
+    from fastmax_tpu_torch.native import loader
+    from fastmax_tpu_torch.scripts import prepare_packed
+    from fastmax_tpu_torch.training import pretrain
+    from fastmax_tpu_torch.utils.args import EvalArgs, IOArgs, TrainArgs
+    from fastmax_tpu_torch.utils.logging import choose_logger
+
+    tokens, n_files = repo_text_tokens(np)
+    keep = ((tokens >= 32) & (tokens < 127)) | (tokens == 10)
+    text = bytes(tokens[keep].astype(np.uint8)).decode("ascii")
+    text = (text * (PACKED_TEXT_BYTES // len(text) + 1))[:PACKED_TEXT_BYTES]
+    tok = tmp / "packed_tok"
+    vocab = train_bpe(tok, text[:400_000], 200)
+    src = tmp / "corpus"
+    src.mkdir()
+    step = 4000
+    with open(src / "repo.jsonl", "w") as f:
+        for i in range(0, len(text), step):
+            f.write(json.dumps({"text": text[i:i + step]}) + "\n")
+    dest = tmp / "packed"
+    t0 = time.perf_counter()
+    prepare_packed.prepare(src, tok, dest, chunk_size=PACKED_CHUNK, prefix="repo")
+    prep_s = time.perf_counter() - t0
+    files = sorted(dest.glob("*.bin"))
+    n_tokens = sum((f.stat().st_size - 24) // 2 for f in files)
+
+    # the native reader, built here from the port's source, against the numpy reader
+    t0 = time.perf_counter()
+    lib = loader.build()
+    build_s = time.perf_counter() - t0
+    n_check = 256
+    it_n = iter(loader.NativePackedDataset(files, 513, shuffle=False))
+    it_p = iter(PackedDataset(files, n_chunks=1, block_size=513, shuffle=False))
+    same = all(np.array_equal(next(it_n), next(it_p)) for _ in range(n_check))
+    rates = {}
+    for name, ds in (("native", loader.NativePackedDataset(files, 513, seed=3)),
+                     ("numpy", PackedDataset(files, n_chunks=min(8, len(files)),
+                                             block_size=513, seed=3))):
+        t0 = time.perf_counter()
+        for _, _blk in zip(range(2048), ds):
+            pass
+        rates[name] = 2048 / (time.perf_counter() - t0)
+    log(f"  (c) prepare_packed: {PACKED_TEXT_BYTES} bytes of the repository's text ({n_files} "
+        f"files, repeated) as jsonl records -> {n_tokens} tokens of a {vocab}-token BPE in "
+        f"{len(files)} chunks of {PACKED_CHUNK} in {prep_s:.2f} s; the native reader "
+        f"({lib.name}) built in {build_s:.2f} s; its first {n_check} unshuffled blocks "
+        f"{'equal' if same else 'DIFFER FROM'} PackedDataset's; shuffled, 513-token blocks a "
+        f"second: native {rates['native']:.0f}, numpy {rates['numpy']:.0f} (warm file cache)")
+    if not same or not files:
+        raise AssertionError("the native reader's blocks differ from PackedDataset's")
+
+    have_tb = importlib.util.find_spec("tensorboard") is not None
+    train = TrainArgs(global_batch_size=8, micro_batch_size=4, max_iters=PACKED_STEPS,
+                      learning_rate=3e-3, lr_warmup_steps=2, save_interval=1000,
+                      log_interval=1)
+    out = tmp / "packed_run"
+    state, launches, wall = launched(torch, lambda: pretrain.setup(
+        model_name="easy-transformer-fastmax", data_format="packed", logger_name="tensorboard",
+        train=train, eval=EvalArgs(interval=10, max_iters=2),
+        io=IOArgs(train_data_dir=dest, val_data_dir=dest, out_dir=out)))
+    losses, where = logged_losses(out)
+    log(f"  (c) pretrain.setup(data_format='packed') on easy-transformer-fastmax: {state.step} "
+        f"steps in {wall:.2f} s (setup included); losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"read back from the {where} (tensorboard {'installed' if have_tb else 'absent: CSV'}); "
+        f"launches {launches}   [{card}]")
+    if not (state.step == PACKED_STEPS and len(losses) == PACKED_STEPS
+            and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and launches.get("fastmax_fwd", 0) > 0 and launches.get("fastmax_bwd", 0) > 0
+            and (where != "metrics.csv") == have_tb):
+        raise AssertionError(f"packed pretraining: {state.step} steps, losses {losses} from "
+                             f"{where}, launches {launches}")
+
+    # (e) the W&B logger: the package is imported when chosen; it never reaches a network
+    # here (mode "disabled")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lg = choose_logger("wandb", tmp / "wandb", project="fastmax-tpu", mode="disabled")
+    lg.log_dict({"loss": 1.0}, 1)
+    lg.finalize()
+    branch = type(lg).__name__
+    log(f"  (e) loggers: tensorboard {'wrote events' if have_tb else 'fell back to CSV'}; "
+        f"wandb -> {branch} ({buf.getvalue().strip() or 'wandb imported, run disabled'})")
+    if (branch == "WandbLogger") != (importlib.util.find_spec("wandb") is not None):
+        raise AssertionError(f"the wandb choice gave {branch}")
+    return {"tokens": n_tokens, "files": len(files), "prepare_s": prep_s, "build_s": build_s,
+            "blocks_per_s": rates, "losses": losses, "logged_to": where, "wall_s": wall,
+            "launches": launches, "wandb_branch": branch, "card": card}, launches
+
+
+def hidden_error(torch, gpt, cfg, tree, calib, ref) -> float:
+    with torch.no_grad():
+        h = gpt.forward_hidden(tree, cfg, calib).float()
+    return float(torch.linalg.vector_norm(h - ref) / torch.linalg.vector_norm(ref))
+
+
+def gptq_path(torch, np, card) -> dict:
+    """(d) GPTQ on the card at Llama-2-7B's width, GPTQ_LAYERS layers: the hidden
+    states' error against the dense model below round-to-nearest's."""
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops.gptq import gptq_quantize_model
+    from fastmax_tpu_torch.ops.quant import quantize_model
+
+    cfg = Config.from_name("Llama-2-7b-hf", n_layer=GPTQ_LAYERS)
+    dense = gpt.init_params(cfg, 0, torch.float32, "cuda")
+    tokens, _ = repo_text_tokens(np)
+    calib = torch.from_numpy(tokens[:GPTQ_CALIB_T].astype(np.int64) + 3)[None].cuda()
+    with torch.no_grad():
+        ref = gpt.forward_hidden(dense, cfg, calib).float()
+    out = {}
+    for mode, kind in (("gptq.int4", "int4"), ("bnb.nf4", "nf4")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = gptq_quantize_model(dense, cfg, calib, kind=kind)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        err = hidden_error(torch, gpt, cfg, q, calib, ref)
+        rtn = hidden_error(torch, gpt, cfg, quantize_model(dense, mode), calib, ref)
+        log(f"  (d) GPTQ {kind} on the card, Llama-2-7B width, {GPTQ_LAYERS} of 32 layers (depth "
+            f"cut for time), {GPTQ_CALIB_T} calibration tokens: {secs:.2f} s; hidden-state "
+            f"error against the dense model {err:.4e}, round-to-nearest ({mode}) {rtn:.4e}   "
+            f"[{card}]")
+        if not err < rtn:
+            raise AssertionError(f"GPTQ {kind}: error {err} not below round-to-nearest's {rtn}")
+        out[kind] = {"s": secs, "error": err, "rtn_error": rtn, "card": card}
+        del q
+    return out
+
+
+def gptq_commands(torch, results, card, tmp, ckpt) -> dict:
+    """(d), inside phase 12's directory on its 2-layer Llama-2-7B-width checkpoint: one
+    QLoRA step of ``finetune.setup(gptq_calib=True)`` and ``generate.main --gptq_calib``,
+    both on the "pallas" 4-bit backend (K8 wherever x needs no gradient)."""
+    import csv
+    import io
+
+    import numpy as np
+
+    from fastmax_tpu_torch.inference import generate
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
+
+    if not (ckpt / "tokenizer.json").is_file():
+        raise AssertionError("generate --gptq_calib needs the tokenizer phase 13 trains "
+                             "(the tokenizers package)")
+    backend = quant.get_quant_backend()
+    quant.set_quant_backend("pallas")
+    counts = {}
+    try:
+        examples, _ = sft_examples(np, n=8, seed=3)
+        data = tmp / "gptq_sft.npz"
+        np.savez(data, examples=np.array(examples, dtype=object))
+        train = TrainArgs(global_batch_size=1, micro_batch_size=1, max_iters=1,
+                          learning_rate=3e-3, lr_warmup_steps=0, save_interval=1000,
+                          log_interval=1, max_seq_length=512)
+        state, launches, wall = launched(torch, lambda: finetune.setup(
+            method="lora", checkpoint_dir=ckpt, data_path=data, quantize="bnb.nf4",
+            gptq_calib=True, attn_alg="quadratic", precision="bfloat16", train=train,
+            io=IOArgs(out_dir=tmp / "gptq_qlora")))
+        add_counts(counts, launches)
+        with open(tmp / "gptq_qlora" / "metrics.csv", newline="") as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f) if r.get("loss")]
+        log(f"  [16] (d) finetune.setup(gptq_calib=True, quantize='bnb.nf4') on phase 12's "
+            f"2-layer Llama-2-7B-width checkpoint: GPTQ on 4 of its examples, then {state.step} "
+            f"QLoRA step, {wall:.2f} s in all; loss {losses}; launches {launches}   [{card}]")
+        if not (state.step == 1 and all(math.isfinite(x) for x in losses) and losses
+                and launches.get("nf4_matmul", 0) > 0):
+            raise AssertionError(f"finetune gptq_calib: losses {losses}, launches {launches}")
+        tokens, _ = repo_text_tokens(np)
+        calib = tmp / "gptq_calib.txt"
+        calib.write_text(bytes(tokens[:6000].astype(np.uint8)).decode("latin-1"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            _, glaunch, gwall = launched(torch, lambda: generate.main(
+                prompt="def main", checkpoint_dir=ckpt, quantize="bnb.nf4", gptq_calib=calib,
+                weights_mode="quantized", max_new_tokens=16, temperature=0.0))
+        add_counts(counts, glaunch)
+        text = buf.getvalue().strip()
+        log(f"  [16] (d) generate.main --gptq_calib ({calib.stat().st_size} bytes of text) "
+            f"--quantize bnb.nf4 --weights_mode quantized: {gwall:.2f} s (GPTQ included); "
+            f"printed {text!r}; launches {glaunch}   [{card}]")
+        if not (text and glaunch.get("nf4_matmul", 0) > 0):
+            raise AssertionError(f"generate --gptq_calib printed {text!r}, launches {glaunch}")
+    finally:
+        quant.set_quant_backend(backend)
+    results["gptq_commands"] = {"qlora_losses": losses, "qlora_launches": launches,
+                                "generate_text": text, "generate_launches": glaunch,
+                                "card": card}
+    return counts
+
+
+def rest_of_training_path(torch, results, card) -> dict:
+    """Phase 16: (a) remat gradients, (b) the probe, (a) bench_mfu runs, (c)+(e) packed
+    data and the loggers, (d) GPTQ; returns the launch counts of its main paths."""
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    out = {}
+    counts = {}
+    out["remat"] = remat_grads_and_probe(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bench_mfu"], mfu_counts = mfu_runs(torch, card)
+    add_counts(counts, mfu_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["packed"], pk_counts = packed_path(torch, np, card, Path(tmp))
+    add_counts(counts, pk_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gptq"] = gptq_path(torch, np, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  the phase in {out['phase_s']:.1f} s; launches {counts}")
+    results["rest_of_training"] = out
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -5395,17 +5871,28 @@ def main() -> int:
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
-    counts_cmd, (counts_inf, counts_lin, _) = command_path(
+    counts_cmd, (counts_inf, counts_lin, _, counts_gptq) = command_path(
         torch, results, card, lambda tmp, ckpt, *a: (
             inference_path(torch, results, card, tmp, ckpt, *a),
             linear_serving_path(torch, results, card, tmp, ckpt),
-            adapter_commands(torch, results, card, tmp, ckpt)))
+            adapter_commands(torch, results, card, tmp, ckpt),
+            gptq_commands(torch, results, card, tmp, ckpt)))
     counts_fam = families_path(torch, results, card)
+    log("[16] the rest of training: bench_mfu on TinyLlama at full width under every remat "
+        "policy, the auto probe, packed data with the native reader, the loggers, GPTQ at "
+        "Llama-2-7B's width (its QLoRA step and generate ran inside phase 12's directory)")
+    counts_p16 = rest_of_training_path(torch, results, card)
+    add_counts(counts_p16, counts_gptq)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
                            "command_path": counts_cmd, "inference_path": counts_inf,
-                           "linear_serving_path": counts_lin, "families_path": counts_fam}
+                           "linear_serving_path": counts_lin, "families_path": counts_fam,
+                           "rest_of_training_path": counts_p16}
+    # the main paths of phases 15 and 16, added to the earlier phases' counts below
+    counts_later = {}
+    add_counts(counts_later, counts_fam)
+    add_counts(counts_later, counts_p16)
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -5416,9 +5903,10 @@ def main() -> int:
     # own max abs errors there (K6: out, lse; K7: dq, dk, dv); their library time is SDPA's
     # causal forward, and for K7 its forward + backward less that forward. Launches: the
     # serving path (K1-K3), the training path (K4, K5), the finetune path (K6, K7), with the
-    # linear arms' serving path (phase 14, K1 alone) added to K1, and phase 15's main paths
+    # linear arms' serving path (phase 14, K1 alone) added to K1, phase 15's main paths
     # (Gemma-7B and Mixtral serving and finetuning, the adapters, the optimizers) added to
-    # K1, K3, K4, K5, K6, K7 and K8.
+    # K1, K3, K4, K5, K6, K7 and K8, and phase 16's (bench_mfu under every remat policy,
+    # packed pretraining, the GPTQ QLoRA step and generate) to K4, K5, K6, K7 and K8.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
@@ -5443,13 +5931,13 @@ def main() -> int:
     kernels = [
         {"name": k1.name, "route": "cuda", "source": str(k1.source.relative_to(REPO)),
          "replaces": k1.replaces,
-         "launches": counts[k1.name] + counts_lin.get(k1.name, 0) + counts_fam.get(k1.name, 0),
+         "launches": counts[k1.name] + counts_lin.get(k1.name, 0) + counts_later.get(k1.name, 0),
          "max_abs_err": int4_err,
          "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
          "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),
          "library_ms": None, "by_path": k1_paths},
         {"name": k2.name, "route": "cuda", "source": str(k2.source.relative_to(REPO)),
-         "replaces": k2.replaces, "launches": counts[k2.name] + counts_fam.get(k2.name, 0),
+         "replaces": k2.replaces, "launches": counts[k2.name] + counts_later.get(k2.name, 0),
          "max_abs_err": attn_err,
          "mean_err": attn_mean, "ms": att["ms"], "plain_ms": att["plain_ms"],
          "bound_ms": att["bound_ms"], "bound_by": att["bound_by"], "library_ms": None,
@@ -5457,7 +5945,7 @@ def main() -> int:
                       "nsplit": r["nsplit"], "ms": r["ms"], "bound_ms": r["bound_ms"],
                       "plain_ms": r["plain_ms"]} for r in attn_rows]},
         {"name": k3.name, "route": "cuda", "source": str(k3.source.relative_to(REPO)),
-         "replaces": k3.replaces, "launches": counts[k3.name] + counts_fam.get(k3.name, 0),
+         "replaces": k3.replaces, "launches": counts[k3.name] + counts_later.get(k3.name, 0),
          "max_abs_err": flash_err,
          "mean_err": flash_mean,
          "ms": sum(r["ms"] for r in flash_rows), "plain_ms": sum(r["plain_ms"] for r in flash_rows),
@@ -5473,7 +5961,7 @@ def main() -> int:
              k5_bound(train_row, train_row["k5_path"]))):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_train[kern.name] + counts_fam.get(kern.name, 0),
+                        "launches": counts_train[kern.name] + counts_later.get(kern.name, 0),
                         "max_abs_err": fm_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                         "library_ms": None})
@@ -5501,7 +5989,7 @@ def main() -> int:
              ft["sdpa_fwd_bwd_ms"] - ft["sdpa_fwd_ms"])):
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_ft[kern.name] + counts_fam.get(kern.name, 0),
+                        "launches": counts_ft[kern.name] + counts_later.get(kern.name, 0),
                         "max_abs_err": ft_err[kern.name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
                         "bound_by": bnd["bound_by"], "library_ms": lib})
@@ -5512,7 +6000,7 @@ def main() -> int:
             "K8" if kern.name == "nf4_matmul" else "K9")]
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": str(kern.source.relative_to(REPO)), "replaces": kern.replaces,
-                        "launches": counts_q[kern.name] + counts_fam.get(kern.name, 0),
+                        "launches": counts_q[kern.name] + counts_later.get(kern.name, 0),
                         "max_abs_err": q_err[kern.name],
                         "ms": sum(r["ms"] for r in dec), "plain_ms": sum(r["plain_ms"] for r in dec),
                         "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": bound_by(dec),

@@ -17,9 +17,11 @@ the reference splits a ``jax.random`` key, so sampled text (temperature > 0)
 differs from the JAX package's for the same seed; greedy text (temperature
 0) does not depend on it.
 
+``--gptq_calib`` names a plain-text file: its tokens, cut to the block
+size, calibrate GPTQ for a 4-bit ``--quantize`` mode (``ops/gptq.py``).
+
 Not ported yet, each raising ``NotImplementedError``: ``--tp``/``--fsdp``
-above 1 (the multi-GPU load, A8), ``--speculative_k`` (A1) and
-``--gptq_calib`` (A3).
+above 1 (the multi-GPU load, A8) and ``--speculative_k`` (A1).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..models.config import Config
@@ -36,8 +39,7 @@ from ..models.tokenizer import Tokenizer
 from .engine import InferenceEngine, default_device
 
 
-def check_unported(*, tp: int = 1, fsdp: int = 1, speculative_k: int = 0,
-                   gptq_calib=None) -> None:
+def check_unported(*, tp: int = 1, fsdp: int = 1, speculative_k: int = 0) -> None:
     """Raise for the flags whose items are not ported yet, naming the item."""
     if tp > 1 or fsdp > 1:
         raise NotImplementedError("tp/fsdp > 1 (the sharded load and the mesh) come with the "
@@ -45,9 +47,6 @@ def check_unported(*, tp: int = 1, fsdp: int = 1, speculative_k: int = 0,
     if speculative_k:
         raise NotImplementedError("speculative decoding (inference/speculative.py) is not "
                                   "ported yet (ROADMAP queue A, A1)")
-    if gptq_calib is not None:
-        raise NotImplementedError("GPTQ calibration (ops/gptq.py) is not ported yet (ROADMAP "
-                                  "queue A, A3)")
 
 
 def load_and_prepare(
@@ -64,10 +63,13 @@ def load_and_prepare(
     device=None,
 ):
     """(config, params) of ``checkpoint_dir`` in ``precision`` on ``device``
-    (default: the card), with ``finetuned_path`` attached, then quantized."""
+    (default: the card), with ``finetuned_path`` attached, then quantized.
+    ``gptq_calib_tokens`` ((B, T) token ids) with a 4-bit ``quantize`` mode
+    quantizes by GPTQ against those activations (``ops/gptq.py``, on the
+    device) instead of rounding to nearest."""
     from ..utils.checkpoint import load_model_params
 
-    check_unported(tp=tp, fsdp=fsdp, gptq_calib=gptq_calib_tokens)
+    check_unported(tp=tp, fsdp=fsdp)
     device = default_device(device)
     checkpoint_dir = Path(checkpoint_dir)
     kw = {"attn_alg": attn_alg} if attn_alg else {}
@@ -77,9 +79,16 @@ def load_and_prepare(
     if finetuned_path is not None:
         params = apply_finetuned(params, cfg, Path(finetuned_path), method, dtype)
     if quantize:
-        from ..ops.quant import quantize_model
+        from ..ops.gptq import FOUR_BIT_KINDS, gptq_quantize_model
 
-        params = quantize_model(params, quantize)
+        if gptq_calib_tokens is not None and quantize in FOUR_BIT_KINDS:
+            params = gptq_quantize_model(params, cfg, gptq_calib_tokens,
+                                         kind=FOUR_BIT_KINDS[quantize],
+                                         double_quant=quantize.endswith("-dq"), device=device)
+        else:
+            from ..ops.quant import quantize_model
+
+            params = quantize_model(params, quantize)
     return cfg, params
 
 
@@ -138,14 +147,21 @@ def main(
 ) -> None:
     """Generate text samples from a checkpoint on the card (``device="cpu"``
     for the CPU). weights_mode: see ``InferenceEngine``; kv_cache_dtype:
-    int8 for the quantized KV cache, bfloat16, ...; speculative_k,
-    draft_checkpoint_dir and gptq_calib are not ported yet."""
-    check_unported(tp=tp, fsdp=fsdp, speculative_k=speculative_k, gptq_calib=gptq_calib)
+    int8 for the quantized KV cache, bfloat16, ...; gptq_calib: a plain-text
+    calibration file for GPTQ under a 4-bit ``quantize`` mode (its tokens cut
+    to the block size); speculative_k and draft_checkpoint_dir are not
+    ported yet."""
+    check_unported(tp=tp, fsdp=fsdp, speculative_k=speculative_k)
     device = default_device(device)
     tokenizer = Tokenizer(Path(checkpoint_dir))
+    calib_tokens = None
+    if gptq_calib is not None:
+        ids = tokenizer.encode(Path(gptq_calib).read_text())
+        t = min(len(ids), Config.from_checkpoint(Path(checkpoint_dir)).block_size)
+        calib_tokens = np.asarray(ids[:t], np.int32)[None]
     cfg, params = load_and_prepare(
         checkpoint_dir, quantize=quantize, attn_alg=attn_alg, finetuned_path=finetuned_path,
-        method=method, precision=precision, device=device)
+        method=method, precision=precision, gptq_calib_tokens=calib_tokens, device=device)
     if prompt_style:
         from ..data.prompts import STYLES
 

@@ -22,11 +22,13 @@ whole sequence with ``ops/attention.attention``, so
 (forward) and K5 (backward) at head sizes up to 64 and through the
 reversible float32 scan above, ``linearmax`` and ``performer`` through
 their chunked scans (ops/fastmax.py), and ``quadratic`` at T >= 1024 through
-the trainable flash kernels K6 (forward) and K7 (backward); ``remat=True``
-recomputes each block in the backward (``torch.utils.checkpoint``).
+the trainable flash kernels K6 (forward) and K7 (backward). ``remat`` takes
+the reference's policies: True/"full" recomputes each block in the backward
+(``torch.utils.checkpoint``); "attn", "dots" and "dots_attn" recompute it
+except what a selective-checkpoint policy keeps (``_remat_wrap``); the mixed
+form "<light>@<N>:<heavy>" gives the first N layers the light policy.
 ``init_params`` gives the GPT-NeoX initialisation from a seed; the GPT-NeoX
-MLP (exact or tanh GELU) and bias leaves are ported. The XLA remat policies
-come in a later slice.
+MLP (exact or tanh GELU) and bias leaves are ported.
 
 The cached forward with a linear arm reads the dense cache as the reference
 does (``ops/attention.attention(..., is_decode=True)``: unmasked over the
@@ -39,10 +41,12 @@ prefills a prompt into it or advances it by one token, updating it in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import fastmax as fm
 from ..ops.attention import (attention, int8_cache_attention, repeat_kv_heads,
@@ -391,26 +395,71 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _check_remat(remat) -> bool:
+# The operators whose outputs the remat policies keep. "attn": the trainable
+# attention forwards' (out, lse), the reference's named residuals attn_out and
+# attn_lse (custom operators, ops/flash_attention.py and ops/blockwise_attention.py).
+# "dots": the matmuls without batch dimensions, the weight products (JAX's
+# dots_with_no_batch_dims_saveable); the batched attention products (bmm) and
+# everything else are recomputed.
+ATTN_RESIDUAL_OPS = ("fastmax_tpu_torch::flash_train_fwd", "fastmax_tpu_torch::blockwise_fwd")
+DOT_OPS = ("aten::mm", "aten::addmm")
+REMAT_SAVES = {"attn": ATTN_RESIDUAL_OPS, "dots": DOT_OPS,
+               "dots_attn": DOT_OPS + ATTN_RESIDUAL_OPS}
+
+
+def _remat_wrap(body, remat):
+    """Per-block rematerialization (counterpart of the reference's
+    ``_remat_wrap``, ``fastmax_tpu/models/gpt.py:528-577``).
+
+    False: every block activation is kept. True/"full": only the block's
+    input; the whole block is recomputed in the backward
+    (``torch.utils.checkpoint``). "attn", "dots", "dots_attn": the block is
+    recomputed except the outputs of the operators in ``REMAT_SAVES``, which a
+    selective-checkpoint policy keeps from the forward; under "attn" and
+    "dots_attn" the backward re-runs no attention forward. No policy changes
+    a value."""
     if remat is True or remat == "full":
-        return True
-    if not remat:
-        return False
-    if isinstance(remat, str):
-        raise NotImplementedError(
-            f"remat policy {remat!r} is one of the reference's XLA checkpoint policies, not "
-            "ported yet (ROADMAP queue A, A4 slice 2); the port has True/'full' (each block "
-            "recomputed in the backward) and False")
-    raise ValueError(f"unknown remat policy {remat!r}")
+        return lambda x: checkpoint(body, x, use_reentrant=False)
+    if isinstance(remat, str) and remat in REMAT_SAVES:
+        saved = REMAT_SAVES[remat]
+
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op.name() in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        context_fn = functools.partial(create_selective_checkpoint_contexts, policy)
+        return lambda x: checkpoint(body, x, use_reentrant=False, context_fn=context_fn)
+    if remat:
+        raise ValueError(f"unknown remat policy {remat!r}")
+    return body
+
+
+def _layer_policies(remat, n_layer: int) -> list:
+    """The policy of each layer: ``remat`` for all, or for the mixed form
+    ``"<light>@<N>:<heavy>"`` (e.g. ``"dots@8:full"``) the light policy on
+    the first N layers and the heavy one on the rest."""
+    if not (isinstance(remat, str) and "@" in remat):
+        return [remat] * n_layer
+    light, rest = remat.split("@", 1)
+    if ":" not in rest:
+        raise ValueError(f"mixed remat policy {remat!r}: expected '<light>@<N>:<heavy>'")
+    n_s, heavy = rest.split(":", 1)
+    n_light = int(n_s)
+    layers = range(n_layer)  # sliced as the reference slices the stacked blocks
+    return [light] * len(layers[:n_light]) + [heavy] * len(layers[n_light:])
 
 
 def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
-                   rope_cache: Optional[tuple] = None, plain: bool = False) -> torch.Tensor:
+                   unroll: int = 1, rope_cache: Optional[tuple] = None,
+                   plain: bool = False) -> torch.Tensor:
     """Full-sequence forward to the final hidden states (after ``ln_f``),
     without the lm_head: the training forward that ``utils/loss.
-    chunked_cross_entropy`` pairs with. ``remat`` True or "full" recomputes
-    each block in the backward. The RoPE cache defaults to ``cfg.block_size``
-    rows, as the reference's."""
+    chunked_cross_entropy`` pairs with. ``remat`` is a policy of
+    ``_remat_wrap`` (False, True, "full", "attn", "dots", "dots_attn") or the
+    mixed form ``"<light>@<N>:<heavy>"`` (``_layer_policies``). ``unroll``,
+    the reference's layer-scan unroll factor, is accepted and changes
+    nothing: the layers are a Python loop here, not a scan. The RoPE cache
+    defaults to ``cfg.block_size`` rows, as the reference's."""
     t = idx.shape[1]
     if rope_cache is None:
         rope_cache = build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base,
@@ -419,20 +468,22 @@ def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
         x = x * (cfg.n_embd ** 0.5)
-    use_remat = _check_remat(remat)
 
     def attn_fn(ap, n1):
         return apply_attn_nocache(ap, n1, cfg, cos, sin, plain=plain)
 
-    for bp in _unstack(params["blocks"], cfg.n_layer):
-        def body(h, bp=bp):
-            return apply_block(bp, h, cfg, None, attn_fn, plain=plain)
-        x = checkpoint(body, x, use_reentrant=False) if use_remat else body(x)
+    def body(bp):
+        return lambda h: apply_block(bp, h, cfg, None, attn_fn, plain=plain)
+
+    steps = [_remat_wrap(body(bp), policy) for bp, policy in
+             zip(_unstack(params["blocks"], cfg.n_layer), _layer_policies(remat, cfg.n_layer))]
+    for step in steps:
+        x = step(x)
     return apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
 
 
-def _forward_nocache(params, cfg, idx, rope_cache, remat, plain):
-    return linear(params["lm_head"], forward_hidden(params, cfg, idx, remat=remat,
+def _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain):
+    return linear(params["lm_head"], forward_hidden(params, cfg, idx, remat=remat, unroll=unroll,
                                                     rope_cache=rope_cache, plain=plain))
 
 
@@ -447,11 +498,13 @@ def forward(
     max_seq_length: Optional[int] = None,
     logits_at: Optional[torch.Tensor] = None,
     remat=False,
+    unroll: int = 1,
     plain: bool = False,
 ):
     """Run the model. Without ``kv_cache`` (and ``input_pos``): the full-sequence
-    training/evaluation forward, each block recomputed in the backward when
-    ``remat`` is True or "full"; returns (logits (B, T, padded_vocab), None).
+    training/evaluation forward under the remat policy ``remat`` (see
+    ``forward_hidden``; ``unroll`` changes nothing); returns (logits (B, T,
+    padded_vocab), None).
 
     Cached forward. idx: (B, T) token ids; input_pos: the position of
     idx[:, 0], a Python int, or a (B,) integer tensor of per-row positions
@@ -473,7 +526,7 @@ def forward(
     if kv_cache is None:
         if input_pos is not None:
             raise ValueError("input_pos requires a kv_cache (call init_kv_cache)")
-        return _forward_nocache(params, cfg, idx, rope_cache, remat, plain), None
+        return _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain), None
     s = kv_cache["k"].shape[3]
     if isinstance(input_pos, torch.Tensor) and input_pos.ndim == 1:
         input_pos = input_pos.to(device=device, dtype=torch.int32)

@@ -30,8 +30,12 @@ reference's timing probe) is not ported.
 
 from __future__ import annotations
 
+import json
 import math
 import os
+import threading
+import time
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -47,8 +51,14 @@ NEG_INF = float("-inf")
 BLOCKWISE_MIN_T = int(os.environ.get("FASTMAX_TPU_BLOCKWISE_MIN_T", 1024))
 # the blockwise query block; 0 sizes it so one (B, H, block, T) f32 transient stays near 512 MB
 BLOCKWISE_BLOCK = int(os.environ.get("FASTMAX_TPU_BLOCKWISE_BLOCK", 0))
-# the trainable kernel: "flash2" (fused entry), "flash" (split entry) or "blockwise"
+# the trainable kernel: "flash2" (fused entry), "flash" (split entry), "blockwise", or
+# "auto": the faster of blockwise and flash2 at the real shape, timed at first use
 TRAIN_ATTN = os.environ.get("FASTMAX_TPU_TRAIN_ATTN", "flash2")
+# "auto" probes only at T >= this; shorter sequences take blockwise
+FLASH_MIN_T = int(os.environ.get("FASTMAX_TPU_FLASH_MIN_T", 2048))
+
+_PROBE_CACHE: dict = {}   # probe key -> winner, in this process
+PROBE_TIMES: dict = {}    # probe key -> {"blockwise": s, "flash2": s} of the probes run here
 
 
 def repeat_kv_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -175,23 +185,124 @@ def _auto_block(b: int, h: int, t: int) -> int:
     return int(max(128, min(512, (blk // 128) * 128)))
 
 
-def _long_causal(q, k, v, head_size: int, plain: bool) -> torch.Tensor:
-    """The reference's trainable route for causal quadratic attention at
-    T >= BLOCKWISE_MIN_T. Padded tail rows, being causal, never reach a real
-    row; they are cut off."""
+def _probe_path() -> Path:
+    """The port's own record of probed winners (never the reference's
+    ``.kernel_probe.json``): the two packages do not read each other's."""
+    return Path(__file__).resolve().parents[1] / "_build" / "kernel_probe.json"
+
+
+def _time_fwd_bwd(fn, q, k, v) -> float:
+    """Seconds of one forward + backward of ``fn`` with the gradients of all
+    of q, k and v (grading q alone would leave out parts of a backward):
+    warmed once, the best of two, timed by CUDA events on the card."""
+    def run():
+        q_, k_, v_ = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = fn(q_, k_, v_)
+        torch.autograd.grad(out.float().sum(), (q_, k_, v_))
+
+    run()
+    best = float("inf")
+    for _ in range(2):
+        if q.is_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            run()
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _isolated(fn):
+    """Run ``fn()`` on a thread of its own: dispatch modes (a selective
+    checkpoint's policy), saved-tensor hooks (a checkpoint's) and the grad
+    mode are per thread, so the probe's own forward and backward inside a
+    checkpointed block neither feed nor read the block's checkpoint."""
+    box = {}
+
+    def target():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # re-raised on the caller's thread
+            box["err"] = e
+
+    th = threading.Thread(target=target, name="train-kernel-probe")
+    th.start()
+    th.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _probe_train_kernel(b: int, h: int, t: int, d: int, device) -> str:
+    """The reference's probe (``fastmax_tpu/ops/attention.py:67``): time one
+    forward + backward of the blockwise route and of the fused flash entry
+    at the real (b, h, t, d) in bf16 and keep the faster. The winner is
+    cached in the process and on disk (``_probe_path()``), keyed by the
+    device's name ("cpu" off the card) and the shape; the timings of a
+    probe run in this process are in ``PROBE_TIMES``. A shape outside
+    ``_fused_eligible`` takes blockwise without timing."""
+    device = torch.device(device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    key = f"{name}|{b}x{h}x{t}x{d}"
+    if key in _PROBE_CACHE:
+        return _PROBE_CACHE[key]
+    path = _probe_path()
+    disk = {}
+    if path.exists():
+        try:
+            disk = json.loads(path.read_text())
+        except (OSError, ValueError):
+            disk = {}
+    if key in disk:
+        _PROBE_CACHE[key] = disk[key]
+        return disk[key]
+    if not _fused_eligible(t, d):
+        _PROBE_CACHE[key] = "blockwise"
+        return "blockwise"
+
+    def probe():
+        gen = torch.Generator(device=device).manual_seed(0)
+        q, k, v = (torch.randn((b, h, t, d), generator=gen, device=device, dtype=torch.bfloat16)
+                   for _ in range(3))
+        scale = 1.0 / d ** 0.5
+        return {kern: _time_fwd_bwd(lambda q, k, v: _route(kern, q, k, v, scale, False), q, k, v)
+                for kern in ("blockwise", "flash2")}
+
+    times = _isolated(probe)
+    winner = "flash2" if times["flash2"] < times["blockwise"] else "blockwise"
+    PROBE_TIMES[key] = times
+    _PROBE_CACHE[key] = disk[key] = winner
+    try:
+        # atomic publish: each process writes a private temp file and races
+        # only on the rename
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f".kernel_probe.{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(disk, indent=1))
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    return winner
+
+
+def _train_kernel(t: int, head_size: int, b: int, h: int, device) -> str:
+    """``TRAIN_ATTN``, or with "auto" the probe's winner where the fused entry
+    could run (a head size divisible by 64, T >= FLASH_MIN_T), else blockwise."""
     if TRAIN_ATTN == "auto":
-        raise NotImplementedError(
-            "FASTMAX_TPU_TRAIN_ATTN=auto (the reference's timing probe) is not ported yet "
-            "(ROADMAP queue A, A4 slice 2): set flash2, flash or blockwise")
+        if head_size % 64 or t < FLASH_MIN_T:
+            return "blockwise"
+        return _probe_train_kernel(b, h, t, head_size, device)
+    return TRAIN_ATTN
+
+
+def _route(kern: str, q, kf, vf, scale: float, plain: bool) -> torch.Tensor:
+    """One trainable kernel over q, k, v (B, H, T, D), T padded to its block
+    and cut back. Padded tail rows, being causal, never reach a real row."""
     b, h, t, _ = q.shape
-    scale = 1.0 / head_size ** 0.5
-    kf, vf = repeat_kv_heads(k, h), repeat_kv_heads(v, h)
-    kern = TRAIN_ATTN
-    if kern in ("flash", "flash2") and head_size % 64 == 0:
-        if kern == "flash2" and not _fused_eligible(t, head_size):
-            kern = "blockwise"
-    else:
-        kern = "blockwise"
     if kern == "flash2":
         blk = max(_fused_block(t) if t % 512 == 0 or t <= 512 else 512, 128)
     elif kern == "flash":
@@ -208,3 +319,17 @@ def _long_causal(q, k, v, head_size: int, plain: bool) -> torch.Tensor:
     else:
         out = blockwise_attention(q, kf, vf, scale, blk)
     return out[:, :, :t] if pad else out
+
+
+def _long_causal(q, k, v, head_size: int, plain: bool) -> torch.Tensor:
+    """The reference's trainable route for causal quadratic attention at
+    T >= BLOCKWISE_MIN_T."""
+    b, h, t, _ = q.shape
+    kern = _train_kernel(t, head_size, b, h, q.device)
+    if kern in ("flash", "flash2") and head_size % 64 == 0:
+        if kern == "flash2" and not _fused_eligible(t, head_size):
+            kern = "blockwise"
+    else:
+        kern = "blockwise"
+    return _route(kern, q, repeat_kv_heads(k, h), repeat_kv_heads(v, h), 1.0 / head_size ** 0.5,
+                  plain)

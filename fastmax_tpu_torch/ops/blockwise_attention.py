@@ -69,18 +69,29 @@ def _backward(q, k, v, out, lse, do, scale: float, block: int):
     return torch.cat(dqs, dim=2).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class _Blockwise(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, block):
-        out, lse = _forward(q, k, v, scale, block)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.block = scale, block
-        return out
+# a custom operator, as the flash entries' forward (ops/flash_attention.py): the
+# remat policies "attn" and "dots_attn" keep its (out, lse), the reference's named
+# residuals (fastmax_tpu/ops/blockwise_attention.py:95-97)
+@torch.library.custom_op(
+    "fastmax_tpu_torch::blockwise_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, int block) -> (Tensor, Tensor)")
+def blockwise_fwd(q, k, v, scale, block):
+    """(out, lse) of q, k, v (B, H, T, D); T % block == 0."""
+    return _forward(q, k, v, scale, block)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*_backward(q, k, v, out, lse, do, ctx.scale, ctx.block), None, None)
+
+def _setup(ctx, inputs, output):
+    q, k, v, scale, block = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale, ctx.block = scale, block
+
+
+def _backward_op(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    return (*_backward(q, k, v, out, lse, do, ctx.scale, ctx.block), None, None)
+
+
+blockwise_fwd.register_autograd(_backward_op, setup_context=_setup)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,4 +103,4 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"T={t} is not a multiple of the block {block}: pad it")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _Blockwise.apply(q, k, v, float(scale), block)
+    return blockwise_fwd(q, k, v, float(scale), block)[0]

@@ -32,7 +32,10 @@ to v's type per online-softmax block of keys against that block's running
 max (512 keys, or T when T <= 512, for the fused entry; ``block_k`` for the
 other), l sums the unrounded p, and the backward rounds p to do's type
 before dv and ds to q's/k's type before dk and dq, every sum in f32. The two
-entries differ only in that block, so one kernel pair serves both.
+entries differ only in that block, so one kernel pair serves both. The
+forward is the custom operator ``fastmax_tpu_torch::flash_train_fwd``, with
+its backward registered beside it; its outputs (out, lse) are what the
+``attn`` remat policies keep.
 """
 
 from __future__ import annotations
@@ -234,22 +237,34 @@ def _train_bwd(q, k, v, do, lse, delta, scale: float, plain: bool):
     return dq, dk, dv
 
 
-class _FlashTrain(torch.autograd.Function):
-    """out = causal softmax attention; saves (q, k, v, out, lse) for the backward."""
+# The trainable entries' forward is a custom operator, so that a selective-checkpoint
+# policy (models/gpt._remat_wrap) sees it as one operator and can keep its two
+# outputs, the reference's named residuals attn_out and attn_lse
+# (fastmax_tpu/ops/flash_attention.py:426-430): a kernel launched through ctypes
+# inside an autograd.Function is invisible to the dispatcher.
+@torch.library.custom_op(
+    "fastmax_tpu_torch::flash_train_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float scale, int block, bool plain) -> "
+           "(Tensor, Tensor)")
+def flash_train_fwd(q, k, v, scale, block, plain):
+    """(out, lse): K6 on the card, ``flash_train_fwd_plain`` on the CPU."""
+    return _train_fwd(q, k, v, scale, block, plain)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, block, plain):
-        out, lse = _train_fwd(q, k, v, scale, block, plain)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.plain = scale, plain
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        delta = torch.sum(do.float() * out.float(), dim=-1)
-        dq, dk, dv = _train_bwd(q, k, v, do.to(q.dtype), lse, delta, ctx.scale, ctx.plain)
-        return dq, dk, dv, None, None, None
+def _setup_train(ctx, inputs, output):
+    q, k, v, scale, _, plain = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale, ctx.plain = scale, plain
+
+
+def _backward_train(ctx, do, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    delta = torch.sum(do.float() * out.float(), dim=-1)
+    dq, dk, dv = _train_bwd(q, k, v, do.to(q.dtype), lse, delta, ctx.scale, ctx.plain)
+    return dq, dk, dv, None, None, None
+
+
+flash_train_fwd.register_autograd(_backward_train, setup_context=_setup_train)
 
 
 def _scale(q, scale):
@@ -264,7 +279,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     t = q.shape[2]
     if t % _fused_block(t):
         raise ValueError(f"T={t} is not a multiple of the fused block {_fused_block(t)}: pad it")
-    return _FlashTrain.apply(q, k, v, _scale(q, scale), _fused_block(t), plain)
+    return flash_train_fwd(q, k, v, _scale(q, scale), _fused_block(t), plain)[0]
 
 
 def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale=None,
@@ -275,4 +290,4 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t = q.shape[2]
     if t % block_q or t % block_k:
         raise ValueError(f"T={t} is not a multiple of block_q={block_q} and block_k={block_k}")
-    return _FlashTrain.apply(q, k, v, _scale(q, scale), block_k, plain)
+    return flash_train_fwd(q, k, v, _scale(q, scale), block_k, plain)[0]

@@ -34,9 +34,10 @@ flags run here unchanged, on the card (``--device cpu`` for the CPU):
         --data_path data/alpaca/train.npz --precision bfloat16 \\
         --train.micro_batch_size 2 --train.max_seq_length 512 --io.out_dir out/qlora
 
-Not ported yet, each raising ``NotImplementedError``: ``gptq_calib`` (A3:
-gptq.int4 quantizes by rounding to nearest), ``dp``/``fsdp``/``tp`` above 1
-(A8).
+With ``gptq_calib`` and a 4-bit ``quantize`` mode the base is quantized by
+GPTQ (``ops/gptq.py``, on the device) against four examples of the training
+data, as the reference does; other modes round to nearest. Not ported yet,
+raising ``NotImplementedError``: ``dp``/``fsdp``/``tp`` above 1 (A8).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from ..models import gpt
 from ..models import lora as lora_mod
 from ..models.config import Config
 from ..models.params import params_to_flat
+from ..ops.gptq import FOUR_BIT_KINDS, gptq_quantize_model
 from ..ops.quant import quantize_model
 from ..utils.args import EvalArgs, IOArgs, TrainArgs
 from ..utils.checkpoint import load_model_params, save_flat_checkpoint
@@ -121,9 +123,6 @@ def setup(
     to ``out_dir/metrics.csv`` and returns the final TrainState."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
-    if gptq_calib:
-        raise NotImplementedError("gptq_calib (ops/gptq.py) is not ported yet (ROADMAP queue "
-                                  "A, A3)")
     if dp * fsdp * tp > 1:
         raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU item (ROADMAP "
                                   "queue A, A8)")
@@ -140,7 +139,15 @@ def setup(
         cfg = Config.from_name(model_name, **kw)
         params = gpt.init_params(cfg, seed, dtype, device)
     if quantize:
-        params = quantize_model(params, quantize)
+        if gptq_calib and quantize in FOUR_BIT_KINDS and data_path is not None:
+            # GPTQ the base against the training distribution itself: the frozen
+            # weights only ever meet activations of this data (ops/gptq.py)
+            calib, _ = SFTDataset.load(Path(data_path), seed).sample_batch(
+                4, min(train.max_seq_length or cfg.block_size, cfg.block_size))
+            params = gptq_quantize_model(params, cfg, calib, kind=FOUR_BIT_KINDS[quantize],
+                                         double_quant=quantize.endswith("-dq"), device=device)
+        else:
+            params = quantize_model(params, quantize)
 
     trainable = None
     if method == "lora":

@@ -3,6 +3,8 @@
 
   --data_format openwebtext   nanoGPT train.bin/val.bin memmaps (+ meta.json dtype)
   --data_format enwik8        byte-level random crops (the easy-transformer configs)
+  --data_format packed        LITPKDS chunk dirs (``scripts/prepare_packed.py``): the C++
+                              reader of ``native/`` trains, ``PackedDataset`` validates
 
 ``attn_alg`` selects the fork's attention algorithm; with ``fastmax`` or
 ``fastmax_cuda`` every attention call of a step goes through the fastmax
@@ -13,9 +15,10 @@ is saved every ``save_interval`` steps and at the end, and ``io.resume``
 continues from it (the reference's resume format is orbax's; the two do not
 read each other's). At the end the deploy checkpoint is written as the
 reference writes it: ``out_dir/final`` in the npy layout
-(``utils/checkpoint.py``) with ``out_dir/final/lit_config.json``. Not ported
-yet: the ``packed`` data format and ``dp``/``fsdp``/``tp`` above 1 (the
-multi-GPU item of ROADMAP queue A).
+(``utils/checkpoint.py``) with ``out_dir/final/lit_config.json``.
+``logger_name`` is csv, tensorboard or wandb (``utils/logging.py``). Not
+ported yet: ``dp``/``fsdp``/``tp`` above 1 (the multi-GPU item of ROADMAP
+queue A, A8).
 
 The command line is the reference's (``utils/cli.py``); on the card
 (``--device cpu`` for the CPU):
@@ -35,11 +38,12 @@ import numpy as np
 import torch
 
 from ..data.lm_datasets import Enwik8Dataset, MemmapDataset
-from ..data.packed_dataset import batch_iterator
+from ..data.packed_dataset import PackedDataset, batch_iterator
 from ..inference.engine import default_device
 from ..models import gpt
 from ..models.config import Config
 from ..models.params import params_to_flat
+from ..native.loader import NativePackedDataset
 from ..utils.args import EvalArgs, IOArgs, TrainArgs
 from ..utils.checkpoint import save_flat_checkpoint
 from ..utils.logging import choose_logger
@@ -69,8 +73,16 @@ def data_iterators(data_format: str, io: IOArgs, block_size: int, batch_size: in
         train_ds = Enwik8Dataset(src, block_size, "train", seed)
         val_ds = Enwik8Dataset(src, block_size, "val", seed + 1)
     elif data_format == "packed":
-        raise NotImplementedError("the packed data format (native reader) is not ported yet "
-                                  "(ROADMAP queue A, A4 slice 2)")
+        files = sorted(Path(io.train_data_dir).glob("*.bin"))
+        if not files:
+            raise FileNotFoundError(f"no .bin chunks under {io.train_data_dir}")
+        # the C++ prefetch-threaded reader (native/), built at first use
+        train_ds = NativePackedDataset(files, block_size + 1, seed=seed, wrap=True)
+        val_ds = None
+        if io.val_data_dir:
+            vfiles = sorted(Path(io.val_data_dir).glob("*.bin"))
+            val_ds = PackedDataset(vfiles, n_chunks=min(2, len(vfiles)),
+                                   block_size=block_size + 1, seed=seed + 1, wrap=True)
     else:
         raise ValueError(f"unknown data_format {data_format!r}")
     train_iter = batch_iterator(train_ds, batch_size)

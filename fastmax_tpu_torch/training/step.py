@@ -88,15 +88,16 @@ class AdamW:
 
     def __init__(self, schedule: Callable, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4,
-                 max_norm: Optional[float] = None):
+                 max_norm: Optional[float] = None, mu_dtype: Optional[torch.dtype] = None):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_norm = max_norm
+        self.mu_dtype = mu_dtype  # optax's: mu in this type (default: the parameter's)
 
     def init(self, params: dict) -> dict:
         leaves = tree_leaves(params)
-        return {"count": 0, "mu": [torch.zeros_like(p) for p in leaves],
+        return {"count": 0, "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
                 "nu": [torch.zeros_like(p) for p in leaves]}
 
     @torch.no_grad()
@@ -191,17 +192,20 @@ class Adafactor:
 
 class Lion:
     """``optax.chain(optax.clip_by_global_norm(max_norm), optax.lion(schedule,
-    b1, b2, weight_decay=weight_decay))``. The state is {"count", "mu"}, mu in
-    the order of ``tree_leaves(params)``."""
+    b1, b2, weight_decay=weight_decay, mu_dtype=mu_dtype))``. The state is
+    {"count", "mu"}, mu in the order of ``tree_leaves(params)``."""
 
     def __init__(self, schedule: Callable, b1: float = 0.9, b2: float = 0.99,
-                 weight_decay: float = 1e-3, max_norm: Optional[float] = None):
+                 weight_decay: float = 1e-3, max_norm: Optional[float] = None,
+                 mu_dtype: Optional[torch.dtype] = None):
         self.schedule = schedule
         self.b1, self.b2, self.weight_decay = b1, b2, weight_decay
         self.max_norm = max_norm
+        self.mu_dtype = mu_dtype
 
     def init(self, params: dict) -> dict:
-        return {"count": 0, "mu": [torch.zeros_like(p) for p in tree_leaves(params)]}
+        return {"count": 0, "mu": [torch.zeros_like(p, dtype=self.mu_dtype)
+                                   for p in tree_leaves(params)]}
 
     @torch.no_grad()
     def update(self, params: dict, grads: list, state: dict) -> None:

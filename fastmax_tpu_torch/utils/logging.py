@@ -1,11 +1,15 @@
-"""Metric logging: the CSV logger of ``fastmax_tpu/utils/logging.py``, copied.
-The TensorBoard and W&B loggers are not ported yet."""
+"""Metric logging (counterpart of ``fastmax_tpu/utils/logging.py``, copied):
+CSV always, TensorBoard (``torch.utils.tensorboard``) and W&B (``wandb``)
+when their packages are installed. ``choose_logger`` falls back to CSV with a
+printed line when the chosen package is absent, as the reference does: that
+is the user's choice of logger, not a device path."""
 
 from __future__ import annotations
 
 import csv
 import time
 from pathlib import Path
+from typing import Optional
 
 
 class CSVLogger:
@@ -46,10 +50,47 @@ class CSVLogger:
         pass
 
 
-def choose_logger(kind: str, out_dir: Path):
+class WandbLogger:
+    def __init__(self, project: str = "fastmax-tpu", name: Optional[str] = None, **kwargs):
+        import wandb  # optional dependency
+
+        self._run = wandb.init(project=project, name=name, **kwargs)
+
+    def log_dict(self, metrics: dict, step: int) -> None:
+        self._run.log(metrics, step=step)
+
+    def finalize(self) -> None:
+        self._run.finish()
+
+
+class TensorBoardLogger:
+    def __init__(self, out_dir: Path, name: str = "tb"):
+        from torch.utils.tensorboard import SummaryWriter  # optional: needs tensorboard
+
+        self._w = SummaryWriter(log_dir=str(Path(out_dir) / name))
+
+    def log_dict(self, metrics: dict, step: int) -> None:
+        for k, v in metrics.items():
+            if isinstance(v, (int, float)):
+                self._w.add_scalar(k, v, step)
+
+    def finalize(self) -> None:
+        self._w.close()
+
+
+def choose_logger(kind: str, out_dir: Path, **kwargs):
     if kind == "csv":
         return CSVLogger(out_dir)
-    if kind in ("wandb", "tensorboard"):
-        raise NotImplementedError(f"the {kind} logger is not ported yet (ROADMAP queue A, "
-                                  "A4 slice 2): use 'csv'")
+    if kind == "wandb":
+        try:
+            return WandbLogger(**kwargs)
+        except ImportError:
+            print("wandb not installed; falling back to CSV")
+            return CSVLogger(out_dir)
+    if kind == "tensorboard":
+        try:
+            return TensorBoardLogger(out_dir)
+        except ImportError:
+            print("tensorboard not installed; falling back to CSV")
+            return CSVLogger(out_dir)
     raise ValueError(kind)

@@ -45,6 +45,8 @@ from fastmax_tpu.scripts import convert_lit_checkpoint as jlit
 from fastmax_tpu.scripts import convert_pretrained_checkpoint as jpre
 from fastmax_tpu.scripts import merge_lora as jmerge
 from fastmax_tpu.scripts import prepare_alpaca as jprep
+from fastmax_tpu.scripts import prepare_packed as jprep_packed
+from fastmax_tpu.training import bench_mfu as jbench_mfu
 from fastmax_tpu.training import finetune as jfinetune
 from fastmax_tpu.training import pretrain as jpretrain
 from fastmax_tpu.utils import checkpoint as jckpt
@@ -59,7 +61,8 @@ from fastmax_tpu_torch.scripts import convert_lit_checkpoint as tlit
 from fastmax_tpu_torch.scripts import convert_pretrained_checkpoint as tpre
 from fastmax_tpu_torch.scripts import merge_lora as tmerge
 from fastmax_tpu_torch.scripts import prepare_alpaca as tprep
-from fastmax_tpu_torch.training import finetune, pretrain
+from fastmax_tpu_torch.scripts import prepare_packed as tprep_packed
+from fastmax_tpu_torch.training import bench_mfu, finetune, pretrain
 from fastmax_tpu_torch.utils import cli
 from fastmax_tpu_torch.utils.args import TrainArgs
 from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint, load_model_params
@@ -134,6 +137,9 @@ SIGNATURES = {
                                       ["--checkpoint_dir", "x", "--output_dir", "y"]),
     "prepare_alpaca": (jprep.prepare, tprep.prepare,
                        ["--data_file", "x", "--checkpoint_dir", "y"]),
+    "prepare_packed": (jprep_packed.prepare, tprep_packed.prepare,
+                       ["--source_path", "x", "--checkpoint_dir", "y"]),
+    "bench_mfu": (jbench_mfu.run, bench_mfu.run, []),
 }
 
 
@@ -248,7 +254,8 @@ def test_finetune_main_from_a_jax_directory_matches_jax(tmp_path, method):
 def test_setup_takes_the_adapter_flags_and_still_refuses_them(tmp_path):
     """The adapter flags parse and now run: one adapter_v2 step from a JAX-written
     directory on an NF4 base gives the JAX command's loss and delta names; the
-    flags still unported (gptq_calib, A3; dp, A8) are refused with their item."""
+    flag still unported (dp, A8) is refused with its item (gptq_calib runs:
+    tests/test_torch_gptq_packed.py)."""
     flags = ["--method", "adapter_v2", "--adapter_prompt_length", "4",
              "--adapter_start_layer", "1"]
     kw = cli.parse_kwargs(finetune.setup, flags)
@@ -267,10 +274,9 @@ def test_setup_takes_the_adapter_flags_and_still_refuses_them(tmp_path):
     f = "adapter_v2_weights.safetensors"
     assert sorted(load_flat_checkpoint(tmp_path / "t" / f)) == \
         sorted(load_file(str(tmp_path / "j" / f)))
-    for extra, item in ((["--gptq_calib", "true"], "A3"), (["--dp", "2"], "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            finetune.main(flags + extra + ["--io.out_dir", str(tmp_path / "x"), "--device",
-                                           "cpu"])
+    with pytest.raises(NotImplementedError, match="A8"):  # --gptq_calib runs since (A3)
+        finetune.main(flags + ["--dp", "2", "--io.out_dir", str(tmp_path / "x"), "--device",
+                               "cpu"])
 
 
 # ------------------------------------------------------------------ pretraining
@@ -325,6 +331,12 @@ def test_mains_default_to_the_card(tmp_path):
             main_fn(["--checkpoint_dir", str(tmp_path / "absent")])
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_serving.main(["--model_name", "pythia-14m"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_mfu.main(["--model_name", "pythia-14m"])
+    # prepare_packed uses no device: it goes on to read the checkpoint's tokenizer
+    with pytest.raises(NotADirectoryError):
+        tprep_packed.main(["--source_path", str(tmp_path), "--checkpoint_dir",
+                           str(tmp_path / "absent"), "--destination_path", str(tmp_path / "p")])
     with pytest.raises(RuntimeError, match="CUDA"):
         tmerge.main(["--checkpoint_dir", str(tmp_path), "--lora_path", "unused.safetensors"])
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}

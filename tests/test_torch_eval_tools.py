@@ -504,9 +504,8 @@ UNPORTED = {
     "generate_draft": (lambda d: generate.cli(["--checkpoint_dir", str(d), "--speculative_k",
                                                "2", "--draft_checkpoint_dir", str(d),
                                                "--device", "cpu"]), "A1"),
-    "generate_gptq_calib": (
-        lambda d: generate.main(checkpoint_dir=d, gptq_calib=d / "lit_config.json",
-                                quantize="gptq.int4", device="cpu"), "A3"),
+    # ported since (A3): GPTQ calibrated on a text file, then greedy text
+    "generate_gptq_calib": (lambda d: gptq_calib_runs(d), None),
     "load_and_prepare_tp": (lambda d: generate.load_and_prepare(d, tp=2, device="cpu"), "A8"),
     # ported since (A4 slice 1): each call runs and reads its delta back (None below)
     "generate_adapter": (lambda d: adapter_delta_runs(d, "adapter"), None),
@@ -520,6 +519,22 @@ UNPORTED = {
                                                                 speculative_k=2, device="cpu"),
                                     "A1"),
 }
+
+
+def gptq_calib_runs(d: Path) -> bool:
+    """``generate.main --gptq_calib`` on a text file, quantize gptq.int4:
+    greedy text is printed (tests/test_torch_gptq_packed.py holds the tokens
+    against the JAX package's)."""
+    import contextlib
+    import io
+
+    calib = d / "calib.txt"
+    calib.write_text(TEXT * 4)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        generate.main(prompt="hello", checkpoint_dir=d, gptq_calib=calib, quantize="gptq.int4",
+                      max_new_tokens=4, temperature=0.0, precision="float32", device="cpu")
+    return bool(out.getvalue().strip())
 
 
 def adapter_delta_runs(d: Path, method: str) -> bool:

@@ -400,14 +400,13 @@ def test_checkpoint_formats_round_trip(tmp_path):
 
 
 def test_setup_refuses_what_is_not_ported(tmp_path, tiny_registry):
-    """gptq_calib (A3) and dp (A8) are still refused with their item;
-    method="adapter" now runs (tests/test_torch_adapter.py holds it against
-    the JAX package)."""
+    """dp (A8) is still refused with its item; method="adapter" now runs
+    (tests/test_torch_adapter.py holds it against the JAX package), and so
+    does gptq_calib (tests/test_torch_gptq_packed.py)."""
     base = dict(model_name="tiny-llama", data_path=tmp_path / "x.npz", device="cpu",
                 io=IOArgs(out_dir=tmp_path))
-    for kw, match in (({"gptq_calib": True}, "gptq.*A3"), ({"dp": 2}, "dp.*A8")):
-        with pytest.raises(NotImplementedError, match=match):
-            finetune.setup(**{**base, **kw})
+    with pytest.raises(NotImplementedError, match="dp.*A8"):
+        finetune.setup(**{**base, "dp": 2})
     np.savez(base["data_path"], examples=np.array(_sft_examples(4, 20, 60), dtype=object))
     state = finetune.setup(**{**base, "method": "adapter", "adapter_start_layer": 1,
                               "train": TrainArgs(global_batch_size=2, micro_batch_size=2,

@@ -191,6 +191,22 @@ def test_kernel_matches_plain_on_the_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.FLASH_KV_CUT)
+def test_kernel_honours_kv_len_below_the_frontier_on_the_card(case):
+    """The tensor-core kernel (bf16 at D = 64 and 128) and the f32 path with kv_len <
+    pos0 + T, so that the last rows lose keys below their causal frontier (and, kv_len <
+    pos0, every row does), against the plain version with phase 6's gates."""
+    _needs_card()
+    b, hq, g, s, d, dt, t, pos0, kv_len = case
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = build.KERNELS["flash_attention"].launches
+    err = chip_smoke.flash_case(torch, gen, b, hq, g, s, d, getattr(torch, dt), t, pos0,
+                                kv_len)["max_abs_err"]
+    assert build.KERNELS["flash_attention"].launches == before + 1
+    assert err <= (BF16_ATOL if dt == "bfloat16" else 2e-5), err
+
+
+@pytest.mark.cuda
 def test_kernel_repeats_bit_for_bit():
     _needs_card()
     chip_smoke.flash_repeats(torch, torch.Generator(device="cuda").manual_seed(1))

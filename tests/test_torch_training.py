@@ -127,11 +127,15 @@ def test_remat_gives_the_same_gradients():
             p.requires_grad_(True)
         make_loss_fn(cfg, remat=remat)(tp, tb).backward()
         grads.append([p.grad for p in tree_leaves(tp)])
-    for a, b in zip(*grads):  # the same arithmetic; threads may sum in another order
-        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-5)
-    for policy in ("attn", "dots", "dots_attn"):
-        with pytest.raises(NotImplementedError, match="XLA"):
-            gpt.forward(from_numpy_params(jp, "cpu"), cfg, tb[:, :-1], remat=policy)
+    for policy in ("attn", "dots", "dots_attn", "dots@1:full"):  # tests/test_torch_remat.py
+        tp = from_numpy_params(jp, "cpu")
+        for p in tree_leaves(tp):
+            p.requires_grad_(True)
+        make_loss_fn(cfg, remat=policy)(tp, tb).backward()
+        grads.append([p.grad for p in tree_leaves(tp)])
+    for other in grads[1:]:  # the same arithmetic; threads may sum in another order
+        for a, b in zip(grads[0], other):
+            torch.testing.assert_close(b, a, atol=1e-7, rtol=1e-5)
 
 
 def test_quadratic_without_mask_stops_at_blockwise_length(monkeypatch):
@@ -288,12 +292,13 @@ def test_pretrain_setup_trains_and_resumes(tmp_path, tiny_entry):
 
 
 def test_where_the_training_slice_stops(tmp_path):
-    """The multi-GPU flags (A8) and the packed format (A4 slice 2) are still
-    refused with their item; the four optimizers build (lion was refused before
+    """The multi-GPU flags (A8) are still refused with their item; the packed
+    format reads chunk files now (tests/test_torch_gptq_packed.py) and asks
+    for them; the four optimizers build (lion was refused before
     tests/test_torch_optimizers.py held them against optax)."""
     with pytest.raises(NotImplementedError, match="multi-GPU.*A8"):
         pretrain.setup(dp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="packed.*A4 slice 2"):
+    with pytest.raises(FileNotFoundError, match="no .bin chunks"):
         pretrain.data_iterators("packed", IOArgs(train_data_dir=tmp_path), 16, 2)
     for name in ("adamw", "adamw8bit", "adafactor", "lion"):
         opt = fit.build_optimizer(TrainArgs(optimizer=name))
