@@ -228,14 +228,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (b) the ``auto`` probe at (8, 32, 2048, 64): both timings, the winner the
    faster, a second call from the cache, a step under it launching K6 if and
    only if flash2 won; (c) ``prepare_packed`` on 4 MB of the repository's text
-   with a BPE tokenizer trained here, the native reader (built here with g++)
-   against ``PackedDataset``, ``pretrain.setup(data_format="packed")`` on
+   with a BPE tokenizer trained here, the native reader (built here with g++;
+   ``native_available()`` must be True and the C++ reader, not its numpy
+   fallback, must run, here and inside pretraining) against ``PackedDataset``,
+   ``pretrain.setup(data_format="packed")`` on
    easy-transformer-fastmax (K4/K5), the loss falling, logged to TensorBoard;
    (d) GPTQ (int4, nf4) on the card at Llama-2-7B's width on 2 layers, the
    hidden states' error below round-to-nearest's, and inside phase 12's
    directory one QLoRA step of ``finetune.setup(gptq_calib=True)`` and
    ``generate.main --gptq_calib`` on the "pallas" backend (K8); (e) the W&B
-   logger's branch (the package imported, or the CSV fallback).
+   logger's branch (the package imported, or the CSV fallback);
+17. speculative decoding: (a) K3 at the verify's shapes, T = k+1 in {2, 5, 9}
+   rows at pos0 in {63, 2047, 4086} over kv_len = pos0 + T keys (B=1, Hq=G=32,
+   D=128, S=4096, bf16 and f32) under phase 6's gates, timed at T = 9; K1 at
+   m = 9 and m = 72 at the four 7B linears under phase 3's gates, a layer's
+   four timed; (b) ``SpeculativeDecoder`` (prompt lookup, k = 8) on the random
+   Llama-2-7B of phases 5 and 7 (q4r1, int8 cache, 4096 positions, so that
+   every verify is one K3 call of 9 ragged rows): a 512-token prompt of the
+   repository's text in which a 64-token segment repeats, 128 new tokens
+   greedy against ``engine.generate`` and 32 against its own ``plain=True``
+   run (near-tie rule), tok/s of both, verify forwards, acceptance, K1
+   launches by path, K3 exactly once a layer a forward; a sampled run
+   (temperature 0.8, top_k 50); one verify forward profiled against a step's
+   host time; (c) ``DraftSpeculativeDecoder`` with TinyLlama-1.1B at full
+   width (random bf16) drafting k = 4 for the 7B, greedy against its engine
+   (near-tie rule), the acceptance of two random models; (d) an 8-slot
+   ``ContinuousBatcher`` with ``speculative_k`` 8 (K1 at m = 72 on the FMA
+   tile): 8 requests (4 greedy, 2 at top_k 1, 2 hot) against the batcher
+   without speculation (near-tie rule), ``spec_acceptance``; a 1024-token
+   shared prefix in the prefix cache with ``prefill_chunk`` 256; (e) inside
+   phase 12's directory, ``generate --speculative_k`` with and without
+   ``--draft_checkpoint_dir`` (TinyLlama's width cut to 2 layers) and the
+   server with ``--speculative_k``, on bnb.nf4 (K1), against the engine.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -483,6 +507,52 @@ def int4_repeats(torch, gen, what, p, m=N_SLOTS, runs: int = 3) -> None:
                 raise AssertionError(f"K1 int4 {what} m={m} {xt.dtype}: a repeat differs")
 
 
+def int4_times(torch, gen, name, k, n, ms) -> list:
+    """Device time of K1 a call at one 7B linear in a CUDA graph, weights cold (rotating
+    over enough layers to exceed the 50 MB L2), bf16 x, at each m of ``ms``; 4 < m <= 64
+    also on the FMA tile kernel; beside an eager call, the plain version and the bound."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    dev = torch.device("cuda")
+    k_pad, n_pad = k + (-k) % 512, n + (-n) % 1024
+    layer_bytes = k_pad * n_pad // 2
+    n_layers = max(2, math.ceil(160e6 / layer_bytes))
+    pw = torch.randint(-2**31 + 1, 2**31 - 1, (n_layers, 1, n_pad // 1024, k_pad, 128),
+                       generator=gen, device=dev, dtype=torch.int32)
+    u = torch.full((n_layers, k), 0.02, device=dev)
+    v = torch.ones((n_layers, n), device=dev)
+    p = {"q4r1": pw, "u4": u, "v4": v}
+    rows = []
+    for m in ms:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        it = iter(range(10**9))
+
+        def call(plain=False):
+            return qk.int4_matmul_rank1_stacked(x, p, next(it) % n_layers, plain=plain)
+        path = qk.int4_path(m, k_pad)
+        kern_ms = graph_ms(call, calls=2 * n_layers)
+        fma_ms = None
+        if path == "tc":
+            tc_max, qk.TC_MAX_M = qk.TC_MAX_M, qk.GEMV_MAX_M
+            try:
+                fma_ms = graph_ms(call, calls=2 * n_layers)
+            finally:
+                qk.TC_MAX_M = tc_max
+        call_ms = time_ms(call, iters=2 * n_layers)
+        plain_ms = graph_ms(lambda: call(plain=True), calls=n_layers, reps=1)
+        nbytes = k * n_pad // 2 + m * k * 2 + k * 4 + n * 4 + m * n * 2
+        rows.append({"shape": name, "k": k, "n": n, "m": m, "x_dtype": "bf16",
+                     "path": path, "ms": kern_ms, "fma_ms": fma_ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, **bound(nbytes, 2 * m * k * n, bf16=True)})
+        fma = f"  FMA tile {fma_ms * 1e3:8.1f} us" if fma_ms is not None else ""
+        log(f"  int4 {name:9s} m={m:3d} bf16: {path:4s} {kern_ms * 1e3:8.1f} us (eager call "
+            f"{call_ms * 1e3:7.1f} us){fma}  plain {plain_ms * 1e3:8.1f} us  bound "
+            f"{rows[-1]['bound_ms'] * 1e3:6.1f} us ({rows[-1]['bound_by']}; "
+            f"{rows[-1]['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate)")
+    del pw, u, v, p
+    return rows
+
+
 def check_int4(torch, gen, results):
     from fastmax_tpu_torch.ops import quant_kernels as qk
 
@@ -500,42 +570,7 @@ def check_int4(torch, gen, results):
         int4_repeats(torch, gen, name, p)
         log(f"  int4 {name:9s} m={N_SLOTS}: 3 runs bit for bit, f32 and bf16")
         del p
-        # timing at the main path's shapes, weights cold: rotate over enough
-        # layers to exceed the 50 MB L2; 4 < m <= 64 also on the FMA tile kernel
-        layer_bytes = k_pad * n_pad // 2
-        n_layers = max(2, math.ceil(160e6 / layer_bytes))
-        pw = torch.randint(-2**31 + 1, 2**31 - 1, (n_layers, 1, n_pad // 1024, k_pad, 128),
-                           generator=gen, device=dev, dtype=torch.int32)
-        u = torch.full((n_layers, k), 0.02, device=dev)
-        v = torch.ones((n_layers, n), device=dev)
-        p = {"q4r1": pw, "u4": u, "v4": v}
-        for m in INT4_TIMED_M:
-            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            it = iter(range(10**9))
-
-            def call(plain=False):
-                return qk.int4_matmul_rank1_stacked(x, p, next(it) % n_layers, plain=plain)
-            path = qk.int4_path(m, k_pad)
-            kern_ms = graph_ms(call, calls=2 * n_layers)
-            fma_ms = None
-            if path == "tc":
-                tc_max, qk.TC_MAX_M = qk.TC_MAX_M, qk.GEMV_MAX_M
-                try:
-                    fma_ms = graph_ms(call, calls=2 * n_layers)
-                finally:
-                    qk.TC_MAX_M = tc_max
-            call_ms = time_ms(call, iters=2 * n_layers)
-            plain_ms = graph_ms(lambda: call(plain=True), calls=n_layers, reps=1)
-            nbytes = k * n_pad // 2 + m * k * 2 + k * 4 + n * 4 + m * n * 2
-            rows.append({"shape": name, "k": k, "n": n, "m": m, "x_dtype": "bf16",
-                         "path": path, "ms": kern_ms, "fma_ms": fma_ms, "call_ms": call_ms,
-                         "plain_ms": plain_ms, **bound(nbytes, 2 * m * k * n, bf16=True)})
-            fma = f"  FMA tile {fma_ms * 1e3:8.1f} us" if fma_ms is not None else ""
-            log(f"  int4 {name:9s} m={m:3d} bf16: {path:4s} {kern_ms * 1e3:8.1f} us (eager call "
-                f"{call_ms * 1e3:7.1f} us){fma}  plain {plain_ms * 1e3:8.1f} us  bound "
-                f"{rows[-1]['bound_ms'] * 1e3:6.1f} us ({rows[-1]['bound_by']}; "
-                f"{rows[-1]['bound_f32_ms'] * 1e3:6.1f} us at the f32 rate)")
-        del pw, u, v, p
+        rows += int4_times(torch, gen, name, k, n, INT4_TIMED_M)
     card = card_line()
     for m in INT4_TIMED_M:
         layer = [r for r in rows if r["m"] == m]
@@ -5608,14 +5643,20 @@ def packed_path(torch, np, card, tmp: Path) -> tuple:
     files = sorted(dest.glob("*.bin"))
     n_tokens = sum((f.stat().st_size - 24) // 2 for f in files)
 
-    # the native reader, built here from the port's source, against the numpy reader
+    # the native reader, built here from the port's source, against the numpy reader; it
+    # must not fall back to the numpy reader here (g++ is on this machine)
     t0 = time.perf_counter()
     lib = loader.build()
     build_s = time.perf_counter() - t0
+    if not loader.native_available():
+        raise AssertionError("native_available() is False: the C++ packed reader did not load")
     n_check = 256
-    it_n = iter(loader.NativePackedDataset(files, 513, shuffle=False))
+    nat = loader.NativePackedDataset(files, 513, shuffle=False)
+    it_n = iter(nat)
     it_p = iter(PackedDataset(files, n_chunks=1, block_size=513, shuffle=False))
     same = all(np.array_equal(next(it_n), next(it_p)) for _ in range(n_check))
+    if nat.reader != "native":
+        raise AssertionError(f"the packed reader ran {nat.reader!r}, not the C++ reader")
     rates = {}
     for name, ds in (("native", loader.NativePackedDataset(files, 513, seed=3)),
                      ("numpy", PackedDataset(files, n_chunks=min(8, len(files)),
@@ -5627,7 +5668,8 @@ def packed_path(torch, np, card, tmp: Path) -> tuple:
     log(f"  (c) prepare_packed: {PACKED_TEXT_BYTES} bytes of the repository's text ({n_files} "
         f"files, repeated) as jsonl records -> {n_tokens} tokens of a {vocab}-token BPE in "
         f"{len(files)} chunks of {PACKED_CHUNK} in {prep_s:.2f} s; the native reader "
-        f"({lib.name}) built in {build_s:.2f} s; its first {n_check} unshuffled blocks "
+        f"({lib.name}) built in {build_s:.2f} s, native_available() True, the C++ reader "
+        f"ran; its first {n_check} unshuffled blocks "
         f"{'equal' if same else 'DIFFER FROM'} PackedDataset's; shuffled, 513-token blocks a "
         f"second: native {rates['native']:.0f}, numpy {rates['numpy']:.0f} (warm file cache)")
     if not same or not files:
@@ -5638,10 +5680,24 @@ def packed_path(torch, np, card, tmp: Path) -> tuple:
                       learning_rate=3e-3, lr_warmup_steps=2, save_interval=1000,
                       log_interval=1)
     out = tmp / "packed_run"
-    state, launches, wall = launched(torch, lambda: pretrain.setup(
-        model_name="easy-transformer-fastmax", data_format="packed", logger_name="tensorboard",
-        train=train, eval=EvalArgs(interval=10, max_iters=2),
-        io=IOArgs(train_data_dir=dest, val_data_dir=dest, out_dir=out)))
+    readers = []
+    real_reader = pretrain.NativePackedDataset
+
+    def recorded(*a, **kw):
+        readers.append(real_reader(*a, **kw))
+        return readers[-1]
+
+    pretrain.NativePackedDataset = recorded
+    try:
+        state, launches, wall = launched(torch, lambda: pretrain.setup(
+            model_name="easy-transformer-fastmax", data_format="packed",
+            logger_name="tensorboard", train=train, eval=EvalArgs(interval=10, max_iters=2),
+            io=IOArgs(train_data_dir=dest, val_data_dir=dest, out_dir=out)))
+    finally:
+        pretrain.NativePackedDataset = real_reader
+    if [r.reader for r in readers] != ["native"]:
+        raise AssertionError(f"pretraining's packed readers ran {[r.reader for r in readers]}, "
+                             "not the C++ reader")
     losses, where = logged_losses(out)
     log(f"  (c) pretrain.setup(data_format='packed') on easy-transformer-fastmax: {state.step} "
         f"steps in {wall:.2f} s (setup included); losses {losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -5803,6 +5859,487 @@ def rest_of_training_path(torch, results, card) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 17
+# Speculative decoding. (a) K3 at the verify's shapes: T = k+1 rows at pos0 over kv_len =
+# pos0 + T keys; (b) the batch-1 prompt-lookup decoder on the random 7B of phases 5 and 7
+# (q4r1, int8 cache, an engine of 4096 positions: every verify is one K3 call of T = k+1
+# ragged rows, and K1 at m = k+1 on the tensor cores); (c) the draft decoder with TinyLlama
+# at full width drafting (its public pairing with Llama-2-7B: the same 32 000-token
+# vocabulary); (d) the batcher's verify at 8 slots (K1 at m = 8 (k+1) = 72 on the FMA tile;
+# the per-slot positions take the masked SDPA over the dequantized cache, as the reference
+# does off its chip); (e) the command lines, inside phase 12's directory.
+SPEC_K = 8
+SPEC_T = (2, 5, 9)                 # T = k+1 at k = 1, 4, 8
+SPEC_POS0 = (63, 2047, 4086)       # a verify near the start, the middle and the end of S
+SPEC_PROMPT, SPEC_SEGMENT, SPEC_NEW = 512, 64, 128
+SPEC_PLAIN_NEW = 32                # the plain=True run (every linear dequantized a call)
+SPEC_DRAFT_MODEL, SPEC_DRAFT_K, SPEC_DRAFT_NEW = "tiny-llama-1.1b", 4, 64
+SPEC_BATCH_NEW, SPEC_PREFIX, SPEC_CHUNK = 64, 1024, 256
+
+
+@contextlib.contextmanager
+def k1_paths():
+    """K1's launches by path (gemv, tc, fma) while the block runs: ``int4_path`` is called
+    once a launch, and nowhere else on this path."""
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+
+    counts = {}
+    real = qk.int4_path
+
+    def counted(m, tk):
+        path = real(m, tk)
+        counts[path] = counts.get(path, 0) + 1
+        return path
+
+    qk.int4_path = counted
+    try:
+        yield counts
+    finally:
+        qk.int4_path = real
+
+
+def near_tie(torch, engine, prompt, want, got, what) -> dict:
+    """Two greedy token lists held by the near-tie rule: equal, or a first divergence
+    where ``engine``'s top-2 margin is under NEAR_TIE_REL of its largest |logit|."""
+    div = first_divergence(torch, engine, prompt, want, got)
+    if div is None:
+        log(f"  {what}: tokens equal")
+        return {"equal": True}
+    step, margin, top = div
+    near = margin <= NEAR_TIE_REL * top
+    log(f"  {what}: first divergence at generated token {step}, top-2 margin {margin:.4f} of "
+        f"max |logit| {top:.3f}: {'a near-tie' if near else 'NOT a near-tie'}")
+    if not near:
+        raise AssertionError(f"{what}: a divergence beyond a near-tie: {div}")
+    return {"equal": False, "step": step, "margin": margin, "max_logit": top}
+
+
+def spec_prompt(np, n: int = SPEC_PROMPT, seg: int = SPEC_SEGMENT):
+    """n tokens of the repository's text (bytes as Llama's byte ids, + 3) in which one
+    seg-token segment appears twice."""
+    tokens, _ = repo_text_tokens(np)
+    p = tokens[10_000:10_000 + n].astype(np.int64) + 3
+    p[n - 2 * seg - 16:n - seg - 16] = p[64:64 + seg]
+    return p
+
+
+def check_spec_kernels(torch, gen, card) -> dict:
+    """(a) K3 at T = k+1 against its plain version under phase 6's gates, bf16 and f32,
+    D = 128, S = 4096, and its times at T = 9; K1 at m = k+1 = 9 and m = 8 (k+1) = 72
+    under phase 3's gates at the four 7B linears, and a layer's four timed."""
+    checks = []
+    for dt in (torch.bfloat16, torch.float32):
+        for t in SPEC_T:
+            for pos0 in SPEC_POS0:
+                c = flash_case(torch, gen, 1, 32, 32, 4096, 128, dt, t, pos0)
+                checks.append(c)
+                log(f"  (a) {c['case']}: ok, max abs err {c['max_abs_err']:.3e}, mean err "
+                    f"{c['mean_err']:.2e} of the mean")
+    k3_rows = flash_times(torch, gen, [(torch.bfloat16, 128, SPEC_K + 1, pos0)
+                                       for pos0 in SPEC_POS0[1:]], label="7B verify")
+    int4 = []
+    for name, k, n in LLAMA7B_LINEARS:
+        p = int4_weights(torch, gen, k, n)
+        for m in (SPEC_K + 1, N_SLOTS * (SPEC_K + 1)):
+            err = int4_case(torch, gen, name, p, m)
+            int4.append({"shape": name, "m": m, **err})
+            log(f"  (a) int4 {name:9s} m={m:3d} ({err['path']}): ok, max abs err f32 "
+                f"{err['f32']:.3e} bf16 {err['bf16']:.3e}")
+        del p
+    k1_rows = []
+    for name, k, n in LLAMA7B_LINEARS:
+        k1_rows += int4_times(torch, gen, name, k, n, (SPEC_K + 1, N_SLOTS * (SPEC_K + 1)))
+    for m in (SPEC_K + 1, N_SLOTS * (SPEC_K + 1)):
+        layer = [r for r in k1_rows if r["m"] == m]
+        fma = (f" (FMA tile {sum(r['fma_ms'] for r in layer) * 1e3:.1f} us)"
+               if layer[0]["fma_ms"] is not None else "")
+        log(f"  (a) K1, a layer's 4 linears at m={m}: {layer[0]['path']} "
+            f"{sum(r['ms'] for r in layer) * 1e3:.1f} us{fma}, plain "
+            f"{sum(r['plain_ms'] for r in layer) * 1e3:.1f} us, bound "
+            f"{sum(r['bound_ms'] for r in layer) * 1e3:.1f} us   [{card}]")
+    return {"k3_checks": checks, "k3_times": k3_rows, "k1_checks": int4, "k1_times": k1_rows,
+            "k3_max_abs_err": {str(dt)[6:]: max(c["max_abs_err"] for c in checks
+                                                if c["case"].endswith(str(dt)[6:]))
+                               for dt in (torch.bfloat16, torch.float32)},
+            "k3_bf16_mean_err": max(c["mean_err"] for c in checks
+                                    if c["case"].endswith("bfloat16"))}
+
+
+def spec_engine_runs(torch, np, engine, card) -> tuple:
+    """(b) The prompt-lookup decoder on the 7B engine, greedy and sampled, against
+    ``engine.generate`` and its own plain=True run; returns (its row, launches)."""
+    from fastmax_tpu_torch.inference.speculative import SpeculativeDecoder
+
+    prompt = torch.as_tensor(spec_prompt(np), dtype=torch.int32)
+    t, n_ret = SPEC_PROMPT, SPEC_PROMPT + SPEC_NEW
+    spec = SpeculativeDecoder(engine, k=SPEC_K)
+    # warm-up: the first calls of each shape, outside the measured runs
+    engine.generate(prompt, t + 4)
+    spec.generate(prompt, t + 4)
+    out, plain_launches, plain_s = launched(torch, lambda: engine.generate(prompt, n_ret))
+    want = out[0, t:].tolist()
+    with k1_paths() as paths:
+        out, launches, spec_s = launched(torch, lambda: spec.generate(prompt, n_ret))
+    got = out[0, t:].tolist()
+    steps, accepted = spec.last_steps, spec.last_accepted
+    acceptance = accepted / (steps * SPEC_K)
+    if len(got) != SPEC_NEW or sum(paths.values()) != launches.get("int4_rank1_matmul", 0):
+        raise AssertionError(f"(b) {len(got)} tokens; K1 by path {paths}, launches {launches}")
+    # K3 once a layer for the 512-token prefill and once a layer for every verify
+    if launches.get("flash_attention", 0) != engine.cfg.n_layer * (1 + steps) or \
+            paths.get("tc", 0) <= 0:
+        raise AssertionError(f"(b) the verify did not take K3 and K1's tensor cores: {steps} "
+                             f"verify forwards, launches {launches}, K1 by path {paths}")
+    log(f"  (b) Llama-2-7B q4r1, int8 cache, 4096 positions; a {t}-token prompt whose "
+        f"{SPEC_SEGMENT}-token segment repeats; {SPEC_NEW} new tokens greedy: engine.generate "
+        f"{SPEC_NEW / plain_s:.2f} tok/s ({plain_s:.3f} s), SpeculativeDecoder k={SPEC_K} "
+        f"{SPEC_NEW / spec_s:.2f} tok/s ({spec_s:.3f} s); {steps} verify forwards, "
+        f"{accepted} drafts accepted of {steps * SPEC_K} ({acceptance:.3f}); K1 launches by "
+        f"path {paths}; K3 launches {launches.get('flash_attention', 0)}; launches "
+        f"{launches} (plain decode: {plain_launches})   [{card}]")
+    div = near_tie(torch, engine, prompt.tolist(), want, got,
+                   "(b) speculative greedy vs engine.generate")
+    # kernels against plain versions, SPEC_PLAIN_NEW new tokens (each verify dequantizes
+    # every linear in the plain run)
+    plain_out = spec.generate(prompt, t + SPEC_PLAIN_NEW, plain=True)
+    plain_steps = spec.last_steps
+    div_plain = near_tie(torch, engine, prompt.tolist(), plain_out[0, t:].tolist(),
+                         got[:SPEC_PLAIN_NEW], "(b) speculative greedy, kernels vs plain=True")
+    sampled = spec.generate(prompt, n_ret, temperature=0.8, top_k=50,
+                            generator=torch.Generator(device="cuda").manual_seed(5))
+    s_toks = sampled[0, t:]
+    ok = (s_toks.numel() == SPEC_NEW and bool((s_toks >= 0).all())
+          and bool((s_toks < engine.cfg.padded_vocab_size).all())
+          and torch.equal(sampled[0, :t], prompt.cuda()))
+    log(f"  (b) sampled (temperature 0.8, top_k 50): {s_toks.numel()} tokens in the "
+        f"vocabulary {ok}; {spec.last_steps} verify forwards, {spec.last_accepted} drafts "
+        f"accepted")
+    if not ok:
+        raise AssertionError(f"(b) sampled speculation gave {sampled[0, t:].tolist()}")
+    # where a verify step's time goes: one T = k+1 forward's device time against the
+    # host-clock time of a step of the greedy run
+    cache = engine.new_cache()
+    with torch.inference_mode():
+        _, cache = engine.prefill(prompt[None].cuda(), cache)
+        x = torch.as_tensor(got[:SPEC_K + 1], dtype=torch.int32, device="cuda")[None]
+        prof = profile_device(torch, lambda: engine._forward(x, cache, t), "one verify forward "
+                              f"(T = {SPEC_K + 1}, pos0 {t})")
+    step_ms = spec_s / steps * 1e3
+    if prof["device_us"]:
+        prof["busy_share"] = prof["device_us"] / 1e3 / step_ms
+        log(f"  (b) a verify step {step_ms:.2f} ms on the host clock, its forward "
+            f"{prof['device_us'] / 1e3:.2f} ms of device time: busy share "
+            f"{prof['busy_share']:.3f}   [{card}]")
+    del cache
+    return {"engine_tok_s": SPEC_NEW / plain_s, "spec_tok_s": SPEC_NEW / spec_s,
+            "engine_s": plain_s, "spec_s": spec_s, "verify_forwards": steps,
+            "accepted": accepted, "acceptance": acceptance, "k1_by_path": paths,
+            "launches": launches, "engine_launches": plain_launches, "vs_engine": div,
+            "vs_plain": div_plain, "plain_verify_forwards": plain_steps,
+            "sampled_tokens": s_toks.numel(), "verify_profile": prof,
+            "verify_step_ms": step_ms, "card": card}, launches
+
+
+def spec_draft_run(torch, np, engine, card) -> tuple:
+    """(c) DraftSpeculativeDecoder: TinyLlama at full width, random bf16 weights, drafting
+    k = 4 for the 7B; greedy against the target's greedy tokens."""
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.inference.speculative import DraftSpeculativeDecoder
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+
+    dcfg = Config.from_name(SPEC_DRAFT_MODEL)
+    dparams = gpt.init_params(dcfg, 1, torch.bfloat16, "cuda")
+    draft = InferenceEngine(dcfg, dparams, max_seq_length=dcfg.block_size)
+    spec = DraftSpeculativeDecoder(engine, draft, k=SPEC_DRAFT_K)
+    prompt = torch.as_tensor(spec_prompt(np), dtype=torch.int32)
+    t, n_ret = SPEC_PROMPT, SPEC_PROMPT + SPEC_DRAFT_NEW
+    spec.generate(prompt, t + 4)  # warm-up
+    want = engine.generate(prompt, n_ret)[0, t:].tolist()
+    out, launches, wall = launched(torch, lambda: spec.generate(prompt, n_ret))
+    got = out[0, t:].tolist()
+    acceptance = spec.last_accepted / (spec.last_steps * SPEC_DRAFT_K)
+    log(f"  (c) DraftSpeculativeDecoder: {SPEC_DRAFT_MODEL} ({dcfg.n_layer} layers, "
+        f"{dcfg.n_embd} wide, vocab {dcfg.padded_vocab_size}; random bf16 weights, seed 1) "
+        f"drafting k={SPEC_DRAFT_K} for the 7B: {SPEC_DRAFT_NEW} tokens in {wall:.3f} s "
+        f"({SPEC_DRAFT_NEW / wall:.2f} tok/s), {spec.last_steps} verify forwards, "
+        f"{spec.last_accepted} drafts accepted ({acceptance:.3f}: two random models, an "
+        f"acceptance of chance); launches {launches}   [{card}]")
+    div = near_tie(torch, engine, prompt.tolist(), want, got, "(c) draft-model greedy vs "
+                   "the target's engine.generate")
+    if len(got) != SPEC_DRAFT_NEW or launches.get("int4_rank1_matmul", 0) <= 0:
+        raise AssertionError(f"(c) {len(got)} tokens, launches {launches}")
+    row = {"draft_model": SPEC_DRAFT_MODEL, "k": SPEC_DRAFT_K, "wall_s": wall,
+           "tok_s": SPEC_DRAFT_NEW / wall, "verify_forwards": spec.last_steps,
+           "accepted": spec.last_accepted, "acceptance": acceptance, "launches": launches,
+           "vs_target": div, "card": card}
+    del draft, dparams, spec
+    return row, launches
+
+
+def spec_batcher_runs(torch, np, cfg, params, engine, card) -> tuple:
+    """(d) The batcher at serving width with speculative_k 8 against the same batcher
+    without it (near-tie rule), then a shared prefix with chunked prefill."""
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.models import gpt
+
+    rng = np.random.default_rng(17)
+    base = spec_prompt(np)
+    prompts = [np.concatenate([base[:int(n)], rng.integers(1, 32000, 16)]).astype(np.int32)
+               for n in rng.integers(200, 497, N_SLOTS)]
+    # 4 greedy, 2 at top_k 1 (the sampled verify on a point mass: greedy tokens), 2 hot;
+    # the first 6 are held to the batcher without speculation
+    settings = [{}] * 4 + [{"temperature": 0.9, "top_k": 1}] * 2 + \
+        [{"temperature": 0.8}, {"temperature": 1.0, "top_k": 40}]
+    common = dict(n_slots=N_SLOTS, max_seq_length=4096, weights_mode="quantized",
+                  cache_dtype=torch.int8)
+
+    def serve(batcher, reqs, settings, n_new):
+        subs = [batcher.submit(p, n_new, return_request=True, **s)
+                for p, s in zip(reqs, settings)]
+        steps = 0
+        while not all(r.done for r in subs):
+            batcher.step()
+            steps += 1
+        return [r.generated for r in subs], steps
+
+    runs, checks = {}, []
+    for name, kw in (("speculative", {"speculative_k": SPEC_K}), ("plain decode", {})):
+        batcher = ContinuousBatcher(cfg, params, **common, **kw)
+        serve(batcher, prompts[:1], [{}], 4)  # warm-up
+        with k1_paths() as paths:
+            (toks, steps), launches, wall = launched(torch, lambda: serve(
+                batcher, prompts, settings, SPEC_BATCH_NEW))
+        acc = batcher.spec_accepted / batcher.spec_drafted if batcher.spec_drafted else None
+        runs[name] = {"tokens": toks, "launches": launches, "k1_by_path": dict(paths),
+                      "wall_s": wall, "tok_s": N_SLOTS * SPEC_BATCH_NEW / wall,
+                      "steps": steps, "step_ms": wall / steps * 1e3, "spec_acceptance": acc}
+        log(f"  (d) {N_SLOTS}-slot batcher, {name}: {N_SLOTS} requests of "
+            f"{[len(p) for p in prompts]} tokens + {SPEC_BATCH_NEW} new (4 greedy, 2 top_k 1, "
+            f"2 hot) in {wall:.2f} s, {runs[name]['tok_s']:.2f} tok/s, {steps} steps "
+            f"({runs[name]['step_ms']:.1f} ms a step, admission included); spec_acceptance "
+            f"{acc}; K1 launches by path {dict(paths)}; launches {launches}   [{card}]")
+        if kw:
+            # where a verify step's time goes: one (8, k+1) forward at the slots' positions
+            with torch.inference_mode():
+                x = torch.ones((N_SLOTS, SPEC_K + 1), dtype=torch.int32, device="cuda")
+                pos = torch.full((N_SLOTS,), 500, dtype=torch.int32, device="cuda")
+
+                def verify():
+                    return gpt.forward(batcher.params, cfg, x, input_pos=pos,
+                                       kv_cache=batcher.cache, rope_cache=batcher.rope)
+                prof = profile_device(torch, verify, f"one verify forward at {N_SLOTS} slots "
+                                      f"(T = {SPEC_K + 1}, positions 500)")
+            if prof["device_us"]:
+                prof["busy_share"] = prof["device_us"] / 1e3 / runs[name]["step_ms"]
+                log(f"  (d) its verify forward {prof['device_us'] / 1e3:.2f} ms of device "
+                    f"time against {runs[name]['step_ms']:.1f} ms a step on the host clock: "
+                    f"busy share {prof['busy_share']:.3f}   [{card}]")
+            runs[name]["verify_profile"] = prof
+        del batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+    spec_run = runs["speculative"]
+    if not (spec_run["k1_by_path"].get("fma", 0) > 0 and spec_run["launches"].get(
+            "int4_rank1_matmul", 0) == sum(spec_run["k1_by_path"].values())):
+        raise AssertionError(f"(d) K1 at m = 72 never ran on the FMA tile: {spec_run}")
+    for i, s in enumerate(settings):
+        got = spec_run["tokens"][i]
+        if len(got) != SPEC_BATCH_NEW or not all(0 <= x < cfg.padded_vocab_size for x in got):
+            raise AssertionError(f"(d) request {i}: {len(got)} tokens")
+        if i < 6:
+            checks.append(near_tie(
+                torch, engine, prompts[i].tolist(), runs["plain decode"]["tokens"][i], got,
+                f"(d) request {i} {s or 'greedy'}: speculative vs plain decode batcher"))
+
+    # a shared prefix registered in the prefix cache, prompts admitted in chunks
+    shared = spec_prompt(np, SPEC_PREFIX).astype(np.int32)
+    pp = [np.concatenate([shared, rng.integers(1, 32000, int(n))]).astype(np.int32)
+          for n in rng.integers(64, 201, 4)]
+    pref = {}
+    for name, kw in (("speculative", {"speculative_k": SPEC_K}), ("plain decode", {})):
+        batcher = ContinuousBatcher(cfg, params, **common, prefix_cache_size=2,
+                                    prefill_chunk=SPEC_CHUNK, **kw)
+        batcher.register_prefix(shared)
+        (toks, _), launches, wall = launched(torch, lambda: serve(batcher, pp, [{}] * 4, 32))
+        pref[name] = {"tokens": toks, "hits": batcher.prefix_cache_hits, "wall_s": wall,
+                      "launches": launches, "spec_acceptance": (
+                          batcher.spec_accepted / batcher.spec_drafted
+                          if batcher.spec_drafted else None)}
+        del batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"  (d) shared {SPEC_PREFIX}-token prefix, prefill_chunk {SPEC_CHUNK}, 4 requests + 32 "
+        f"new: speculative {pref['speculative']['wall_s']:.2f} s (acceptance "
+        f"{pref['speculative']['spec_acceptance']}, {pref['speculative']['hits']} prompt tokens "
+        f"reused), plain decode {pref['plain decode']['wall_s']:.2f} s   [{card}]")
+    if not pref["speculative"]["hits"] == pref["plain decode"]["hits"] == 4 * SPEC_PREFIX:
+        raise AssertionError(f"(d) the prefix cache reused {pref['speculative']['hits']}")
+    for i in range(4):
+        checks.append(near_tie(
+            torch, engine, pp[i].tolist(), pref["plain decode"]["tokens"][i],
+            pref["speculative"]["tokens"][i], f"(d) prefix request {i}: speculative vs plain"))
+    counts = {}
+    add_counts(counts, spec_run["launches"])
+    add_counts(counts, pref["speculative"]["launches"])
+
+    def untokened(rows):
+        return {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in rows.items()}
+
+    return {"runs": untokened(runs), "prefix": untokened(pref), "checks": checks,
+            "card": card}, counts
+
+
+def speculative_path(torch, results, card) -> dict:
+    """Phase 17 (a)-(d); returns the launch counts of its main paths ((b)-(d))."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
+
+    t_phase = time.perf_counter()
+    out = {"kernels": check_spec_kernels(torch, torch.Generator(device="cuda").manual_seed(17),
+                                         card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Config.from_name("Llama-2-7b-hf")
+    cfg.block_size = 4096
+    params = build_fake_7b_int4(cfg, seed=0)
+    engine = InferenceEngine(cfg, params, max_seq_length=4096, weights_mode="quantized",
+                             cache_dtype=torch.int8)
+    counts = {}
+    out["engine"], c = spec_engine_runs(torch, np, engine, card)
+    add_counts(counts, c)
+    out["draft"], c = spec_draft_run(torch, np, engine, card)
+    add_counts(counts, c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["batcher"], c = spec_batcher_runs(torch, np, cfg, params, engine, card)
+    add_counts(counts, c)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  (a)-(d) in {out['phase_s']:.1f} s; launches {counts}")
+    results["speculative"] = out
+    return counts
+
+
+def speculative_commands(torch, results, card, tmp, ckpt) -> dict:
+    """(e), inside phase 12's directory on its 2-layer Llama-2-7B-width checkpoint with
+    phase 13's tokenizer, bnb.nf4 -> preload_int4 (K1): ``generate.main --speculative_k``
+    with prompt lookup and with ``--draft_checkpoint_dir`` (TinyLlama's width cut to 2
+    layers, random bf16, written here), each printing the text of the same decoder run here
+    and holding its tokens to the engine's greedy ones (near-tie rule); then the server
+    with ``--speculative_k`` answering two requests over 127.0.0.1."""
+    import io
+    import urllib.request
+
+    from fastmax_tpu_torch.inference import generate, server
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.inference.speculative import (DraftSpeculativeDecoder,
+                                                          SpeculativeDecoder)
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.models.params import params_to_flat
+    from fastmax_tpu_torch.models.tokenizer import Tokenizer
+    from fastmax_tpu_torch.utils.checkpoint import save_flat_checkpoint
+
+    if not (ckpt / "tokenizer.json").is_file():
+        raise AssertionError("the speculative command lines need the tokenizer phase 13 "
+                             "trains (the tokenizers package)")
+    draft_dir = tmp / "spec_draft"
+    dcfg = Config.from_name(cut_model(SPEC_DRAFT_MODEL, 2))
+    save_flat_checkpoint(params_to_flat(gpt.init_params(dcfg, 2, torch.bfloat16, "cuda"), dcfg),
+                         draft_dir)
+    dcfg.to_json(draft_dir / "lit_config.json")
+    tok = Tokenizer(ckpt)
+    prompt, n_new, k = "def main", 24, 4
+    enc = tok.encode(prompt)
+    n_ret = len(enc) + n_new
+    cfg, params = generate.load_and_prepare(ckpt, quantize="bnb.nf4")
+    engine = InferenceEngine(cfg, params, max_seq_length=n_ret + k + 1)
+    want = engine.generate(torch.as_tensor(enc), n_ret, eos_id=tok.eos_id)[0, len(enc):].tolist()
+    rows, counts = {}, {}
+    for name, extra in (("prompt lookup", []), ("draft model", [
+            "--draft_checkpoint_dir", str(draft_dir)])):
+        flags = ["--prompt", prompt, "--checkpoint_dir", str(ckpt), "--quantize", "bnb.nf4",
+                 "--max_new_tokens", str(n_new), "--temperature", "0", "--speculative_k",
+                 str(k)] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            _, launches, wall = launched(torch, lambda: generate.cli(flags))
+        add_counts(counts, launches)
+        if extra:
+            dc, dp = generate.load_and_prepare(draft_dir, quantize="bnb.nf4")
+            spec = DraftSpeculativeDecoder(engine, InferenceEngine(
+                dc, dp, max_seq_length=engine.max_seq_length), k=k)
+        else:
+            spec = SpeculativeDecoder(engine, k=k)
+        out = spec.generate(torch.as_tensor(enc), n_ret, eos_id=tok.eos_id)
+        got = out[0, len(enc):].tolist()
+        same_text = buf.getvalue().strip() == tok.decode(out[0].cpu().numpy()).strip()
+        log(f"  (e) generate {' '.join(flags[2:])}: {wall:.2f} s (load "
+            f"included), printed the decoder's text {same_text}, {spec.last_steps} verify "
+            f"forwards, {spec.last_accepted} drafts accepted; launches {launches}   [{card}]")
+        rows[name] = {"wall_s": wall, "same_text": same_text, "launches": launches,
+                      "verify_forwards": spec.last_steps, "accepted": spec.last_accepted,
+                      "vs_engine": near_tie(torch, engine, enc.tolist(), want, got,
+                                            f"(e) generate --speculative_k ({name}) vs the "
+                                            "engine")}
+        if not (same_text and launches.get("int4_rank1_matmul", 0) > 0):
+            raise AssertionError(f"(e) generate --speculative_k ({name}): {rows[name]}")
+        del spec
+
+    made, answers = [], []
+    real_server, real_sleep = server.Server, time.sleep
+
+    class Recording(real_server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def sleep(s):
+        if s != 3600:  # the scheduler thread's idle wait
+            return real_sleep(s)
+        for p in (prompt, "import torch"):
+            body = json.dumps({"prompt": p, "max_new_tokens": n_new}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{made[0].port}/v1/generate",
+                                         data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers.append((p, json.loads(r.read())))
+        raise KeyboardInterrupt
+
+    server.Server, time.sleep = Recording, sleep
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, launches, wall = launched(torch, lambda: server.cli([
+                "--checkpoint_dir", str(ckpt), "--host", "127.0.0.1", "--port", "0",
+                "--n_slots", "2", "--quantize", "bnb.nf4", "--speculative_k", str(k)]))
+    finally:
+        server.Server, time.sleep = real_server, real_sleep
+    add_counts(counts, launches)
+    batcher = made[0].scheduler.batcher
+    acc = batcher.spec_accepted / max(batcher.spec_drafted, 1)
+    log(f"  (e) server --speculative_k {k}: 2 requests answered in {wall:.2f} s (load "
+        f"included), spec_acceptance {acc:.3f}; launches {launches}   [{card}]")
+    checks = []
+    engine = InferenceEngine(cfg, params, max_seq_length=256)
+    for p, answer in answers:
+        e = tok.encode(p)
+        ref = engine.generate(torch.as_tensor(e), len(e) + n_new, eos_id=tok.eos_id)
+        checks.append(near_tie(torch, engine, e.tolist(), ref[0, len(e):].tolist(),
+                               answer["tokens"], f"(e) server --speculative_k, {p!r}"))
+    if made[0].scheduler._thread.is_alive() or not batcher.spec_drafted:
+        raise AssertionError("(e) the speculative server did not serve and stop")
+    rows["server"] = {"wall_s": wall, "spec_acceptance": acc, "launches": launches,
+                      "checks": checks}
+    del engine, params, batcher, made
+    results["speculative_commands"] = {**rows, "card": card}
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -5871,28 +6408,35 @@ def main() -> int:
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
-    counts_cmd, (counts_inf, counts_lin, _, counts_gptq) = command_path(
+    counts_cmd, (counts_inf, counts_lin, _, counts_gptq, counts_spec_cmd) = command_path(
         torch, results, card, lambda tmp, ckpt, *a: (
             inference_path(torch, results, card, tmp, ckpt, *a),
             linear_serving_path(torch, results, card, tmp, ckpt),
             adapter_commands(torch, results, card, tmp, ckpt),
-            gptq_commands(torch, results, card, tmp, ckpt)))
+            gptq_commands(torch, results, card, tmp, ckpt),
+            speculative_commands(torch, results, card, tmp, ckpt)))
     counts_fam = families_path(torch, results, card)
     log("[16] the rest of training: bench_mfu on TinyLlama at full width under every remat "
         "policy, the auto probe, packed data with the native reader, the loggers, GPTQ at "
         "Llama-2-7B's width (its QLoRA step and generate ran inside phase 12's directory)")
     counts_p16 = rest_of_training_path(torch, results, card)
     add_counts(counts_p16, counts_gptq)
+    log("[17] speculative decoding: K3 at T = k+1 and K1 at m = k+1 and 8 (k+1) vs plain, the "
+        "prompt-lookup and draft-model decoders on the 7B, the batcher's verify at 8 slots "
+        "(the command lines ran inside phase 12's directory)")
+    counts_p17 = speculative_path(torch, results, card)
+    add_counts(counts_p17, counts_spec_cmd)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
                            "command_path": counts_cmd, "inference_path": counts_inf,
                            "linear_serving_path": counts_lin, "families_path": counts_fam,
-                           "rest_of_training_path": counts_p16}
-    # the main paths of phases 15 and 16, added to the earlier phases' counts below
+                           "rest_of_training_path": counts_p16, "speculative_path": counts_p17}
+    # the main paths of phases 15, 16 and 17, added to the earlier phases' counts below
     counts_later = {}
     add_counts(counts_later, counts_fam)
     add_counts(counts_later, counts_p16)
+    add_counts(counts_later, counts_p17)
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -5905,8 +6449,10 @@ def main() -> int:
     # serving path (K1-K3), the training path (K4, K5), the finetune path (K6, K7), with the
     # linear arms' serving path (phase 14, K1 alone) added to K1, phase 15's main paths
     # (Gemma-7B and Mixtral serving and finetuning, the adapters, the optimizers) added to
-    # K1, K3, K4, K5, K6, K7 and K8, and phase 16's (bench_mfu under every remat policy,
-    # packed pretraining, the GPTQ QLoRA step and generate) to K4, K5, K6, K7 and K8.
+    # K1, K3, K4, K5, K6, K7 and K8, phase 16's (bench_mfu under every remat policy,
+    # packed pretraining, the GPTQ QLoRA step and generate) to K4, K5, K6, K7 and K8, and
+    # phase 17's (the speculative decoders, the speculative batcher and command lines) to
+    # K1 and K3.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]

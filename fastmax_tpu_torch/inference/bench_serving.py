@@ -14,7 +14,8 @@ request, then one load of random prompts, and prints one JSON line:
         --quantize bnb.nf4 --kv_cache_dtype int8 --n_slots 8 --decode_quantum 8 \
         --n_requests 16 --prompt_len 64 --max_new_tokens 64 [--device cpu]
 
-``--speculative_k`` (A1) is not ported yet and raises.
+With ``--speculative_k`` the line carries ``spec_acceptance``, the drafts
+accepted over the drafts offered, beside the rates.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def run_load(batcher, prompts, max_new_tokens: int, *, arrival_rate: float = 0.0
     gen_tokens = sum(len(r.generated) for r in reqs)
     lat = np.asarray([done_t[r.request_id] - submit_t[r.request_id] for r in reqs])
     ttft = np.asarray([first_t[r.request_id] - submit_t[r.request_id] for r in reqs])
-    return {
+    out = {
         "n_requests": n,
         "generated_tokens": int(gen_tokens),
         "aggregate_tok_s": round(gen_tokens / t_total, 2),
@@ -80,6 +81,11 @@ def run_load(batcher, prompts, max_new_tokens: int, *, arrival_rate: float = 0.0
         "latency_p50_s": round(float(np.percentile(lat, 50)), 3),
         "latency_p95_s": round(float(np.percentile(lat, 95)), 3),
     }
+    drafted = getattr(batcher, "spec_drafted", 0)
+    if drafted:
+        # how often the drafts land, beside a speculative run's rates
+        out["spec_acceptance"] = round(batcher.spec_accepted / drafted, 3)
+    return out
 
 
 def run(
@@ -109,9 +115,8 @@ def run(
     from ..models.config import Config
     from .continuous import ContinuousBatcher
     from .engine import default_device
-    from .generate import check_unported, load_and_prepare
+    from .generate import load_and_prepare
 
-    check_unported(speculative_k=speculative_k)
     device = default_device(device)
     if checkpoint_dir is not None:
         cfg, params = load_and_prepare(Path(checkpoint_dir), quantize=quantize,
@@ -129,7 +134,8 @@ def run(
     cfg.block_size = max(cfg.block_size, seq_need)
     batcher = ContinuousBatcher(
         cfg, params, n_slots=n_slots, max_seq_length=max_seq_length or seq_need,
-        weights_mode=weights_mode, decode_quantum=decode_quantum, prefill_chunk=prefill_chunk,
+        weights_mode=weights_mode, decode_quantum=decode_quantum, speculative_k=speculative_k,
+        prefill_chunk=prefill_chunk,
         cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None, device=device)
     del params
 

@@ -19,7 +19,16 @@ slots between steps and retires finished ones:
   step, interleaved with decode steps;
 * ``prefix_cache_size > 0`` keeps admitted prompts' KV rows in an LRU (on
   the device, where the reference keeps host copies) and prefills only the
-  suffix of a prompt that starts with a cached one.
+  suffix of a prompt that starts with a cached one;
+* ``speculative_k = k > 0`` drafts k tokens a slot on the host by prompt
+  lookup (``_draft_np``), verifies every slot's drafts in one (n_slots, k+1)
+  forward with per-slot positions (``ops.sampling.speculative_accept_traced``:
+  greedy rows accept while a draft is the argmax, hot rows take the rejection
+  rule) and advances each slot by its accepted count + 1; the host reads the
+  counts and the candidates once a step. It excludes ``decode_quantum`` (the
+  drafts need the host between verifies); a verify writes k+1 rows past a
+  slot's position, so the headroom and ``prefill_chunk`` cover k+1.
+  ``spec_accepted`` / ``spec_drafted`` count the drafts accepted and offered.
 
 At Llama-2-7B's 4096-token context every prefill above takes the flash
 route (``ops/flash_attention.py``). Per-slot temperature and top-k are
@@ -36,8 +45,8 @@ admission wave, and speculative decoding, the prefix cache and chunked
 prefill refuse a linear arm with the reference's ``ValueError``: a running
 state cannot roll back, share a prefix, or absorb a prompt in pieces.
 
-Not ported yet: ``speculative_k > 0`` (ROADMAP.md queue A, A1) and the
-multi-GPU ``mesh`` (A8) raise ``NotImplementedError``.
+Not ported yet: the multi-GPU ``mesh`` (ROADMAP.md queue A, A8) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ import torch
 from ..models import gpt
 from ..models.config import Config
 from ..ops.rope import build_rope_cache
-from ..ops.sampling import sample, sample_traced
+from ..ops.sampling import sample, sample_traced, speculative_accept_traced
 from .engine import InferenceEngine, _to_device, default_device
 
 
@@ -105,9 +114,6 @@ class ContinuousBatcher:
             raise ValueError(
                 "chunked prefill requires the KV-cache (quadratic) path: linear-state prefill "
                 "must absorb the exact prompt in one pass")
-        if speculative_k:
-            raise NotImplementedError(
-                "speculative continuous batching is not ported yet (ROADMAP.md queue A, A1)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-GPU serving is not ported yet (ROADMAP.md queue A, A8)")
@@ -124,13 +130,20 @@ class ContinuousBatcher:
         if self.adaptive_quantum and self.decode_quantum <= 1:
             raise ValueError("adaptive_quantum requires decode_quantum > 1")
         self._q_small = min(8, self.decode_quantum)
-        # a quantum writes Q rows past each slot's position
-        self._headroom = max(1, self.decode_quantum)
+        self.speculative_k = int(speculative_k)
+        if self.speculative_k and self.decode_quantum > 1:
+            raise ValueError("decode_quantum and speculative_k are mutually exclusive "
+                             "(speculation needs host drafts between verify steps)")
+        # a speculative verify writes k+1 cache rows past each slot's position; a quantum Q
+        self._headroom = max(self.speculative_k + 1, self.decode_quantum)
+        self.spec_accepted = 0  # drafts accepted / offered over the batcher's life
+        self.spec_drafted = 0
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk and self._headroom > self.prefill_chunk:
             raise ValueError(
-                "prefill_chunk must be >= decode_quantum: a mid-prefill slot's garbage decode "
-                "rows must fit inside the range its next chunk overwrites")
+                "prefill_chunk must be >= decode_quantum and speculative_k+1: a mid-prefill "
+                "slot's garbage decode rows must fit inside the range its next chunk "
+                "overwrites")
         self._prefilling: Dict[int, int] = {}  # slot -> tokens prefilled so far
         self._pf_next = 0  # round-robin pointer over mid-prefill slots
         self.prefix_cache_size = int(prefix_cache_size)
@@ -436,7 +449,9 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def step(self):
         """Advance every active slot; returns {request_id: token}, or
-        {request_id: [tokens]} with ``decode_quantum`` > 1."""
+        {request_id: [tokens]} with ``speculative_k`` or ``decode_quantum`` > 1."""
+        if self.speculative_k:
+            return self._step_speculative()
         if self.decode_quantum > 1:
             return self._step_quantum()
         self._admit()
@@ -494,6 +509,66 @@ class ContinuousBatcher:
             self.positions[i] += len(lane)
             out[req.request_id] = lane
             self._maybe_finish(i, lane[-1] if lane else -1)
+        return out
+
+    def _draft_np(self, req: Request, k: int) -> np.ndarray:
+        """Prompt lookup on the host: the k tokens that followed the most
+        recent earlier occurrence of the request's current bigram (the rule
+        of ``inference/speculative.ngram_draft``, but a short match is padded
+        with the last token and nothing past the history is read)."""
+        hist = np.concatenate([req.prompt, np.asarray(req.generated, np.int32)])
+        n = len(hist)
+        if n >= 4:
+            b0, b1 = hist[-2], hist[-1]
+            starts = np.nonzero((hist[:-1] == b0) & (hist[1:] == b1))[0]
+            starts = starts[starts + 2 <= n - 2]  # strictly earlier occurrence
+            if starts.size:
+                d = hist[starts[-1] + 2: starts[-1] + 2 + k]
+                if d.size < k:
+                    d = np.concatenate([d, np.full(k - d.size, hist[-1], np.int32)])
+                return d.astype(np.int32)
+        return np.full(k, hist[-1], np.int32)
+
+    def _step_speculative(self) -> Dict[int, List[int]]:
+        """One batched draft-verify step over every decodable slot: the
+        (n_slots, k+1) rows [current, k drafts] through one forward at the
+        slots' positions, then each slot's decided tokens, cut to its budget,
+        then at its eos."""
+        self._admit()
+        self._prefill_tick()
+        active = [self._decodable(i) for i in range(self.n_slots)]
+        if not any(active):
+            return {}
+        k = self.speculative_k
+        cur, temps, topk = self._slot_inputs(active)
+        tokens = np.zeros((self.n_slots, k + 1), np.int32)
+        tokens[:, 0] = cur
+        for i, req in enumerate(self.slots):
+            if active[i]:
+                tokens[i, 1:] = self._draft_np(req, k)
+        logits, _ = gpt.forward(self.params, self.cfg, self._dev(tokens),
+                                input_pos=self._dev(self.positions), kv_cache=self.cache,
+                                rope_cache=self.rope, plain=self.plain)
+        a, cand = speculative_accept_traced(logits, self._dev(tokens[:, 1:]), self._dev(temps),
+                                            self._dev(topk), generator=self.generator,
+                                            hot=bool((temps > 0).any()))
+        both = torch.cat([a.to(torch.int32)[:, None], cand], dim=1).cpu().numpy()  # one read
+        out: Dict[int, List[int]] = {}
+        for i, req in enumerate(self.slots):
+            if not active[i]:
+                continue
+            n_acc = int(both[i, 0])
+            self.spec_accepted += min(n_acc, k)
+            self.spec_drafted += k
+            toks = both[i, 1:n_acc + 2].tolist()
+            # budget, then eos truncation (keep the eos itself)
+            toks = toks[: req.max_new_tokens - len(req.generated)]
+            if req.eos_id is not None and req.eos_id in toks:
+                toks = toks[: toks.index(req.eos_id) + 1]
+            req.generated.extend(toks)
+            self.positions[i] += len(toks)
+            out[req.request_id] = toks
+            self._maybe_finish(i, toks[-1] if toks else -1)
         return out
 
     def run_to_completion(self, max_steps: int = 100_000) -> Dict[int, List[int]]:

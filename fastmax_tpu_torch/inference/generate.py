@@ -20,8 +20,15 @@ differs from the JAX package's for the same seed; greedy text (temperature
 ``--gptq_calib`` names a plain-text file: its tokens, cut to the block
 size, calibrate GPTQ for a 4-bit ``--quantize`` mode (``ops/gptq.py``).
 
-Not ported yet, each raising ``NotImplementedError``: ``--tp``/``--fsdp``
-above 1 (the multi-GPU load, A8) and ``--speculative_k`` (A1).
+``--speculative_k k`` decodes speculatively (``inference/speculative.py``),
+k drafted tokens a verify forward, drafted by prompt lookup or, with
+``--draft_checkpoint_dir``, by a small model of the same vocabulary (loaded
+as the target is, with its ``--quantize`` and ``--precision``); the engines
+are sized with k+1 positions of headroom. Greedy text is the plain decode's;
+sampled text follows the same distribution.
+
+Not ported yet, raising ``NotImplementedError``: ``--tp``/``--fsdp`` above 1
+(the multi-GPU load, A8).
 """
 
 from __future__ import annotations
@@ -39,14 +46,11 @@ from ..models.tokenizer import Tokenizer
 from .engine import InferenceEngine, default_device
 
 
-def check_unported(*, tp: int = 1, fsdp: int = 1, speculative_k: int = 0) -> None:
+def check_unported(*, tp: int = 1, fsdp: int = 1) -> None:
     """Raise for the flags whose items are not ported yet, naming the item."""
     if tp > 1 or fsdp > 1:
         raise NotImplementedError("tp/fsdp > 1 (the sharded load and the mesh) come with the "
                                   "multi-GPU item (ROADMAP queue A, A8)")
-    if speculative_k:
-        raise NotImplementedError("speculative decoding (inference/speculative.py) is not "
-                                  "ported yet (ROADMAP queue A, A1)")
 
 
 def load_and_prepare(
@@ -149,9 +153,10 @@ def main(
     for the CPU). weights_mode: see ``InferenceEngine``; kv_cache_dtype:
     int8 for the quantized KV cache, bfloat16, ...; gptq_calib: a plain-text
     calibration file for GPTQ under a 4-bit ``quantize`` mode (its tokens cut
-    to the block size); speculative_k and draft_checkpoint_dir are not
-    ported yet."""
-    check_unported(tp=tp, fsdp=fsdp, speculative_k=speculative_k)
+    to the block size); speculative_k > 0: speculative decoding with k drafts
+    a verify step, drafted by prompt lookup or by the model in
+    draft_checkpoint_dir (the same vocabulary)."""
+    check_unported(tp=tp, fsdp=fsdp)
     device = default_device(device)
     tokenizer = Tokenizer(Path(checkpoint_dir))
     calib_tokens = None
@@ -170,16 +175,31 @@ def main(
     prompt_len = len(encoded)
     max_returned = prompt_len + max_new_tokens
     engine = InferenceEngine(
-        cfg, params, max_seq_length=max_returned, batch_size=1, weights_mode=weights_mode,
+        cfg, params, max_seq_length=max_returned + (speculative_k + 1 if speculative_k else 0),
+        batch_size=1, weights_mode=weights_mode,
         cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None, device=device)
+    spec = None
+    if speculative_k and draft_checkpoint_dir:
+        from .speculative import DraftSpeculativeDecoder
+
+        dcfg, dparams = load_and_prepare(Path(draft_checkpoint_dir), quantize=quantize,
+                                         precision=precision, device=device)
+        draft_engine = InferenceEngine(dcfg, dparams, max_seq_length=engine.max_seq_length,
+                                       batch_size=1, weights_mode=weights_mode, device=device)
+        spec = DraftSpeculativeDecoder(engine, draft_engine, k=speculative_k)
+    elif speculative_k:
+        from .speculative import SpeculativeDecoder
+
+        spec = SpeculativeDecoder(engine, k=speculative_k)
     print(f"model {cfg.name}: attn_alg={cfg.attn_alg}"
           + (f", quantized {quantize}" if quantize else ""), file=sys.stderr)
 
     generator = torch.Generator(device=device).manual_seed(seed)
     for i in range(num_samples):
         t0 = time.perf_counter()
-        out = engine.generate(torch.from_numpy(encoded), max_returned, temperature=temperature,
-                              top_k=top_k, eos_id=tokenizer.eos_id, generator=generator).cpu()
+        out = (spec or engine).generate(torch.from_numpy(encoded), max_returned,
+                                        temperature=temperature, top_k=top_k,
+                                        eos_id=tokenizer.eos_id, generator=generator).cpu()
         dt = time.perf_counter() - t0
         print(tokenizer.decode(out[0].numpy()))
         n_new = out.shape[1] - prompt_len

@@ -32,8 +32,9 @@ and serves until interrupted, on the card unless ``--device cpu``:
     python -m fastmax_tpu_torch.inference.server --checkpoint_dir ckpt \
         --quantize bnb.nf4 --n_slots 8 --kv_cache_dtype int8 --port 8000
 
-``--speculative_k`` (A1) and ``--tp``/``--fsdp`` above 1 (A8) are not ported
-yet and raise ``NotImplementedError``.
+``--speculative_k k`` gives the batcher k prompt-lookup drafts a slot and a
+batched verify a step. ``--tp``/``--fsdp`` above 1 (A8) are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -301,7 +302,7 @@ def main(
     from .engine import default_device
     from .generate import check_unported, load_and_prepare
 
-    check_unported(tp=tp, fsdp=fsdp, speculative_k=speculative_k)
+    check_unported(tp=tp, fsdp=fsdp)
     device = default_device(device)
     tokenizer = Tokenizer(Path(checkpoint_dir))
     cfg, params = load_and_prepare(Path(checkpoint_dir), quantize=quantize, attn_alg=attn_alg,
@@ -309,8 +310,8 @@ def main(
     batcher = ContinuousBatcher(
         cfg, params, n_slots=n_slots, max_seq_length=max_seq_length, weights_mode=weights_mode,
         cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None,
-        decode_quantum=decode_quantum, prefix_cache_size=prefix_cache_size,
-        prefill_chunk=prefill_chunk, device=device)
+        decode_quantum=decode_quantum, speculative_k=speculative_k,
+        prefix_cache_size=prefix_cache_size, prefill_chunk=prefill_chunk, device=device)
     if system_prompt:
         batcher.register_prefix(np.asarray(tokenizer.encode(system_prompt), np.int32))
     server = Server(batcher, tokenizer, host=host, port=port, model_name=cfg.name,

@@ -8,8 +8,8 @@ writes). The port's tree has the JAX tree's layout (``models/weights.py``):
 
 * kernels in (in, out) layout, the ``x @ W`` orientation,
 * block leaves stacked on a leading (n_layer,) axis,
-* MoE expert kernels stacked on (n_layer, n_expert) (layout only: the MoE
-  forward is not ported yet).
+* MoE expert kernels stacked on (n_layer, n_expert), as
+  ``models/gpt.apply_moe`` reads them.
 
 These two functions are the only place the naming/layout translation lives.
 """

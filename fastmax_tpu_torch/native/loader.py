@@ -6,9 +6,13 @@ contract, but decodes and shuffles blocks in a C++ thread
 (``native/packed_loader.cpp``, the port's own copy of the reference's
 source), so the Python thread stays free to feed the card. The library is
 built from that source at first use, with ``g++``, into the package's
-gitignored ``_build/``, named after a hash of the source and flags; a failed
-build raises. ``native=False`` asks for the numpy reader instead (the
-reference takes it when its checked-in library is absent).
+gitignored ``_build/``, named after a hash of the source and flags, or ahead
+of time by ``python -m fastmax_tpu_torch.native.build``. Where it neither
+loads nor builds (no ``g++``), ``native_available()`` is False and the
+reader falls back, with a warning, to ``data/packed_dataset.PackedDataset``
+over the same files, as the reference does when its library is absent.
+``native=False`` asks for that reader outright. ``reader`` says which one the
+last iteration ran ("native" or "numpy").
 
 The C++ thread shuffles each file's blocks with its own SplitMix64 stream,
 not numpy's generator: shuffled, the two readers give the same blocks in
@@ -23,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import warnings
 from pathlib import Path
 from typing import Iterator, Sequence
 
@@ -79,9 +84,19 @@ def _load_lib():
     return _LIB
 
 
+def native_available() -> bool:
+    """Whether the C++ library loads, building it first if it is not built."""
+    try:
+        _load_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 class NativePackedDataset:
     """Iterable over (block_size,) int64 arrays, C++-prefetched; with
-    ``native=False``, ``PackedDataset`` over the same files."""
+    ``native=False``, or where the library cannot be built, ``PackedDataset``
+    over the same files."""
 
     def __init__(self, filenames: Sequence, block_size: int, *, seed: int = 12345,
                  shuffle: bool = True, wrap: bool = False, n_prefetch: int = 16,
@@ -93,11 +108,18 @@ class NativePackedDataset:
         self._wrap = wrap
         self._n_prefetch = n_prefetch
         self._native = native
+        self.reader = None  # "native" or "numpy", once iterated
 
     def __iter__(self) -> Iterator[np.ndarray]:
-        if not self._native:
+        native = self._native and native_available()
+        if self._native and not native:
+            warnings.warn("the native packed loader could not be built (g++ missing or the "
+                          "build failed): reading with the numpy PackedDataset", RuntimeWarning,
+                          stacklevel=2)
+        if not native:
             from ..data.packed_dataset import PackedDataset
 
+            self.reader = "numpy"
             yield from PackedDataset(
                 self._filenames, n_chunks=min(8, max(len(self._filenames), 1)),
                 block_size=self._block_size, seed=self._seed,
@@ -105,6 +127,7 @@ class NativePackedDataset:
             )
             return
         lib = _load_lib()
+        self.reader = "native"
         files = (ctypes.c_char_p * len(self._filenames))(
             *[f.encode() for f in self._filenames]
         )

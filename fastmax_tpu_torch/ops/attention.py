@@ -25,7 +25,8 @@ block), ``flash`` (the split entry, padded to lcm(128, 128)) or
 ``_fused_eligible``, else blockwise takes it. The port routes as the reference
 does on its chip, flash2 by default, on every device: on the card the flash
 entries launch K6/K7, on the CPU they run their plain versions. ``auto`` (the
-reference's timing probe) is not ported.
+reference's timing probe) times blockwise against flash2 at the real shape at
+first use and keeps the winner (``_PROBE_CACHE``, ``_build/kernel_probe.json``).
 """
 
 from __future__ import annotations
@@ -159,8 +160,12 @@ def attention(
     reference's ``mask=None``). q: (B, Hq, T, D); k, v: (B, G, T, D), or
     (B, G, S, D) over a KV cache with ``is_decode`` (the linear algorithms
     only: fastmax and linearmax then run unmasked). For the linear algorithms
-    the grouped KV heads are repeated to the full head count first. An
-    explicit mask (ROADMAP A1's batched verify) is not ported."""
+    the grouped KV heads are repeated to the full head count first. It takes
+    no explicit mask: a speculative verify (T = k+1 rows over a KV cache)
+    goes through the cached forward (``models/gpt.apply_attn``), to the flash
+    kernel at a scalar position where the cache is flash-eligible, else to
+    the masked ``scaled_dot_product_attention`` over the dense or dequantized
+    int8 cache, as the batcher's per-slot verify always does."""
     if attn_alg == "quadratic":
         if q.shape[2] >= BLOCKWISE_MIN_T:
             return _long_causal(q, k, v, head_size, plain)

@@ -37,7 +37,8 @@ layer at a time, so that at most one layer's float32 kernel is alive.
 backend keeps the reference's two names: "xla" dequantizes and multiplies
 with ``torch.matmul``; "pallas" sends eligible linears to the hand-written
 exact-codebook kernel (``ops/quant_kernels.nf4_matmul``, K8).
-GPTQ calibration (``ops/gptq.py``) is not ported yet.
+GPTQ calibration lives in ``ops/gptq.py``: it gives codes of these formats
+from activations, where ``quantize_model`` rounds to nearest.
 """
 
 from __future__ import annotations

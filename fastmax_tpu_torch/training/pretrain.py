@@ -1,10 +1,12 @@
 """From-scratch pretraining recipe (counterpart of
 ``fastmax_tpu/training/pretrain.py``).
 
-  --data_format openwebtext   nanoGPT train.bin/val.bin memmaps (+ meta.json dtype)
+  --data_format openwebtext   nanoGPT train.bin/val.bin memmaps (+ meta.json dtype;
+                              ``scripts/prepare_openwebtext.py`` writes them)
   --data_format enwik8        byte-level random crops (the easy-transformer configs)
   --data_format packed        LITPKDS chunk dirs (``scripts/prepare_packed.py``): the C++
-                              reader of ``native/`` trains, ``PackedDataset`` validates
+                              reader of ``native/`` trains (the numpy reader, with a
+                              warning, where g++ is missing), ``PackedDataset`` validates
 
 ``attn_alg`` selects the fork's attention algorithm; with ``fastmax`` or
 ``fastmax_cuda`` every attention call of a step goes through the fastmax

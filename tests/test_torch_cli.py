@@ -45,6 +45,7 @@ from fastmax_tpu.scripts import convert_lit_checkpoint as jlit
 from fastmax_tpu.scripts import convert_pretrained_checkpoint as jpre
 from fastmax_tpu.scripts import merge_lora as jmerge
 from fastmax_tpu.scripts import prepare_alpaca as jprep
+from fastmax_tpu.scripts import prepare_openwebtext as jprep_owt
 from fastmax_tpu.scripts import prepare_packed as jprep_packed
 from fastmax_tpu.training import bench_mfu as jbench_mfu
 from fastmax_tpu.training import finetune as jfinetune
@@ -61,6 +62,7 @@ from fastmax_tpu_torch.scripts import convert_lit_checkpoint as tlit
 from fastmax_tpu_torch.scripts import convert_pretrained_checkpoint as tpre
 from fastmax_tpu_torch.scripts import merge_lora as tmerge
 from fastmax_tpu_torch.scripts import prepare_alpaca as tprep
+from fastmax_tpu_torch.scripts import prepare_openwebtext as tprep_owt
 from fastmax_tpu_torch.scripts import prepare_packed as tprep_packed
 from fastmax_tpu_torch.training import bench_mfu, finetune, pretrain
 from fastmax_tpu_torch.utils import cli
@@ -140,6 +142,8 @@ SIGNATURES = {
     "prepare_packed": (jprep_packed.prepare, tprep_packed.prepare,
                        ["--source_path", "x", "--checkpoint_dir", "y"]),
     "bench_mfu": (jbench_mfu.run, bench_mfu.run, []),
+    "prepare_openwebtext": (jprep_owt.prepare, tprep_owt.prepare,
+                            ["--source", "x", "--checkpoint_dir", "y"]),
 }
 
 

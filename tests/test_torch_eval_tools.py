@@ -499,11 +499,12 @@ def test_convert_pretrained_refuses_an_orbax_state(ckpt, tmp_path):
 UNPORTED = {
     "generate_tp": (lambda d: generate.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
     "generate_fsdp": (lambda d: generate.main(checkpoint_dir=d, fsdp=2, device="cpu"), "A8"),
-    "generate_speculative_k": (
-        lambda d: generate.main(checkpoint_dir=d, speculative_k=4, device="cpu"), "A1"),
-    "generate_draft": (lambda d: generate.cli(["--checkpoint_dir", str(d), "--speculative_k",
-                                               "2", "--draft_checkpoint_dir", str(d),
-                                               "--device", "cpu"]), "A1"),
+    # ported since (A1): speculative decoding runs (tests/test_torch_speculative_serving.py
+    # holds its text, tokens and acceptance against the JAX package's)
+    "generate_speculative_k": (lambda d: speculative_generate_runs(
+        d, ["--speculative_k", "4"]), None),
+    "generate_draft": (lambda d: speculative_generate_runs(
+        d, ["--speculative_k", "2", "--draft_checkpoint_dir", str(d)]), None),
     # ported since (A3): GPTQ calibrated on a text file, then greedy text
     "generate_gptq_calib": (lambda d: gptq_calib_runs(d), None),
     "load_and_prepare_tp": (lambda d: generate.load_and_prepare(d, tp=2, device="cpu"), "A8"),
@@ -511,14 +512,55 @@ UNPORTED = {
     "generate_adapter": (lambda d: adapter_delta_runs(d, "adapter"), None),
     "generate_adapter_v2": (lambda d: adapter_delta_runs(d, "adapter_v2"), None),
     "chat_tp": (lambda d: chat.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
-    "server_speculative_k": (lambda d: server.main(checkpoint_dir=d, speculative_k=2,
-                                                   device="cpu"), "A1"),
+    "server_speculative_k": (lambda d: speculative_server_runs(d), None),
     "server_tp": (lambda d: server.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
     "server_fsdp": (lambda d: server.main(checkpoint_dir=d, fsdp=2, device="cpu"), "A8"),
-    "bench_serving_speculative_k": (lambda d: bench_serving.run(checkpoint_dir=d,
-                                                                speculative_k=2, device="cpu"),
-                                    "A1"),
+    "bench_serving_speculative_k": (lambda d: "spec_acceptance" in bench_serving.run(
+        checkpoint_dir=d, speculative_k=2, n_slots=2, n_requests=2, prompt_len=6,
+        max_new_tokens=4, precision="float32", device="cpu"), None),
 }
+
+
+def speculative_generate_runs(d: Path, flags: list) -> bool:
+    """``generate.cli`` with speculative flags, sampled (the defaults' temperature
+    0.8, top_k 200): it prints text."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        generate.cli(["--checkpoint_dir", str(d), "--max_new_tokens", "6", "--device", "cpu"]
+                     + flags)
+    return bool(out.getvalue().strip())
+
+
+def speculative_server_runs(d: Path) -> bool:
+    """``server.main --speculative_k 2`` builds its speculative batcher, serves,
+    and stops at the interrupt that ends its wait."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    made = []
+    real_sleep = server.time.sleep
+
+    def sleep(s):
+        if s != 3600:  # the scheduler thread's idle wait
+            return real_sleep(s)
+        raise KeyboardInterrupt
+
+    class Recording(server.Server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    with mock.patch.object(server, "Server", Recording), \
+            mock.patch.object(server.time, "sleep", sleep), \
+            contextlib.redirect_stdout(io.StringIO()):
+        server.main(checkpoint_dir=d, host="127.0.0.1", port=0, n_slots=2, speculative_k=2,
+                    precision="float32", device="cpu")
+    return made[0].scheduler.batcher.speculative_k == 2 and \
+        not made[0].scheduler._thread.is_alive()
 
 
 def gptq_calib_runs(d: Path) -> bool:

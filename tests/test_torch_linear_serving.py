@@ -167,8 +167,7 @@ REFUSALS = {"speculative_k": {"speculative_k": 4}, "prefix_cache": {"prefix_cach
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_linear_slots_refuse_like_the_reference(case):
-    """tests/test_continuous.py's three refusals, with the reference's messages
-    (speculative_k's before the port's own A1 refusal)."""
+    """tests/test_continuous.py's three refusals, with the reference's messages."""
     jc, tc = _cfgs({"speculative_k": "fastmax", "prefix_cache": "performer",
                     "prefill_chunk": "linearmax"}[case])
     jp, tp = _params()
