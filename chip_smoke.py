@@ -259,7 +259,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shared prefix in the prefix cache with ``prefill_chunk`` 256; (e) inside
    phase 12's directory, ``generate --speculative_k`` with and without
    ``--draft_checkpoint_dir`` (TinyLlama's width cut to 2 layers) and the
-   server with ``--speculative_k``, on bnb.nf4 (K1), against the engine.
+   server with ``--speculative_k``, on bnb.nf4 (K1), against the engine;
+18. multi-GPU serving, inside phase 12's directory: two ranks on the one card
+   (``parallel/collectives.spawn_local``, gloo: NCCL takes no two ranks on one
+   GPU, so the collectives cross the host and no figure is a multi-GPU one),
+   each on its shard, against one rank: (a) Llama-2-7B (4096 context,
+   preload_int4, int8 cache) at tp 2, 64-token prompt, 32 greedy tokens (K1 on
+   the split linears, K3 on the prefill, K2 over 16 of 32 groups; near-tie
+   rule), each rank's weight bytes, kept-whole linears and launches, and the
+   first step's logits with f32 activations and cache at phase 15's limits; (b)
+   the 8-slot batcher, quantum 8, 8 requests x 32 tokens, tok/s of both; (c)
+   an NF4 7B cut to 4 layers in ``quantized`` (K8) and ``preload_int4_block``
+   (K9), 8 tokens each; (d) ``generate --tp 2`` and the server at ``--tp 2``
+   answering 2 requests, and ``load_sharded_model_params`` (each rank's leaves
+   bit-equal to the same cut of the whole load; the bytes each read); (e) one
+   rank over NCCL: the (1, 1, 1) mesh engine's tokens are the no-mesh
+   engine's bit for bit.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -271,6 +286,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import shutil
@@ -6340,6 +6356,561 @@ def speculative_commands(torch, results, card, tmp, ckpt) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 18
+# Multi-GPU serving on the one card: two ranks (two processes, collectives.spawn_local) on
+# the same H100, joined over gloo, since NCCL refuses two ranks on one GPU ("Duplicate GPU
+# detected"); the collectives cross the host there. No time taken that way is a multi-GPU
+# figure. Every hand-written kernel runs on a rank's shard at Llama-2-7B's full width and
+# is held against the one-rank result: the tokens equal, or diverging at a near-tie
+# (NEAR_TIE_REL); the first step's logits again with float32 activations and a float32
+# cache at phase 15's fixed limits (LOGITS_REL_TOL max, FAMILY_MEAN_REL mean).
+P18_MODEL = "Llama-2-7b-hf"
+P18_BLOCK = 4096
+P18_PROMPT, P18_NEW = 64, 32
+P18_SLOTS, P18_QUANTUM, P18_REQUESTS = N_SLOTS, 8, 8
+P18_MODES_LAYERS, P18_MODES_NEW = 4, 8     # (c): the NF4 modes on 4 of the 32 layers
+P18_VOCAB = 32000                          # prompt ids are drawn below it
+
+
+def p18_config(n_layer=None) -> dict:
+    """The fields of the phase's model config (the ranks rebuild it from them)."""
+    from fastmax_tpu_torch.models.config import Config
+
+    cfg = Config.from_name(P18_MODEL)
+    cfg.block_size = P18_BLOCK
+    if n_layer:
+        cfg.n_layer = n_layer
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k != "rope_n_elem"}
+
+
+def p18_weights(torch, cfg, kind: str) -> dict:
+    """The phase's random weights from seed 0, the same in every process on the card:
+    the rank-1 int4 tree (``build_fake_7b_int4``: q4r1, fc_12 fused) or bnb.nf4."""
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.synthetic import build_fake_7b_int4
+    from fastmax_tpu_torch.ops import quant
+
+    if kind == "int4":
+        return build_fake_7b_int4(cfg, device="cuda", seed=0)
+    dense = gpt.init_params(cfg, 0, torch.bfloat16, "cuda")
+    nf4 = quant.quantize_model(dense, "bnb.nf4")
+    del dense
+    return nf4
+
+
+def p18_prompts(np, n: int, length: int) -> list:
+    rng = np.random.default_rng(18)
+    return [rng.integers(1, P18_VOCAB, length).tolist() for _ in range(n)]
+
+
+def p18_engine(torch, cfg, params, mesh, mode, cache_dtype, prompt, n_new, check=None) -> dict:
+    """One engine's greedy tokens with the launch counts of that call, its weight bytes and
+    the linears it kept whole; then ``check(engine)``'s entries, whose launches are not
+    counted."""
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.parallel.sharding import tree_bytes
+
+    eng = InferenceEngine(cfg, params, max_seq_length=P18_BLOCK, cache_dtype=cache_dtype,
+                          weights_mode=mode, device="cuda", mesh=mesh)
+    if mode == "quantized":
+        from fastmax_tpu_torch.ops import quant
+
+        quant.set_quant_backend("pallas")  # K8 wherever it takes the shape
+    p = torch.as_tensor(prompt, dtype=torch.int32)
+    eng.generate(p, len(prompt) + 2)  # warm
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(p, len(prompt) + n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.launch_counts().items() if v}
+    row = {"tokens": out[0, len(prompt):].tolist(), "wall_s": wall, "launches": launches,
+           "weight_bytes": tree_bytes(eng.params),
+           "kept_whole": list(eng.shard.kept_whole) if eng.shard else []}
+    if check is not None:
+        row.update(check(eng))
+    del eng
+    return row
+
+
+def p18_k2_check(torch, eng, prompt) -> dict:
+    """K2 over the engine's query groups (a rank's 16 of the 32 on the mesh) against its
+    plain version, on the int8 cache that the engine's prefill of ``prompt`` wrote, at the
+    first and the last layer, bf16 and f32 q, under phase 4's gates (``attn_held``)."""
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.ops import decode_attention as da
+
+    p = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        _, cache = eng.prefill(p[None], eng.new_cache())
+    kc, vc, ks, vs = cache["k"], cache["v"], cache["k_scale"], cache["v_scale"]
+    n_layer, b, g, _, d = kc.shape
+    hq = eng.cfg.n_head * g // eng.cfg.n_query_groups
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    posv = torch.full((b,), len(prompt) - 1, dtype=torch.int32, device="cuda")
+    worst = {}
+    for qdt in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, hq, 1, d), generator=gen, device="cuda").to(qdt)
+        for layer in (0, n_layer - 1):
+            before = build.launch_counts().get("int8_decode_attention", 0)
+            got = da.int8_decode_attention_stacked(q, kc, vc, ks, vs, layer, posv,
+                                                   scale=d ** -0.5)
+            if build.launch_counts().get("int8_decode_attention", 0) == before:
+                raise AssertionError("K2 on the rank's cache ran its plain version")
+            ref = da.int8_decode_attention_plain(q, kc[layer], vc[layer], ks[layer], vs[layer],
+                                                 posv, scale=d ** -0.5)
+            w, m = attn_held(torch, f"B={b} Hq={hq} G={g} layer {layer} {str(qdt)[6:]} on the "
+                             "engine's cache", got, ref, qdt)
+            key = str(qdt)[6:]
+            worst[key] = max(worst.get(key, (0.0, 0.0)), (w, m))
+    del cache
+    return {"k2": {"groups": g, "heads": hq, "max_abs_err": {k: v[0] for k, v in worst.items()},
+                   "mean_err": {k: v[1] for k, v in worst.items()}}}
+
+
+def p18_linear_checks(torch, eng, mode) -> list:
+    """K8 (``quantized``) or K9 (``preload_int4_block``) on each of layer 0's linears of
+    the engine's weights (a rank's shard on the mesh) that the path sends to it, against
+    the plain version on the same tensors, at the decode row (m = 1) and the prompt's
+    (m = P18_PROMPT), f32 and bf16 x, under phase 14's gates."""
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.ops import quant_kernels as qk
+    from fastmax_tpu_torch.parallel.sharding import linear_features
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    if mode == "quantized":
+        kern, atol, rtol = "nf4_matmul", NF4_ATOL, {torch.float32: NF4_RTOL}
+
+        def call(x, p, plain):
+            return qk.quantized_matmul_pallas(x, p, plain=plain)
+    else:
+        kern, atol, rtol = "int4_block_matmul", INT4_ATOL, {torch.float32: INT4_RTOL}
+
+        def call(x, p, plain):
+            return qk.int4_matmul_block(x, p, plain=plain)
+    rtol[torch.bfloat16] = INT4_BF16_RTOL
+    rows = []
+    for name, mod, sub, _ in BLOCK_LINEARS:
+        p = {key: v[0] for key, v in eng.params["blocks"][mod][sub].items()}
+        k, n = linear_features(p)
+        if mode == "quantized" and not qk.pallas_eligible(p, k, n):
+            continue  # dequantize + matmul on this path, as on one rank
+        for m in (1, P18_PROMPT):
+            for dt in (torch.float32, torch.bfloat16):
+                x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dt)
+                before = build.launch_counts().get(kern, 0)
+                got = call(x, p, False)
+                if build.launch_counts().get(kern, 0) == before:
+                    raise AssertionError(f"{kern} on {name} (k={k}, n={n}) ran its plain version")
+                ref = call(x, p, True)
+                torch.cuda.synchronize()
+                err = held(torch, f"{kern} on the engine's {name}, k={k} n={n} m={m} "
+                           f"{str(dt)[6:]}", got, ref, atol, rtol[dt])
+                rows.append({"linear": name, "k": k, "n": n, "m": m, "dtype": str(dt)[6:],
+                             "max_abs_err": err})
+    return rows
+
+
+def p18_mode_check(torch, eng, mode, prompt, sharded: bool) -> dict:
+    """(c)'s checks on an engine in an NF4 mode: the prefill and first decode step logits
+    with float32 activations and a float32 cache, kernels against plain=True on the same
+    weights (max and mean relative differences), and the kernels' logits themselves, for
+    the caller to hold tp 2 against one rank; on the mesh, ``p18_linear_checks`` too."""
+    p = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")
+    saved = eng.params, eng.cache_dtype
+    eng.params, eng.cache_dtype = with_f32_activations(torch, eng.params), torch.float32
+    try:
+        rel, mean, kern = kernels_vs_plain(torch, eng, p, p[:1])
+    finally:
+        eng.params, eng.cache_dtype = saved
+    out = {"f32_rel": rel, "f32_mean": mean, "logits": (kern[0][0].cpu(), kern[1][0].cpu())}
+    if sharded:
+        out["linear_checks"] = p18_linear_checks(torch, eng, mode)
+    return out
+
+
+def p18_f32_logits(torch, cfg, params, mesh, prompt, token) -> tuple:
+    """Prefill and first decode step logits with float32 activations and cache, the
+    kernels on (the linears are the same tensors)."""
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, with_f32_activations(torch, params), max_seq_length=P18_BLOCK,
+                          cache_dtype=torch.float32, weights_mode="auto", device="cuda",
+                          mesh=mesh)
+    p = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        logits, cache = eng.prefill(p[None], eng.new_cache())
+        step, _ = eng._forward(torch.tensor([[token]], dtype=torch.int32, device="cuda"),
+                               cache, len(prompt))
+    out = (logits[0].float().cpu(), step[0, -1].float().cpu())
+    del eng, cache
+    return out
+
+
+def p18_batcher(torch, cfg, params, mesh, prompts, n_new) -> dict:
+    """The 8-slot batcher (int8 cache, decode quantum 8): every prompt greedy, drained;
+    tokens, tok/s and launches. On a mesh rank 0 drives it and the other rank follows."""
+    import numpy as np
+
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+    from fastmax_tpu_torch.kernels import build
+
+    b = ContinuousBatcher(cfg, params, n_slots=P18_SLOTS, max_seq_length=P18_BLOCK,
+                          weights_mode="preload_int4", cache_dtype=torch.int8,
+                          decode_quantum=P18_QUANTUM, device="cuda", mesh=mesh)
+    if mesh is not None and not mesh.leader:
+        build.reset_launch_counts()
+        b.follow()
+        return {"launches": {k: v for k, v in build.launch_counts().items() if v}}
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [b.submit(np.asarray(p, np.int32), n_new) for p in prompts]
+    res = b.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b.close()
+    toks = [res[r] for r in rids]
+    return {"tokens": toks, "wall_s": wall, "tok_s": sum(len(t) for t in toks) / wall,
+            "launches": {k: v for k, v in build.launch_counts().items() if v}}
+
+
+def p18_rank(cfg_int4: dict, cfg_modes: dict, ckpt: str, cli_prompts: list) -> dict:
+    """One of the two ranks on the card: (a) the 7B engine in preload_int4 with an int8
+    cache, K2 on its cache, and its f32 twin's first-step logits; (b) the batcher; (c) the
+    NF4 modes quantized (K8) and preload_int4_block (K9) with ``p18_mode_check``; (d)
+    generate --tp 2, the server at --tp 2 and load_sharded_model_params on phase 12's
+    directory (the bodies of ``tests/torch_rank_checks.py``)."""
+    import numpy as np
+    import torch
+    import torch_rank_checks as rank_checks
+
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.parallel.sharding import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh(1, 1, 2)
+    out = {"rank": mesh.rank}
+    cfg = Config(**cfg_int4)
+    params = p18_weights(torch, cfg, "int4")
+    prompt = p18_prompts(np, 1, P18_PROMPT)[0]
+    out["engine"] = p18_engine(torch, cfg, params, mesh, "preload_int4", torch.int8, prompt,
+                               P18_NEW, check=lambda eng: p18_k2_check(torch, eng, prompt))
+    out["f32"] = p18_f32_logits(torch, cfg, params, mesh, prompt, out["engine"]["tokens"][0])
+    out["batcher"] = p18_batcher(torch, cfg, params, mesh,
+                                 p18_prompts(np, P18_REQUESTS, P18_PROMPT), P18_NEW)
+    del params
+    cfg = Config(**cfg_modes)
+    nf4 = p18_weights(torch, cfg, "nf4")
+    for mode in ("quantized", "preload_int4_block"):
+        out[mode] = p18_engine(torch, cfg, nf4, mesh, mode, torch.int8, prompt, P18_MODES_NEW,
+                               check=lambda eng, mode=mode: p18_mode_check(torch, eng, mode,
+                                                                           prompt, True))
+    del nf4
+    if ckpt:
+        from fastmax_tpu_torch.kernels import build
+
+        flags = ["--checkpoint_dir", ckpt, "--precision", "float32", "--device", "cuda"]
+        build.reset_launch_counts()
+        out["generate"] = rank_checks.generate_cli(
+            ["--prompt", cli_prompts[0], "--max_new_tokens", "16", "--temperature", "0",
+             "--tp", "2"] + flags)
+        out["server"] = rank_checks.server_cli(
+            ["--host", "127.0.0.1", "--port", "0", "--n_slots", "2", "--tp", "2"] + flags,
+            [{"prompt": p, "max_new_tokens": 16} for p in cli_prompts])
+        out["cli_launches"] = {k: v for k, v in build.launch_counts().items() if v}
+        out["load"] = rank_checks.sharded_load(ckpt, 2, 1, np.asarray([[1, 2, 3, 4]]),
+                                               dtype="bfloat16", device="cuda")
+    return out
+
+
+def p18_nccl_rank(cfg_kw: dict) -> dict:
+    """(e) One rank over NCCL: the (1, 1, 1) mesh's group initialises (one all-reduce on
+    the card), and the mesh engine's greedy tokens are the no-mesh engine's bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.parallel.sharding import make_mesh
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(1, 1, 1)
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    cfg = Config(**cfg_kw)
+    params = p18_weights(torch, cfg, "int4")
+    prompt = torch.as_tensor(p18_prompts(np, 1, P18_PROMPT)[0], dtype=torch.int32)
+    outs = []
+    for m in (None, mesh):
+        eng = InferenceEngine(cfg, params, max_seq_length=P18_BLOCK, cache_dtype=torch.int8,
+                              device="cuda", mesh=m)
+        outs.append(eng.generate(prompt, P18_PROMPT + P18_NEW)[0].tolist())
+        del eng
+    return {"backend": dist.get_backend(), "all_reduce": x.tolist(), "tokens": outs}
+
+
+def tp_serving_path(torch, results, card, tmp, ckpt) -> dict:
+    """Phase 18 (see the constants above); runs inside phase 12's directory for (d)."""
+    import numpy as np
+
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.parallel import collectives as col
+
+    log("[18] multi-GPU serving: two ranks on the one card over gloo (the collectives cross "
+        "the host: no figure here is a multi-GPU one), held against one rank")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_int4, cfg_modes = p18_config(), p18_config(P18_MODES_LAYERS)
+    prompt = p18_prompts(np, 1, P18_PROMPT)[0]
+    prompts = p18_prompts(np, P18_REQUESTS, P18_PROMPT)
+    counts, out = {}, {"card": card}
+
+    # the one-rank references, on the idle card
+    cfg = Config(**cfg_int4)
+    params = p18_weights(torch, cfg, "int4")
+    one = {"engine": p18_engine(torch, cfg, params, None, "preload_int4", torch.int8, prompt,
+                                P18_NEW)}
+    one["f32"] = p18_f32_logits(torch, cfg, params, None, prompt, one["engine"]["tokens"][0])
+    one["batcher"] = p18_batcher(torch, cfg, params, None, prompts, P18_NEW)
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+
+    ref_engine = InferenceEngine(cfg, params, max_seq_length=P18_BLOCK, cache_dtype=torch.int8)
+    cfgm = Config(**cfg_modes)
+    nf4 = p18_weights(torch, cfgm, "nf4")
+    for mode in ("quantized", "preload_int4_block"):
+        one[mode] = p18_engine(torch, cfgm, nf4, None, mode, torch.int8, prompt, P18_MODES_NEW,
+                               check=lambda eng, mode=mode: p18_mode_check(torch, eng, mode,
+                                                                           prompt, False))
+    mode_engines = {mode: InferenceEngine(cfgm, nf4, max_seq_length=P18_BLOCK,
+                                          cache_dtype=torch.int8, weights_mode=mode)
+                    for mode in ("quantized", "preload_int4_block")}
+    from fastmax_tpu_torch.ops import quant
+
+    quant.set_quant_backend("xla")
+    cli_prompts = ["def main", "import torch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if str(REPO / "tests") not in sys.path:  # the ranks import torch_rank_checks from there
+        sys.path.insert(0, str(REPO / "tests"))
+    t0 = time.perf_counter()
+    ranks = col.spawn_local(p18_rank, 2, backend="gloo",
+                            args=(cfg_int4, cfg_modes, str(ckpt), cli_prompts), timeout=600)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+
+    # (a) the engine
+    for r in ranks:
+        e = r["engine"]
+        log(f"  (a) rank {r['rank']}: {e['weight_bytes'] / 1e9:.3f} GB of weights, kept whole: "
+            f"{e['kept_whole'] or 'none'}; launches {e['launches']}   [{card}]")
+        for k in ("int4_rank1_matmul", "int8_decode_attention", "flash_attention"):
+            if not e["launches"].get(k):
+                raise AssertionError(f"(a) rank {r['rank']} never launched {k}: {e['launches']}")
+        if e["kept_whole"]:
+            raise AssertionError(f"(a) the 7B kept linears whole at tp 2: {e['kept_whole']}")
+        log(f"  (a) rank {r['rank']}: K2 on the engine's int8 cache, {e['k2']['groups']} groups "
+            f"and {e['k2']['heads']} heads, against its plain version: max abs err "
+            f"{e['k2']['max_abs_err']}, mean err {e['k2']['mean_err']} of the mean")
+    e1 = one["engine"]
+    log(f"  (a) one rank: {e1['weight_bytes'] / 1e9:.3f} GB of weights; "
+        f"{P18_NEW} tokens in {e1['wall_s']:.3f} s; two ranks: {r0['engine']['wall_s']:.3f} s "
+        f"(two ranks on one card over gloo, not a multi-GPU figure)   [{card}]")
+    out["engine"] = {"one": {k: v for k, v in e1.items() if k != "tokens"},
+                     "ranks": [{k: v for k, v in r["engine"].items() if k != "tokens"}
+                               for r in ranks],
+                     "tokens": near_tie(torch, ref_engine, prompt, e1["tokens"],
+                                        r0["engine"]["tokens"], "(a) tp 2 engine vs one rank")}
+    if ranks[1]["engine"]["tokens"] != r0["engine"]["tokens"]:
+        raise AssertionError("(a) the two ranks generated different tokens")
+    rel = {n: logits_rel(torch, a, b) for n, a, b in zip(("prefill", "decode_step"),
+                                                          r0["f32"], one["f32"])}
+    mean = {n: float((a - b).abs().mean() / b.abs().mean())
+            for n, a, b in zip(("prefill", "decode_step"), r0["f32"], one["f32"])}
+    log(f"  (a) f32 activations and cache, tp 2 vs one rank: logits max|diff|/max {rel}, "
+        f"mean {mean} (gates {LOGITS_REL_TOL}, {FAMILY_MEAN_REL})")
+    out["engine"]["f32"] = {"rel": rel, "mean": mean}
+    if max(rel.values()) > LOGITS_REL_TOL or max(mean.values()) > FAMILY_MEAN_REL:
+        raise AssertionError(f"(a) f32 logits beyond the gates: {rel} {mean}")
+
+    # (b) the batcher
+    b1, b2 = one["batcher"], r0["batcher"]
+    checks = [near_tie(torch, ref_engine, p, w, g, f"(b) request {i}")
+              for i, (p, w, g) in enumerate(zip(prompts, b1["tokens"], b2["tokens"]))]
+    log(f"  (b) batcher, {P18_SLOTS} slots, quantum {P18_QUANTUM}, {P18_REQUESTS} x {P18_NEW} "
+        f"tokens: one rank {b1['tok_s']:.1f} tok/s, tp 2 {b2['tok_s']:.1f} tok/s (two ranks on "
+        f"one card over gloo, not a multi-GPU figure); launches rank 0 {b2['launches']}, "
+        f"rank 1 {ranks[1]['batcher']['launches']}   [{card}]")
+    for r in ranks:
+        if not r["batcher"]["launches"].get("int4_rank1_matmul"):
+            raise AssertionError(f"(b) rank {r['rank']} never launched K1")
+    out["batcher"] = {"one_tok_s": b1["tok_s"], "tp2_tok_s": b2["tok_s"], "checks": checks,
+                      "launches": [r["batcher"]["launches"] for r in ranks]}
+
+    # (c) the NF4 modes
+    out["modes"] = {}
+    for mode, kern in (("quantized", "nf4_matmul"), ("preload_int4_block", "int4_block_matmul")):
+        m1, m2 = one[mode], r0[mode]
+        chk = near_tie(torch, mode_engines[mode], prompt, m1["tokens"], m2["tokens"],
+                       f"(c) {mode} tp 2 vs one rank")
+        log(f"  (c) {mode}: rank weights {[r[mode]['weight_bytes'] / 1e9 for r in ranks]} GB "
+            f"(one rank {m1['weight_bytes'] / 1e9:.3f}), kept whole {m2['kept_whole'] or 'none'}"
+            f"; launches {[r[mode]['launches'] for r in ranks]}, one rank {m1['launches']}"
+            f"   [{card}]")
+        # every linear that the kernel takes on one rank it takes on a rank's shard
+        per = QSERVE_KERNELS[mode][1]
+        want = per * cfgm.n_layer * P18_MODES_NEW
+        for label, row in [("one rank", m1)] + [(f"rank {r['rank']}", r[mode]) for r in ranks]:
+            if row["launches"].get(kern) != want:
+                raise AssertionError(f"(c) {mode}: {label} launched {kern} "
+                                     f"{row['launches'].get(kern)} times, not {want} ({per} a "
+                                     "layer and token)")
+        for label, row in [("one rank", m1)] + [(f"rank {r['rank']}", r[mode]) for r in ranks]:
+            log(f"  (c) {mode}, {label}: f32 logits kernels vs plain=True, max|diff|/max "
+                f"{row['f32_rel']}, mean {row['f32_mean']}")
+            if max(row["f32_rel"].values()) > LOGITS_REL_TOL or \
+                    max(row["f32_mean"].values()) > FAMILY_MEAN_REL:
+                raise AssertionError(f"(c) {mode}, {label}: f32 logits kernels vs plain beyond "
+                                     f"the gates: {row['f32_rel']} {row['f32_mean']}")
+        names = ("prefill", "decode_step")
+        rel = {n: logits_rel(torch, a, b) for n, a, b in zip(names, m2["logits"], m1["logits"])}
+        mean = {n: float((a - b).abs().mean() / b.abs().mean())
+                for n, a, b in zip(names, m2["logits"], m1["logits"])}
+        log(f"  (c) {mode}: f32 logits, tp 2 vs one rank: max|diff|/max {rel}, mean {mean} "
+            f"(gates {LOGITS_REL_TOL}, {FAMILY_MEAN_REL})")
+        if max(rel.values()) > LOGITS_REL_TOL or max(mean.values()) > FAMILY_MEAN_REL:
+            raise AssertionError(f"(c) {mode}: f32 logits tp 2 vs one rank beyond the gates: "
+                                 f"{rel} {mean}")
+        lin = [c for r in ranks for c in r[mode]["linear_checks"]]
+        shapes = sorted({(c["linear"], c["k"], c["n"]) for c in lin})
+        log(f"  (c) {mode}: {kern} on the ranks' layer-0 shards {shapes} against its plain "
+            f"version at m = 1 and {P18_PROMPT}, f32 and bf16 x: max abs err "
+            f"{max(c['max_abs_err'] for c in lin):.3e}")
+        out["modes"][mode] = {"check": chk, "launches": [r[mode]["launches"] for r in ranks],
+                              "one_rank_launches": m1["launches"], "per_layer_token": per,
+                              "kept_whole": m2["kept_whole"],
+                              "f32_kernels_vs_plain": [row["f32_rel"] for row in
+                                                       [m1] + [r[mode] for r in ranks]],
+                              "f32_tp2_vs_one": {"rel": rel, "mean": mean},
+                              "linear_checks": lin}
+    del ref_engine, mode_engines, params, nf4
+
+    # (d) the command lines on phase 12's directory
+    from fastmax_tpu_torch.inference import generate
+    from fastmax_tpu_torch.models.tokenizer import Tokenizer
+
+    buf = io.StringIO()
+    flags = ["--checkpoint_dir", str(ckpt), "--precision", "float32", "--device", "cuda"]
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        generate.cli(["--prompt", cli_prompts[0], "--max_new_tokens", "16", "--temperature",
+                      "0"] + flags)
+    same_text = buf.getvalue().strip() == r0["generate"].strip()
+    cfg_d, params_d = generate.load_and_prepare(ckpt, precision="float32", device="cuda")
+    eng_d = InferenceEngine(cfg_d, params_d, max_seq_length=256, device="cuda")
+    tok = Tokenizer(ckpt)
+    server_checks = []
+    for p, answer in zip(cli_prompts, r0["server"]):
+        e = tok.encode(p)
+        ref = eng_d.generate(torch.as_tensor(e), len(e) + 16, eos_id=tok.eos_id)
+        server_checks.append(near_tie(torch, eng_d, e.tolist(), ref[0, len(e):].tolist(),
+                                      answer["tokens"], f"(d) server --tp 2, {p!r}"))
+    load = r0["load"]
+    worst = max(load["diffs"].values())
+    reads = load["read_bytes"]
+    total = sum(p.stat().st_size for p in Path(ckpt).rglob("*") if p.is_file()
+                and p.suffix in (".npy", ".safetensors", ".pth"))
+    log(f"  (d) generate --tp 2 printed the one-rank text: {same_text}; the server at --tp 2 "
+        f"answered {len(r0['server'])} requests; load_sharded_model_params: each rank's "
+        f"leaves vs the same cut of the whole load, max|diff| {worst}; bytes read by each "
+        f"rank {reads} of the checkpoint's {total}; launches {r0['cli_launches']}   [{card}]")
+    if not same_text or worst != 0.0:
+        raise AssertionError(f"(d) generate text {same_text}, load max|diff| {worst}")
+    out["commands"] = {"generate_same_text": same_text, "server": server_checks,
+                       "load_max_diff": worst, "read_bytes": reads, "checkpoint_bytes": total,
+                       "launches": [r["cli_launches"] for r in ranks]}
+    del eng_d, params_d
+
+    # (e) one rank over NCCL
+    e = col.spawn_local(p18_nccl_rank, 1, backend="nccl", args=(p18_config(CMD_DEPTH),),
+                        timeout=300)[0]
+    bit = e["tokens"][0] == e["tokens"][1]
+    log(f"  (e) one rank over {e['backend']}: all_reduce {e['all_reduce']}; the (1, 1, 1) mesh "
+        f"engine's tokens equal the no-mesh engine's bit for bit: {bit}   [{card}]")
+    if e["backend"] != "nccl" or not bit or e["all_reduce"] != [1.0] * 4:
+        raise AssertionError(f"(e) {e}")
+    out["nccl"] = {"backend": e["backend"], "bit_for_bit": bit}
+
+    for r in ranks:
+        for part in ("engine", "quantized", "preload_int4_block"):
+            add_counts(counts, r[part]["launches"])
+        add_counts(counts, r["batcher"]["launches"])
+        add_counts(counts, r["cli_launches"])
+    out["ranks_s"] = ranks_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = counts
+    log(f"  phase 18 in {out['phase_s']:.1f} s (the ranks {ranks_s:.1f} s); launches over both "
+        f"ranks {counts}")
+    results["tp_serving"] = out
+    return counts
+
+
+def tp_serving_alone() -> dict:
+    """Phase 18 by itself, outside the script's run: the kernels built, a 2-layer
+    Llama-2-7B-width directory (random bf16, seed 0) with a BPE tokenizer trained on
+    README.md written to a temporary directory, then ``tp_serving_path`` on it; the
+    results to ``chiprun_out/tp_serving.json``. Run as ``python3 -c "import chip_smoke;
+    chip_smoke.tp_serving_alone()"`` (a script that calls it needs a main guard: each
+    spawned rank imports the launching script again)."""
+    import tempfile
+
+    import torch
+    from tokenizers import Tokenizer as HFTok
+    from tokenizers.models import BPE
+    from tokenizers.pre_tokenizers import Whitespace
+    from tokenizers.trainers import BpeTrainer
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.models.params import params_to_flat
+    from fastmax_tpu_torch.utils.checkpoint import save_flat_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    build.build_all()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "ckpt"
+        cfg = Config.from_name(P18_MODEL)
+        cfg.n_layer = CMD_DEPTH
+        save_flat_checkpoint(params_to_flat(gpt.init_params(cfg, 0, torch.bfloat16, "cuda"),
+                                            cfg), ckpt)
+        cfg.to_json(ckpt / "lit_config.json")
+        tok = HFTok(BPE(unk_token="<unk>"))
+        tok.pre_tokenizer = Whitespace()
+        tok.train_from_iterator([(REPO / "README.md").read_text()],
+                                BpeTrainer(special_tokens=["<unk>", "<s>", "</s>"],
+                                           vocab_size=4000))
+        tok.save(str(ckpt / "tokenizer.json"))
+        (ckpt / "tokenizer_config.json").write_text(json.dumps({"eos_token": "</s>"}))
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_serving_path(torch, results, card, Path(tmp), ckpt)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "tp_serving.json").write_text(json.dumps(results, indent=1, default=str))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -6408,13 +6979,15 @@ def main() -> int:
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
-    counts_cmd, (counts_inf, counts_lin, _, counts_gptq, counts_spec_cmd) = command_path(
+    counts_cmd, (counts_inf, counts_lin, _, counts_gptq, counts_spec_cmd,
+                 counts_p18) = command_path(
         torch, results, card, lambda tmp, ckpt, *a: (
             inference_path(torch, results, card, tmp, ckpt, *a),
             linear_serving_path(torch, results, card, tmp, ckpt),
             adapter_commands(torch, results, card, tmp, ckpt),
             gptq_commands(torch, results, card, tmp, ckpt),
-            speculative_commands(torch, results, card, tmp, ckpt)))
+            speculative_commands(torch, results, card, tmp, ckpt),
+            tp_serving_path(torch, results, card, tmp, ckpt)))
     counts_fam = families_path(torch, results, card)
     log("[16] the rest of training: bench_mfu on TinyLlama at full width under every remat "
         "policy, the auto probe, packed data with the native reader, the loggers, GPTQ at "
@@ -6431,12 +7004,14 @@ def main() -> int:
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
                            "command_path": counts_cmd, "inference_path": counts_inf,
                            "linear_serving_path": counts_lin, "families_path": counts_fam,
-                           "rest_of_training_path": counts_p16, "speculative_path": counts_p17}
-    # the main paths of phases 15, 16 and 17, added to the earlier phases' counts below
+                           "rest_of_training_path": counts_p16, "speculative_path": counts_p17,
+                           "tp_serving_path": counts_p18}
+    # the main paths of phases 15, 16, 17 and 18, added to the earlier phases' counts below
     counts_later = {}
     add_counts(counts_later, counts_fam)
     add_counts(counts_later, counts_p16)
     add_counts(counts_later, counts_p17)
+    add_counts(counts_later, counts_p18)
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -6452,7 +7027,8 @@ def main() -> int:
     # K1, K3, K4, K5, K6, K7 and K8, phase 16's (bench_mfu under every remat policy,
     # packed pretraining, the GPTQ QLoRA step and generate) to K4, K5, K6, K7 and K8, and
     # phase 17's (the speculative decoders, the speculative batcher and command lines) to
-    # K1 and K3.
+    # K1 and K3, and phase 18's (both ranks of the tp 2 engine, batcher and NF4 modes on the
+    # card) to K1, K2, K3, K8 and K9.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]

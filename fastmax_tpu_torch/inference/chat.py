@@ -14,7 +14,10 @@ splits a ``jax.random`` key); greedy streams do not depend on it.
 
     python -m fastmax_tpu_torch.inference.chat --checkpoint_dir ckpt [--device cpu]
 
-``--tp`` above 1 is the multi-GPU item (A8) and raises.
+``--tp N`` shards the model over N ranks started by torchrun (``torchrun
+--nproc_per_node N -m fastmax_tpu_torch.inference.chat --tp N ...``): rank 0
+reads the prompts and prints, every rank runs the session on its shard, and
+each token is rank 0's (broadcast), so that the ranks stop together.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ from ..models.config import Config
 from ..models.tokenizer import Tokenizer
 from ..ops.rope import build_rope_cache
 from ..ops.sampling import sample
-from .engine import default_device
 
 # --------------------------------------------------------------- templates
 
@@ -162,9 +164,11 @@ def _stops(tokenizer: Tokenizer, *seqs) -> tuple:
 class StreamingSession:
     """A model, its RoPE table and a cache size; yields tokens one at a time."""
 
-    def __init__(self, cfg: Config, params, max_seq_length: int):
+    def __init__(self, cfg: Config, params, max_seq_length: int, shard=None):
+        """``shard``: the ``ShardPlan`` of a rank's local ``params`` on a mesh."""
         self.cfg = cfg
         self.params = params
+        self.shard = shard
         self.max_seq_length = min(max_seq_length, cfg.block_size)
         self.device = params["wte"].device
         self.rope = build_rope_cache(self.max_seq_length, cfg.rope_n_elem, cfg.rope_base,
@@ -174,7 +178,7 @@ class StreamingSession:
     @torch.inference_mode()
     def _fwd(self, idx: torch.Tensor, pos: int, cache: dict):
         logits, cache = gpt.forward(self.params, self.cfg, idx, input_pos=pos, kv_cache=cache,
-                                    rope_cache=self.rope)
+                                    rope_cache=self.rope, shard=self.shard)
         return logits[:, -1, :], cache
 
     def generate_stream(
@@ -194,14 +198,20 @@ class StreamingSession:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(time.time_ns() % (2**31))
         cache = gpt.init_kv_cache(self.cfg, 1, self.max_seq_length, self._dtype,
-                                  device=self.device)
+                                  device=self.device, n_groups=None if self.shard is None
+                                  else self.shard.local_groups(self.cfg))
         idx = torch.as_tensor(np.asarray(encoded), device=self.device).to(torch.int32)[None]
         logits, cache = self._fwd(idx, 0, cache)
         buffer: List[int] = []
         max_stop_len = max((len(s) for s in stop_tokens), default=0)
         pos = len(encoded)
         while pos < max_returned_tokens:
-            tok = int(sample(logits[0], temperature, top_k, generator=generator))
+            tok = sample(logits[0], temperature, top_k, generator=generator).reshape(1)
+            if self.shard is not None:  # rank 0's token on every rank
+                from ..parallel import collectives as col
+
+                tok = col.broadcast(tok.to(torch.int32), 0, self.shard.mesh.world)
+            tok = int(tok[0])
             buffer.append(tok)
             for s in stop_tokens:
                 if len(buffer) >= len(s) and buffer[-len(s):] == list(s):
@@ -250,28 +260,48 @@ def main(
     device=None,
 ) -> None:
     """Interactive chat on the card (``device="cpu"`` for the CPU): an empty
-    prompt, end of input or Ctrl-C ends it."""
+    prompt, end of input or Ctrl-C ends it. tp > 1: one rank of a torchrun
+    mesh (see the module's docstring)."""
     from .engine import InferenceEngine
-    from .generate import check_unported, load_and_prepare
+    from .generate import load_and_prepare, rank_setup
 
-    check_unported(tp=tp)
-    device = default_device(device)
+    mesh, device = rank_setup(tp, 1, device, "fastmax_tpu_torch.inference.chat")
     cfg, params = load_and_prepare(Path(checkpoint_dir), quantize=quantize, attn_alg=attn_alg,
-                                   precision=precision, device=device)
-    params = InferenceEngine.prepare_params(params, "auto")
+                                   precision=precision, tp=tp, device=device)
+    shard = None
+    if mesh is None:
+        params = InferenceEngine.prepare_params(params, "auto")
+    else:
+        params, shard = InferenceEngine.prepare_sharded(cfg, params, mesh, "auto", device)
+    leader = mesh is None or mesh.leader
     tokenizer = Tokenizer(Path(checkpoint_dir))
     system_prompt, stop_tokens = prompt_config(cfg.name, tokenizer)
-    session = StreamingSession(cfg, params, cfg.block_size)
+    session = StreamingSession(cfg, params, cfg.block_size, shard=shard)
 
-    print(f"Now chatting with {cfg.name}.\nTo exit, press 'Enter' on an empty prompt.\n")
+    if leader:
+        print(f"Now chatting with {cfg.name}.\nTo exit, press 'Enter' on an empty prompt.\n")
     while True:
-        try:
-            prompt = input(">> Prompt: ")
-        except (EOFError, KeyboardInterrupt):
-            break
+        prompt = ""
+        if leader:
+            try:
+                prompt = input(">> Prompt: ")
+            except (EOFError, KeyboardInterrupt):
+                prompt = ""
+        if mesh is not None:  # rank 0's prompt (empty: the end) on every rank
+            from ..parallel import collectives as col
+
+            raw = np.frombuffer(prompt.encode(), np.uint8) if leader else None
+            prompt = bytes(col.broadcast_ints(raw, 0, mesh.world, mesh.comm_device)
+                           .astype(np.uint8)).decode()
         if not prompt:
             break
         encoded = tokenizer.encode(system_prompt.format(prompt=prompt))
+        if not leader:
+            for _ in session.generate_stream(
+                    encoded, min(len(encoded) + max_new_tokens, session.max_seq_length),
+                    temperature=temperature, top_k=top_k, stop_tokens=stop_tokens):
+                pass
+            continue
         print(">> Reply: ", end="", flush=True)
         t0 = time.perf_counter()
         stream = session.generate_stream(

@@ -45,8 +45,18 @@ admission wave, and speculative decoding, the prefix cache and chunked
 prefill refuse a linear arm with the reference's ``ValueError``: a running
 state cannot roll back, share a prefix, or absorb a prompt in pieces.
 
-Not ported yet: the multi-GPU ``mesh`` (ROADMAP.md queue A, A8) raises
-``NotImplementedError``.
+With a ``mesh`` (``parallel/sharding.make_mesh``; one process per rank) the
+weights resolve on the whole tree and each rank keeps its shard, and the
+slotted cache holds the rank's query groups (the linear arms' state stays
+whole, the reference's choice). Rank 0 owns the scheduler: its ``submit``,
+``step``, ``run_to_completion`` and ``register_prefix`` drive the mesh, and
+each ``step`` first broadcasts a plan (the requests submitted since the last
+one: ids, prompts, budgets and sampling parameters). The other ranks run
+``follow()``, which applies each plan to their own copy of the scheduler's
+state and takes the same step; the host decisions (admission, slots, drafts,
+the prefix cache) are a function of that state, and every sampled token is
+broadcast from rank 0, so that the ranks never part. ``close()`` on rank 0
+ends the followers' loops.
 """
 
 from __future__ import annotations
@@ -63,6 +73,9 @@ from ..models.config import Config
 from ..ops.rope import build_rope_cache
 from ..ops.sampling import sample, sample_traced, speculative_accept_traced
 from .engine import InferenceEngine, _to_device, default_device
+
+# the commands of the plan that rank 0 broadcasts to the followers
+_STOP, _STEP, _PREFIX = 0, 1, 2
 
 
 @dataclass
@@ -102,7 +115,9 @@ class ContinuousBatcher:
         ``generator``, the source of sampling noise (default: one seeded
         with 0, as the reference starts from PRNGKey(0)), and ``plain``, a
         test hook that sends every forward through the kernels' plain
-        PyTorch versions, as ``InferenceEngine._forward``'s."""
+        PyTorch versions, as ``InferenceEngine._forward``'s. ``mesh``: see
+        the module's docstring (params: the whole tree, or a rank's
+        ``ShardedParams``)."""
         self._linear_alg = cfg.attn_alg in gpt.LINEAR_ALGS
         if speculative_k and self._linear_alg:
             raise ValueError(
@@ -114,14 +129,18 @@ class ContinuousBatcher:
             raise ValueError(
                 "chunked prefill requires the KV-cache (quadratic) path: linear-state prefill "
                 "must absorb the exact prompt in one pass")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU serving is not ported yet (ROADMAP.md queue A, A8)")
         self.cfg = cfg
         self.plain = bool(plain)
         self.device = default_device(device)
-        self.params = InferenceEngine.prepare_params(_to_device(params, self.device),
-                                                     weights_mode)
+        self.mesh = mesh
+        self.shard = None
+        if mesh is None:
+            self.params = InferenceEngine.prepare_params(_to_device(params, self.device),
+                                                         weights_mode)
+        else:
+            self.params, self.shard = InferenceEngine.prepare_sharded(cfg, params, mesh,
+                                                                      weights_mode, self.device)
+        self._unsent: List[Request] = []  # rank 0: submitted since the last plan
         self.n_slots = n_slots
         self.max_seq_length = min(max_seq_length or cfg.block_size, cfg.block_size)
         self.prefill_bucket = prefill_bucket
@@ -154,9 +173,10 @@ class ContinuousBatcher:
         if self._linear_alg:
             self.cache = gpt.init_linear_cache(cfg, n_slots, device=self.device)
         else:
-            self.cache = gpt.init_kv_cache(cfg, n_slots, self.max_seq_length,
-                                           cache_dtype or self.params["wte"].dtype,
-                                           device=self.device)
+            self.cache = gpt.init_kv_cache(
+                cfg, n_slots, self.max_seq_length, cache_dtype or self.params["wte"].dtype,
+                device=self.device,
+                n_groups=None if self.shard is None else self.shard.local_groups(cfg))
         self.positions = np.zeros(n_slots, np.int32)  # next write position
         self.slots: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
@@ -177,10 +197,13 @@ class ContinuousBatcher:
         """Queue a request; returns its id (or the Request itself with
         ``return_request=True``: a serving frontend follows
         ``Request.generated``/``.done``, see inference/server.py)."""
+        self._check_leader("submit")
         req = Request(self._next_id, np.asarray(prompt, np.int32), max_new_tokens,
                       temperature, top_k, eos_id)
         self._next_id += 1
         self.queue.append(req)
+        if self.mesh is not None:
+            self._unsent.append(req)
         return req if return_request else req.request_id
 
     def inflight(self) -> int:
@@ -199,7 +222,7 @@ class ContinuousBatcher:
         the last token for a chunk that ends before it, which nothing reads)."""
         idx = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)[None]
         logits, _ = gpt.forward(self.params, self.cfg, idx, input_pos=p0, kv_cache=row,
-                                rope_cache=self.rope, plain=self.plain)
+                                rope_cache=self.rope, plain=self.plain, shard=self.shard)
         return logits[:, min(n_valid - p0, idx.shape[1]) - 1]
 
     def _prefill_linear(self, tokens: np.ndarray, n_valid: int, row: dict) -> torch.Tensor:
@@ -208,14 +231,15 @@ class ContinuousBatcher:
         idx = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)[None]
         logits, _ = gpt.forward_linear_cache(self.params, self.cfg, idx, state=row, input_pos=0,
                                              rope_cache=self.rope, is_prefill=True,
-                                             n_valid=n_valid, plain=self.plain)
+                                             n_valid=n_valid, plain=self.plain, shard=self.shard)
         return logits[:, n_valid - 1]
 
     def _slot_row(self, slot: int) -> dict:
         return {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
 
     def _first_token(self, req: Request, last: torch.Tensor) -> int:
-        return int(sample(last[0], req.temperature, req.top_k, generator=self.generator))
+        tok = sample(last[0], req.temperature, req.top_k, generator=self.generator)
+        return int(self._agree(tok.reshape(1))[0])
 
     @torch.inference_mode()
     def _admit(self) -> None:
@@ -294,9 +318,11 @@ class ContinuousBatcher:
             dev = self._dev
             logits, _ = gpt.forward(self.params, self.cfg, dev(tokens), input_pos=0,
                                     kv_cache=rows, rope_cache=self.rope,
-                                    logits_at=dev(n_valid - 1), plain=self.plain)
-            first = sample_traced(logits[:, 0], dev(temps), dev(topk),
-                                  generator=self.generator, hot=bool((temps > 0).any()))
+                                    logits_at=dev(n_valid - 1), plain=self.plain,
+                                    shard=self.shard)
+            first = self._agree(sample_traced(logits[:, 0], dev(temps), dev(topk),
+                                              generator=self.generator,
+                                              hot=bool((temps > 0).any())))
             self.batched_admissions += p
             idx = torch.as_tensor(slots, device=self.device)
             for k, v in self.cache.items():
@@ -363,7 +389,13 @@ class ContinuousBatcher:
         prefill. Admitted prompts are cached in full as well."""
         if not self.prefix_cache_size:
             raise ValueError("prefix_cache_size is 0: enable the prefix cache first")
+        self._check_leader("register_prefix")
         tokens = np.asarray(tokens, np.int32)
+        if self.mesh is not None:
+            self._publish(_PREFIX, tokens)
+        self._register_prefix(tokens)
+
+    def _register_prefix(self, tokens: np.ndarray) -> None:
         t = len(tokens)
         row = {k: torch.zeros_like(v[:, :1]) for k, v in self.cache.items()}
         p0 = self._apply_prefix(np.concatenate([tokens, [0]]).astype(np.int32), row, count=False)
@@ -428,11 +460,13 @@ class ContinuousBatcher:
             logits, _ = gpt.forward_linear_cache(self.params, self.cfg, tokens[:, None],
                                                  state=self.cache, input_pos=positions,
                                                  rope_cache=self.rope, is_prefill=False,
-                                                 plain=self.plain)
+                                                 plain=self.plain, shard=self.shard)
         else:
             logits, _ = gpt.forward(self.params, self.cfg, tokens[:, None], input_pos=positions,
-                                    kv_cache=self.cache, rope_cache=self.rope, plain=self.plain)
-        return sample_traced(logits[:, -1], temps, topk, generator=self.generator, hot=hot)
+                                    kv_cache=self.cache, rope_cache=self.rope, plain=self.plain,
+                                    shard=self.shard)
+        return self._agree(sample_traced(logits[:, -1], temps, topk, generator=self.generator,
+                                         hot=hot))
 
     def _slot_inputs(self, decodable):
         tokens = np.zeros(self.n_slots, np.int32)
@@ -446,10 +480,83 @@ class ContinuousBatcher:
                     topk[i] = req.top_k
         return tokens, temps, topk
 
+    # ---------------------------------------------------------------- the mesh
+
+    def _check_leader(self, what: str) -> None:
+        if self.mesh is not None and not self.mesh.leader:
+            raise RuntimeError(f"{what}: rank {self.mesh.rank} follows rank 0's plan "
+                               "(call follow()); only rank 0 drives the batcher")
+
+    def _agree(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Rank 0's sampled tokens on every rank of the mesh."""
+        if self.mesh is None:
+            return tokens
+        from ..parallel import collectives as col
+
+        return col.broadcast(tokens.to(torch.int32).contiguous(), 0, self.mesh.world)
+
+    def _publish(self, cmd: int, tokens: Optional[np.ndarray] = None) -> None:
+        """Rank 0: broadcast one plan, [cmd, ...]: for a step, each request
+        submitted since the last plan as [id, max_new_tokens, temperature's
+        float32 bits, top_k or -1, eos_id or -1, prompt length, prompt...];
+        for a prefix, its tokens."""
+        from ..parallel import collectives as col
+
+        body = [cmd]
+        if cmd == _STEP:
+            for r in self._unsent:
+                body += [r.request_id, r.max_new_tokens,
+                         int(np.float32(r.temperature).view(np.int32)),
+                         -1 if r.top_k is None else r.top_k, -1 if r.eos_id is None else r.eos_id,
+                         len(r.prompt), *r.prompt.tolist()]
+            self._unsent = []
+        elif cmd == _PREFIX:
+            body += np.asarray(tokens).tolist()
+        col.broadcast_ints(np.asarray(body, np.int64), 0, self.mesh.world, self.mesh.comm_device)
+
+    def follow(self) -> None:
+        """A rank other than 0: apply rank 0's plans, step for step, until it
+        calls ``close()``."""
+        from ..parallel import collectives as col
+
+        if self.mesh is None or self.mesh.leader:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh")
+        while True:
+            msg = col.broadcast_ints(None, 0, self.mesh.world, self.mesh.comm_device)
+            cmd = int(msg[0])
+            if cmd == _STOP:
+                return
+            if cmd == _PREFIX:
+                self._register_prefix(msg[1:].astype(np.int32))
+                continue
+            i = 1
+            while i < len(msg):
+                rid, n_new, t_bits, top_k, eos, n = (int(v) for v in msg[i:i + 6])
+                prompt = msg[i + 6:i + 6 + n].astype(np.int32)
+                i += 6 + n
+                self.queue.append(Request(
+                    rid, prompt, n_new, float(np.int32(t_bits).view(np.float32)),
+                    None if top_k < 0 else top_k, None if eos < 0 else eos))
+                self._next_id = rid + 1
+            self._step_local()
+
+    def close(self) -> None:
+        """Rank 0: end the followers' ``follow()`` loops (a no-op off a mesh)."""
+        if self.mesh is not None and self.mesh.leader:
+            self._publish(_STOP)
+
     @torch.inference_mode()
     def step(self):
         """Advance every active slot; returns {request_id: token}, or
-        {request_id: [tokens]} with ``speculative_k`` or ``decode_quantum`` > 1."""
+        {request_id: [tokens]} with ``speculative_k`` or ``decode_quantum`` > 1.
+        On a mesh, rank 0 only: it broadcasts the plan first."""
+        if self.mesh is not None:
+            self._check_leader("step")
+            self._publish(_STEP)
+        return self._step_local()
+
+    @torch.inference_mode()
+    def _step_local(self):
         if self.speculative_k:
             return self._step_speculative()
         if self.decode_quantum > 1:
@@ -548,11 +655,12 @@ class ContinuousBatcher:
                 tokens[i, 1:] = self._draft_np(req, k)
         logits, _ = gpt.forward(self.params, self.cfg, self._dev(tokens),
                                 input_pos=self._dev(self.positions), kv_cache=self.cache,
-                                rope_cache=self.rope, plain=self.plain)
+                                rope_cache=self.rope, plain=self.plain, shard=self.shard)
         a, cand = speculative_accept_traced(logits, self._dev(tokens[:, 1:]), self._dev(temps),
                                             self._dev(topk), generator=self.generator,
                                             hot=bool((temps > 0).any()))
-        both = torch.cat([a.to(torch.int32)[:, None], cand], dim=1).cpu().numpy()  # one read
+        both = self._agree(torch.cat([a.to(torch.int32)[:, None], cand.to(torch.int32)],
+                                     dim=1)).cpu().numpy()  # one read
         out: Dict[int, List[int]] = {}
         for i, req in enumerate(self.slots):
             if not active[i]:

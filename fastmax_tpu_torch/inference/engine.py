@@ -13,6 +13,19 @@ cache is the O(1) running state (``gpt.init_linear_cache``): the prompt is
 prefilled exactly, in one pass (never in chunks: the state must absorb the
 whole prompt at once), and each decode step advances the state through
 ``gpt.forward_linear_cache``, as the reference's engine does.
+
+With a ``mesh`` (``parallel/sharding.make_mesh``) every rank of the mesh
+builds the engine and calls ``generate`` with the same arguments (SPMD, one
+process per rank): the gate+up fusion and the weights mode resolve on the
+whole tree, then each rank keeps its shard (``prepare_sharded``) and a cache
+of its query groups (``kv_cache_specs``). The reference skips the fusion for
+sharded arrays, since a colwise cut of ``[fc_1 | fc_2]`` would put all of
+``fc_1`` on the first rank; the port cuts the fused ``fc_12`` by halves
+instead, so each rank holds ``[its fc_1 columns | its fc_2 columns]`` and its
+MLP is one matmul, on K8 or K9 where the whole model's is. The batch is split over data x fsdp where
+it divides, and the generated rows are gathered at the end. The sampled
+tokens are broadcast from the first rank that shares the rows, so that a
+near-tie can never split the ranks.
 """
 
 from __future__ import annotations
@@ -112,7 +125,7 @@ class InferenceEngine:
 
     def __init__(self, cfg: Config, params: dict, *, max_seq_length: Optional[int] = None,
                  batch_size: int = 1, cache_dtype=None, weights_mode: str = "auto",
-                 device=None):
+                 device=None, mesh=None):
         """weights_mode, for quantized params (the reference's):
         "quantized"     keep the packed weights; a 4-bit linear dequantizes
                         inside its matmul (K8 or dequantize + matmul, picked
@@ -125,16 +138,44 @@ class InferenceEngine:
         "auto"          int8 and tiled int4 stay as they are; packed 4-bit
                         takes the reference's chip branch, "preload_int4".
         The params are moved to ``device`` first, so the conversions and
-        the autotune run there."""
+        the autotune run there. ``mesh``: see the module's docstring; params
+        are the whole tree, or a rank's ``ShardedParams``."""
         self.cfg = cfg
         self.device = default_device(device)
         self._linear_alg = cfg.attn_alg in gpt.LINEAR_ALGS
-        self.params = self.prepare_params(_to_device(params, self.device), weights_mode)
-        self.max_seq_length = min(max_seq_length or cfg.block_size, cfg.block_size)
+        self.mesh = mesh
+        self.shard = None
         self.batch_size = batch_size
+        self.local_batch = batch_size
+        if mesh is None:
+            self.params = self.prepare_params(_to_device(params, self.device), weights_mode)
+        else:
+            self.params, self.shard = self.prepare_sharded(cfg, params, mesh, weights_mode,
+                                                           self.device)
+            n = mesh.shape["data"] * mesh.shape["fsdp"]
+            if n > 1 and batch_size % n == 0:
+                self.local_batch = batch_size // n
+        self.max_seq_length = min(max_seq_length or cfg.block_size, cfg.block_size)
         self.cache_dtype = cache_dtype or self.params["wte"].dtype
         self.rope_cache = build_rope_cache(self.max_seq_length, cfg.rope_n_elem, cfg.rope_base,
                                            cfg.rope_condense_ratio, device=self.device)
+
+    @staticmethod
+    def prepare_sharded(cfg: Config, params: dict, mesh, mode: str, device):
+        """(local params, ShardPlan) of this rank: the serving layout (fused
+        gate+up) and the weights mode resolved on the whole tree, then cut
+        (``fc_12`` by halves)."""
+        from ..parallel import sharding
+
+        if not isinstance(mesh, sharding.Mesh):
+            raise TypeError(f"mesh: a parallel.sharding.Mesh (make_mesh), not "
+                            f"{type(mesh).__name__}")
+        plan = getattr(params, "plan", None)  # a ShardedParams is cut already
+        params = _to_device(params, device)
+        if plan is None:
+            local = sharding.shard_params(InferenceEngine.prepare_params(params, mode), mesh, cfg)
+            return dict(local), local.plan
+        return params, plan
 
     @staticmethod
     def prepare_params(params: dict, mode: str) -> dict:
@@ -176,18 +217,52 @@ class InferenceEngine:
     def new_cache(self) -> dict:
         """The KV cache, or for a linear arm the running state."""
         if self._linear_alg:
-            return gpt.init_linear_cache(self.cfg, self.batch_size, device=self.device)
-        return gpt.init_kv_cache(self.cfg, self.batch_size, self.max_seq_length,
-                                 self.cache_dtype, device=self.device)
+            return gpt.init_linear_cache(self.cfg, self.local_batch, device=self.device)
+        groups = None if self.shard is None else self.shard.local_groups(self.cfg)
+        return gpt.init_kv_cache(self.cfg, self.local_batch, self.max_seq_length,
+                                 self.cache_dtype, device=self.device, n_groups=groups)
+
+    # ---------------------------------------------------------------- the mesh
+
+    @property
+    def _split_batch(self) -> bool:
+        return self.local_batch != self.batch_size
+
+    def _agree(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The sampled tokens of the first rank that holds these rows, on every
+        rank that holds them."""
+        if self.mesh is None:
+            return tokens
+        from ..parallel import collectives as col
+
+        tokens = tokens.to(torch.int32).contiguous()
+        if self._split_batch:
+            return col.broadcast(tokens, self.mesh.model_ranks[0], self.mesh.group("model"))
+        return col.broadcast(tokens, 0, self.mesh.world)
+
+    def _all_done(self, done: torch.Tensor) -> bool:
+        """Whether every row of every rank has finished (the ranks' loops stay
+        in step: the fsdp gathers and the sums are collectives)."""
+        if not self._split_batch:
+            return bool(done.all())
+        from ..parallel import collectives as col
+
+        return col.all_true(bool(done.all()), self.mesh.batch_group, self.mesh.comm_device)
+
+    def _rows(self, prompt: torch.Tensor) -> torch.Tensor:
+        if not self._split_batch:
+            return prompt
+        i = self.mesh.batch_ranks.index(self.mesh.rank)
+        return prompt[i * self.local_batch:(i + 1) * self.local_batch]
 
     def _forward(self, tokens, cache, input_pos: int, plain: bool = False,
                  is_prefill: Optional[bool] = None):
         if self._linear_alg:
             return gpt.forward_linear_cache(self.params, self.cfg, tokens, state=cache,
                                             input_pos=input_pos, rope_cache=self.rope_cache,
-                                            is_prefill=is_prefill, plain=plain)
+                                            is_prefill=is_prefill, plain=plain, shard=self.shard)
         return gpt.forward(self.params, self.cfg, tokens, input_pos=input_pos, kv_cache=cache,
-                           rope_cache=self.rope_cache, plain=plain)
+                           rope_cache=self.rope_cache, plain=plain, shard=self.shard)
 
     @torch.inference_mode()
     def prefill(self, prompt: torch.Tensor, cache: dict, plain: bool = False):
@@ -222,10 +297,10 @@ class InferenceEngine:
         done = first_token == eos_id if eos_id is not None else None
         n = 1
         while n < max_new:
-            if done is not None and bool(done.all()):
+            if done is not None and self._all_done(done):
                 break
             logits, cache = self._forward(tokens[:, n - 1:n], cache, prompt_len + n - 1, plain)
-            nxt = sample(logits[:, -1, :], temperature, top_k, generator=generator)
+            nxt = self._agree(sample(logits[:, -1, :], temperature, top_k, generator=generator))
             tokens[:, n] = nxt
             if done is not None:
                 done = done | (nxt == eos_id)
@@ -241,7 +316,8 @@ class InferenceEngine:
         with the top_k most likely tokens and noise from ``generator`` (the
         JAX engine's ``key``; None draws from PyTorch's default generator).
         prompt: (T,) or (B, T) token ids; ``plain`` as ``decode``'s. Returns
-        the (B, n) sequence including the prompt, truncated at eos for batch 1."""
+        the (B, n) sequence including the prompt, truncated at eos for batch 1
+        (on a mesh: on every rank, every row)."""
         prompt = torch.as_tensor(prompt, device=self.device).to(torch.int32)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -251,12 +327,17 @@ class InferenceEngine:
         if max_returned_tokens > self.max_seq_length:
             raise ValueError(f"max_returned_tokens {max_returned_tokens} > max_seq_length "
                              f"{self.max_seq_length}")
-        logits, cache = self.prefill(prompt, self.new_cache(), plain)
-        first = sample(logits, temperature, top_k, generator=generator)
+        rows = self._rows(prompt)
+        logits, cache = self.prefill(rows, self.new_cache(), plain)
+        first = self._agree(sample(logits, temperature, top_k, generator=generator))
         gen, _ = self.decode(cache, first, t, max_returned_tokens - t, eos_id,
                              temperature=temperature, top_k=top_k, generator=generator,
                              plain=plain)
-        out = torch.cat([prompt, gen], dim=1)
+        out = torch.cat([rows, gen], dim=1)
+        if self._split_batch:
+            from ..parallel import collectives as col
+
+            out = col.all_gather(out, 0, self.mesh.batch_group)
         if eos_id is not None and b == 1:
             hits = (out[0, t:] == eos_id).nonzero()
             if hits.numel():

@@ -27,12 +27,24 @@ as the target is, with its ``--quantize`` and ``--precision``); the engines
 are sized with k+1 positions of headroom. Greedy text is the plain decode's;
 sampled text follows the same distribution.
 
-Not ported yet, raising ``NotImplementedError``: ``--tp``/``--fsdp`` above 1
-(the multi-GPU load, A8).
+``--tp N`` / ``--fsdp M`` shard the model over a (data, fsdp, model) mesh
+of one process per rank (``parallel/sharding.py``); start it with torchrun,
+each rank on ``cuda:LOCAL_RANK``:
+
+  torchrun --nproc_per_node 2 -m fastmax_tpu_torch.inference.generate \
+      --checkpoint_dir ckpt --prompt "Hello" --tp 2
+
+Every rank runs the same engine on its shard; rank 0 prints. A dense
+checkpoint without a finetuned file or ``--quantize`` is read slice by slice,
+each rank its own (``utils/sharded_load.load_sharded_model_params``); any
+other load reads the whole tree, and the engine cuts it after resolving the
+weights mode. Started alone at tp * fsdp > 1, it raises with the torchrun
+line to use.
 """
 
 from __future__ import annotations
 
+import io
 import sys
 import time
 from pathlib import Path
@@ -46,11 +58,18 @@ from ..models.tokenizer import Tokenizer
 from .engine import InferenceEngine, default_device
 
 
-def check_unported(*, tp: int = 1, fsdp: int = 1) -> None:
-    """Raise for the flags whose items are not ported yet, naming the item."""
-    if tp > 1 or fsdp > 1:
-        raise NotImplementedError("tp/fsdp > 1 (the sharded load and the mesh) come with the "
-                                  "multi-GPU item (ROADMAP queue A, A8)")
+MODULE = "fastmax_tpu_torch.inference.generate"
+
+
+def rank_setup(tp: int, fsdp: int, device, module: str = MODULE):
+    """(mesh, device) of an entry point: no mesh and ``default_device`` at
+    tp * fsdp == 1; else the torchrun mesh (``sharding.mesh_from_env``) and
+    this rank's device."""
+    from ..parallel import collectives as col
+    from ..parallel.sharding import mesh_from_env
+
+    mesh = mesh_from_env(tp, fsdp, module)
+    return mesh, (default_device(device) if mesh is None else col.rank_device(device))
 
 
 def load_and_prepare(
@@ -70,15 +89,23 @@ def load_and_prepare(
     (default: the card), with ``finetuned_path`` attached, then quantized.
     ``gptq_calib_tokens`` ((B, T) token ids) with a 4-bit ``quantize`` mode
     quantizes by GPTQ against those activations (``ops/gptq.py``, on the
-    device) instead of rounding to nearest."""
+    device) instead of rounding to nearest. At tp or fsdp > 1 (one rank of
+    the torchrun mesh, ``rank_setup``) a dense load without a finetuned file
+    gives this rank's ``ShardedParams``, read slice by slice; any other, the
+    whole tree, for the engine to cut."""
     from ..utils.checkpoint import load_model_params
 
-    check_unported(tp=tp, fsdp=fsdp)
-    device = default_device(device)
     checkpoint_dir = Path(checkpoint_dir)
     kw = {"attn_alg": attn_alg} if attn_alg else {}
     cfg = Config.from_checkpoint(checkpoint_dir, **kw)
     dtype = getattr(torch, precision)
+    mesh, device = rank_setup(tp, fsdp, device)
+    if mesh is not None:
+        if finetuned_path is None and not quantize:
+            from ..utils.sharded_load import load_sharded_model_params
+
+            return load_sharded_model_params(checkpoint_dir, mesh, cfg=cfg, dtype=dtype,
+                                             tp=tp > 1, device=device)
     _, params = load_model_params(checkpoint_dir, cfg, dtype, device)
     if finetuned_path is not None:
         params = apply_finetuned(params, cfg, Path(finetuned_path), method, dtype)
@@ -155,9 +182,12 @@ def main(
     calibration file for GPTQ under a 4-bit ``quantize`` mode (its tokens cut
     to the block size); speculative_k > 0: speculative decoding with k drafts
     a verify step, drafted by prompt lookup or by the model in
-    draft_checkpoint_dir (the same vocabulary)."""
-    check_unported(tp=tp, fsdp=fsdp)
-    device = default_device(device)
+    draft_checkpoint_dir (the same vocabulary); tp, fsdp > 1: one rank of a
+    torchrun mesh (see the module's docstring)."""
+    mesh, device = rank_setup(tp, fsdp, device)
+    # rank 0 speaks for the mesh
+    text_out, log_out = (sys.stdout, sys.stderr) if mesh is None or mesh.leader else \
+        (io.StringIO(), io.StringIO())
     tokenizer = Tokenizer(Path(checkpoint_dir))
     calib_tokens = None
     if gptq_calib is not None:
@@ -166,7 +196,8 @@ def main(
         calib_tokens = np.asarray(ids[:t], np.int32)[None]
     cfg, params = load_and_prepare(
         checkpoint_dir, quantize=quantize, attn_alg=attn_alg, finetuned_path=finetuned_path,
-        method=method, precision=precision, gptq_calib_tokens=calib_tokens, device=device)
+        method=method, precision=precision, tp=tp, fsdp=fsdp, gptq_calib_tokens=calib_tokens,
+        device=device)
     if prompt_style:
         from ..data.prompts import STYLES
 
@@ -177,22 +208,27 @@ def main(
     engine = InferenceEngine(
         cfg, params, max_seq_length=max_returned + (speculative_k + 1 if speculative_k else 0),
         batch_size=1, weights_mode=weights_mode,
-        cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None, device=device)
+        cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None, device=device,
+        mesh=mesh)
     spec = None
     if speculative_k and draft_checkpoint_dir:
         from .speculative import DraftSpeculativeDecoder
 
         dcfg, dparams = load_and_prepare(Path(draft_checkpoint_dir), quantize=quantize,
-                                         precision=precision, device=device)
+                                         precision=precision, tp=tp, fsdp=fsdp, device=device)
         draft_engine = InferenceEngine(dcfg, dparams, max_seq_length=engine.max_seq_length,
-                                       batch_size=1, weights_mode=weights_mode, device=device)
+                                       batch_size=1, weights_mode=weights_mode, device=device,
+                                       mesh=mesh)
         spec = DraftSpeculativeDecoder(engine, draft_engine, k=speculative_k)
     elif speculative_k:
         from .speculative import SpeculativeDecoder
 
         spec = SpeculativeDecoder(engine, k=speculative_k)
     print(f"model {cfg.name}: attn_alg={cfg.attn_alg}"
-          + (f", quantized {quantize}" if quantize else ""), file=sys.stderr)
+          + (f", quantized {quantize}" if quantize else "")
+          + ("" if mesh is None else f", {mesh.shape} mesh of {mesh.size} ranks"
+             + (f", kept whole: {', '.join(engine.shard.kept_whole)}"
+                if engine.shard.kept_whole else "")), file=log_out)
 
     generator = torch.Generator(device=device).manual_seed(seed)
     for i in range(num_samples):
@@ -201,16 +237,16 @@ def main(
                                         temperature=temperature, top_k=top_k,
                                         eos_id=tokenizer.eos_id, generator=generator).cpu()
         dt = time.perf_counter() - t0
-        print(tokenizer.decode(out[0].numpy()))
+        print(tokenizer.decode(out[0].numpy()), file=text_out)
         n_new = out.shape[1] - prompt_len
         print(f"Time for inference {i + 1}: {dt:.02f} sec total, {n_new / dt:.02f} tokens/sec",
-              file=sys.stderr)
+              file=log_out)
 
     from ..utils.profiling import device_memory_stats
 
     peak = device_memory_stats(device)["peak_bytes_in_use"]
     if peak:
-        print(f"Memory used: {peak / 2**30:.02f} GB", file=sys.stderr)
+        print(f"Memory used: {peak / 2**30:.02f} GB", file=log_out)
 
 
 def cli(args=None) -> None:

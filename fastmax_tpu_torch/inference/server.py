@@ -33,8 +33,13 @@ and serves until interrupted, on the card unless ``--device cpu``:
         --quantize bnb.nf4 --n_slots 8 --kv_cache_dtype int8 --port 8000
 
 ``--speculative_k k`` gives the batcher k prompt-lookup drafts a slot and a
-batched verify a step. ``--tp``/``--fsdp`` above 1 (A8) are not ported yet
-and raise ``NotImplementedError``.
+batched verify a step. ``--tp``/``--fsdp`` above 1 shard the model over a
+mesh of one process per rank, started by torchrun (each rank on
+``cuda:LOCAL_RANK``); rank 0 answers HTTP and drives the batcher, the other
+ranks follow its plan (``ContinuousBatcher.follow``):
+
+    torchrun --nproc_per_node 2 -m fastmax_tpu_torch.inference.server \
+        --checkpoint_dir ckpt --tp 2 --port 8000
 """
 
 from __future__ import annotations
@@ -86,8 +91,10 @@ class Scheduler:
         return self
 
     def stop(self) -> None:
+        """Stop the thread, then end the followers' loops on a mesh."""
         self._stop.set()
         self._thread.join(timeout=30)
+        self.batcher.close()
 
     def submit(self, ticket: _Ticket) -> _Ticket:
         self.inbox.put(ticket)
@@ -294,30 +301,34 @@ def main(
     device=None,
 ) -> None:
     """Serve a checkpoint over HTTP with continuous batching, on the card
-    (``device="cpu"`` for the CPU), until interrupted.
+    (``device="cpu"`` for the CPU), until interrupted; at tp or fsdp > 1,
+    one rank of a torchrun mesh (see the module's docstring).
 
     system_prompt: when set (with prefix_cache_size > 0), its KV rows are
     prefilled once and shared by every request that starts with it."""
     from ..models.tokenizer import Tokenizer
-    from .engine import default_device
-    from .generate import check_unported, load_and_prepare
+    from .generate import load_and_prepare, rank_setup
 
-    check_unported(tp=tp, fsdp=fsdp)
-    device = default_device(device)
+    mesh, device = rank_setup(tp, fsdp, device, "fastmax_tpu_torch.inference.server")
     tokenizer = Tokenizer(Path(checkpoint_dir))
     cfg, params = load_and_prepare(Path(checkpoint_dir), quantize=quantize, attn_alg=attn_alg,
-                                   precision=precision, device=device)
+                                   precision=precision, tp=tp, fsdp=fsdp, device=device)
     batcher = ContinuousBatcher(
         cfg, params, n_slots=n_slots, max_seq_length=max_seq_length, weights_mode=weights_mode,
         cache_dtype=getattr(torch, kv_cache_dtype) if kv_cache_dtype else None,
         decode_quantum=decode_quantum, speculative_k=speculative_k,
-        prefix_cache_size=prefix_cache_size, prefill_chunk=prefill_chunk, device=device)
+        prefix_cache_size=prefix_cache_size, prefill_chunk=prefill_chunk, device=device,
+        mesh=mesh)
+    if mesh is not None and not mesh.leader:
+        batcher.follow()  # until rank 0's server stops
+        return
     if system_prompt:
         batcher.register_prefix(np.asarray(tokenizer.encode(system_prompt), np.int32))
     server = Server(batcher, tokenizer, host=host, port=port, model_name=cfg.name,
                     eos_id=tokenizer.eos_id)
     print(f"serving {cfg.name} on http://{host}:{server.port} "
-          f"({n_slots} slots, quantize={quantize or 'none'})")
+          f"({n_slots} slots, quantize={quantize or 'none'}"
+          + ("" if mesh is None else f", {mesh.shape} mesh of {mesh.size} ranks") + ")")
     server.start()
     try:
         while True:

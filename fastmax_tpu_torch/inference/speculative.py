@@ -130,6 +130,17 @@ def _history(eng, prompt: torch.Tensor, first: torch.Tensor, k: int) -> torch.Te
     return hist
 
 
+def _agree(eng, hist: torch.Tensor, new_pos: torch.Tensor, done: torch.Tensor):
+    """On a mesh (every rank runs the decoder), rank 0's history, position and
+    done flag on every rank, so that a near-tie can never split the ranks."""
+    if eng.mesh is None:
+        return hist, new_pos, done
+    n = hist.shape[0]
+    both = eng._agree(torch.cat([hist, new_pos.reshape(1).to(hist.dtype),
+                                 done.reshape(1).to(hist.dtype)]))
+    return both[:n], both[n].long(), both[n + 1].bool()
+
+
 def _finish(hist: torch.Tensor, pos: int, t: int, eos_id) -> torch.Tensor:
     out = hist[:pos][None]
     if eos_id is not None:
@@ -165,7 +176,7 @@ class SpeculativeDecoder:
         prompt = _prepare(eng, prompt, max_returned_tokens, k, ((eng, None),))
         t = prompt.shape[1]
         logits, cache = eng.prefill(prompt, eng.new_cache(), plain)
-        first = sample(logits, temperature, top_k, generator=generator)
+        first = eng._agree(sample(logits, temperature, top_k, generator=generator))
         hist = _history(eng, prompt, first, k)
         pos, steps, accepted = t + 1, 0, torch.zeros((), dtype=torch.int64, device=eng.device)
         done = eos_id is not None and int(first[0]) == eos_id
@@ -178,7 +189,8 @@ class SpeculativeDecoder:
                                              generator=generator)
             else:
                 a, cand = _greedy_accept(logits[0], draft)
-            hist, new_pos, done_t = _commit(hist, pos, cand, a, k, eos_id, max_returned_tokens)
+            hist, new_pos, done_t = _agree(eng, *_commit(hist, pos, cand, a, k, eos_id,
+                                                          max_returned_tokens))
             accepted = accepted + a
             pos, done = torch.stack([new_pos, done_t.long()]).tolist()  # one read a step
             steps += 1
@@ -251,7 +263,7 @@ class DraftSpeculativeDecoder:
         t = prompt.shape[1]
         logits, tcache = eng.prefill(prompt, eng.new_cache(), plain)
         _, dcache = deng.prefill(prompt.to(deng.device), deng.new_cache(), plain)
-        first = sample(logits, temperature, top_k, generator=generator)
+        first = eng._agree(sample(logits, temperature, top_k, generator=generator))
         hist = _history(eng, prompt, first, k)
         pos, steps, accepted = t + 1, 0, torch.zeros((), dtype=torch.int64, device=eng.device)
         done = eos_id is not None and int(first[0]) == eos_id
@@ -265,7 +277,8 @@ class DraftSpeculativeDecoder:
                                                   generator=generator)
             else:
                 a, cand = _greedy_accept(logits[0], draft)
-            hist, new_pos, done_t = _commit(hist, pos, cand, a, k, eos_id, max_returned_tokens)
+            hist, new_pos, done_t = _agree(eng, *_commit(hist, pos, cand, a, k, eos_id,
+                                                          max_returned_tokens))
             accepted = accepted + a
             pos, done = torch.stack([new_pos, done_t.long()]).tolist()  # one read a step
             steps += 1

@@ -135,11 +135,13 @@ def init_params(cfg: Config, seed: int = 0, dtype=torch.float32, device=None) ->
 
 
 def init_kv_cache(cfg: Config, batch_size: int, max_seq_length: int,
-                  dtype=torch.float32, device=None) -> dict:
+                  dtype=torch.float32, device=None, n_groups: Optional[int] = None) -> dict:
     """Grouped KV cache (L, B, n_query_groups, S, head_size). dtype int8
     selects the quantized cache: int8 codes with a per-token-per-group f32
-    absmax scale."""
-    shape = (cfg.n_layer, batch_size, cfg.n_query_groups, max_seq_length, cfg.head_size)
+    absmax scale. ``n_groups``: a rank's share of the query groups when the
+    attention is split over the mesh's ``model`` axis."""
+    shape = (cfg.n_layer, batch_size, n_groups or cfg.n_query_groups, max_seq_length,
+             cfg.head_size)
     if dtype == torch.int8:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -172,8 +174,19 @@ def _rope(x, cos, sin, nre):
     return apply_rope(x, cos, sin)
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool = False):
-    """``layer`` selects the stacked-weights mode (see ops/linear.linear)."""
+def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool = False,
+              shard=None):
+    """``layer`` selects the stacked-weights mode (see ops/linear.linear);
+    ``shard`` (a ``parallel.sharding.ShardPlan``): the MLP holds this rank's
+    share of a split over the mesh's ``model`` axis, summed here."""
+    if shard is not None:
+        part = "experts" if cfg.mlp_class_name == "LLaMAMoE" else "mlp"
+        experts = shard.experts if part == "experts" else None
+        return shard.reduce(_apply_mlp(p, x, cfg, layer, plain, experts), part)
+    return _apply_mlp(p, x, cfg, layer, plain)
+
+
+def _apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer, plain: bool, experts=None):
     name = cfg.mlp_class_name
     if name == "GptNeoxMLP":
         h = linear(p["fc"], x, layer, plain=plain)
@@ -183,7 +196,7 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool 
     if name == "LLaMAMoE":
         if layer is not None:
             p = _slice_tree(p, layer)
-        return apply_moe(p, x, cfg, plain=plain)
+        return apply_moe(p, x, cfg, plain=plain, experts=experts)
     if name == "LLaMAMLP":
         act = torch.nn.functional.silu
     elif name == "GemmaMLP":
@@ -210,7 +223,7 @@ MOE_HOST_READS = [0]
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: Config, sorted_dispatch: bool = True, *,
-              plain: bool = False) -> torch.Tensor:
+              plain: bool = False, experts: Optional[tuple] = None) -> torch.Tensor:
     """Mixtral's top-k MoE, dropless, with the reference's two routes: the
     router's top k, a float32 softmax over those k cast to x's dtype; then
 
@@ -225,7 +238,9 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: Config, sorted_dispatch: bool = Tru
       over every token, combined by the sparse router weights.
 
     ``p`` holds one layer: {"gate": linear (C, E), "experts": {fc_1, fc_2,
-    proj} stacked on (E, ...)}."""
+    proj} stacked on (E, ...)}. ``experts`` = (first, end): ``p`` holds only
+    those experts (a rank's share over the mesh's ``model`` axis); the others'
+    rows add zeros, and the caller sums the ranks' outputs."""
     b, t, c = x.shape
     xf = x.reshape(-1, c)
     n = xf.shape[0]
@@ -234,6 +249,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: Config, sorted_dispatch: bool = Tru
     probs, indices = torch.topk(router, k, dim=-1)
     probs = torch.softmax(probs.float(), dim=-1).to(x.dtype)
     ex = p["experts"]
+    e0, e1 = experts if experts is not None else (0, e)
     silu = torch.nn.functional.silu
 
     if sorted_dispatch and "bias" not in ex["fc_1"]:
@@ -245,9 +261,12 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: Config, sorted_dispatch: bool = Tru
         MOE_HOST_READS[0] += 1
         segs = []
         for j, seg in enumerate(torch.split(xs, sizes)):
-            h = silu(seg @ ex["fc_1"]["kernel"][j].to(x.dtype)) \
-                * (seg @ ex["fc_2"]["kernel"][j].to(x.dtype))
-            segs.append(h @ ex["proj"]["kernel"][j].to(x.dtype))
+            if not e0 <= j < e1:
+                segs.append(torch.zeros_like(seg))
+                continue
+            h = silu(seg @ ex["fc_1"]["kernel"][j - e0].to(x.dtype)) \
+                * (seg @ ex["fc_2"]["kernel"][j - e0].to(x.dtype))
+            segs.append(h @ ex["proj"]["kernel"][j - e0].to(x.dtype))
         ys = torch.cat(segs) * probs.reshape(-1)[order][:, None]
         inv = torch.empty_like(order)
         inv[order] = torch.arange(order.numel(), device=order.device)
@@ -258,7 +277,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: Config, sorted_dispatch: bool = Tru
         return out.reshape(b, t, c)
 
     one_hot = torch.nn.functional.one_hot(indices, e).to(x.dtype)  # (N, k, E)
-    combine = torch.einsum("nk,nke->ne", probs, one_hot)
+    combine = torch.einsum("nk,nke->ne", probs, one_hot)[:, e0:e1]
     h1 = torch.einsum("nc,eci->eni", xf, ex["fc_1"]["kernel"].to(x.dtype))
     h2 = torch.einsum("nc,eci->eni", xf, ex["fc_2"]["kernel"].to(x.dtype))
     if "bias" in ex["fc_1"]:
@@ -290,24 +309,28 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: Config, cos, sin, layer, plain: 
     """The fused QKV projection, split into q (B, n_head, T, hs) and grouped
     k, v (B, G, T, hs), with (partial) RoPE on q and k."""
     b, t, _ = x.shape
-    hs, g = cfg.head_size, cfg.n_query_groups
-    q_per_kv = cfg.n_head // g
-    qkv = linear(p["attn"], x, layer, plain=plain).reshape(b, t, g, q_per_kv + 2, hs)
-    q = qkv[..., :q_per_kv, :].reshape(b, t, cfg.n_head, hs).permute(0, 2, 1, 3)
+    hs, q_per_kv = cfg.head_size, cfg.n_head // cfg.n_query_groups
+    # the local groups: all of them, or a rank's share under a split over ``model``
+    qkv = linear(p["attn"], x, layer, plain=plain).reshape(b, t, -1, q_per_kv + 2, hs)
+    q = qkv[..., :q_per_kv, :].reshape(b, t, -1, hs).permute(0, 2, 1, 3)
     k = qkv[..., q_per_kv, :].permute(0, 2, 1, 3)
     v = qkv[..., q_per_kv + 1, :].permute(0, 2, 1, 3)
     return _rope(q, cos, sin, cfg.rope_n_elem), _rope(k, cos, sin, cfg.rope_n_elem), v
 
 
 def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: dict,
-               input_pos, layer: int, posv: torch.Tensor, *, plain: bool = False):
+               input_pos, layer: int, posv: torch.Tensor, *, plain: bool = False,
+               shard=None, wlayer: Optional[int] = None):
     """Fused-QKV grouped attention over layer ``layer`` of the stacked cache,
     which is updated in place. ``input_pos`` is a Python int or a (B,)
     tensor of per-row positions; ``posv`` (B,) int32 holds the position of
-    the last token (the decode kernel's mask frontier)."""
+    the last token (the decode kernel's mask frontier). ``wlayer``: the
+    index of this layer in ``p``'s stack when it differs from ``layer`` (one
+    layer gathered over fsdp); ``shard``: see ``apply_mlp``."""
     b, t, _ = x.shape
     hs, q_per_kv = cfg.head_size, cfg.n_head // cfg.n_query_groups
-    q, k, v = _project_qkv(p, x, cfg, cos, sin, layer, plain)
+    wl = layer if wlayer is None else wlayer
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, wl, plain)
 
     act_dtype = k.dtype
     if "k_scale" in kv_cache:
@@ -326,7 +349,7 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
             else:
                 y = int8_cache_attention(q, kc[layer], vc[layer], ks[layer], vs[layer],
                                          mask=mask, scale=hs ** -0.5)
-            return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
+            return _finish_attn(p, y, x, q, cfg, b, t, hs, wl, plain, shard)
         # prefill reads a dense cache: dequantize once
         k = _dequantize_kv(kc[layer], ks[layer], act_dtype)
         v = _dequantize_kv(vc[layer], vs[layer], act_dtype)
@@ -336,7 +359,7 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
         k, v = kv_cache["k"][layer], kv_cache["v"][layer]
     if cfg.attn_alg != "quadratic":
         y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=hs, is_decode=True, plain=plain)
-        return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
+        return _finish_attn(p, y, x, q, cfg, b, t, hs, wl, plain, shard)
     s_len = k.shape[2]
     if t > 1 and isinstance(input_pos, int) and \
             flash_eligible(t + (-t) % FLASH_BLOCK_Q, s_len, hs):
@@ -346,23 +369,25 @@ def apply_attn(p: dict, x: torch.Tensor, cfg: Config, cos, sin, mask, kv_cache: 
                             kv_len=input_pos + t, plain=plain)
     else:
         y = scaled_dot_product_attention(q, k, v, mask=mask, scale=1.0 / hs ** 0.5)
-    return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
+    return _finish_attn(p, y, x, q, cfg, b, t, hs, wl, plain, shard)
 
 
-def _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain):
+def _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain, shard=None):
     """The adapter's prefix attention (quadratic arm only, as in the
-    reference), then head merge + output projection in the activation dtype."""
+    reference), then head merge + output projection in the activation dtype
+    (summed over the ranks of a split attention)."""
     if "adapter" in p and cfg.attn_alg == "quadratic":
         ap = p["adapter"] if layer is None else _slice_tree(p["adapter"], layer)
         y = y + apply_adapter_attention(ap, p["attn"], q, cfg, hs ** -0.5, layer, plain=plain)
-    y = y.permute(0, 2, 1, 3).reshape(b, t, hs * cfg.n_head).to(x.dtype)
-    return linear(p["proj"], y, layer, plain=plain)
+    y = y.permute(0, 2, 1, 3).reshape(b, t, -1).to(x.dtype)
+    out = linear(p["proj"], y, layer, plain=plain)
+    return out if shard is None else shard.reduce(out, "attn")
 
 
-def apply_block(bp, x, cfg, layer, attn_fn, *, plain: bool = False):
+def apply_block(bp, x, cfg, layer, attn_fn, *, plain: bool = False, shard=None):
     """One transformer block over layer ``layer`` of the stacked weights (or,
     with ``layer=None``, over one layer's weights); ``attn_fn(attn_params, n1)``
-    computes the attention part."""
+    computes the attention part; ``shard``: see ``apply_mlp``."""
     def norm(name, h):
         p = bp[name] if layer is None else {k: a[layer] for k, a in bp[name].items()}
         return apply_norm(h, p, cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
@@ -371,19 +396,19 @@ def apply_block(bp, x, cfg, layer, attn_fn, *, plain: bool = False):
     h = attn_fn(bp["attn"], n1)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else norm("norm_2", x)
-        return apply_mlp(bp["mlp"], n2, cfg, layer, plain=plain) + h + x
+        return apply_mlp(bp["mlp"], n2, cfg, layer, plain=plain, shard=shard) + h + x
     x = h + x
-    return apply_mlp(bp["mlp"], norm("norm_2", x), cfg, layer, plain=plain) + x
+    return apply_mlp(bp["mlp"], norm("norm_2", x), cfg, layer, plain=plain, shard=shard) + x
 
 
 def apply_attn_nocache(p: dict, x: torch.Tensor, cfg: Config, cos, sin, *,
-                       plain: bool = False):
+                       plain: bool = False, shard=None):
     """Fused-QKV attention over the whole sequence (training and evaluation),
     dispatched on ``cfg.attn_alg``; ``p`` holds one layer's weights."""
     b, t, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, cos, sin, None, plain)
     y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=cfg.head_size, plain=plain)
-    return _finish_attn(p, y, x, q, cfg, b, t, cfg.head_size, None, plain)
+    return _finish_attn(p, y, x, q, cfg, b, t, cfg.head_size, None, plain, shard)
 
 
 def _unstack(tree, n: int) -> list:
@@ -451,7 +476,7 @@ def _layer_policies(remat, n_layer: int) -> list:
 
 def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
                    unroll: int = 1, rope_cache: Optional[tuple] = None,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, shard=None) -> torch.Tensor:
     """Full-sequence forward to the final hidden states (after ``ln_f``),
     without the lm_head: the training forward that ``utils/loss.
     chunked_cross_entropy`` pairs with. ``remat`` is a policy of
@@ -459,22 +484,32 @@ def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
     mixed form ``"<light>@<N>:<heavy>"`` (``_layer_policies``). ``unroll``,
     the reference's layer-scan unroll factor, is accepted and changes
     nothing: the layers are a Python loop here, not a scan. The RoPE cache
-    defaults to ``cfg.block_size`` rows, as the reference's."""
+    defaults to ``cfg.block_size`` rows, as the reference's. ``shard`` (a
+    ``parallel.sharding.ShardPlan``): ``params`` is a rank's local tree; each
+    layer's leaves are gathered over fsdp before it runs (no remat then)."""
     t = idx.shape[1]
     if rope_cache is None:
         rope_cache = build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base,
                                       cfg.rope_condense_ratio, device=idx.device)
     cos, sin = rope_cache[0][:t], rope_cache[1][:t]
+    if shard is not None:
+        params = shard.top(params)
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
         x = x * (cfg.n_embd ** 0.5)
 
     def attn_fn(ap, n1):
-        return apply_attn_nocache(ap, n1, cfg, cos, sin, plain=plain)
+        return apply_attn_nocache(ap, n1, cfg, cos, sin, plain=plain, shard=shard)
 
     def body(bp):
-        return lambda h: apply_block(bp, h, cfg, None, attn_fn, plain=plain)
+        return lambda h: apply_block(bp, h, cfg, None, attn_fn, plain=plain, shard=shard)
 
+    if shard is not None and shard.fsdp_dims is not None:
+        for layer in range(cfg.n_layer):
+            bp, wl = shard.layer(params["blocks"], layer)
+            x = body(_slice_tree(bp, wl))(x)
+        return apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps,
+                          cfg.add_unit_offset)
     steps = [_remat_wrap(body(bp), policy) for bp, policy in
              zip(_unstack(params["blocks"], cfg.n_layer), _layer_policies(remat, cfg.n_layer))]
     for step in steps:
@@ -482,9 +517,12 @@ def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
     return apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
 
 
-def _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain):
-    return linear(params["lm_head"], forward_hidden(params, cfg, idx, remat=remat, unroll=unroll,
-                                                    rope_cache=rope_cache, plain=plain))
+def _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain, shard=None):
+    h = forward_hidden(params, cfg, idx, remat=remat, unroll=unroll, rope_cache=rope_cache,
+                       plain=plain, shard=shard)
+    if shard is None:
+        return linear(params["lm_head"], h)
+    return shard.logits(linear(shard.top(params)["lm_head"], h))
 
 
 def forward(
@@ -500,6 +538,7 @@ def forward(
     remat=False,
     unroll: int = 1,
     plain: bool = False,
+    shard=None,
 ):
     """Run the model. Without ``kv_cache`` (and ``input_pos``): the full-sequence
     training/evaluation forward under the remat policy ``remat`` (see
@@ -513,7 +552,10 @@ def forward(
     ``kv_cache`` in place. ``logits_at`` (B,) picks one row of T per batch
     row for the lm_head, which then returns (B, 1, padded_vocab).
     ``plain=True`` sends every kernel call to its plain PyTorch version (a
-    test hook for comparing the two on the card).
+    test hook for comparing the two on the card). ``shard`` (a
+    ``parallel.sharding.ShardPlan``): ``params`` and ``kv_cache`` are a
+    rank's local shards on a mesh; the rowwise sums, the fsdp gathers and the
+    logits' gather over the vocab run here (every rank of the mesh calls it).
 
     Returns (logits (B, T or 1, padded_vocab), kv_cache).
     """
@@ -526,7 +568,7 @@ def forward(
     if kv_cache is None:
         if input_pos is not None:
             raise ValueError("input_pos requires a kv_cache (call init_kv_cache)")
-        return _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain), None
+        return _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain, shard), None
     s = kv_cache["k"].shape[3]
     if isinstance(input_pos, torch.Tensor) and input_pos.ndim == 1:
         input_pos = input_pos.to(device=device, dtype=torch.int32)
@@ -545,18 +587,24 @@ def forward(
         mask = (torch.arange(s, device=device)[None, :] <= qpos)[None, None]
         posv = torch.full((b,), input_pos + t - 1, dtype=torch.int32, device=device)
 
+    if shard is not None:
+        params = shard.top(params)
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
         x = x * (cfg.n_embd ** 0.5)
     for layer in range(cfg.n_layer):
-        def attn_fn(ap, n1, layer=layer):
+        bp, wl = (params["blocks"], layer) if shard is None else \
+            shard.layer(params["blocks"], layer)
+
+        def attn_fn(ap, n1, layer=layer, wl=wl):
             return apply_attn(ap, n1, cfg, cos, sin, mask, kv_cache, input_pos, layer, posv,
-                              plain=plain)
-        x = apply_block(params["blocks"], x, cfg, layer, attn_fn, plain=plain)
+                              plain=plain, shard=shard, wlayer=wl)
+        x = apply_block(bp, x, cfg, wl, attn_fn, plain=plain, shard=shard)
     x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
     if logits_at is not None:
         x = x[torch.arange(b, device=device), logits_at.to(device).long()][:, None]
-    return linear(params["lm_head"], x), kv_cache
+    logits = linear(params["lm_head"], x)
+    return (logits if shard is None else shard.logits(logits)), kv_cache
 
 
 # ------------------------------------------------------- the linear-attention state cache
@@ -586,14 +634,15 @@ def init_linear_cache(cfg: Config, batch_size: int, device=None) -> dict:
 
 
 def _attn_linear_state(p: dict, x: torch.Tensor, cfg: Config, cos, sin, state: dict, layer: int,
-                       is_prefill: bool, n_valid, plain: bool):
+                       is_prefill: bool, n_valid, plain: bool, wl: Optional[int] = None):
     """Attention of layer ``layer`` through the running state, which it
     updates in place. With ``n_valid`` (prefill only) the rows at or past it
     are padding: their q, k and v are zeroed after RoPE, so that they add
     nothing to the sums but a count, which the caller overwrites."""
     b, t, _ = x.shape
     hs = cfg.head_size
-    q, k, v = _project_qkv(p, x, cfg, cos, sin, layer, plain)
+    wl = layer if wl is None else wl
+    q, k, v = _project_qkv(p, x, cfg, cos, sin, wl, plain)
     k, v = repeat_kv_heads(k, cfg.n_head), repeat_kv_heads(v, cfg.n_head)
     if n_valid is not None:
         keep = (torch.arange(t, device=x.device) < n_valid)[:, None]
@@ -618,7 +667,7 @@ def _attn_linear_state(p: dict, x: torch.Tensor, cfg: Config, cos, sin, state: d
         else:
             _, o = fm.linear_attn_decode_step(st, q1, k1, v1, 8.0 * hs ** 0.5, _degree(alg))
         y = o[:, :, None, :]
-    return _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain)
+    return _finish_attn(p, y, x, q, cfg, b, t, hs, wl, plain)
 
 
 def forward_linear_cache(
@@ -633,6 +682,7 @@ def forward_linear_cache(
     is_prefill: Optional[bool] = None,
     n_valid: Optional[int] = None,
     plain: bool = False,
+    shard=None,
 ):
     """The forward through the linear-attention state (``init_linear_cache``),
     updated in place. ``is_prefill=True`` runs the T tokens of idx (B, T) and
@@ -643,7 +693,8 @@ def forward_linear_cache(
     tensor of per-slot positions at T = 1. ``n_valid`` (prefill): the prompt's
     true length inside a padded bucket; the count is set to it after the
     layers. ``plain=True`` sends the linears' kernel calls to their plain
-    versions. Returns (logits (B, T, padded_vocab), state)."""
+    versions. ``shard``: see ``forward`` (the attention and its state stay
+    whole on every rank). Returns (logits (B, T, padded_vocab), state)."""
     b, t = idx.shape
     device = idx.device
     if rope_cache is None:
@@ -667,16 +718,22 @@ def forward_linear_cache(
     if not is_prefill:
         n_valid = None
 
+    if shard is not None:
+        params = shard.top(params)
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
         x = x * (cfg.n_embd ** 0.5)
     for layer in range(cfg.n_layer):
-        def attn_fn(ap, n1, layer=layer):
+        bp, wl = (params["blocks"], layer) if shard is None else \
+            shard.layer(params["blocks"], layer)
+
+        def attn_fn(ap, n1, layer=layer, wl=wl):
             return _attn_linear_state(ap, n1, cfg, cos, sin, state, layer, is_prefill, n_valid,
-                                      plain)
-        x = apply_block(params["blocks"], x, cfg, layer, attn_fn, plain=plain)
+                                      plain, wl)
+        x = apply_block(bp, x, cfg, wl, attn_fn, plain=plain, shard=shard)
     if n_valid is not None:
         # the padded rows counted in the scan: the true length
         state["cnt"].fill_(float(n_valid))
     x = apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
-    return linear(params["lm_head"], x), state
+    logits = linear(params["lm_head"], x)
+    return (logits if shard is None else shard.logits(logits)), state

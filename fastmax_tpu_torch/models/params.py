@@ -60,14 +60,25 @@ def params_to_flat(params: dict, cfg: Config) -> Dict[str, torch.Tensor]:
     return out
 
 
-def flat_to_params(flat, cfg: Config, dtype=torch.float32, device=None) -> dict:
+def flat_to_params(flat, cfg: Config, dtype=torch.float32, device=None, *,
+                   leaf_get=None, leaf_stack=None) -> dict:
     """Build the tree from a flat lit-gpt-named dict of tensors (torch, or
     numpy as the JAX package gives them) on ``device`` (default: the card) in
     ``dtype``. A stacked leaf is allocated whole on the device and filled one
     layer (and expert) at a time: each source tensor is copied to the device
     as it lies in the file and transposed and cast there, so with lazy sources
     (``utils/checkpoint.load_flat_checkpoint``) the host holds no copy of the
-    model and the device one layer's source beside the tree."""
+    model and the device one layer's source beside the tree.
+
+    ``leaf_get(source, transpose)`` and ``leaf_stack(leaves, lead)`` replace
+    how a leaf is made from its stored tensor and how leaves are stacked
+    (``utils/sharded_load.py`` builds a tree of lazy leaves with them; dtype
+    and device are then unused)."""
+    if leaf_get is not None:
+        return _build_tree(flat, cfg, lambda name, tr: leaf_get(flat[name], tr),
+                           lambda names, tr, lead=None: leaf_stack(
+                               [leaf_get(flat[n], tr) for n in names], lead))
+
     from ..inference.engine import default_device
 
     device = default_device(device)
@@ -82,9 +93,6 @@ def flat_to_params(flat, cfg: Config, dtype=torch.float32, device=None) -> dict:
         t = source(name, transpose)
         return torch.empty(t.shape, dtype=dtype, device=device).copy_(t)
 
-    def has(name: str) -> bool:
-        return name in flat
-
     def stacked(names: List[str], transpose: bool, lead=None) -> torch.Tensor:
         """The tensors of ``names`` stacked on ``lead`` (default: (len(names),)),
         in row-major order."""
@@ -95,6 +103,15 @@ def flat_to_params(flat, cfg: Config, dtype=torch.float32, device=None) -> dict:
         for j, name in enumerate(names):
             rows[j].copy_(source(name, transpose))
         return out
+
+    return _build_tree(flat, cfg, get, stacked)
+
+
+def _build_tree(flat, cfg: Config, get: Callable, stacked: Callable) -> dict:
+    """The tree's layout over the flat names: ``get(name, transpose)`` makes a
+    leaf, ``stacked(names, transpose, lead)`` one stacked on ``lead``."""
+    def has(name: str) -> bool:
+        return name in flat
 
     def layers(fn: Callable[[int], str]) -> List[str]:
         return [fn(i) for i in range(cfg.n_layer)]
@@ -136,13 +153,13 @@ def flat_to_params(flat, cfg: Config, dtype=torch.float32, device=None) -> dict:
                          "experts": {n: expert_lin(n) for n in ("fc_1", "fc_2", "proj")}}
 
     params = {
-        "wte": get("transformer.wte.weight"),
-        "lm_head": {"kernel": get("lm_head.weight", transpose=True)},
-        "ln_f": {"weight": get("transformer.ln_f.weight")},
+        "wte": get("transformer.wte.weight", False),
+        "lm_head": {"kernel": get("lm_head.weight", True)},
+        "ln_f": {"weight": get("transformer.ln_f.weight", False)},
         "blocks": blocks,
     }
     if has("lm_head.bias"):
-        params["lm_head"]["bias"] = get("lm_head.bias")
+        params["lm_head"]["bias"] = get("lm_head.bias", False)
     if has("transformer.ln_f.bias"):
-        params["ln_f"]["bias"] = get("transformer.ln_f.bias")
+        params["ln_f"]["bias"] = get("transformer.ln_f.bias", False)
     return params

@@ -14,7 +14,8 @@ peak over this run.
         --micro_batch 8 --seq_len 2048 --remat attn [--device cpu]
 
 Prints one JSON line with the reference's keys. ``fsdp``/``tp`` above 1 (the
-reference's mesh) raise: the multi-GPU item of ROADMAP queue A, A8.
+reference's mesh) raise: the training half of the multi-GPU item, ROADMAP
+queue A, A8 slice 2.
 """
 
 from __future__ import annotations
@@ -87,8 +88,8 @@ def run(
     CPU). ``fsdp`` 0 or 1 and ``tp`` 1: one device. ``accum`` > 1 sums the
     gradients of ``accum`` sub-batches before the update."""
     if fsdp > 1 or tp > 1:
-        raise NotImplementedError("fsdp/tp > 1 (the sharded step) come with the multi-GPU item "
-                                  "(ROADMAP queue A, A8)")
+        raise NotImplementedError("fsdp/tp > 1 (the sharded step) come with the multi-GPU "
+                                  "training (ROADMAP queue A, A8 slice 2)")
     if micro_batch % accum:
         raise ValueError(f"micro_batch {micro_batch} must divide by accum={accum}")
     device = default_device(device)

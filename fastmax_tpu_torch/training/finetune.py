@@ -37,7 +37,8 @@ flags run here unchanged, on the card (``--device cpu`` for the CPU):
 With ``gptq_calib`` and a 4-bit ``quantize`` mode the base is quantized by
 GPTQ (``ops/gptq.py``, on the device) against four examples of the training
 data, as the reference does; other modes round to nearest. Not ported yet,
-raising ``NotImplementedError``: ``dp``/``fsdp``/``tp`` above 1 (A8).
+raising ``NotImplementedError``: ``dp``/``fsdp``/``tp`` above 1 (A8 slice 2,
+the multi-GPU training).
 """
 
 from __future__ import annotations
@@ -124,8 +125,8 @@ def setup(
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     if dp * fsdp * tp > 1:
-        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU item (ROADMAP "
-                                  "queue A, A8)")
+        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU training (ROADMAP "
+                                  "queue A, A8 slice 2)")
     if quantize is not None and method == "full":
         raise ValueError("full finetuning of quantized weights is not supported")
     device = default_device(device)

@@ -17,7 +17,7 @@ or (inputs, labels) tuples (SFT).
 (``quant_optim.py``), ``adafactor`` and ``lion`` (``step.py``), each after
 the global-norm clip. The saved train state holds each one's state, the
 8-bit moments as their int8/uint8 codes and scales. A device mesh is not
-ported yet (A8).
+ported yet (A8 slice 2, the multi-GPU training).
 """
 
 from __future__ import annotations

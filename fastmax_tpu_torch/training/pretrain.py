@@ -19,8 +19,8 @@ read each other's). At the end the deploy checkpoint is written as the
 reference writes it: ``out_dir/final`` in the npy layout
 (``utils/checkpoint.py``) with ``out_dir/final/lit_config.json``.
 ``logger_name`` is csv, tensorboard or wandb (``utils/logging.py``). Not
-ported yet: ``dp``/``fsdp``/``tp`` above 1 (the multi-GPU item of ROADMAP
-queue A, A8).
+ported yet: ``dp``/``fsdp``/``tp`` above 1 (the multi-GPU training of ROADMAP
+queue A, A8 slice 2).
 
 The command line is the reference's (``utils/cli.py``); on the card
 (``--device cpu`` for the CPU):
@@ -114,8 +114,8 @@ def setup(
     CPU); resume from ``out_dir/state`` with ``io.resume``. Logs to
     ``out_dir/metrics.csv`` and returns the final TrainState."""
     if dp * fsdp * tp > 1:
-        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU item of ROADMAP "
-                                  "queue A, A8")
+        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU training of ROADMAP "
+                                  "queue A, A8 slice 2")
     device = default_device(device)
     cfg = Config.from_name(model_name, **({"attn_alg": attn_alg} if attn_alg else {}))
     if train.max_seq_length:

@@ -297,7 +297,8 @@ def test_sampling_reproducible_from_a_seeded_generator(quantum):
 def test_unported_options_raise():
     # speculative batching is ported (tests/test_torch_speculative_serving.py): it builds
     assert _make("torch", speculative_k=4)._headroom == 5
-    with pytest.raises(NotImplementedError, match="A8"):
+    # the mesh is ported (tests/test_torch_tp_serving.py runs it on gloo ranks): a Mesh only
+    with pytest.raises(TypeError, match="Mesh"):
         _make("torch", mesh=object())
     _, tp = _params()
     # the linear arms are served (tests/test_torch_linear_serving.py): an O(1) state a slot

@@ -497,8 +497,12 @@ def test_convert_pretrained_refuses_an_orbax_state(ckpt, tmp_path):
 
 
 UNPORTED = {
-    "generate_tp": (lambda d: generate.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
-    "generate_fsdp": (lambda d: generate.main(checkpoint_dir=d, fsdp=2, device="cpu"), "A8"),
+    # ported since (A8 slice 1): started alone at tp or fsdp > 1, each refuses with the
+    # torchrun line (tests/test_torch_tp_serving.py runs them on gloo ranks)
+    "generate_tp": (lambda d: refuses_alone(
+        lambda: generate.main(checkpoint_dir=d, tp=2, device="cpu")), None),
+    "generate_fsdp": (lambda d: refuses_alone(
+        lambda: generate.main(checkpoint_dir=d, fsdp=2, device="cpu")), None),
     # ported since (A1): speculative decoding runs (tests/test_torch_speculative_serving.py
     # holds its text, tokens and acceptance against the JAX package's)
     "generate_speculative_k": (lambda d: speculative_generate_runs(
@@ -507,18 +511,30 @@ UNPORTED = {
         d, ["--speculative_k", "2", "--draft_checkpoint_dir", str(d)]), None),
     # ported since (A3): GPTQ calibrated on a text file, then greedy text
     "generate_gptq_calib": (lambda d: gptq_calib_runs(d), None),
-    "load_and_prepare_tp": (lambda d: generate.load_and_prepare(d, tp=2, device="cpu"), "A8"),
+    "load_and_prepare_tp": (lambda d: refuses_alone(
+        lambda: generate.load_and_prepare(d, tp=2, device="cpu")), None),
     # ported since (A4 slice 1): each call runs and reads its delta back (None below)
     "generate_adapter": (lambda d: adapter_delta_runs(d, "adapter"), None),
     "generate_adapter_v2": (lambda d: adapter_delta_runs(d, "adapter_v2"), None),
-    "chat_tp": (lambda d: chat.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
+    "chat_tp": (lambda d: refuses_alone(
+        lambda: chat.main(checkpoint_dir=d, tp=2, device="cpu")), None),
     "server_speculative_k": (lambda d: speculative_server_runs(d), None),
-    "server_tp": (lambda d: server.main(checkpoint_dir=d, tp=2, device="cpu"), "A8"),
-    "server_fsdp": (lambda d: server.main(checkpoint_dir=d, fsdp=2, device="cpu"), "A8"),
+    "server_tp": (lambda d: refuses_alone(
+        lambda: server.main(checkpoint_dir=d, tp=2, device="cpu")), None),
+    "server_fsdp": (lambda d: refuses_alone(
+        lambda: server.main(checkpoint_dir=d, fsdp=2, device="cpu")), None),
     "bench_serving_speculative_k": (lambda d: "spec_acceptance" in bench_serving.run(
         checkpoint_dir=d, speculative_k=2, n_slots=2, n_requests=2, prompt_len=6,
         max_new_tokens=4, precision="float32", device="cpu"), None),
 }
+
+
+def refuses_alone(fn) -> bool:
+    """A sharded entry point started without torchrun raises, naming the
+    torchrun line to use: it never quietly serves on one rank."""
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m fastmax_tpu_torch"):
+        fn()
+    return True
 
 
 def speculative_generate_runs(d: Path, flags: list) -> bool:

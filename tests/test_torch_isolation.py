@@ -54,7 +54,8 @@ def test_no_jax_and_no_reference_package_imported():
         "            'models.lora', 'ops.blockwise_attention', 'utils.checkpoint',\n"
         "            'tools.int4_opt_r04', 'tools.int4_opt_r05', 'tools.nf4_variants_r04',\n"
         "            'tools.nf4_lab_r04', 'tools.lab_kernels', 'utils.cli', 'models.params',\n"
-        "            'scripts.convert_hf_checkpoint'):\n"
+        "            'scripts.convert_hf_checkpoint', 'parallel.sharding', 'parallel.collectives',\n"
+        "            'utils.sharded_load'):\n"
         "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -83,6 +84,33 @@ def test_entry_points_default_to_cuda():
         pretrain.setup(model_name="easy-transformer-fastmax")
     with pytest.raises(RuntimeError, match="CUDA"):
         finetune.setup(model_name="Llama-2-7b-hf", quantize="bnb.nf4", data_path="unused.npz")
+
+
+def test_parallel_imports_neither_jax_nor_the_reference():
+    """parallel/, utils/sharded_load.py and the rank bodies that spawned ranks
+    import (tests/torch_rank_checks.py) alone, in a fresh process: no jax, no
+    fastmax_tpu, and no process group is started by importing them."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import fastmax_tpu_torch.parallel.sharding, fastmax_tpu_torch.parallel.collectives\n"
+        "import fastmax_tpu_torch.utils.sharded_load, torch_rank_checks\n"
+        "import torch.distributed as dist\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'fastmax_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert not dist.is_initialized()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=_clean_env(), cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    for path in sorted((REPO / "fastmax_tpu_torch" / "parallel").glob("*.py")) + \
+            [REPO / "fastmax_tpu_torch" / "utils" / "sharded_load.py",
+             REPO / "tests" / "torch_rank_checks.py"]:
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert "fastmax_tpu." not in text.replace("fastmax_tpu_torch", ""), path
 
 
 def test_cuda_tensor_never_takes_the_plain_version():

@@ -1,0 +1,253 @@
+"""Bodies that run on every rank of a mesh and return what the sharded
+serving path computed, for a caller to hold against one rank or against the
+reference: ``run_cases`` is the target of ``collectives.spawn_local`` in the
+CPU tests (gloo ranks), and ``chip_smoke.py``'s phase 18 calls the command-line
+and loader bodies on the card. Each case builds its own mesh over the whole
+group, (world // (tp * fsdp), fsdp, tp), so one group runs every case; rank 0
+returns the result and the other ranks None. Inputs are plain: a config's
+fields, numpy parameter trees, token lists, command-line flags.
+
+The spawned ranks import this module by name, so it imports no jax and
+nothing of the JAX package: only ``fastmax_tpu_torch``.
+"""
+
+from __future__ import annotations
+
+import builtins
+import contextlib
+import io
+import json
+import time
+import urllib.request
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from fastmax_tpu_torch.models import gpt
+from fastmax_tpu_torch.models.config import Config
+from fastmax_tpu_torch.models.weights import from_numpy_params
+from fastmax_tpu_torch.parallel import collectives as col
+from fastmax_tpu_torch.parallel.sharding import (assert_hybrid_placement, gather_fsdp_local,
+                                                 local_slice, make_hybrid_mesh, make_mesh,
+                                                 shard_params)
+
+
+def _mesh(tp: int, fsdp: int):
+    return make_mesh(dist.get_world_size() // (tp * fsdp), fsdp, tp)
+
+
+def _rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a batch split over data x fsdp (all of them when
+    the split does not divide the batch)."""
+    n = mesh.shape["data"] * mesh.shape["fsdp"]
+    if n == 1 or x.shape[0] % n:
+        return x
+    i = mesh.batch_ranks.index(mesh.rank)
+    step = x.shape[0] // n
+    return x[i * step:(i + 1) * step]
+
+
+def forward(cfg: dict, params: dict, idx, tp: int, fsdp: int, device="cpu"):
+    """The no-cache forward of ``params`` cut on a (., fsdp, tp) mesh, the
+    batch split over data x fsdp; the (B, T, V) logits, gathered."""
+    cfg = Config(**cfg)
+    mesh = _mesh(tp, fsdp)
+    local = shard_params(from_numpy_params(params, device), mesh, cfg)
+    idx = torch.as_tensor(np.asarray(idx), device=device)
+    rows = _rows(idx, mesh)
+    with torch.inference_mode():
+        out, _ = gpt.forward(dict(local), cfg, rows, shard=local.plan)
+    if rows.shape[0] != idx.shape[0]:
+        out = col.all_gather(out, 0, mesh.batch_group)
+    return {"logits": out.float().cpu().numpy(), "kept_whole": list(local.plan.kept_whole)} \
+        if mesh.leader else None
+
+
+def engine(cfg: dict, params: dict, prompt, n_ret: int, tp: int, fsdp: int,
+           cache_dtype: str = "float32", weights_mode: str = "auto", device="cpu"):
+    """``InferenceEngine(mesh=...)``'s greedy tokens, and the shapes of this
+    rank's fresh cache (every rank's, gathered)."""
+    from fastmax_tpu_torch.inference.engine import InferenceEngine
+
+    cfg = Config(**cfg)
+    mesh = _mesh(tp, fsdp)
+    prompt = np.asarray(prompt)
+    eng = InferenceEngine(cfg, from_numpy_params(params, device), max_seq_length=n_ret + 8,
+                          batch_size=1 if prompt.ndim == 1 else prompt.shape[0],
+                          cache_dtype=getattr(torch, cache_dtype), weights_mode=weights_mode,
+                          device=device, mesh=mesh)
+    out = eng.generate(torch.as_tensor(prompt), n_ret)
+    shapes = {k: list(v.shape) for k, v in eng.new_cache().items()}
+    coords = [None] * dist.get_world_size()
+    dist.all_gather_object(coords, (mesh.coords, shapes))
+    return {"tokens": out.cpu().numpy(), "caches": coords,
+            "kept_whole": list(eng.shard.kept_whole)} if mesh.leader else None
+
+
+def batcher(cfg: dict, params: dict, prompts: list, n_new: int, tp: int, fsdp: int = 1,
+            kw: Optional[dict] = None, prefix: Optional[list] = None, device="cpu"):
+    """``ContinuousBatcher(mesh=...)``: rank 0 submits the greedy prompts
+    (after registering ``prefix`` in the prefix cache, if given), runs them to
+    completion and closes; the others follow. Rank 0's {"tokens": per
+    prompt, "stats"}."""
+    from fastmax_tpu_torch.inference.continuous import ContinuousBatcher
+
+    cfg = Config(**cfg)
+    mesh = _mesh(tp, fsdp)
+    b = ContinuousBatcher(cfg, from_numpy_params(params, device), device=device, mesh=mesh,
+                          **(kw or {}))
+    if not mesh.leader:
+        b.follow()
+        return None
+    if prefix is not None:
+        b.register_prefix(np.asarray(prefix, np.int32))
+    rids = [b.submit(np.asarray(p, np.int32), n_new) for p in prompts]
+    res = b.run_to_completion()
+    b.close()
+    return {"tokens": [res[r] for r in rids],
+            "stats": {"prefix_cache_hits": b.prefix_cache_hits, "spec_drafted": b.spec_drafted,
+                      "spec_accepted": b.spec_accepted,
+                      "kept_whole": list(b.shard.kept_whole)}}
+
+
+def generate_cli(flags: list):
+    """``generate.cli(flags)`` on every rank; rank 0's printed text."""
+    from fastmax_tpu_torch.inference import generate
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        generate.cli(flags)
+    return out.getvalue() if dist.get_rank() == 0 else None
+
+
+def chat_cli(flags: list, prompts: list):
+    """``chat.cli(flags)`` on every rank; rank 0 reads ``prompts`` and then an
+    empty line as its input, which ends every rank's session. Rank 0's
+    printed text."""
+    from fastmax_tpu_torch.inference import chat
+
+    out = io.StringIO()
+    lines = iter(list(prompts) + [""])
+    real_input = builtins.input
+    if dist.get_rank() == 0:
+        builtins.input = lambda prompt="": next(lines)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            chat.cli(flags)
+    finally:
+        builtins.input = real_input
+    return out.getvalue() if dist.get_rank() == 0 else None
+
+
+def post(port: int, body: dict, timeout: float = 300.0) -> dict:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def server_cli(flags: list, bodies: list):
+    """``server.cli(flags)`` on every rank; rank 0's server answers
+    ``bodies`` over 127.0.0.1, then stops as on Ctrl-C (which ends the
+    followers). Rank 0's answers."""
+    from fastmax_tpu_torch.inference import server
+
+    if dist.get_rank() != 0:
+        server.cli(flags)
+        return None
+    made, answers = [], []
+    real_server, real_sleep = server.Server, time.sleep
+
+    class Recording(real_server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def sleep(s):
+        if s != 3600:  # the scheduler thread's idle wait
+            return real_sleep(s)
+        for body in bodies:
+            answers.append(post(made[0].port, body))
+        raise KeyboardInterrupt
+
+    server.Server, time.sleep = Recording, sleep
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            server.cli(flags)
+    finally:
+        server.Server, time.sleep = real_server, real_sleep
+    return answers
+
+
+def sharded_load(checkpoint_dir: str, tp: int, fsdp: int, idx, dtype: str = "float32",
+                 device="cpu"):
+    """``load_sharded_model_params`` on a (., fsdp, tp) mesh against the same
+    cut of the whole load (``shard_params`` of ``load_model_params``): the
+    largest difference over every leaf, the leaf paths, the bytes this rank
+    read, and the logits of the sharded forward on ``idx``."""
+    from fastmax_tpu_torch.utils import sharded_load as sl
+    from fastmax_tpu_torch.utils.checkpoint import load_model_params
+
+    mesh = _mesh(tp, fsdp)
+    sl.READ_BYTES[0] = 0
+    cfg, got = sl.load_sharded_model_params(checkpoint_dir, mesh, dtype=getattr(torch, dtype),
+                                            device=device)
+    read = sl.READ_BYTES[0]
+    _, whole = load_model_params(checkpoint_dir, cfg, getattr(torch, dtype), device)
+    want = shard_params(whole, mesh, cfg)
+    diffs = {}
+
+    def walk(a, b, path):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], path + (k,))
+            else:
+                assert a[k].shape == b[k].shape, (path + (k,), a[k].shape, b[k].shape)
+                diffs[".".join(path + (k,))] = float((a[k].float() - b[k].float()).abs().max())
+
+    walk(dict(got), dict(want), ())
+    rows = _rows(torch.as_tensor(np.asarray(idx), device=device), mesh)
+    with torch.inference_mode():
+        out, _ = gpt.forward(dict(got), cfg, rows, shard=got.plan)
+    out = col.all_gather(out, 0, mesh.batch_group) if rows.shape[0] != len(idx) else out
+    reads = [None] * dist.get_world_size()
+    dist.all_gather_object(reads, read)
+    experts = None
+    if "experts" in got["blocks"]["mlp"]:
+        ex = got["blocks"]["mlp"]["experts"]["fc_1"]["kernel"]
+        experts = col.all_gather(ex, 1, mesh.group("model")).cpu().numpy()
+    return {"diffs": diffs, "read_bytes": reads, "logits": out.float().cpu().numpy(),
+            "experts_fc_1": experts} if mesh.leader else None
+
+
+def gather_roundtrip(x):
+    """A leaf cut over fsdp (and one left whole) on a (., 2, 1) mesh, put back
+    by ``gather_fsdp_local``: every rank's gathered leaves."""
+    mesh = _mesh(1, 2)
+    x = torch.as_tensor(np.asarray(x))
+    specs = {"a": {"kernel": (None, "fsdp")}, "b": ()}
+    local = {"a": {"kernel": x[local_slice(specs["a"]["kernel"], tuple(x.shape), mesh)]},
+             "b": x[:, :4]}
+    full = gather_fsdp_local(local, specs, mesh.group("fsdp"))
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, (full["a"]["kernel"].numpy(), full["b"].numpy()))
+    return out if mesh.leader else None
+
+
+def hybrid_mesh(data: int, fsdp: int, model: int, granule_size: int):
+    """``make_hybrid_mesh`` over the group, its placement checked: every
+    rank's (layout, coordinates)."""
+    mesh = make_hybrid_mesh(data, fsdp, model, granule_size=granule_size)
+    assert_hybrid_placement(mesh, granule_size=granule_size)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, (mesh.layout, mesh.coords))
+    return out if mesh.leader else None
+
+
+def run_cases(cases: list) -> dict:
+    """Run [(name, function name, kwargs), ...] of this module in order on
+    this rank; {name: result}."""
+    return {name: globals()[fn](**kw) for name, fn, kw in cases}
