@@ -66,14 +66,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bounds of each;
    ``pretrain.setup`` on
    easy-transformer-fastmax with its defaults (float32, global batch 8,
-   micro-batch 4, T=512, remat, AdamW) for 40 steps over a ``train.bin``
+   micro-batch 4, T=512, remat, AdamW) for 20 steps over a ``train.bin``
    made from the repository's own ``*.md`` and ``*.py`` bytes: tokens/s, step
    time, MFU against the card's f32 peak, peak memory, the first and last
    logged loss (the last must be lower), K4/K5 launch counts (exactly 2 and 1
    per layer per micro-batch under remat), a profile of one step; one step's
    loss and every gradient with the kernels against ``plain=True`` (qkv
    weights scaled so that s is of order 1); the
-   same 40 steps of easy-transformer (quadratic attention) as a yardstick;
+   same 20 steps of easy-transformer (quadratic attention) as a yardstick;
    and 10 steps each of easy-transformer-fastmax with ``attn_alg``
    linearmax and performer (their chunked scans: no K4/K5 launch, a finite
    loss that falls);
@@ -97,7 +97,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    reversible float32 scan at the finetune shape (no K4/K5 launch) against
    the same scan in float64 on the card (output, dq, dk, dv) and the O(N^2)
    formula in float64 (output), its forward and forward + backward times and
-   TFLOP/s; (b) ``finetune.setup`` QLoRA on the same NF4 Llama-2-7B cut to 8
+   TFLOP/s; (b) ``finetune.setup`` QLoRA on the same NF4 Llama-2-7B cut to 2
    of its 32 layers with fastmax, linearmax and performer, 2 steps each: step time, tokens/s, peak
    memory, the losses, lora_B moved, no K4-K7 launch, and for fastmax one
    micro-batch on the host clock, its device time and busy share profiled,
@@ -251,7 +251,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches by path, K3 exactly once a layer a forward; a sampled run
    (temperature 0.8, top_k 50); one verify forward profiled against a step's
    host time; (c) ``DraftSpeculativeDecoder`` with TinyLlama-1.1B at full
-   width (random bf16) drafting k = 4 for the 7B, greedy against its engine
+   width (random bf16) drafting k = 4 for the 7B, 32 tokens, greedy against its engine
    (near-tie rule), the acceptance of two random models; (d) an 8-slot
    ``ContinuousBatcher`` with ``speculative_k`` 8 (K1 at m = 72 on the FMA
    tile): 8 requests (4 greedy, 2 at top_k 1, 2 hot) against the batcher
@@ -264,17 +264,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``parallel/collectives.spawn_local``, gloo: NCCL takes no two ranks on one
    GPU, so the collectives cross the host and no figure is a multi-GPU one),
    each on its shard, against one rank: (a) Llama-2-7B (4096 context,
-   preload_int4, int8 cache) at tp 2, 64-token prompt, 32 greedy tokens (K1 on
+   preload_int4, int8 cache) at tp 2, 64-token prompt, 16 greedy tokens (K1 on
    the split linears, K3 on the prefill, K2 over 16 of 32 groups; near-tie
    rule), each rank's weight bytes, kept-whole linears and launches, and the
    first step's logits with f32 activations and cache at phase 15's limits; (b)
-   the 8-slot batcher, quantum 8, 8 requests x 32 tokens, tok/s of both; (c)
+   the 8-slot batcher, quantum 8, 8 requests x 16 tokens, tok/s of both; (c)
    an NF4 7B cut to 4 layers in ``quantized`` (K8) and ``preload_int4_block``
    (K9), 8 tokens each; (d) ``generate --tp 2`` and the server at ``--tp 2``
    answering 2 requests, and ``load_sharded_model_params`` (each rank's leaves
    bit-equal to the same cut of the whole load; the bytes each read); (e) one
    rank over NCCL: the (1, 1, 1) mesh engine's tokens are the no-mesh
-   engine's bit for bit.
+   engine's bit for bit;
+19. multi-GPU training: two ranks on the one card over gloo again, each
+   trainer's entry point on a (dp, fsdp, tp) mesh against one rank on the same
+   seed and batches: (a) ``pretrain.setup`` on easy-transformer-fastmax, 16 x
+   512, f32, 4 steps at (2, 1, 1), (1, 2, 1) and (1, 1, 2) (K4/K5 on a rank's
+   rows and heads, 2 and 1 a layer and micro-batch; every step's loss within
+   1e-4 relative; each rank's parameter and optimizer bytes); (b)
+   ``finetune.setup`` QLoRA on an NF4 Llama-2-7B at full width cut to 8
+   layers, T 2048, one step of a global micro-batch of 2 at dp 2 and at fsdp
+   2 (K6/K7 2 and 1 a layer and micro-batch, K8 as on one rank; the loss and
+   the LoRA gradients within twice the distance between one rank's
+   micro-batch of 2 and its two accumulated micro-batches of 1); (c)
+   ``bench_mfu.run`` on TinyLlama cut to 11 of 22 layers at fsdp 2, 8 x 2048;
+   (d) ring attention and
+   the sequence-parallel loss at TinyLlama's width (2 layers, f32, T 2048 over
+   2 ranks) against one rank's dense loss and gradients, one
+   ``make_sp_train_step`` step and ``make_sp_tp_fsdp_loss_fn``; (e) (a) at
+   one rank over NCCL, bit for bit against the run with no mesh.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -358,7 +375,7 @@ FASTMAX_PAIR_REL = 1e-3
 # scaled so that s has a standard deviation of about 1 (at the init std 0.02
 # it is 0.025): the loss (relative) and each gradient leaf (of its largest entry)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-6, 1e-4
-TRAIN_STEPS = 40
+TRAIN_STEPS = 20           # phase 8's pretraining steps (40 until the script neared its limit)
 # the fork's linear arms at every head size (phases 8 and 9). Masked fastmax at
 # D = 128 runs the reversible float32 scan (ops/fastmax.py; the reference has no
 # Pallas kernel there, so neither has the port). Op check at the finetune shape
@@ -374,9 +391,10 @@ JAX_SCAN_F32_GRAD_REL = 7.519e-05
 LINEAR_F32_REL = {"fwd": 1e-5, "grad": max(FASTMAX_F32_REL["grad"], 2.0 * JAX_SCAN_F32_GRAD_REL)}
 LINEAR_ARMS = ("fastmax", "linearmax", "performer")
 LINEAR_FT_STEPS = 2        # QLoRA steps of each arm: the fewest that time a step after the first
-# the arms' QLoRA model: Llama-2-7B at full width cut to 8 of its 32 layers, so that phase 15
-# fits in the run's time (fastmax's two steps took 112.7 s at full depth on one H100 at 700 W)
-LINEAR_FT_LAYERS = 8
+# the arms' QLoRA model: Llama-2-7B at full width cut to 2 of its 32 layers, so that the
+# script fits in its time limit (fastmax's two steps took 112.7 s at full depth and 34.0 s
+# at 8 layers on one H100 at 700 W)
+LINEAR_FT_LAYERS = 2
 LINEAR_TRAIN_STEPS = 10    # pretraining steps of linearmax and performer
 FASTMAX_KERNELS = ("fastmax_fwd", "fastmax_bwd")
 
@@ -1964,7 +1982,7 @@ def training_path(torch, results, card):
         # one step's loss and every gradient: kernels against plain=True
         out["kernels_vs_plain"] = step_kernels_vs_plain(torch, cfg, batches[0])
 
-        # the yardstick: the same 40 steps with quadratic attention
+        # the yardstick: the same steps with quadratic attention
         _, quad = training_run(torch, pretrain, build, data, Path(tmp) / "quad",
                                "easy-transformer", card)
         out["quadratic"] = quad
@@ -2995,7 +3013,8 @@ def serve_mode(torch, cfg, nf4, mode, prompt, step_token, probe, card) -> tuple:
         log("  backend set to 'pallas' for the timed run, so that K8 is on the path")
         quant.set_quant_backend("pallas")
         out["autotune"] = tune
-    n_new = 128 if mode in ("quantized", "preload_int4_block") else 32
+    # 64 new tokens for the two kernels' modes (128 until the script neared its time limit)
+    n_new = 64 if mode in ("quantized", "preload_int4_block") else 32
     build.reset_launch_counts()
     t0 = time.perf_counter()
     gen = engine.generate(prompt, 64 + n_new)
@@ -5889,7 +5908,7 @@ SPEC_T = (2, 5, 9)                 # T = k+1 at k = 1, 4, 8
 SPEC_POS0 = (63, 2047, 4086)       # a verify near the start, the middle and the end of S
 SPEC_PROMPT, SPEC_SEGMENT, SPEC_NEW = 512, 64, 128
 SPEC_PLAIN_NEW = 32                # the plain=True run (every linear dequantized a call)
-SPEC_DRAFT_MODEL, SPEC_DRAFT_K, SPEC_DRAFT_NEW = "tiny-llama-1.1b", 4, 64
+SPEC_DRAFT_MODEL, SPEC_DRAFT_K, SPEC_DRAFT_NEW = "tiny-llama-1.1b", 4, 32
 SPEC_BATCH_NEW, SPEC_PREFIX, SPEC_CHUNK = 64, 1024, 256
 
 
@@ -6366,7 +6385,7 @@ def speculative_commands(torch, results, card, tmp, ckpt) -> dict:
 # cache at phase 15's fixed limits (LOGITS_REL_TOL max, FAMILY_MEAN_REL mean).
 P18_MODEL = "Llama-2-7b-hf"
 P18_BLOCK = 4096
-P18_PROMPT, P18_NEW = 64, 32
+P18_PROMPT, P18_NEW = 64, 16
 P18_SLOTS, P18_QUANTUM, P18_REQUESTS = N_SLOTS, 8, 8
 P18_MODES_LAYERS, P18_MODES_NEW = 4, 8     # (c): the NF4 modes on 4 of the 32 layers
 P18_VOCAB = 32000                          # prompt ids are drawn below it
@@ -6911,6 +6930,446 @@ def tp_serving_alone() -> dict:
     return results
 
 
+# ----------------------------------------------------------------- phase 19
+# Multi-GPU training on the one card: two ranks (collectives.spawn_local) on the same H100
+# over gloo, as in phase 18 (NCCL takes no two ranks on one GPU); the collectives and their
+# backwards cross the host. No time or rate here is a multi-GPU figure. Each trainer's
+# entry point runs on the (dp, fsdp, tp) mesh and is held against one rank's run on the
+# same seed and batches: (a) pretraining in f32, every step's loss within P19_PT_REL;
+# (b) QLoRA in bf16, under the rule that needs no guess: the sharded run's loss and LoRA
+# gradients stay within twice the distance between two one-rank runs that split the same
+# micro-batch differently (a micro-batch of 2 against two accumulated micro-batches of 1;
+# the examples carry equal label counts, so both are the same function; the loss's
+# distance is at least one float32 step of it); (c) bench_mfu
+# at fsdp 2; (d) sequence parallelism in f32 against one rank's dense loss; (e) (a) at
+# one rank over NCCL, bit for bit against the run with no mesh.
+P19_PT_MODEL, P19_PT_STEPS, P19_PT_BATCH = "easy-transformer-fastmax", 4, 16  # 16 x 512
+P19_PT_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2))
+P19_PT_REL = 1e-4
+P19_FT_LAYERS, P19_FT_T, P19_FT_MESHES = 8, 2048, ((2, 1, 1), (1, 2, 1))
+# (c) at 11 of TinyLlama's 22 layers: the script's time limit forces the cut (at 22 a
+# step took 7.3 s, most of it the gathers and reduce-scatters through gloo)
+P19_MFU_MODEL, P19_MFU_LAYERS = "tiny-llama-1.1b", 11
+P19_MFU = dict(seq_len=2048, micro_batch=8, iters=2, remat="full", fsdp=2)
+P19_SP_MODEL, P19_SP_LAYERS, P19_SP_T = "tiny-llama-1.1b", 2, 2048
+P19_SP_LOSS_REL, P19_SP_GRAD_REL = 1e-5, 1e-4
+
+
+def p19_sft(np, n: int = 8) -> list:
+    """SFT examples of exactly P19_FT_T tokens of the repository's text, every label kept
+    (equal label counts: a micro-batch of 2 and two of 1 are one function)."""
+    tokens, _ = repo_text_tokens(np)
+    ids = tokens.astype(np.int64) + 3
+    return [{"input_ids": ids[i * P19_FT_T:(i + 1) * P19_FT_T],
+             "labels": ids[i * P19_FT_T:(i + 1) * P19_FT_T]} for i in range(n)]
+
+
+def p19_digest(torch, tree) -> str:
+    import hashlib
+
+    from fastmax_tpu_torch.training.step import tree_leaves
+
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        h.update(x.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def p19_metrics(out) -> list:
+    import csv
+
+    with open(Path(out) / "metrics.csv", newline="") as f:
+        return [float(r["loss"]) for r in csv.DictReader(f)]
+
+
+def p19_pretrain(torch, data, out, mesh=(1, 1, 1)) -> dict:
+    """``pretrain.setup`` on easy-transformer-fastmax, 16 x 512, f32, P19_PT_STEPS steps at
+    ``mesh`` (every rank calls it): the logged losses (rank 0), this rank's K4/K5 launches,
+    parameter and optimizer-state bytes, the whole final parameters' digest, the wall time."""
+    import torch.distributed as dist
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.parallel.sharding import tree_bytes
+    from fastmax_tpu_torch.training import pretrain
+    from fastmax_tpu_torch.training.fit import whole_params
+    from fastmax_tpu_torch.training.quant_optim import state_nbytes
+    from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
+
+    dp, fsdp, tp = mesh
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = pretrain.setup(model_name=P19_PT_MODEL, data_format="openwebtext", dp=dp, fsdp=fsdp,
+                           tp=tp, train=TrainArgs(
+                               global_batch_size=P19_PT_BATCH, micro_batch_size=P19_PT_BATCH,
+                               max_iters=P19_PT_STEPS, learning_rate=6e-4, save_interval=1000,
+                               log_interval=1), io=IOArgs(train_data_dir=data, out_dir=out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    leader = not dist.is_initialized() or dist.get_rank() == 0
+    return {"losses": p19_metrics(out) if leader else None, "wall_s": wall,
+            "launches": {k: v for k, v in build.launch_counts().items() if v},
+            "param_bytes": tree_bytes(dict(state.params)),
+            "opt_bytes": state_nbytes(state.opt_state),
+            "digest": p19_digest(torch, whole_params(state.params))}
+
+
+def p19_qlora(torch, data, out, mesh=(1, 1, 1), micro_batch: int = 2) -> dict:
+    """``finetune.setup`` QLoRA (bnb.nf4, bf16, LoRA r 8, alpha 16 on query and value) on
+    Llama-2-7B at full width cut to P19_FT_LAYERS layers, one step of a global micro-batch
+    of 2 at T = P19_FT_T (``micro_batch`` 1: two accumulated): the logged loss (rank 0),
+    the step's whole LoRA gradients (float32, on the host), this rank's launches and peak
+    memory."""
+    import torch.distributed as dist
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.parallel.sharding import tree_paths
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.training.step import tree_leaves
+    from fastmax_tpu_torch.utils.args import IOArgs, TrainArgs
+
+    dp, fsdp, tp = mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    train = TrainArgs(global_batch_size=2, micro_batch_size=micro_batch, max_iters=1,
+                      learning_rate=3e-4, save_interval=1000, log_interval=1,
+                      max_seq_length=P19_FT_T)
+    state = finetune.setup(method="lora", model_name=cut_model("Llama-2-7b-hf", P19_FT_LAYERS),
+                           data_path=data, quantize="bnb.nf4", attn_alg="quadratic",
+                           precision="bfloat16", lora_r=8, lora_alpha=16.0, lora_query=True,
+                           lora_value=True, dp=dp, fsdp=fsdp, tp=tp, train=train,
+                           io=IOArgs(out_dir=out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in build.launch_counts().items() if v}
+    leaves = tree_leaves(state.params)
+    paths = tree_paths(dict(state.params))
+    # the step's gradient: .grad holds the micro-batches' sum (this rank's share on a mesh)
+    accum = train.gradient_accumulation_iters()
+    grads = [None if x.grad is None else x.grad / accum for x in leaves]
+    plan = getattr(state.params, "plan", None)
+    if plan is not None:
+        grads = plan.sync_grads(leaves, grads)
+    out_g = {}
+    with torch.no_grad():
+        for path, x, g in zip(paths, leaves, grads):
+            if g is not None:
+                whole = g if plan is None else plan.leaf_split(path, x).gather(g)
+                out_g[".".join(path)] = whole.float().cpu()
+    leader = not dist.is_initialized() or dist.get_rank() == 0
+    return {"loss": p19_metrics(out)[0] if leader else None, "grads": out_g, "wall_s": wall,
+            "launches": counts, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kept_whole": list(plan.kept_whole) if plan is not None else []}
+
+
+def p19_sp(torch, mesh) -> dict:
+    """(d) on a rank of the (1, 1, 2) mesh: TinyLlama's width, P19_SP_LAYERS layers, f32,
+    T = P19_SP_T split over the two ranks: ``make_sp_loss_fn``'s loss and gradients (summed
+    over the ranks), one rank's dense loss and gradients (rank 0, the model's own forward),
+    one ``make_sp_train_step`` step, and ``make_sp_tp_fsdp_loss_fn``'s loss at (1, 1, 2) and
+    (1, 2, 1)."""
+    import numpy as np
+
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.parallel import collectives as col
+    from fastmax_tpu_torch.parallel import sequence_parallel as sp
+    from fastmax_tpu_torch.parallel.sharding import make_mesh, shard_params
+    from fastmax_tpu_torch.training.step import AdamW, tree_leaves
+    from fastmax_tpu_torch.utils.loss import cross_entropy
+
+    cfg = Config.from_name(P19_SP_MODEL)
+    cfg.n_layer, cfg.block_size = P19_SP_LAYERS, P19_SP_T
+    params = gpt.init_params(cfg, 19, torch.float32, "cuda")
+    batch = torch.as_tensor(np.random.default_rng(19).integers(0, cfg.vocab_size,
+                                                               (1, P19_SP_T + 1)), device="cuda")
+    leaves = tree_leaves(params)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in leaves:
+        x.requires_grad_(True)
+    loss = sp.make_sp_loss_fn(cfg, mesh, axis="model")(params, batch)
+    loss.backward()
+    grads = [col.all_reduce(x.grad, mesh.group("model")) for x in leaves]
+    torch.cuda.synchronize()
+    out["sp_s"] = time.perf_counter() - t0
+    out["sp_loss"] = float(loss.detach())
+    if mesh.leader:  # one rank's dense loss over the same stream
+        for x in leaves:
+            x.grad = None
+        stream = batch[:, :-1]
+        logits, _ = gpt.forward(params, cfg, stream)
+        dense = cross_entropy(logits[:, :-1], stream[:, 1:])
+        dense.backward()
+        out["dense_loss"] = float(dense)
+        out["grad_rel"] = max(float((g - x.grad).abs().max() / x.grad.abs().max())
+                              for g, x in zip(grads, leaves))
+    for x in leaves:
+        x.grad = None
+    opt = AdamW(lambda c: 1e-4, weight_decay=0.0)
+    state = opt.init(params)
+    step = sp.make_sp_train_step(cfg, mesh, opt, axis="model")
+    out["step_losses"] = [float(step(params, state, batch)[2]) for _ in range(2)]
+    del state, grads
+    for m in ((1, 1, 2), (1, 2, 1)):
+        m3 = make_mesh(*m)
+        base = gpt.init_params(cfg, 19, torch.float32, "cuda")
+        loss_fn, _ = sp.make_sp_tp_fsdp_loss_fn(cfg, m3, base)
+        local = shard_params(base, m3, cfg, train=True)
+        with torch.no_grad():
+            out[f"three_way_{m}"] = float(loss_fn(local, batch))
+        del base, local
+    return out
+
+
+def p19_rank(data: str, sft: str, out: str) -> dict:
+    """One of the two ranks on the card: the gloo probe, (a) pretraining at each mesh,
+    (b) QLoRA at dp 2 and fsdp 2 (the 4-bit backend set to "pallas" on rank 0 alone: the
+    trainer gives every rank rank 0's choice), (c) bench_mfu at fsdp 2, (d) sequence
+    parallelism."""
+    import torch
+    import torch.distributed as dist
+
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.parallel import collectives as col
+    from fastmax_tpu_torch.parallel.sharding import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    res = {"rank": rank}
+    # gloo's reduce-scatter on CUDA tensors, which the fsdp gathers' backward calls
+    x = torch.arange(4, dtype=torch.float32, device="cuda") * (rank + 1)
+    y = col.reduce_scatter(x, 0, dist.group.WORLD)
+    res["reduce_scatter"] = y.tolist()
+    res["pretrain"] = {m: p19_pretrain(torch, data, f"{out}/pt_{'x'.join(map(str, m))}", m)
+                       for m in P19_PT_MESHES}
+    if rank == 0:
+        quant.set_quant_backend("pallas")
+    res["qlora"] = {m: p19_qlora(torch, sft, f"{out}/ft_{'x'.join(map(str, m))}", m)
+                    for m in P19_FT_MESHES}
+    res["backend"] = quant.get_quant_backend()
+    quant.set_quant_backend("xla")
+    from fastmax_tpu_torch.training import bench_mfu
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["bench"] = bench_mfu.run(model_name=cut_model(P19_MFU_MODEL, P19_MFU_LAYERS),
+                                 **P19_MFU, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["sp"] = p19_sp(torch, make_mesh(1, 1, 2))
+    return res
+
+
+def p19_nccl_rank(data: str, out: str) -> dict:
+    """(e) One rank over NCCL: (a)'s pretraining on the (1, 1, 1) mesh of the group (every
+    collective wrapper called, each a group of one)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    run = p19_pretrain(torch, data, out)
+    return {**run, "backend": dist.get_backend()}
+
+
+def train_mesh_path(torch, results, card) -> dict:
+    """Phase 19 (see the constants above)."""
+    import tempfile
+
+    import numpy as np
+
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.ops import quant
+    from fastmax_tpu_torch.parallel import collectives as col
+
+    log("[19] multi-GPU training: two ranks on the one card over gloo (the collectives and "
+        "their backwards cross the host: no figure here is a multi-GPU one), held against one "
+        "rank")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, counts = {"card": card}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        data.mkdir()
+        repo_text_tokens(np)[0].tofile(data / "train.bin")
+        (data / "meta.json").write_text('{"dtype": "uint16"}')
+        sft = tmp / "sft.npz"
+        np.savez(sft, examples=np.array(p19_sft(np), dtype=object))
+
+        # the one-rank references, on the idle card
+        one = p19_pretrain(torch, data, tmp / "pt_one")
+        quant.set_quant_backend("pallas")
+        ft_a = p19_qlora(torch, sft, tmp / "ft_one")
+        ft_b = p19_qlora(torch, sft, tmp / "ft_accum", micro_batch=1)
+        quant.set_quant_backend("xla")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = col.spawn_local(p19_rank, 2, backend="gloo",
+                                args=(str(data), str(sft), str(tmp)), timeout=600)
+        ranks_s = time.perf_counter() - t0
+        nccl = col.spawn_local(p19_nccl_rank, 1, backend="nccl",
+                               args=(str(data), str(tmp / "pt_nccl")), timeout=300)[0]
+    r0 = ranks[0]
+    rs = [r["reduce_scatter"] for r in ranks]
+    log(f"  gloo's reduce-scatter on CUDA tensors: {rs} (want [[0, 3], [6, 9]]); the ring shift "
+        "under gloo is an all-gather and a pick (gloo's send of a CUDA tensor aborts)")
+    if rs != [[0.0, 3.0], [6.0, 9.0]]:
+        raise AssertionError(f"reduce_scatter over gloo on CUDA tensors gave {rs}")
+
+    # (a) pretraining
+    cfg = Config.from_name(P19_PT_MODEL)
+    want = {"fastmax_fwd": 2 * cfg.n_layer * P19_PT_STEPS, "fastmax_bwd": cfg.n_layer * P19_PT_STEPS}
+    log(f"  (a) one rank: {P19_PT_MODEL} {P19_PT_BATCH} x 512 f32, {P19_PT_STEPS} steps in "
+        f"{one['wall_s']:.2f} s, losses {one['losses']}; params {one['param_bytes'] / 1e6:.1f} MB,"
+        f" optimizer state {one['opt_bytes'] / 1e6:.1f} MB; launches {one['launches']}   [{card}]")
+    out["pretrain"] = {"one": {k: v for k, v in one.items() if k != "digest"}, "meshes": {}}
+    for label, run in [("one rank", one)] + [(f"{m} rank {r['rank']}", r["pretrain"][m])
+                                             for m in P19_PT_MESHES for r in ranks]:
+        got = {k: run["launches"].get(k) for k in want}
+        if got != want:
+            raise AssertionError(f"(a) {label}: K4/K5 launches {got} != {want} (2 and 1 a "
+                                 "layer and micro-batch)")
+    for m in P19_PT_MESHES:
+        runs = [r["pretrain"][m] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"], one["losses"]))
+        log(f"  (a) (dp, fsdp, tp) = {m}: {P19_PT_STEPS} steps in {runs[0]['wall_s']:.2f} s (two "
+            f"ranks on one card over gloo, not a multi-GPU figure); losses {runs[0]['losses']}, "
+            f"worst step vs one rank {rel:.2e} (gate {P19_PT_REL}); per rank params "
+            f"{[r['param_bytes'] / 1e6 for r in runs]} MB, optimizer state "
+            f"{[r['opt_bytes'] / 1e6 for r in runs]} MB; K4/K5 a rank {want}   [{card}]")
+        if not rel <= P19_PT_REL:
+            raise AssertionError(f"(a) {m}: losses {runs[0]['losses']} vs {one['losses']}")
+        if runs[0]["digest"] != runs[1]["digest"]:
+            raise AssertionError(f"(a) {m}: the ranks' whole parameters differ")
+        out["pretrain"]["meshes"][str(m)] = {
+            "losses": runs[0]["losses"], "worst_rel": rel, "wall_s": runs[0]["wall_s"],
+            "param_bytes": [r["param_bytes"] for r in runs],
+            "opt_bytes": [r["opt_bytes"] for r in runs]}
+        for r in runs:
+            add_counts(counts, r["launches"])
+    fs = [r["pretrain"][(1, 2, 1)] for r in ranks]
+    if not all(r["param_bytes"] * 2 <= one["param_bytes"] * 1.01 for r in fs):
+        raise AssertionError(f"(a) fsdp 2: a rank holds {[r['param_bytes'] for r in fs]} of "
+                             f"{one['param_bytes']} parameter bytes")
+
+    # (b) QLoRA
+    def gdiff(a, b):
+        return max(float((a["grads"][n] - b["grads"][n]).abs().max()) for n in b["grads"])
+
+    # the distance counted at least one float32 step of the loss: two runs that round
+    # alike are that close, and no closer difference can be written
+    d_loss = max(abs(ft_b["loss"] - ft_a["loss"]), float(np.spacing(np.float32(ft_a["loss"]))))
+    d_grad = gdiff(ft_b, ft_a)
+    ft_want = {"flash_train_fwd": 2 * P19_FT_LAYERS, "flash_train_bwd": P19_FT_LAYERS}
+    log(f"  (b) one rank: QLoRA Llama-2-7B (full width, {P19_FT_LAYERS} of 32 layers), bnb.nf4, "
+        f"bf16, T {P19_FT_T}, micro-batch 2: loss {ft_a['loss']:.6f} in {ft_a['wall_s']:.2f} s, "
+        f"peak {ft_a['peak_gb']:.2f} GB, launches {ft_a['launches']}; two accumulated "
+        f"micro-batches of 1: loss {ft_b['loss']:.6f}; the reorder distance: loss {d_loss:.3e}, "
+        f"LoRA gradients max|diff| {d_grad:.3e}   [{card}]")
+    out["qlora"] = {"one": {"loss": ft_a["loss"], "launches": ft_a["launches"],
+                            "peak_gb": ft_a["peak_gb"], "wall_s": ft_a["wall_s"]},
+                    "accum_loss": ft_b["loss"], "d_loss": d_loss, "d_grad": d_grad, "meshes": {}}
+    for m in P19_FT_MESHES:
+        runs = [r["qlora"][m] for r in ranks]
+        lo, gd = abs(runs[0]["loss"] - ft_a["loss"]), gdiff(runs[0], ft_a)
+        log(f"  (b) (dp, fsdp, tp) = {m}: loss {runs[0]['loss']:.6f} (|diff| {lo:.3e}, gate "
+            f"{2 * d_loss:.3e}), LoRA gradients max|diff| {gd:.3e} (gate {2 * d_grad:.3e}); one "
+            f"step in {runs[0]['wall_s']:.2f} s (two ranks on one card over gloo, not a "
+            f"multi-GPU figure); peak a rank {[round(r['peak_gb'], 2) for r in runs]} GB; "
+            f"launches a rank {[r['launches'] for r in runs]}   [{card}]")
+        if not (lo <= 2 * d_loss and gd <= 2 * d_grad):
+            raise AssertionError(f"(b) {m}: loss |diff| {lo} (gate {2 * d_loss}), gradients "
+                                 f"{gd} (gate {2 * d_grad})")
+        for r in runs:
+            got = {k: r["launches"].get(k) for k in ft_want}
+            if got != ft_want or r["launches"].get("nf4_matmul") != \
+                    ft_a["launches"].get("nf4_matmul"):
+                raise AssertionError(f"(b) {m} rank launches {r['launches']}: K6/K7 {ft_want}, "
+                                     f"K8 as one rank's {ft_a['launches'].get('nf4_matmul')}")
+            add_counts(counts, r["launches"])
+        out["qlora"]["meshes"][str(m)] = {"loss": runs[0]["loss"], "loss_diff": lo,
+                                          "grad_diff": gd, "wall_s": runs[0]["wall_s"],
+                                          "peak_gb": [r["peak_gb"] for r in runs],
+                                          "launches": [r["launches"] for r in runs]}
+    if ranks[1]["backend"] != "pallas":
+        raise AssertionError("(b) rank 1 did not take rank 0's 4-bit backend")
+
+    # (c) bench_mfu
+    b = r0["bench"]
+    log(f"  (c) bench_mfu {P19_MFU_MODEL} ({P19_MFU_LAYERS} of 22 layers) at fsdp 2 (data 1), "
+        f"micro-batch "
+        f"{P19_MFU['micro_batch']} x {P19_MFU['seq_len']}, remat {P19_MFU['remat']}: step "
+        f"{b['step_time_ms']} ms, {b['tokens_per_sec']} tokens/s, MFU {b['mfu']} of two cards' "
+        f"bf16 peak, loss {b['loss']}, peak a rank {[r['bench']['peak_hbm_gb'] for r in ranks]} GB"
+        f" (two ranks on one card over gloo, not a multi-GPU figure)   [{card}]")
+    if not (b["devices"] == 2 and math.isfinite(b["loss"])):
+        raise AssertionError(f"(c) {b}")
+    out["bench"] = {**b, "peak_hbm_gb_ranks": [r["bench"]["peak_hbm_gb"] for r in ranks]}
+
+    # (d) sequence parallelism
+    s = r0["sp"]
+    loss_rel = abs(s["sp_loss"] - s["dense_loss"]) / abs(s["dense_loss"])
+    three = {k: v for k, v in s.items() if k.startswith("three_way")}
+    three_rel = {k: abs(v - s["dense_loss"]) / abs(s["dense_loss"]) for k, v in three.items()}
+    log(f"  (d) ring attention, {P19_SP_MODEL} width, {P19_SP_LAYERS} layers, f32, T {P19_SP_T} "
+        f"over 2 ranks: sp loss {s['sp_loss']:.7f} vs one rank's dense {s['dense_loss']:.7f} "
+        f"(rel {loss_rel:.2e}, gate {P19_SP_LOSS_REL}); gradients max|diff|/max {s['grad_rel']:.2e}"
+        f" (gate {P19_SP_GRAD_REL}); loss and backward in {s['sp_s']:.2f} s; two sp train steps "
+        f"{s['step_losses']}; make_sp_tp_fsdp_loss_fn rel to dense {three_rel}   [{card}]")
+    if not (loss_rel <= P19_SP_LOSS_REL and s["grad_rel"] <= P19_SP_GRAD_REL
+            and max(three_rel.values()) <= P19_SP_LOSS_REL
+            and s["step_losses"][1] < s["step_losses"][0]):
+        raise AssertionError(f"(d) {s}")
+    out["sp"] = {**s, "loss_rel": loss_rel, "three_way_rel": three_rel}
+
+    # (e) one rank over NCCL
+    bit = nccl["losses"] == one["losses"] and nccl["digest"] == one["digest"]
+    log(f"  (e) one rank over {nccl['backend']}: (a) on the (1, 1, 1) mesh, losses and final "
+        f"parameters equal to the run with no mesh bit for bit: {bit}   [{card}]")
+    if nccl["backend"] != "nccl" or not bit:
+        raise AssertionError(f"(e) {nccl['losses']} vs {one['losses']}")
+    out["nccl"] = {"backend": nccl["backend"], "bit_for_bit": bit}
+    add_counts(counts, nccl["launches"])
+
+    out["ranks_s"] = ranks_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = counts
+    log(f"  phase 19 in {out['phase_s']:.1f} s (the ranks {ranks_s:.1f} s); launches over the "
+        f"ranks' and (e)'s runs {counts}")
+    results["train_mesh"] = out
+    return counts
+
+
+def train_mesh_alone() -> dict:
+    """Phase 19 by itself, outside the script's run: the kernels built, then
+    ``train_mesh_path``; the results to ``chiprun_out/train_mesh.json``. Run as ``python3
+    -c "import chip_smoke; chip_smoke.train_mesh_alone()"``."""
+    import torch
+
+    from fastmax_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    build.build_all()
+    results = {}
+    train_mesh_path(torch, results, card)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "train_mesh.json").write_text(json.dumps(results, indent=1, default=str))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -6934,12 +7393,15 @@ def main() -> int:
     t_start = time.perf_counter()
     results = {}
     card = card_line()
+    marks = []  # (phase, start): the top-level phases' seconds, logged at the end
+    marks.append(("1", time.perf_counter()))
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
+    marks.append(("2", time.perf_counter()))
     log(f"[2] built {sorted(logs)} in {build_s:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -6949,19 +7411,26 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    marks.append(("3", time.perf_counter()))
     log("[3] int4 rank-1 matmul kernel vs plain")
     int4_err, int4_rows = check_int4(torch, gen, results)
+    marks.append(("4", time.perf_counter()))
     log("[4] int8 decode attention kernel vs plain")
     attn_err, attn_mean, attn_rows = check_attention(torch, gen, results)
+    marks.append(("5", time.perf_counter()))
     log("[5] batch-1 path: Llama-2-7B int4, int8 KV cache, block_size 1024, generate")
     counts_b1 = main_path(torch, results, card)
+    marks.append(("6", time.perf_counter()))
     log("[6] flash prefill attention kernel vs plain")
     flash_err, flash_mean, flash_rows = check_flash(torch, gen, results)
+    marks.append(("7", time.perf_counter()))
     log(f"[7] serving path: Llama-2-7B int4 at 4096 context, {N_SLOTS}-slot batcher, HTTP")
     counts = serving_path(torch, results, card)
+    marks.append(("8", time.perf_counter()))
     log("[8] training: fastmax kernels vs plain, then pretrain.setup on easy-transformer-fastmax")
     fm_err, fm_rows = check_fastmax(torch, gen, results)
     counts_train = training_path(torch, results, card)
+    marks.append(("9", time.perf_counter()))
     log("[9] finetuning: trainable flash kernels K6/K7 vs plain, then finetune.setup on a QLoRA "
         "Llama-2-7B")
     ft_err, ft_rows = check_flash_train(torch, gen, results)
@@ -6969,13 +7438,16 @@ def main() -> int:
     log("  the linear arms at D = 128: (a) masked fastmax's reversible scan at the finetune "
         "shape vs float64, (b) QLoRA Llama-2-7B with fastmax, linearmax and performer")
     linear_finetune_path(torch, results, card, linear_op_check(torch, gen, results, card))
+    marks.append(("10", time.perf_counter()))
     log("[10] quantized serving: K8/K9 kernels vs plain, then an NF4 Llama-2-7B in every "
         "weights mode (engine and batcher)")
     q_err, q_rows = check_quant_kernels(torch, gen, results)
     counts_q = quant_serving_path(torch, results, card)
+    marks.append(("11", time.perf_counter()))
     log("[11] int4/NF4 kernel labs: K10-K13 vs plain at the 7B shapes, the probes' read rates, "
         "the routes onto K1/K8/K9, then the three lab mains")
     lab_err, lab_rows, counts_lab = lab_path(torch, results, card)
+    marks.append(("12", time.perf_counter()))
     log("[12] the training command lines of launch_scripts/ through the port's main(): "
         "pretraining, an HF checkpoint at Llama-2-7B's width converted, QLoRA and full "
         "finetuning from it")
@@ -6988,30 +7460,36 @@ def main() -> int:
             gptq_commands(torch, results, card, tmp, ckpt),
             speculative_commands(torch, results, card, tmp, ckpt),
             tp_serving_path(torch, results, card, tmp, ckpt)))
+    marks.append(("15", time.perf_counter()))
     counts_fam = families_path(torch, results, card)
+    marks.append(("16", time.perf_counter()))
     log("[16] the rest of training: bench_mfu on TinyLlama at full width under every remat "
         "policy, the auto probe, packed data with the native reader, the loggers, GPTQ at "
         "Llama-2-7B's width (its QLoRA step and generate ran inside phase 12's directory)")
     counts_p16 = rest_of_training_path(torch, results, card)
     add_counts(counts_p16, counts_gptq)
+    marks.append(("17", time.perf_counter()))
     log("[17] speculative decoding: K3 at T = k+1 and K1 at m = k+1 and 8 (k+1) vs plain, the "
         "prompt-lookup and draft-model decoders on the 7B, the batcher's verify at 8 slots "
         "(the command lines ran inside phase 12's directory)")
     counts_p17 = speculative_path(torch, results, card)
     add_counts(counts_p17, counts_spec_cmd)
+    marks.append(("19", time.perf_counter()))
+    counts_p19 = train_mesh_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
                            "command_path": counts_cmd, "inference_path": counts_inf,
                            "linear_serving_path": counts_lin, "families_path": counts_fam,
                            "rest_of_training_path": counts_p16, "speculative_path": counts_p17,
-                           "tp_serving_path": counts_p18}
-    # the main paths of phases 15, 16, 17 and 18, added to the earlier phases' counts below
+                           "tp_serving_path": counts_p18, "train_mesh_path": counts_p19}
+    # the main paths of phases 15 to 19, added to the earlier phases' counts below
     counts_later = {}
     add_counts(counts_later, counts_fam)
     add_counts(counts_later, counts_p16)
     add_counts(counts_later, counts_p17)
     add_counts(counts_later, counts_p18)
+    add_counts(counts_later, counts_p19)
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -7028,7 +7506,8 @@ def main() -> int:
     # packed pretraining, the GPTQ QLoRA step and generate) to K4, K5, K6, K7 and K8, and
     # phase 17's (the speculative decoders, the speculative batcher and command lines) to
     # K1 and K3, and phase 18's (both ranks of the tp 2 engine, batcher and NF4 modes on the
-    # card) to K1, K2, K3, K8 and K9.
+    # card) to K1, K2, K3, K8 and K9, and phase 19's (both ranks of the sharded pretraining
+    # and QLoRA runs, and the NCCL rank's pretraining) to K4, K5, K6, K7 and K8.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]
@@ -7185,6 +7664,11 @@ def main() -> int:
         kern["by_path"] = paths
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
+    ends = [t for _, t in marks[1:]] + [time.perf_counter()]
+    results["phase_s"] = {name: round(end - t, 1) for (name, t), end in zip(marks, ends)}
+    log(f"seconds by top-level phase (12 holds 13, 14, 15 (f), 16 (d), 17 (e) and 18; 9 the "
+        f"linear arms; 2 the build): "
+        f"{results['phase_s']}")
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))

@@ -182,7 +182,18 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg: Config, layer=None, *, plain: bool 
     if shard is not None:
         part = "experts" if cfg.mlp_class_name == "LLaMAMoE" else "mlp"
         experts = shard.experts if part == "experts" else None
-        return shard.reduce(_apply_mlp(p, x, cfg, layer, plain, experts), part)
+        x = shard.enter(x, part)
+        bias = None
+        if shard.train and shard.splits(part):
+            if part == "experts":
+                # the router is whole on every rank, but its gradient comes only
+                # through the rank's experts: summed over model
+                p = {**p, "gate": {k: shard.enter(v, part) for k, v in p["gate"].items()}}
+            elif "bias" in p["proj"]:
+                bias = p["proj"]["bias"] if layer is None else p["proj"]["bias"][layer]
+                p = {**p, "proj": {k: v for k, v in p["proj"].items() if k != "bias"}}
+        y = shard.reduce(_apply_mlp(p, x, cfg, layer, plain, experts), part)
+        return y if bias is None else y + bias.to(y.dtype)
     return _apply_mlp(p, x, cfg, layer, plain)
 
 
@@ -380,8 +391,15 @@ def _finish_attn(p, y, x, q, cfg, b, t, hs, layer, plain, shard=None):
         ap = p["adapter"] if layer is None else _slice_tree(p["adapter"], layer)
         y = y + apply_adapter_attention(ap, p["attn"], q, cfg, hs ** -0.5, layer, plain=plain)
     y = y.permute(0, 2, 1, 3).reshape(b, t, -1).to(x.dtype)
-    out = linear(p["proj"], y, layer, plain=plain)
-    return out if shard is None else shard.reduce(out, "attn")
+    proj, bias = p["proj"], None
+    if shard is not None and shard.train and shard.attn and "bias" in proj:
+        # a rowwise bias, whole on every rank in training: added once, after the sum
+        bias = proj["bias"] if layer is None else proj["bias"][layer]
+        proj = {k: v for k, v in proj.items() if k != "bias"}
+    out = linear(proj, y, layer, plain=plain)
+    if shard is not None:
+        out = shard.reduce(out, "attn")
+    return out if bias is None else out + bias.to(out.dtype)
 
 
 def apply_block(bp, x, cfg, layer, attn_fn, *, plain: bool = False, shard=None):
@@ -406,7 +424,8 @@ def apply_attn_nocache(p: dict, x: torch.Tensor, cfg: Config, cos, sin, *,
     """Fused-QKV attention over the whole sequence (training and evaluation),
     dispatched on ``cfg.attn_alg``; ``p`` holds one layer's weights."""
     b, t, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, cos, sin, None, plain)
+    q, k, v = _project_qkv(p, x if shard is None else shard.enter(x, "attn"), cfg, cos, sin,
+                           None, plain)
     y = attention(q, k, v, attn_alg=cfg.attn_alg, head_size=cfg.head_size, plain=plain)
     return _finish_attn(p, y, x, q, cfg, b, t, cfg.head_size, None, plain, shard)
 
@@ -486,14 +505,15 @@ def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
     nothing: the layers are a Python loop here, not a scan. The RoPE cache
     defaults to ``cfg.block_size`` rows, as the reference's. ``shard`` (a
     ``parallel.sharding.ShardPlan``): ``params`` is a rank's local tree; each
-    layer's leaves are gathered over fsdp before it runs (no remat then)."""
+    layer's leaves are gathered over fsdp inside its remat body, so that a
+    recompute gathers them again (every rank recomputes in the same order)."""
     t = idx.shape[1]
     if rope_cache is None:
         rope_cache = build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base,
                                       cfg.rope_condense_ratio, device=idx.device)
     cos, sin = rope_cache[0][:t], rope_cache[1][:t]
     if shard is not None:
-        params = shard.top(params)
+        params = shard.top(params, ("wte", "ln_f"))
     x = embedding(params["wte"], idx)
     if cfg.scale_embeddings:
         x = x * (cfg.n_embd ** 0.5)
@@ -501,28 +521,32 @@ def forward_hidden(params: dict, cfg: Config, idx: torch.Tensor, *, remat=False,
     def attn_fn(ap, n1):
         return apply_attn_nocache(ap, n1, cfg, cos, sin, plain=plain, shard=shard)
 
-    def body(bp):
-        return lambda h: apply_block(bp, h, cfg, None, attn_fn, plain=plain, shard=shard)
+    def body(get):
+        return lambda h: apply_block(get(), h, cfg, None, attn_fn, plain=plain, shard=shard)
 
-    if shard is not None and shard.fsdp_dims is not None:
-        for layer in range(cfg.n_layer):
-            bp, wl = shard.layer(params["blocks"], layer)
-            x = body(_slice_tree(bp, wl))(x)
-        return apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps,
-                          cfg.add_unit_offset)
-    steps = [_remat_wrap(body(bp), policy) for bp, policy in
-             zip(_unstack(params["blocks"], cfg.n_layer), _layer_policies(remat, cfg.n_layer))]
+    layers = [lambda bp=bp: bp for bp in _unstack(params["blocks"], cfg.n_layer)] \
+        if shard is None else shard.layers(params["blocks"], cfg.n_layer)
+    steps = [_remat_wrap(body(get), policy) for get, policy in
+             zip(layers, _layer_policies(remat, cfg.n_layer))]
     for step in steps:
         x = step(x)
     return apply_norm(x, params["ln_f"], cfg.norm_class_name, cfg.norm_eps, cfg.add_unit_offset)
 
 
+def lm_head_fn(params: dict, shard=None):
+    """The lm_head as a function of hidden states, giving the whole
+    vocabulary's logits: on a mesh the head is gathered over fsdp, and a
+    vocab-split head's logits are gathered over ``model``."""
+    if shard is None:
+        return lambda h: linear(params["lm_head"], h)
+    head = shard.top(params, ("lm_head",))["lm_head"]
+    return lambda h: shard.logits(linear(head, shard.enter(h, "lm_head")))
+
+
 def _forward_nocache(params, cfg, idx, rope_cache, remat, unroll, plain, shard=None):
     h = forward_hidden(params, cfg, idx, remat=remat, unroll=unroll, rope_cache=rope_cache,
                        plain=plain, shard=shard)
-    if shard is None:
-        return linear(params["lm_head"], h)
-    return shard.logits(linear(shard.top(params)["lm_head"], h))
+    return lm_head_fn(params, shard)(h)
 
 
 def forward(

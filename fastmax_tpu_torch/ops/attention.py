@@ -31,6 +31,7 @@ first use and keeps the winner (``_PROBE_CACHE``, ``_build/kernel_probe.json``).
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -294,13 +295,21 @@ def _probe_train_kernel(b: int, h: int, t: int, d: int, device) -> str:
     return winner
 
 
+# Set by a trainer on a mesh: agree(key, probe) runs ``probe`` on global rank 0 only
+# and gives every rank its winner, once a key (ranks sharing a card time differently).
+AGREE_TRAIN_KERNEL: list = [None]
+
+
 def _train_kernel(t: int, head_size: int, b: int, h: int, device) -> str:
     """``TRAIN_ATTN``, or with "auto" the probe's winner where the fused entry
     could run (a head size divisible by 64, T >= FLASH_MIN_T), else blockwise."""
     if TRAIN_ATTN == "auto":
         if head_size % 64 or t < FLASH_MIN_T:
             return "blockwise"
-        return _probe_train_kernel(b, h, t, head_size, device)
+        probe = functools.partial(_probe_train_kernel, b, h, t, head_size, device)
+        if AGREE_TRAIN_KERNEL[0] is not None:
+            return AGREE_TRAIN_KERNEL[0]((b, h, t, head_size), probe)
+        return probe()
     return TRAIN_ATTN
 
 

@@ -1,6 +1,7 @@
-"""Multi-GPU serving (counterpart of ``fastmax_tpu/parallel/``): the (data,
-fsdp, model) mesh on ``torch.distributed`` (``sharding.py``), every
-collective of the sharded forward and of the serving plan
-(``collectives.py``). The training modes of the reference's
-``parallel/`` (ring attention, sequence parallelism, the pipeline, the
-scaling bench) are ROADMAP queue A, A8 slice 2."""
+"""Multi-GPU serving and training (counterpart of ``fastmax_tpu/parallel/``):
+the (data, fsdp, model) mesh on ``torch.distributed`` and the per-leaf cut,
+with the training plan's differentiable mode (``sharding.py``), every
+collective and its backward (``collectives.py``), ring attention
+(``ring_attention.py``) and the sequence-parallel loss and step
+(``sequence_parallel.py``). The reference's pipeline schedule, scaling bench
+and multi-chip dry run are ROADMAP queue A, A8 slice 3."""

@@ -16,6 +16,32 @@ inserted is written out here and called by name:
   and the sampled tokens, from the rank that decides them, so that the ranks
   never take different host decisions.
 
+These are outside autograd: the serving path never runs a backward. Training
+(``models/gpt.py`` under a ``ShardPlan`` in its differentiable mode, the
+sequence-parallel loss) calls their differentiable pairs, each an
+``autograd.Function`` whose backward is the transpose of its forward, as
+XLA's transposes of the reference's collectives are:
+
+* ``reduce_g``: all-reduce forward, identity backward (Megatron's *g*), after
+  a rowwise linear;
+* ``copy_f``: identity forward, all-reduce backward (Megatron's *f*), at the
+  entry of a colwise sub-block, so that the replicated residual stream's
+  gradient is the whole sum on every model rank;
+* ``gather_slice``: all-gather forward, this rank's slice backward (the
+  vocab-split logits, whose loss every model rank computes alike);
+* ``gather_scatter``: all-gather forward, reduce-scatter backward (a leaf
+  gathered over fsdp: its gradient is summed over the fsdp ranks' batches);
+* ``bcast_owner``: the owner's broadcast forward, a sum to the owner
+  backward (a layer of a leaf whose layer axis is split over fsdp);
+* ``ring_shift``: rank i's tensor to rank i + 1 forward, the reverse
+  backward (ring attention's K/V rotation).
+
+``shift`` sends and receives point to point under NCCL; under gloo, whose
+point-to-point send of a CUDA tensor aborts the process (its TCP pair writes
+from the device pointer: ``writev ... Bad address`` on the H100 host), it is
+built from what gloo does take on CUDA tensors: an all-gather, of which each
+rank keeps its neighbour's part. The function is the same.
+
 Launch: ``init_from_env`` reads torchrun's ``RANK``/``WORLD_SIZE``/
 ``LOCAL_RANK``; ``spawn_local`` starts N ranks of a function on 127.0.0.1
 (the CPU tests with gloo, and two ranks sharing one card in ``chip_smoke.py``).
@@ -37,6 +63,9 @@ import torch.distributed as dist
 # The serving followers wait in a broadcast while the leader is idle: give such
 # groups a day before gloo or NCCL calls the wait a hang.
 SERVING_TIMEOUT = datetime.timedelta(days=1)
+# A training group never waits on a user: a rank that died takes the others down
+# within this, not a day later.
+TRAINING_TIMEOUT = datetime.timedelta(minutes=30)
 
 
 def _size(group) -> int:
@@ -74,6 +103,159 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     return x
 
 
+def _rank_in(group) -> int:
+    return 0 if group is None else dist.get_group_rank(group, dist.get_rank())
+
+
+# the single-tensor reduce-scatter (renamed in later releases of torch)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, cut along ``dim`` into equal blocks
+    in rank order: this rank's block."""
+    n = _size(group)
+    if n == 1:
+        return x
+    whole = x.movedim(dim, 0).contiguous()
+    out = whole.new_empty((whole.shape[0] // n,) + tuple(whole.shape[1:]))
+    _REDUCE_SCATTER(out, whole, group=group)
+    return out.movedim(0, dim)
+
+
+def shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """The ring shift: rank i of ``group`` receives rank (i - step) mod n's
+    ``x`` (so it sends its own to i + step)."""
+    n = _size(group)
+    if n == 1 or step % n == 0:
+        return x
+    i = _rank_in(group)
+    if dist.get_backend(group) == "nccl":
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        peer = dist.get_global_rank
+        ops = [dist.P2POp(dist.isend, x, peer(group, (i + step) % n), group),
+               dist.P2POp(dist.irecv, out, peer(group, (i - step) % n), group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return parts[(i - step) % n]
+
+
+# ------------------------------------------------- the differentiable collectives
+
+
+class _ReduceG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), ctx.group), None
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = _size(ctx.group)
+        return g.chunk(n, ctx.dim)[_rank_in(ctx.group)].contiguous(), None, None
+
+
+class _GatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _BcastOwner(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, stacked, index, owner, group):
+        ctx.index, ctx.owner, ctx.group = index, owner, group
+        ctx.shape = stacked.shape
+        mine = dist.get_rank() == owner
+        buf = stacked[index].clone() if mine else \
+            torch.empty(stacked.shape[1:], dtype=stacked.dtype, device=stacked.device)
+        return broadcast(buf, owner, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.clone(), ctx.group)
+        out = g.new_zeros(ctx.shape)
+        if dist.get_rank() == ctx.owner:
+            out[ctx.index] = g
+        return out, None, None, None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g, ctx.group, -1), None
+
+
+def reduce_g(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` (forward); the gradient passes through as it is."""
+    return x if _size(group) == 1 else _ReduceG.apply(x, group)
+
+
+def copy_f(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself (forward); its gradient is summed over ``group``."""
+    return x if _size(group) == 1 else _CopyF.apply(x, group)
+
+
+def gather_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` (forward); this rank's slice of the gradient."""
+    return x if _size(group) == 1 else _GatherSlice.apply(x, dim, group)
+
+
+def gather_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along ``dim`` (forward); the gradient reduce-scattered."""
+    return x if _size(group) == 1 else _GatherScatter.apply(x, dim, group)
+
+
+def bcast_owner(stacked: torch.Tensor, index: int, owner: int, group) -> torch.Tensor:
+    """``stacked[index]`` of global rank ``owner`` on every rank of ``group``
+    (forward); the gradient summed over ``group`` into the owner's entry."""
+    if _size(group) == 1:
+        return stacked[index]
+    return _BcastOwner.apply(stacked, index, owner, group)
+
+
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """``shift(x, group, 1)`` (forward); the gradient shifted back."""
+    return x if _size(group) == 1 else _RingShift.apply(x, group)
+
+
 def all_true(flag: bool, group, device) -> bool:
     """Whether ``flag`` holds on every rank of ``group``."""
     t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
@@ -95,6 +277,16 @@ def broadcast_ints(values: Optional[np.ndarray], src: int, group, device) -> np.
            else torch.empty(int(n.item()), dtype=torch.int64, device=device))
     broadcast(buf, src, group)
     return buf.cpu().numpy()
+
+
+def agree(choice: str, options: Sequence[str], device) -> str:
+    """Global rank 0's ``choice`` (one of ``options``) on every rank: a host
+    decision (a timed probe, an autotune) made once, so that no two ranks run
+    different kernels."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return choice
+    mine = np.array([list(options).index(choice)]) if dist.get_rank() == 0 else None
+    return options[int(broadcast_ints(mine, 0, dist.group.WORLD, device)[0])]
 
 
 def init_from_env(backend: Optional[str] = None, timeout=None) -> bool:
@@ -142,15 +334,15 @@ def torchrun_line(module: str, n: int) -> str:
     return f"torchrun --nproc_per_node {n} -m {module}"
 
 
-def require_ranks(n: int, module: str) -> None:
+def require_ranks(n: int, module: str, timeout=SERVING_TIMEOUT, what: str = "tp * fsdp") -> None:
     """Raise unless a process group of a multiple of ``n`` ranks is up: a
-    sharded entry point never quietly serves on one rank."""
-    if n > 1 and not init_from_env(timeout=SERVING_TIMEOUT):
+    sharded entry point never quietly serves or trains on one rank."""
+    if n > 1 and not init_from_env(timeout=timeout):
         raise RuntimeError(
-            f"tp * fsdp = {n} needs {n} ranks: start it as `{torchrun_line(module, n)} ...` "
+            f"{what} = {n} needs {n} ranks: start it as `{torchrun_line(module, n)} ...` "
             "(one process per rank)")
     if n > 1 and dist.get_world_size() % n:
-        raise RuntimeError(f"tp * fsdp = {n} does not divide the world size "
+        raise RuntimeError(f"{what} = {n} does not divide the world size "
                            f"{dist.get_world_size()}")
 
 

@@ -40,12 +40,25 @@ function computed is the same; the order of the rowwise sums is not.
 Weights modes resolve on the whole tree before the split
 (``InferenceEngine.prepare_sharded``): requantizing a shard is not the shard
 of a requantized matrix.
+
+Training (``shard_params(..., train=True)``) gives the plan its
+differentiable mode: every collective of the forward is one of
+``collectives``' autograd pairs, a colwise sub-block's entry sums its input's
+gradient over ``model`` (Megatron's *f*), a rowwise bias is kept whole on
+every model rank and added after the sum, and each layer's leaves are gathered
+inside the layer's remat body, so a recompute gathers them again. The plan
+then also knows what the optimizer and the fit loop need: each rank's rows of
+a global micro-batch (``batch_rows``, the split of ``batch_spec``), the
+gradient sums over data x fsdp (``sync_grads``), the masked mean over the
+global batch (``global_mean``), and each leaf's split (``LeafSplit``): which
+axes its gradient norm and its statistics are summed over, and how it is
+gathered whole (saves) and cut again (a resume at another mesh).
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -101,9 +114,18 @@ class Mesh:
                 if mm == m:
                     self.batch_group = g
         self.world = dist.group.WORLD
+        self.agreed: dict = {}  # agree_once's choices
 
     def group(self, axis: str):
         return self.groups[axis]
+
+    def agree_once(self, key, decide, options) -> str:
+        """The choice ``decide()`` makes on global rank 0, on every rank, once
+        a ``key`` (every rank asks for the same keys in the same order)."""
+        if key not in self.agreed:
+            self.agreed[key] = col.agree(decide() if self.rank == 0 else options[0], options,
+                                         self.comm_device)
+        return self.agreed[key]
 
     @property
     def leader(self) -> bool:
@@ -157,6 +179,30 @@ def mesh_from_env(tp: int = 1, fsdp: int = 1, module: str = "") -> Optional[Mesh
 
 
 _ENV_MESHES: dict = {}
+
+
+def train_mesh_from_env(dp: int = 1, fsdp: int = 1, tp: int = 1, module: str = "",
+                        micro_batch: Optional[int] = None) -> Optional[Mesh]:
+    """The (dp, fsdp, tp) mesh of a trainer: None at dp * fsdp * tp == 1 in a
+    process with no group; else the torchrun group joined with the training
+    timeout (started alone, it raises, naming the torchrun line), its world
+    size checked against dp * fsdp * tp, the rank's card made current under
+    NCCL. A group of one rank (a 1 x 1 x 1 mesh) goes through the collectives
+    as any other. ``micro_batch`` must divide over dp * fsdp, as the
+    reference requires."""
+    n = dp * fsdp * tp
+    if micro_batch is not None and micro_batch % (dp * fsdp):
+        raise ValueError(f"micro_batch_size {micro_batch} must divide over dp*fsdp = "
+                         f"{dp * fsdp} (the batch mesh axes)")
+    if n == 1 and not dist.is_initialized():
+        return None
+    col.require_ranks(n, module, timeout=col.TRAINING_TIMEOUT, what="dp * fsdp * tp")
+    if dist.get_world_size() != n:
+        raise ValueError(f"dp * fsdp * tp = {n} must equal the world size "
+                         f"{dist.get_world_size()}")
+    if dist.get_backend() == "nccl":
+        torch.cuda.set_device(col.rank_device())
+    return make_mesh(dp, fsdp, tp)
 
 
 def granule_ids(ranks, granule_size: Optional[int] = None,
@@ -518,31 +564,72 @@ class ShardPlan:
     experts: Optional[tuple] = None  # (first, end) of this rank's experts
     fsdp_dims: Optional[dict] = None
     kept_whole: tuple = ()
+    train: bool = False          # the differentiable mode (shard_params(train=True))
+    model_dims: Optional[dict] = None  # the dim of each leaf split over model (None: whole)
+    paths: tuple = ()            # the path of each local leaf, in tree_leaves order
 
     @property
     def tp(self) -> int:
         return self.mesh.shape[MODEL_AXIS]
 
     def _fsdp(self, path):
-        d = self.fsdp_dims
-        for k in path:
-            if not isinstance(d, dict) or k not in d:
-                return None
-            d = d[k]
-        return d
+        return _lookup(self.fsdp_dims, path)
 
-    def top(self, params: dict) -> dict:
-        """``params`` with its top-level leaves (wte, lm_head, ln_f) gathered
-        over fsdp; the blocks stay local (``layer`` gathers them)."""
+    def top(self, params: dict, keys=("wte", "lm_head", "ln_f")) -> dict:
+        """``params`` with its top-level leaves ``keys`` gathered over fsdp;
+        the blocks stay local (``layer`` gathers them)."""
         if self.fsdp_dims is None:
             return params
         g = self.mesh.group(FSDP_AXIS)
+        gather = col.gather_scatter if self.train else col.all_gather
         out = dict(params)
-        for key in ("wte", "lm_head", "ln_f"):
+        for key in keys:
             if key in params:
                 out[key] = _walk(params[key], lambda path, x, key=key: x if self._fsdp(
-                    (key,) + path) is None else col.all_gather(x, self._fsdp((key,) + path), g))
+                    (key,) + path) is None else gather(x, self._fsdp((key,) + path), g))
         return out
+
+    def layers(self, blocks: dict, n_layer: int) -> list:
+        """One function a layer that returns that layer's leaves (whole over
+        fsdp, the rank's share over model). Training: the stacked local leaves
+        are unbound here, once, and each function gathers its layer
+        differentiably, so that called inside a remat body the gather runs
+        again in the recompute. Serving: ``layer``'s gather."""
+        if not self.train:
+            return [lambda layer=layer: _slice_tree(*self.layer(blocks, layer))
+                    for layer in range(n_layer)]
+        g = self.mesh.group(FSDP_AXIS)
+        fs = self.mesh.fsdp_ranks
+
+        def views(path, x):
+            return x if self._fsdp(("blocks",) + path) == 0 else x.unbind(0)
+
+        per_leaf = _walk(blocks, views)
+
+        def get(layer):
+            def one(path, x):
+                d = self._fsdp(("blocks",) + path)
+                if d == 0:  # the layer axis itself is split: its owner sends it
+                    per = x.shape[0]
+                    owner = layer // per
+                    return col.bcast_owner(x, layer - owner * per, fs[owner], g)
+                return x[layer] if d is None else col.gather_scatter(x[layer], d - 1, g)
+            return _walk(per_leaf, one)
+
+        return [lambda layer=layer: get(layer) for layer in range(n_layer)]
+
+    def splits(self, part: str) -> bool:
+        """Whether sub-block ``part`` ("attn", "mlp", "experts", "lm_head")
+        is split over ``model``."""
+        return self.experts is not None if part == "experts" else getattr(self, part)
+
+    def enter(self, x: torch.Tensor, part: str) -> torch.Tensor:
+        """The input of sub-block ``part``: in training, where the sub-block is
+        split over ``model``, its gradient is summed over ``model`` (each rank's
+        share of the sub-block gives a part of it)."""
+        if self.train and self.splits(part):
+            return col.copy_f(x, self.mesh.group(MODEL_AXIS))
+        return x
 
     def layer(self, blocks: dict, layer: int):
         """(block leaves, index) for layer ``layer``: the stacked local leaves
@@ -570,17 +657,160 @@ class ShardPlan:
     def reduce(self, y: torch.Tensor, part: str) -> torch.Tensor:
         """The sum over ``model`` of the partial outputs of a split sub-block:
         ``part`` "attn", "mlp" or "experts"."""
-        split = self.experts is not None if part == "experts" else getattr(self, part)
-        return col.all_reduce(y, self.mesh.group(MODEL_AXIS)) if split else y
+        if not self.splits(part):
+            return y
+        g = self.mesh.group(MODEL_AXIS)
+        return col.reduce_g(y, g) if self.train else col.all_reduce(y, g)
 
     def logits(self, y: torch.Tensor) -> torch.Tensor:
         """The vocab-split logits gathered over ``model``."""
         if self.lm_head:
-            return col.all_gather(y, -1, self.mesh.group(MODEL_AXIS))
+            g = self.mesh.group(MODEL_AXIS)
+            return col.gather_slice(y, -1, g) if self.train else col.all_gather(y, -1, g)
         return y
+
+    # ------------------------------------------------ training: batch, loss, gradients
+
+    def batch_rows(self, batch):
+        """This rank's rows of a global micro-batch (a tensor or a tuple of
+        them), split over data x fsdp in the order of ``batch_spec``."""
+        if isinstance(batch, tuple):
+            return tuple(self.batch_rows(b) for b in batch)
+        n = self.mesh.shape[DATA_AXIS] * self.mesh.shape[FSDP_AXIS]
+        if batch.shape[0] % n:
+            raise ValueError(f"micro-batch of {batch.shape[0]} rows must divide over "
+                             f"dp*fsdp = {n} (the batch mesh axes)")
+        i = self.mesh.coords[DATA_AXIS] * self.mesh.shape[FSDP_AXIS] + self.mesh.coords[FSDP_AXIS]
+        step = batch.shape[0] // n
+        return batch[i * step:(i + 1) * step]
+
+    def global_mean(self, total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        """The masked mean over the global batch from this rank's sum and
+        count: its value is the whole batch's on every rank, its gradient the
+        rank's own term's (the sum over the count of every rank's tokens), and
+        the terms' gradients add up to the mean's (``sync_grads``)."""
+        n = col.all_reduce(count.detach().clone(), self.mesh.batch_group)
+        return col.reduce_g(total / torch.clamp(n, min=1.0), self.mesh.batch_group)
+
+    def sync_grads(self, leaves: list, grads: list) -> list:
+        """Each gradient summed over the ranks whose batches differ: over data
+        for a leaf split over fsdp (its gather's reduce-scatter summed fsdp),
+        over data x fsdp for the others. Over ``model`` nothing: the *f*/*g*
+        pairs make each model rank's gradient whole for its share."""
+        out = []
+        for g, sp in zip(grads, self.leaf_splits(leaves)):
+            if g is None:
+                out.append(None)
+                continue
+            group = self.mesh.group(DATA_AXIS) if FSDP_AXIS in sp.dims.values() \
+                else self.mesh.batch_group
+            out.append(col.all_reduce(g, group))
+        return out
+
+    # ------------------------------------------------------------- each leaf's split
+
+    def leaf_split(self, path: tuple, x) -> "LeafSplit":
+        dims = {}
+        md = _lookup(self.model_dims, path)
+        if isinstance(md, int):
+            dims[md] = MODEL_AXIS
+        fd = self._fsdp(path)
+        if isinstance(fd, int):
+            dims[fd] = FSDP_AXIS
+        whole = list(x.shape)
+        for d, axis in dims.items():
+            whole[d] *= self.mesh.shape[axis]
+        halves = MODEL_AXIS in dims.values() and len(path) > 1 and path[-2] == "fc_12"
+        return LeafSplit(self.mesh, tuple(whole), dims, halves)
+
+    def leaf_splits(self, leaves: list) -> list:
+        """The ``LeafSplit`` of each leaf of the plan's tree, in ``tree_leaves``
+        order."""
+        return [self.leaf_split(p, x) for p, x in zip(self.paths, leaves)]
+
+    def gather_tree(self, tree: dict) -> dict:
+        """A local tree made whole (every rank gets it): for saves."""
+        return _walk(tree, lambda path, x: self.leaf_split(path, x).gather(x))
 
     def local_groups(self, cfg: Config) -> int:
         return cfg.n_query_groups // self.tp if self.attn else cfg.n_query_groups
+
+
+def _lookup(tree, path):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _slice_tree(tree: dict, layer: int) -> dict:
+    return {k: _slice_tree(v, layer) if isinstance(v, dict) else v[layer]
+            for k, v in tree.items()}
+
+
+def tree_paths(tree: dict, prefix: tuple = ()) -> list:
+    """The path of every leaf, in ``tree_leaves`` order."""
+    out = []
+    for k, v in tree.items():
+        out.extend(tree_paths(v, prefix + (k,)) if isinstance(v, dict) else [prefix + (k,)])
+    return out
+
+
+@dataclass
+class LeafSplit:
+    """How one training leaf is split on the mesh: ``whole`` is the whole
+    leaf's shape, ``dims`` maps each split dim to its axis ("model",
+    "fsdp"); ``halves``: a fused fc_12, whose model split takes a block of
+    each half. The optimizers read it: the axes a leaf's sums run over
+    (the gradient norm, Adafactor's statistics), its whole shape and flat
+    order (Adafactor's factoring, AdamW8bit's blocks)."""
+
+    mesh: Mesh
+    whole: tuple
+    dims: dict = field(default_factory=dict)
+    halves: bool = False
+
+    @property
+    def axes(self) -> frozenset:
+        return frozenset(self.dims.values())
+
+    def sum_over(self, t: torch.Tensor, reduced: tuple) -> torch.Tensor:
+        """``t``, a sum over the whole-leaf dims ``reduced`` of this rank's
+        shard, summed over the ranks that split those dims."""
+        for d, axis in self.dims.items():
+            if d in reduced:
+                t = col.all_reduce(t, self.mesh.group(axis))
+        return t
+
+    def sum_all(self, t: torch.Tensor) -> torch.Tensor:
+        return self.sum_over(t, tuple(self.dims))
+
+    def gather(self, x: torch.Tensor, dims: Optional[dict] = None) -> torch.Tensor:
+        """The whole leaf from every rank's shard (every rank gets it). ``dims``
+        (default: the leaf's): the split dims of a tensor laid out otherwise
+        (Adafactor's row and column statistics)."""
+        dims = self.dims if dims is None else dims
+        for axis in (FSDP_AXIS, MODEL_AXIS):  # the reverse of the cut's order
+            for d, a in dims.items():
+                if a == axis:
+                    n = self.mesh.shape[axis]
+                    x = col.all_gather(x, d, self.mesh.group(axis))
+                    if axis == MODEL_AXIS and self.halves:
+                        blocks = x.chunk(2 * n, d)  # rank r's two blocks: 2r, 2r + 1
+                        x = torch.cat(blocks[0::2] + blocks[1::2], d)
+        return x
+
+    def cut(self, x: torch.Tensor, dims: Optional[dict] = None) -> torch.Tensor:
+        """This rank's shard of the whole leaf ``x`` (the inverse of ``gather``)."""
+        dims = self.dims if dims is None else dims
+        for axis in (MODEL_AXIS, FSDP_AXIS):
+            for d, a in dims.items():
+                if a == axis:
+                    n, i = self.mesh.shape[axis], self.mesh.coords[axis]
+                    ranges = _ranges(x.shape[d], n, i, self.halves and axis == MODEL_AXIS)
+                    x = _narrow(x, d, ranges)
+        return x.contiguous()
 
 
 class ShardedParams(dict):
@@ -589,10 +819,11 @@ class ShardedParams(dict):
     plan: ShardPlan
 
 
-def split_plan(cfg: Config, params: dict, tp: int) -> dict:
+def split_plan(cfg: Config, params: dict, tp: int, train: bool = False) -> dict:
     """Which sub-blocks can be split ``tp`` ways over ``model``: {"attn",
     "mlp", "lm_head", "experts": bool, "kept_whole": [names]} from the tree's
-    shapes and formats (leaves may be lazy)."""
+    shapes and formats (leaves may be lazy). A linear arm's attention is split
+    by its heads in training (``train``), where no running state is kept."""
     blocks = params["blocks"]
     kept = []
     if tp <= 1:
@@ -601,7 +832,7 @@ def split_plan(cfg: Config, params: dict, tp: int) -> dict:
     attn = blocks["attn"]
     from ..models.gpt import LINEAR_ALGS
 
-    attn_ok = (cfg.n_query_groups % tp == 0 and cfg.attn_alg not in LINEAR_ALGS
+    attn_ok = (cfg.n_query_groups % tp == 0 and (train or cfg.attn_alg not in LINEAR_ALGS)
                and "adapter" not in attn and _can_split(attn["attn"], "col", tp)
                and _can_split(attn["proj"], "row", tp))
     if not attn_ok:
@@ -637,11 +868,13 @@ def _role(lin_path: tuple, split: dict) -> Optional[str]:
     return None
 
 
-def split_tree(cfg: Config, params: dict, mesh, split: dict) -> dict:
+def split_tree(cfg: Config, params: dict, mesh, split: dict, train: bool = False) -> dict:
     """The rank's model-axis cut of ``params`` by ``split`` (see
-    ``split_plan``); leaves are tensors or lazy leaves with ``narrow``."""
+    ``split_plan``); leaves are tensors or lazy leaves with ``narrow``.
+    ``train``: a rowwise bias stays whole on every rank (the forward adds it
+    after the sum) instead of on the first."""
     tp, m = mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]
-    first = m == 0
+    first = m == 0 or train
 
     def walk(node, path):
         if _is_linear(node) and "experts" not in path:
@@ -738,17 +971,23 @@ def _fsdp_cut(tree: dict, dims: Optional[dict], mesh) -> dict:
 
 
 def shard_params(params: dict, mesh, cfg: Config, *, tp: Optional[bool] = None,
-                 materialize=None) -> ShardedParams:
+                 materialize=None, train: bool = False) -> ShardedParams:
     """This rank's local tree of a whole ``params`` (tensors, or lazy leaves
     from ``utils/sharded_load.py`` with ``materialize`` turning each local
     leaf into a tensor), with its ``ShardPlan`` as ``.plan``. ``tp=False``
     keeps every leaf whole over ``model`` (the reference's pure fsdp
-    layout)."""
+    layout). ``train``: the plan's differentiable mode (see the module doc);
+    the tiled int4 formats, serving's, are refused there."""
     n_tp = mesh.shape[MODEL_AXIS] if (tp is None or tp) else 1
-    split = split_plan(cfg, params, n_tp)
-    local = split_tree(cfg, params, mesh, split)
+    if train:
+        tiled = [p for p in tree_paths(params) if p[-1] in ("q4r1", "q4b")]
+        if tiled:
+            raise ValueError(f"the tiled int4 formats are serving's, not training's: {tiled[0]}")
+    split = split_plan(cfg, params, n_tp, train)
+    local = split_tree(cfg, params, mesh, split, train)
     fsdp = mesh.shape[FSDP_AXIS]
-    dims = fsdp_dims(local, fsdp, _model_dims(cfg, params, split))
+    mdims = _model_dims(cfg, params, split)
+    dims = fsdp_dims(local, fsdp, mdims)
     local = _fsdp_cut(local, dims, mesh)
     if materialize is not None:
         local = _walk(local, lambda _p, x: materialize(x))
@@ -758,7 +997,8 @@ def shard_params(params: dict, mesh, cfg: Config, *, tp: Optional[bool] = None,
     m = mesh.coords[MODEL_AXIS]
     plan = ShardPlan(mesh, attn=split["attn"], mlp=split["mlp"], lm_head=split["lm_head"],
                      experts=(m * e // n_tp, (m + 1) * e // n_tp) if e else None,
-                     fsdp_dims=dims, kept_whole=tuple(split["kept_whole"]) if n_tp > 1 else ())
+                     fsdp_dims=dims, kept_whole=tuple(split["kept_whole"]) if n_tp > 1 else (),
+                     train=train, model_dims=mdims, paths=tuple(tree_paths(local)))
     out = ShardedParams(local)
     out.plan = plan
     return out

@@ -13,9 +13,15 @@ peak over this run.
     python -m fastmax_tpu_torch.training.bench_mfu --model_name tiny-llama-1.1b \\
         --micro_batch 8 --seq_len 2048 --remat attn [--device cpu]
 
-Prints one JSON line with the reference's keys. ``fsdp``/``tp`` above 1 (the
-reference's mesh) raise: the training half of the multi-GPU item, ROADMAP
-queue A, A8 slice 2.
+Prints one JSON line with the reference's keys. On a group of ranks
+(``torchrun``; started alone at ``fsdp``/``tp`` above 1 it raises, naming
+the line) the step is the sharded one of the reference's mesh
+(bench_mfu.py:58-93): ``fsdp`` 0 means ``world // tp``, the rest of the world
+is the data axis, each rank trains its rows of the micro-batch on its shards
+(``shard_params(..., train=True)``), and MFU is taken against the bf16 peak of
+all the ranks' cards; ``peak_hbm_gb`` is the rank's own. Rank 0 prints.
+
+    torchrun --nproc_per_node 4 -m fastmax_tpu_torch.training.bench_mfu --fsdp 2 --tp 2 ...
 """
 
 from __future__ import annotations
@@ -26,10 +32,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..inference.engine import default_device
 from ..models import gpt
 from ..models.config import Config
+from ..parallel import collectives as col
+from ..parallel.sharding import shard_params, train_mesh_from_env
 from ..utils.flops import device_peak_flops, estimate_flops
 from ..utils.loss import chunked_cross_entropy
 from ..utils.profiling import device_memory_stats
@@ -37,12 +46,19 @@ from .quant_optim import AdamW8bit
 from .step import Adafactor, AdamW, Lion, tree_leaves
 
 
-def make_bench_loss_fn(cfg: Config, remat, lm_head_chunk: int = 128, unroll: int = 1):
-    """Chunked-CE loss (the finetune recipes' memory-bounded pattern)."""
+def make_bench_loss_fn(cfg: Config, remat, lm_head_chunk: int = 128, unroll: int = 1,
+                       shard=None):
+    """Chunked-CE loss (the finetune recipes' memory-bounded pattern); with
+    ``shard``, the global batch's mean (its gradient the rank's share)."""
     def loss_fn(params, batch):
         inputs, targets = batch[:, :-1], batch[:, 1:]
-        hidden = gpt.forward_hidden(params, cfg, inputs, remat=remat, unroll=unroll)
-        return chunked_cross_entropy(hidden, params["lm_head"], targets, lm_head_chunk)
+        hidden = gpt.forward_hidden(params, cfg, inputs, remat=remat, unroll=unroll,
+                                    shard=shard)
+        if shard is None:
+            return chunked_cross_entropy(hidden, params["lm_head"], targets, lm_head_chunk)
+        return shard.global_mean(*chunked_cross_entropy(
+            hidden, None, targets, lm_head_chunk, logits_fn=gpt.lm_head_fn(params, shard),
+            parts=True))
 
     return loss_fn
 
@@ -85,13 +101,17 @@ def run(
     device=None,
 ) -> dict:
     """Measure the train step's MFU on the card (``device="cpu"`` for the
-    CPU). ``fsdp`` 0 or 1 and ``tp`` 1: one device. ``accum`` > 1 sums the
+    CPU). Alone: one device (``fsdp`` 0 or 1, ``tp`` 1). On a group of ranks:
+    the (world // (fsdp * tp), fsdp, tp) mesh. ``accum`` > 1 sums the
     gradients of ``accum`` sub-batches before the update."""
-    if fsdp > 1 or tp > 1:
-        raise NotImplementedError("fsdp/tp > 1 (the sharded step) come with the multi-GPU "
-                                  "training (ROADMAP queue A, A8 slice 2)")
+    module = "fastmax_tpu_torch.training.bench_mfu"
+    if max(fsdp, 1) * tp > 1:
+        col.require_ranks(max(fsdp, 1) * tp, module, col.TRAINING_TIMEOUT, "fsdp * tp")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    fsdp = fsdp or max(world // tp, 1)
     if micro_batch % accum:
         raise ValueError(f"micro_batch {micro_batch} must divide by accum={accum}")
+    mesh = train_mesh_from_env(world // (fsdp * tp), fsdp, tp, module, micro_batch // accum)
     device = default_device(device)
     cfg = Config.from_name(model_name)
     # exactly seq_len positions: the rope cache shrinks for short runs and
@@ -105,11 +125,17 @@ def run(
         torch.cuda.reset_peak_memory_stats(device)
 
     params = gpt.init_params(cfg, 0, torch.bfloat16, device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    plan = splits = None
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg, train=True)
+        plan = params.plan
     leaves = tree_leaves(params)
-    n_params = sum(p.numel() for p in leaves)
-    loss_fn = make_bench_loss_fn(cfg, remat, lm_head_chunk, unroll)
+    if plan is not None:
+        splits = plan.leaf_splits(leaves)
+    loss_fn = make_bench_loss_fn(cfg, remat, lm_head_chunk, unroll, shard=plan)
     opt = build_bench_optimizer(optimizer, mu_dtype)
-    opt_state = opt.init(params)
+    opt_state = opt.init(params, splits)
     for p in leaves:
         p.requires_grad_(True)
 
@@ -117,6 +143,8 @@ def run(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (micro_batch, seq_len + 1))
     ).to(device)
     chunks = batch.chunk(accum)
+    if plan is not None:  # each rank's rows of each sub-batch
+        chunks = [plan.batch_rows(c) for c in chunks]
 
     def step() -> torch.Tensor:
         for p in leaves:
@@ -127,7 +155,9 @@ def run(
             loss.backward()  # gradients of the sub-batches add up in .grad
             total = total + loss.detach()
         grads = [p.grad if accum == 1 else p.grad / accum for p in leaves]
-        opt.update(params, grads, opt_state)
+        if plan is not None:
+            grads = plan.sync_grads(leaves, grads)
+        opt.update(params, grads, opt_state, splits)
         return total / accum
 
     t0 = time.perf_counter()
@@ -153,7 +183,8 @@ def run(
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     peak = device_peak_flops(kind, "bfloat16")
     flops_per_seq = estimate_flops(cfg, n_params, seq_len, training=True)
-    mfu = None if peak is None else flops_per_seq * micro_batch / dt / peak
+    # against the peak of every rank's card, as the reference's n_dev * peak
+    mfu = None if peak is None else flops_per_seq * micro_batch / dt / (peak * world)
     mem = device_memory_stats(device)
     return {
         "model": model_name,
@@ -163,7 +194,7 @@ def run(
         "optimizer": optimizer,
         "accum": accum,
         "attn_alg": cfg.attn_alg,
-        "devices": 1,
+        "devices": world,
         "device_kind": kind,
         "micro_batch": micro_batch,
         "seq_len": seq_len,
@@ -183,7 +214,8 @@ def main(args=None) -> dict:
     from ..utils.cli import CLI
 
     out = CLI(run, args)
-    print(json.dumps(out))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(out))
     return out
 
 

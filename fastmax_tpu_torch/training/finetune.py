@@ -36,9 +36,18 @@ flags run here unchanged, on the card (``--device cpu`` for the CPU):
 
 With ``gptq_calib`` and a 4-bit ``quantize`` mode the base is quantized by
 GPTQ (``ops/gptq.py``, on the device) against four examples of the training
-data, as the reference does; other modes round to nearest. Not ported yet,
-raising ``NotImplementedError``: ``dp``/``fsdp``/``tp`` above 1 (A8 slice 2,
-the multi-GPU training).
+data, as the reference does; other modes round to nearest.
+
+``dp``/``fsdp``/``tp`` (the reference's finetune.py:173-214) train on a
+(data, fsdp, model) mesh under ``torchrun`` (started alone it raises, naming
+the line), as ``pretrain`` does: each rank builds the base, quantizes it and
+adds the method's leaves from the same seed, then keeps its shards. A quantized
+base's codes are cut and gathered, never differentiated; LoRA and adapter
+leaves keep their linear whole over ``model`` (``ShardPlan.kept_whole``), so
+their gradients are summed over data x fsdp only. The delta files are gathered
+whole and written by rank 0:
+
+    torchrun --nproc_per_node 4 -m fastmax_tpu_torch.training.finetune --fsdp 2 --tp 2 ...
 """
 
 from __future__ import annotations
@@ -57,24 +66,33 @@ from ..models.config import Config
 from ..models.params import params_to_flat
 from ..ops.gptq import FOUR_BIT_KINDS, gptq_quantize_model
 from ..ops.quant import quantize_model
+from ..parallel.sharding import shard_params, train_mesh_from_env
 from ..utils.args import EvalArgs, IOArgs, TrainArgs
 from ..utils.checkpoint import load_model_params, save_flat_checkpoint
 from ..utils.logging import choose_logger
 from ..utils.loss import chunked_cross_entropy
-from .fit import TrainState, build_optimizer, fit
+from .fit import TrainState, build_optimizer, fit, whole_params
 from .step import tree_leaves
 
 METHODS = ("full", "lora", "adapter", "adapter_v2")
 
 
-def sft_loss_fn(cfg: Config, remat=True, lm_head_chunk_size: int = 128, plain: bool = False):
+def sft_loss_fn(cfg: Config, remat=True, lm_head_chunk_size: int = 128, plain: bool = False,
+                shard=None):
     """loss_fn(params, (inputs, labels)): hidden[:, :-1] predicts labels[:, 1:],
-    the lm_head and the loss ``lm_head_chunk_size`` positions at a time."""
+    the lm_head and the loss ``lm_head_chunk_size`` positions at a time.
+    ``shard``: the masked mean over the global batch, its gradient the rank's
+    share (the SFT rows carry different numbers of ignored labels)."""
     def loss_fn(params, batch):
         inputs, labels = batch
-        hidden = gpt.forward_hidden(params, cfg, inputs, remat=remat, plain=plain)
-        return chunked_cross_entropy(hidden[:, :-1], params["lm_head"], labels[:, 1:],
-                                     lm_head_chunk_size)
+        hidden = gpt.forward_hidden(params, cfg, inputs, remat=remat, plain=plain, shard=shard)
+        if shard is None:
+            return chunked_cross_entropy(hidden[:, :-1], params["lm_head"], labels[:, 1:],
+                                         lm_head_chunk_size)
+        total, count = chunked_cross_entropy(
+            hidden[:, :-1], None, labels[:, 1:], lm_head_chunk_size,
+            logits_fn=gpt.lm_head_fn(params, shard), parts=True)
+        return shard.global_mean(total, count)
 
     return loss_fn
 
@@ -124,11 +142,11 @@ def setup(
     to ``out_dir/metrics.csv`` and returns the final TrainState."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
-    if dp * fsdp * tp > 1:
-        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU training (ROADMAP "
-                                  "queue A, A8 slice 2)")
     if quantize is not None and method == "full":
         raise ValueError("full finetuning of quantized weights is not supported")
+    mesh = train_mesh_from_env(dp, fsdp, tp, "fastmax_tpu_torch.training.finetune",
+                               train.micro_batch_size)
+    leader = mesh is None or mesh.leader
     device = default_device(device)
     dtype = getattr(torch, precision)
 
@@ -174,25 +192,39 @@ def setup(
     train_iter = ds.batches(train.micro_batch_size, train.max_seq_length)
     out_dir = Path(io.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = choose_logger(logger_name, out_dir)
+    logger = choose_logger(logger_name, out_dir) if leader else None
 
+    plan = None
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg, train=True)
+        plan = params.plan
+        print(f"mesh: dp={dp} fsdp={fsdp} tp={tp}; kept whole over model: "
+              f"{list(plan.kept_whole)}")
     optimizer = build_optimizer(train, trainable)
-    state = TrainState(params, optimizer.init(params))
+    splits = None if plan is None else plan.leaf_splits(tree_leaves(params))
+    state = TrainState(params, optimizer.init(params, splits))
 
     def checkpoint_fn(s: TrainState) -> None:
         if method == "full":
-            flat = params_to_flat(s.params, cfg)
-        elif method == "lora":
-            flat = _flatten(lora_mod.split_lora_state(s.params)[1])
+            flat = params_to_flat(whole_params(s.params), cfg)
         else:
-            flat = {k: v for k, v in _flatten(s.params).items()
-                    if adapter_mod.adapter_filter_flat(k, v2=method == "adapter_v2")}
-        save_flat_checkpoint(flat, out_dir / f"{method}_weights.safetensors")
+            if method == "lora":
+                flat = _flatten(lora_mod.split_lora_state(s.params)[1])
+            else:
+                flat = {k: v for k, v in _flatten(s.params).items()
+                        if adapter_mod.adapter_filter_flat(k, v2=method == "adapter_v2")}
+            if plan is not None:  # the leaves named, gathered whole
+                with torch.no_grad():
+                    flat = {k: plan.leaf_split(tuple(k.split(".")), v).gather(v)
+                            for k, v in flat.items()}
+        if leader:
+            save_flat_checkpoint(flat, out_dir / f"{method}_weights.safetensors")
 
     state = fit(cfg, state, optimizer, train_iter, train=train, eval_args=eval, val_iter_fn=None,
-                logger=logger, loss_fn=sft_loss_fn(cfg), checkpoint_fn=checkpoint_fn,
-                trainable=trainable)
-    logger.finalize()
+                logger=logger, loss_fn=sft_loss_fn(cfg, shard=plan), checkpoint_fn=checkpoint_fn,
+                trainable=trainable, mesh=mesh)
+    if leader:
+        logger.finalize()
     print(f"finetune done at step {state.step}; weights in {out_dir}")
     return state
 

@@ -18,15 +18,23 @@ continues from it (the reference's resume format is orbax's; the two do not
 read each other's). At the end the deploy checkpoint is written as the
 reference writes it: ``out_dir/final`` in the npy layout
 (``utils/checkpoint.py``) with ``out_dir/final/lit_config.json``.
-``logger_name`` is csv, tensorboard or wandb (``utils/logging.py``). Not
-ported yet: ``dp``/``fsdp``/``tp`` above 1 (the multi-GPU training of ROADMAP
-queue A, A8 slice 2).
+``logger_name`` is csv, tensorboard or wandb (``utils/logging.py``).
+
+``dp``/``fsdp``/``tp`` (the reference's pretrain.py:125-143) train on a
+(data, fsdp, model) mesh of ``dp * fsdp * tp`` ranks, one process each under
+``torchrun`` (started alone it raises, naming the line): every rank builds
+the same model from ``seed``, keeps its shards (``shard_params(...,
+train=True)``), draws the same global micro-batches and trains its rows of
+them (``fit``'s ``mesh``). The train state is saved whole by rank 0 and
+resumes at any mesh; the deploy checkpoint and ``lit_config.json`` are
+written whole by rank 0.
 
 The command line is the reference's (``utils/cli.py``); on the card
 (``--device cpu`` for the CPU):
 
     python -m fastmax_tpu_torch.training.pretrain --model_name easy-transformer-fastmax \\
         --data_format enwik8 --io.train_data_dir data/enwik8.gz --io.out_dir out
+    torchrun --nproc_per_node 4 -m fastmax_tpu_torch.training.pretrain --dp 2 --fsdp 2 ...
 """
 
 from __future__ import annotations
@@ -46,11 +54,12 @@ from ..models import gpt
 from ..models.config import Config
 from ..models.params import params_to_flat
 from ..native.loader import NativePackedDataset
+from ..parallel.sharding import train_mesh_from_env
 from ..utils.args import EvalArgs, IOArgs, TrainArgs
 from ..utils.checkpoint import save_flat_checkpoint
 from ..utils.logging import choose_logger
 from .fit import (TrainState, build_optimizer, fit, has_train_state, load_train_state,
-                  save_train_state)
+                  save_train_state, shard_train_state, whole_params)
 from .step import tree_leaves
 
 
@@ -112,10 +121,11 @@ def setup(
 ) -> TrainState:
     """Train ``model_name`` from scratch on the card (``device="cpu"`` for the
     CPU); resume from ``out_dir/state`` with ``io.resume``. Logs to
-    ``out_dir/metrics.csv`` and returns the final TrainState."""
-    if dp * fsdp * tp > 1:
-        raise NotImplementedError("dp/fsdp/tp > 1 come with the multi-GPU training of ROADMAP "
-                                  "queue A, A8 slice 2")
+    ``out_dir/metrics.csv`` and returns the final TrainState (on a mesh, the
+    rank's shards)."""
+    mesh = train_mesh_from_env(dp, fsdp, tp, "fastmax_tpu_torch.training.pretrain",
+                               train.micro_batch_size)
+    leader = mesh is None or mesh.leader
     device = default_device(device)
     cfg = Config.from_name(model_name, **({"attn_alg": attn_alg} if attn_alg else {}))
     if train.max_seq_length:
@@ -123,7 +133,7 @@ def setup(
 
     out_dir = Path(io.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    logger = choose_logger(logger_name, out_dir)
+    logger = choose_logger(logger_name, out_dir) if leader else None
 
     optimizer = build_optimizer(train)
     ckpt_dir = out_dir / "state"
@@ -135,6 +145,9 @@ def setup(
         state = TrainState(params, optimizer.init(params))
     n_params = sum(p.numel() for p in tree_leaves(state.params))
     print(f"model {cfg.name}: {n_params/1e6:.1f}M params, attn_alg={cfg.attn_alg}")
+    if mesh is not None:
+        state = shard_train_state(state, mesh, cfg, optimizer)
+        print(f"mesh: dp={dp} fsdp={fsdp} tp={tp}")
 
     train_iter, val_iter_fn = data_iterators(
         data_format, io, cfg.block_size, train.micro_batch_size, seed)
@@ -142,13 +155,15 @@ def setup(
     t0 = time.perf_counter()
     state = fit(cfg, state, optimizer, train_iter, train=train, eval_args=eval,
                 val_iter_fn=val_iter_fn, logger=logger,
-                checkpoint_fn=lambda s: save_train_state(s, ckpt_dir))
+                checkpoint_fn=lambda s: save_train_state(s, ckpt_dir, optimizer), mesh=mesh)
     print(f"done: {state.step} steps in {time.perf_counter()-t0:.1f}s")
 
     # deploy checkpoint (weights only, the reference's lit-format contract)
-    save_flat_checkpoint(params_to_flat(state.params, cfg), out_dir / "final")
-    cfg.to_json(out_dir / "final" / "lit_config.json")
-    logger.finalize()
+    whole = whole_params(state.params)
+    if leader:
+        save_flat_checkpoint(params_to_flat(whole, cfg), out_dir / "final")
+        cfg.to_json(out_dir / "final" / "lit_config.json")
+        logger.finalize()
     return state
 
 

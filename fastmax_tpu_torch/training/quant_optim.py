@@ -15,15 +15,53 @@ the int8/uint8 buffers and their scales live between steps, about 2 + 8 /
 As in the reference, the step count is incremented before the schedule reads
 it (optax's adamw reads the count before the step), and the bias corrections
 are float32.
+
+On a mesh a leaf is a rank's shard, and the blocks stay the whole leaf's:
+``BLOCK`` elements of its flat order, ``MIN_QUANT_SIZE`` against its whole
+size. Where the shard is a set of whole blocks (each of its contiguous runs
+of the whole leaf's flat order is a multiple of ``BLOCK`` long, which also
+puts each run's start on a block boundary), the rank holds its own blocks
+("local"). Where it is not, every rank holds the whole leaf's blocks
+("whole"): it gathers the gradient, updates the whole moments, and applies
+its shard of the step. Either way the moments decode to one rank's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
 
 from .step import clip_by_global_norm, f32, tree_leaves
+
+
+def _mode(p: torch.Tensor, sp, block: int) -> str:
+    """How a leaf's moments are held: "int" (none), "small" (float32, below
+    MIN_QUANT_SIZE whole), "local" (the rank's whole blocks), "whole" (the
+    whole leaf's blocks on every rank)."""
+    if not p.is_floating_point():
+        return "int"
+    return _float_mode(tuple(p.shape), sp, block)
+
+
+def _float_mode(shape: tuple, sp, block: int) -> str:
+    whole = math.prod(shape) if sp is None else math.prod(sp.whole)
+    if whole < MIN_QUANT_SIZE:
+        return "small"
+    if sp is None or not sp.dims:
+        return "local"
+    inner = max(sp.dims)
+    run = math.prod(shape[inner:])
+    return "local" if run % block == 0 and not sp.halves else "whole"
+
+
+def _block_dims(sp, shape, block: int):
+    """(shape, dims) of the per-block scales of a "local" leaf laid out on the
+    leaf's dims up to its innermost split dim, whose run holds the blocks."""
+    inner = max(sp.dims)
+    return (tuple(shape[:inner]) + (math.prod(shape[inner:]) // block,),
+            {d: a for d, a in sp.dims.items()})
 
 BLOCK = 256
 MIN_QUANT_SIZE = 4096
@@ -87,26 +125,63 @@ class AdamW8bit:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.max_norm, self.block = weight_decay, max_norm, block
 
-    def init(self, params: dict) -> dict:
+    def init(self, params: dict, splits=None) -> dict:
         m, v = [], []
-        for p in tree_leaves(params):
-            if not p.is_floating_point():
+        for i, p in enumerate(tree_leaves(params)):
+            sp = None if splits is None else splits[i]
+            mode = _mode(p, sp, self.block)
+            if mode == "int":
                 m.append(None)
                 v.append(None)
-            elif p.numel() >= MIN_QUANT_SIZE:
-                zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                m.append(quantize_m(zeros, self.block))
-                v.append(quantize_v(zeros, self.block))
-            else:
+            elif mode == "small":
                 m.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
                 v.append(torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+            else:
+                shape = p.shape if mode == "local" else sp.whole
+                zeros = torch.zeros(shape, dtype=torch.float32, device=p.device)
+                m.append(quantize_m(zeros, self.block))
+                v.append(quantize_v(zeros, self.block))
         return {"count": 0, "m": m, "v": v}
 
+    def _each(self, state, splits, fn) -> dict:
+        out = dict(state)
+        for key in ("m", "v"):
+            out[key] = [None if x is None else fn(x, splits[i], isinstance(x, dict))
+                        for i, x in enumerate(state[key])]
+        return out
+
+    def gather_state(self, state: dict, splits) -> dict:
+        """The whole leaves' state (every rank gets it), the codes and scales
+        of a "local" leaf's blocks put in the whole leaf's block order."""
+        def one(x, sp, quant):
+            if not quant or not sp.dims:
+                return sp.gather(x)
+            local = _shard_shape(sp)
+            if _float_mode(local, sp, self.block) == "whole":  # the same on every rank
+                return x
+            sshape, sdims = _block_dims(sp, local, self.block)
+            return {"q": sp.gather(x["q"].reshape(local)).reshape(-1, self.block),
+                    "scale": sp.gather(x["scale"].reshape(sshape), sdims).reshape(-1, 1)}
+        return self._each(state, splits, one)
+
+    def cut_state(self, state: dict, splits) -> dict:
+        """A rank's state from the whole leaves' (``gather_state``'s inverse)."""
+        def one(x, sp, quant):
+            if not quant or not sp.dims:
+                return sp.cut(x)
+            if _float_mode(_shard_shape(sp), sp, self.block) == "whole":
+                return x
+            sshape, sdims = _block_dims(sp, sp.whole, self.block)
+            return {"q": sp.cut(x["q"].reshape(sp.whole)).reshape(-1, self.block),
+                    "scale": sp.cut(x["scale"].reshape(sshape), sdims).reshape(-1, 1)}
+        return self._each(state, splits, one)
+
     @torch.no_grad()
-    def update(self, params: dict, grads: list, state: dict) -> None:
+    def update(self, params: dict, grads: list, state: dict, splits=None) -> None:
         leaves = tree_leaves(params)
         floats = [i for i, p in enumerate(leaves) if p.is_floating_point()]
-        clipped = clip_by_global_norm([grads[i] for i in floats], self.max_norm)
+        fsplits = None if splits is None else [splits[i] for i in floats]
+        clipped = clip_by_global_norm([grads[i] for i in floats], self.max_norm, fsplits)
         count = state["count"] + 1
         state["count"] = count
         bc1 = 1.0 - f32(self.b1) ** count
@@ -114,15 +189,27 @@ class AdamW8bit:
         lr = self.schedule(count)
         for i, g in zip(floats, clipped):
             p, ms, vs = leaves[i], state["m"][i], state["v"][i]
+            sp = None if splits is None else splits[i]
+            whole = _mode(p, sp, self.block) == "whole"
             quant = isinstance(ms, dict)
-            g32 = g.float()
-            m = self.b1 * (dequantize_m(ms, p.shape) if quant else ms) + (1.0 - self.b1) * g32
-            v = self.b2 * (dequantize_v(vs, p.shape) if quant else vs) \
+            g32 = (sp.gather(g) if whole else g).float()
+            shape = sp.whole if whole else p.shape
+            m = self.b1 * (dequantize_m(ms, shape) if quant else ms) + (1.0 - self.b1) * g32
+            v = self.b2 * (dequantize_v(vs, shape) if quant else vs) \
                 + (1.0 - self.b2) * g32 * g32
-            step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) + self.weight_decay * p.float()
+            adam = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            step = (sp.cut(adam) if whole else adam) + self.weight_decay * p.float()
             p.add_((-lr * step).to(p.dtype))
             state["m"][i] = quantize_m(m, self.block) if quant else m
             state["v"][i] = quantize_v(v, self.block) if quant else v
+
+
+def _shard_shape(sp) -> tuple:
+    """The shape of a rank's shard of a leaf split as ``sp`` says."""
+    shape = list(sp.whole)
+    for d, axis in sp.dims.items():
+        shape[d] //= sp.mesh.shape[axis]
+    return tuple(shape)
 
 
 def state_nbytes(state) -> int:

@@ -24,6 +24,15 @@ optax's, not ``torch.optim``'s defaults:
 Each takes ``max_norm``: the reference's chain clips by the global norm
 first. Each schedule reads the count of updates before this one, as optax's
 ``scale_by_schedule`` does.
+
+On a mesh (``parallel/sharding.py``) each leaf is a rank's shard and
+``init``/``update`` take the leaves' ``LeafSplit``s (``splits``): the global
+norm sums each leaf's squares over the axes it is split on (a leaf whole over
+``model`` counts once, data replicas are not summed); AdamW and Lion are
+elementwise on the shard; Adafactor factors by the whole leaf's shape and
+sums its row and column statistics and its update and parameter RMS over the
+axes the leaf is split on. ``gather_state``/``cut_state`` turn a rank's state
+into the whole one that ``fit`` saves, and back, at any mesh.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ import torch
 
 from ..models import gpt
 from ..models.config import Config
-from ..utils.loss import cross_entropy
+from ..parallel import collectives as col
+from ..utils.loss import cross_entropy, cross_entropy_parts
 
 
 def tree_leaves(tree: dict) -> list:
@@ -65,14 +75,67 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
-def clip_by_global_norm(grads: list, max_norm: Optional[float]) -> list:
+def _sharded(splits) -> bool:
+    return splits is not None and any(sp is not None and sp.dims for sp in splits)
+
+
+def global_sq_norm(grads: list, splits=None) -> torch.Tensor:
+    """The squared global norm of ``grads``. On a mesh (``splits``): each
+    leaf's squares summed over the axes it is split on, a whole one counted
+    once, the same on every rank."""
+    if not _sharded(splits):
+        return sum(torch.sum(g * g) for g in grads)
+    parts: dict = {}
+    for g, sp in zip(grads, splits):
+        parts[sp.axes] = parts.get(sp.axes, 0) + torch.sum(g * g)
+    mesh = splits[0].mesh
+    total = 0
+    for axes in sorted(parts, key=lambda a: tuple(sorted(a))):
+        t = parts[axes]
+        for axis in sorted(axes):
+            t = col.all_reduce(t, mesh.group(axis))
+        total = total + t
+    return total
+
+
+def clip_by_global_norm(grads: list, max_norm: Optional[float], splits=None) -> list:
     """optax's clip: every gradient scaled by max_norm / norm when norm >=
-    max_norm, with no epsilon; None leaves them as they are."""
+    max_norm, with no epsilon; None leaves them as they are. ``splits``: the
+    leaves' ``LeafSplit``s on a mesh (the norm of the whole tree)."""
     if max_norm is None:
         return grads
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    norm = torch.sqrt(global_sq_norm(grads, splits))
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+
+
+def _per_leaf(state: dict, keys, fn) -> dict:
+    """``state`` with ``fn(i, x)`` applied to entry i of each list ``keys``."""
+    out = dict(state)
+    for key in keys:
+        out[key] = [None if x is None else fn(i, x) for i, x in enumerate(state[key])]
+    return out
+
+
+def _drop(dims: dict, dim: int) -> dict:
+    """A leaf's split dims on a tensor that lacks whole-leaf dim ``dim`` (a
+    statistic reduced over it)."""
+    return {d - (d > dim): a for d, a in dims.items() if d != dim}
+
+
+def _mean(x: torch.Tensor, dim: int, sp, keepdim: bool = False, whole_dim: Optional[int] = None):
+    """The mean over ``dim`` of the whole leaf, from a rank's shard ``x``
+    (``whole_dim``: that dim's index in the whole leaf, if it differs)."""
+    if sp is None or not sp.dims:
+        return x.mean(dim=dim, keepdim=keepdim)
+    wd = dim if whole_dim is None else whole_dim
+    return sp.sum_over(x.sum(dim=dim, keepdim=keepdim), (wd,)) / sp.whole[wd]
+
+
+def _rms(x: torch.Tensor, sp) -> torch.Tensor:
+    if sp is None or not sp.dims:
+        return torch.sqrt(torch.mean(x * x))
+    return torch.sqrt(sp.sum_all(torch.sum(x * x)) / math.prod(sp.whole))
 
 
 def f32(x: float) -> torch.Tensor:
@@ -95,15 +158,21 @@ class AdamW:
         self.max_norm = max_norm
         self.mu_dtype = mu_dtype  # optax's: mu in this type (default: the parameter's)
 
-    def init(self, params: dict) -> dict:
+    def init(self, params: dict, splits=None) -> dict:
         leaves = tree_leaves(params)
         return {"count": 0, "mu": [torch.zeros_like(p, dtype=self.mu_dtype) for p in leaves],
                 "nu": [torch.zeros_like(p) for p in leaves]}
 
+    def gather_state(self, state: dict, splits) -> dict:
+        return _per_leaf(state, ("mu", "nu"), lambda i, x: splits[i].gather(x))
+
+    def cut_state(self, state: dict, splits) -> dict:
+        return _per_leaf(state, ("mu", "nu"), lambda i, x: splits[i].cut(x))
+
     @torch.no_grad()
-    def update(self, params: dict, grads: list, state: dict) -> None:
+    def update(self, params: dict, grads: list, state: dict, splits=None) -> None:
         leaves = tree_leaves(params)
-        grads = clip_by_global_norm(grads, self.max_norm)
+        grads = clip_by_global_norm(grads, self.max_norm, splits)
         count = state["count"]
         lr = self.schedule(count)
         state["count"] = count + 1
@@ -143,10 +212,14 @@ class Adafactor:
         self.clipping_threshold, self.min_scale = clipping_threshold, min_scale
         self.max_norm = max_norm
 
-    def init(self, params: dict) -> dict:
+    def _dims(self, p, sp):
+        """The factored dims, by the whole leaf's shape."""
+        return _factored_dims(tuple(p.shape) if sp is None else sp.whole, self.min_dim)
+
+    def init(self, params: dict, splits=None) -> dict:
         state = {"count": 0, "v_row": [], "v_col": [], "v": []}
-        for p in tree_leaves(params):
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+        for i, p in enumerate(tree_leaves(params)):
+            dims = self._dims(p, None if splits is None else splits[i])
             if dims is None:
                 row = col = None
                 v = torch.zeros_like(p)
@@ -161,32 +234,52 @@ class Adafactor:
             state["v"].append(v)
         return state
 
+    def _stat_dims(self, i: int, sp, key: str):
+        """The split dims of leaf i's statistic ``key`` (its leaf's dims less
+        the one it is reduced over)."""
+        if key == "v":
+            return sp.dims
+        d1, d0 = _factored_dims(sp.whole, self.min_dim)
+        return _drop(sp.dims, d0 if key == "v_row" else d1)
+
+    def gather_state(self, state: dict, splits) -> dict:
+        return {**state, **{key: [None if x is None else splits[i].gather(
+            x, self._stat_dims(i, splits[i], key)) for i, x in enumerate(state[key])]
+            for key in ("v_row", "v_col", "v")}}
+
+    def cut_state(self, state: dict, splits) -> dict:
+        return {**state, **{key: [None if x is None else splits[i].cut(
+            x, self._stat_dims(i, splits[i], key)) for i, x in enumerate(state[key])]
+            for key in ("v_row", "v_col", "v")}}
+
     @torch.no_grad()
-    def update(self, params: dict, grads: list, state: dict) -> None:
+    def update(self, params: dict, grads: list, state: dict, splits=None) -> None:
         leaves = tree_leaves(params)
-        grads = clip_by_global_norm(grads, self.max_norm)
+        grads = clip_by_global_norm(grads, self.max_norm, splits)
         count = state["count"]
         decay = 1.0 - f32(count + 1) ** -self.decay_rate
         lr = self.schedule(count)
         state["count"] = count + 1
         for i, (p, g) in enumerate(zip(leaves, grads)):
+            sp = None if splits is None else splits[i]
             g2 = g * g + self.eps
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            dims = self._dims(p, sp)
             if dims is None:
                 v = decay * state["v"][i] + (1.0 - decay) * g2
                 state["v"][i] = v
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                row = decay * state["v_row"][i] + (1.0 - decay) * g2.mean(dim=d0)
-                col = decay * state["v_col"][i] + (1.0 - decay) * g2.mean(dim=d1)
+                row = decay * state["v_row"][i] + (1.0 - decay) * _mean(g2, d0, sp)
+                col = decay * state["v_col"][i] + (1.0 - decay) * _mean(g2, d1, sp)
                 state["v_row"][i], state["v_col"][i] = row, col
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                row_mean = _mean(row, reduced_d1, sp, keepdim=True, whole_dim=d1)
+                row_factor = (row / row_mean) ** -0.5
                 u = g * row_factor.unsqueeze(d0) * (col ** -0.5).unsqueeze(d1)
-            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.clipping_threshold, min=1.0)
+            u = u / torch.clamp(_rms(u, sp) / self.clipping_threshold, min=1.0)
             u = u * lr
-            u = u * torch.clamp(torch.sqrt(torch.mean(p * p)), min=self.min_scale)
+            u = u * torch.clamp(_rms(p, sp), min=self.min_scale)
             p.add_(-u)
 
 
@@ -203,14 +296,20 @@ class Lion:
         self.max_norm = max_norm
         self.mu_dtype = mu_dtype
 
-    def init(self, params: dict) -> dict:
+    def init(self, params: dict, splits=None) -> dict:
         return {"count": 0, "mu": [torch.zeros_like(p, dtype=self.mu_dtype)
                                    for p in tree_leaves(params)]}
 
+    def gather_state(self, state: dict, splits) -> dict:
+        return _per_leaf(state, ("mu",), lambda i, x: splits[i].gather(x))
+
+    def cut_state(self, state: dict, splits) -> dict:
+        return _per_leaf(state, ("mu",), lambda i, x: splits[i].cut(x))
+
     @torch.no_grad()
-    def update(self, params: dict, grads: list, state: dict) -> None:
+    def update(self, params: dict, grads: list, state: dict, splits=None) -> None:
         leaves = tree_leaves(params)
-        grads = clip_by_global_norm(grads, self.max_norm)
+        grads = clip_by_global_norm(grads, self.max_norm, splits)
         lr = self.schedule(state["count"])
         state["count"] += 1
         for p, g, mu in zip(leaves, grads, state["mu"]):
@@ -235,39 +334,64 @@ class MaskedOptimizer:
             raise ValueError(f"{len(items)} leaves against a mask of {len(self.mask)}")
         return {i: x for i, (x, m) in enumerate(zip(items, self.mask)) if m}
 
-    def init(self, params: dict) -> dict:
-        return self.inner.init(self._select(tree_leaves(params)))
+    def _splits(self, splits):
+        return None if splits is None else list(self._select(splits).values())
 
-    def update(self, params: dict, grads: list, state: dict) -> None:
+    def init(self, params: dict, splits=None) -> dict:
+        return self.inner.init(self._select(tree_leaves(params)), self._splits(splits))
+
+    def gather_state(self, state: dict, splits) -> dict:
+        return self.inner.gather_state(state, self._splits(splits))
+
+    def cut_state(self, state: dict, splits) -> dict:
+        return self.inner.cut_state(state, self._splits(splits))
+
+    def update(self, params: dict, grads: list, state: dict, splits=None) -> None:
         self.inner.update(self._select(tree_leaves(params)),
-                          list(self._select(grads).values()), state)
+                          list(self._select(grads).values()), state, self._splits(splits))
 
 
 
-def make_loss_fn(cfg: Config, remat=True, plain: bool = False) -> Callable:
+def make_loss_fn(cfg: Config, remat=True, plain: bool = False, shard=None) -> Callable:
     """loss_fn(params, batch) for a (B, T+1) token matrix: inputs [:, :-1],
     targets [:, 1:]. ``plain=True`` sends the kernels' calls to their plain
-    versions (a test hook)."""
+    versions (a test hook). ``shard`` (a ``ShardPlan`` in training mode):
+    ``params`` and ``batch`` are the rank's; the loss is the mean over the
+    global batch, its gradient the rank's share (``ShardPlan.global_mean``)."""
     def loss_fn(params, batch):
-        logits, _ = gpt.forward(params, cfg, batch[:, :-1], remat=remat, plain=plain)
-        return cross_entropy(logits, batch[:, 1:])
+        logits, _ = gpt.forward(params, cfg, batch[:, :-1], remat=remat, plain=plain,
+                                shard=shard)
+        if shard is None:
+            return cross_entropy(logits, batch[:, 1:])
+        return shard.global_mean(*cross_entropy_parts(logits, batch[:, 1:]))
 
     return loss_fn
 
 
-def make_train_step(cfg: Config, optimizer: AdamW, *, remat=True, plain: bool = False):
+def make_train_step(cfg: Config, optimizer: AdamW, *, remat=True, plain: bool = False,
+                    shard=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``:
-    one forward and backward and one optimizer update, in place."""
-    loss_fn = make_loss_fn(cfg, remat, plain)
+    one forward and backward and one optimizer update, in place. ``shard``:
+    ``params`` and ``opt_state`` are a rank's shards (``shard_params(...,
+    train=True)``), ``batch`` the global one, of which the rank takes its
+    rows; the loss returned is the global batch's."""
+    loss_fn = make_loss_fn(cfg, remat, plain, shard)
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
+        if shard is not None:
+            batch = shard.batch_rows(batch)
         loss = loss_fn(params, batch)
         loss.backward()
-        optimizer.update(params, [p.grad for p in leaves], opt_state)
+        grads = [p.grad for p in leaves]
+        splits = None
+        if shard is not None:
+            grads = shard.sync_grads(leaves, grads)
+            splits = shard.leaf_splits(leaves)
+        optimizer.update(params, grads, opt_state, splits)
         return params, opt_state, loss.detach()
 
     return train_step

@@ -257,9 +257,9 @@ def test_finetune_main_from_a_jax_directory_matches_jax(tmp_path, method):
 
 def test_setup_takes_the_adapter_flags_and_still_refuses_them(tmp_path):
     """The adapter flags parse and now run: one adapter_v2 step from a JAX-written
-    directory on an NF4 base gives the JAX command's loss and delta names; the
-    flag still unported (dp, A8) is refused with its item (gptq_calib runs:
-    tests/test_torch_gptq_packed.py)."""
+    directory on an NF4 base gives the JAX command's loss and delta names; --dp
+    (A8, on a mesh since: tests/test_torch_train_mesh.py) started alone is
+    refused with the torchrun line (gptq_calib runs: tests/test_torch_gptq_packed.py)."""
     flags = ["--method", "adapter_v2", "--adapter_prompt_length", "4",
              "--adapter_start_layer", "1"]
     kw = cli.parse_kwargs(finetune.setup, flags)
@@ -278,7 +278,8 @@ def test_setup_takes_the_adapter_flags_and_still_refuses_them(tmp_path):
     f = "adapter_v2_weights.safetensors"
     assert sorted(load_flat_checkpoint(tmp_path / "t" / f)) == \
         sorted(load_file(str(tmp_path / "j" / f)))
-    with pytest.raises(NotImplementedError, match="A8"):  # --gptq_calib runs since (A3)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m "
+                       "fastmax_tpu_torch.training.finetune"):  # --gptq_calib runs since (A3)
         finetune.main(flags + ["--dp", "2", "--io.out_dir", str(tmp_path / "x"), "--device",
                                "cpu"])
 

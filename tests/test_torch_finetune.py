@@ -400,12 +400,14 @@ def test_checkpoint_formats_round_trip(tmp_path):
 
 
 def test_setup_refuses_what_is_not_ported(tmp_path, tiny_registry):
-    """dp (A8) is still refused with its item; method="adapter" now runs
+    """dp (A8) trains on a mesh now (tests/test_torch_train_mesh.py): started
+    alone it is refused with the torchrun line; method="adapter" now runs
     (tests/test_torch_adapter.py holds it against the JAX package), and so
     does gptq_calib (tests/test_torch_gptq_packed.py)."""
     base = dict(model_name="tiny-llama", data_path=tmp_path / "x.npz", device="cpu",
                 io=IOArgs(out_dir=tmp_path))
-    with pytest.raises(NotImplementedError, match="dp.*A8"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m "
+                       "fastmax_tpu_torch.training.finetune"):
         finetune.setup(**{**base, "dp": 2})
     np.savez(base["data_path"], examples=np.array(_sft_examples(4, 20, 60), dtype=object))
     state = finetune.setup(**{**base, "method": "adapter", "adapter_start_layer": 1,

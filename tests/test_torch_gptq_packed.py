@@ -417,7 +417,9 @@ def test_bench_mfu_runs_and_matches_jax(monkeypatch, jax_cache_config):
                 "n_params", "unroll", "lm_head_chunk"):
         assert got[key] == want[key], key
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=2e-2)
-    with pytest.raises(NotImplementedError, match="A8"):
+    # fsdp 2 runs on a mesh now (tests/test_torch_train_mesh.py): alone, the torchrun line
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m "
+                       "fastmax_tpu_torch.training.bench_mfu"):
         bench_mfu.run(model_name="pythia-14m", fsdp=2, device="cpu")
 
 

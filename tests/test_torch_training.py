@@ -292,12 +292,14 @@ def test_pretrain_setup_trains_and_resumes(tmp_path, tiny_entry):
 
 
 def test_where_the_training_slice_stops(tmp_path):
-    """The multi-GPU flags (A8) are still refused with their item; the packed
+    """The multi-GPU flags (A8) train on a mesh now (tests/test_torch_train_mesh.py):
+    started alone they are refused with the torchrun line; the packed
     format reads chunk files now (tests/test_torch_gptq_packed.py) and asks
     for them; the four optimizers build (lion was refused before
     tests/test_torch_optimizers.py held them against optax)."""
-    with pytest.raises(NotImplementedError, match="multi-GPU.*A8"):
-        pretrain.setup(dp=2, device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2 -m "
+                       "fastmax_tpu_torch.training.pretrain"):
+        pretrain.setup(dp=2, device="cpu", io=IOArgs(out_dir=tmp_path))
     with pytest.raises(FileNotFoundError, match="no .bin chunks"):
         pretrain.data_iterators("packed", IOArgs(train_data_dir=tmp_path), 16, 2)
     for name in ("adamw", "adamw8bit", "adafactor", "lion"):

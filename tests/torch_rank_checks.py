@@ -1,10 +1,12 @@
 """Bodies that run on every rank of a mesh and return what the sharded
-serving path computed, for a caller to hold against one rank or against the
-reference: ``run_cases`` is the target of ``collectives.spawn_local`` in the
-CPU tests (gloo ranks), and ``chip_smoke.py``'s phase 18 calls the command-line
-and loader bodies on the card. Each case builds its own mesh over the whole
-group, (world // (tp * fsdp), fsdp, tp), so one group runs every case; rank 0
-returns the result and the other ranks None. Inputs are plain: a config's
+serving and training paths computed, for a caller to hold against one rank
+or against the reference: ``run_cases`` is the target of
+``collectives.spawn_local`` in the CPU tests (gloo ranks), and
+``chip_smoke.py``'s phase 18 calls the command-line and loader bodies on the
+card. Each case builds its own mesh over the whole group (the serving
+bodies (world // (tp * fsdp), fsdp, tp), the training bodies the (dp, fsdp,
+tp) they are given), so one group runs every case; rank 0 returns the result
+and the other ranks None. Inputs are plain: a config's
 fields, numpy parameter trees, token lists, command-line flags.
 
 The spawned ranks import this module by name, so it imports no jax and
@@ -245,6 +247,211 @@ def hybrid_mesh(data: int, fsdp: int, model: int, granule_size: int):
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, (mesh.layout, mesh.coords))
     return out if mesh.leader else None
+
+
+# ------------------------------------------------------------------ training
+
+
+def _register(entry: Optional[dict]) -> None:
+    """Put a config into the port's registry in this rank's process (the
+    trainers build models by name)."""
+    if entry is None:
+        return
+    from fastmax_tpu_torch.models import config as config_mod
+
+    reg = dict(config_mod.registry())
+    reg[entry["name"]] = dict(entry)
+    config_mod.registry = lambda reg=reg: reg
+
+
+def _leader_out(mesh, value):
+    return value if mesh.leader else None
+
+
+def train_steps(cfg: dict, params: dict, batches: list, mesh: tuple, train: dict,
+                remat=True, device="cpu"):
+    """``make_train_step`` on the (dp, fsdp, tp) ``mesh``, one step a global
+    batch of ``batches``: the losses and the whole parameters after them."""
+    from fastmax_tpu_torch.training import fit
+    from fastmax_tpu_torch.training.step import make_train_step, tree_leaves
+    from fastmax_tpu_torch.utils.args import TrainArgs
+    from fastmax_tpu_torch.models.weights import to_numpy_params
+
+    cfg = Config(**cfg)
+    m = make_mesh(*mesh)
+    local = shard_params(from_numpy_params(params, device), m, cfg, train=True)
+    opt = fit.build_optimizer(TrainArgs(**train))
+    state = opt.init(local, local.plan.leaf_splits(tree_leaves(local)))
+    step = make_train_step(cfg, opt, remat=remat, shard=local.plan)
+    losses = [float(step(local, state, torch.as_tensor(np.asarray(b), device=device))[2])
+              for b in batches]
+    whole = fit.whole_params(local)
+    return _leader_out(m, {"losses": losses, "params": to_numpy_params(whole),
+                           "kept_whole": list(local.plan.kept_whole)})
+
+
+def sft_grads(cfg: dict, params: dict, inputs, labels, mesh: tuple, trainable=None,
+              device="cpu"):
+    """``finetune.sft_loss_fn``'s loss over the global (inputs, labels) batch
+    on the ``mesh`` and the whole gradient of each leaf (of the leaves
+    ``trainable`` names, when given)."""
+    from fastmax_tpu_torch.parallel.sharding import tree_paths
+    from fastmax_tpu_torch.training.finetune import sft_loss_fn
+    from fastmax_tpu_torch.training.step import tree_leaves
+
+    cfg = Config(**cfg)
+    m = make_mesh(*mesh)
+    local = shard_params(from_numpy_params(params, device), m, cfg, train=True)
+    plan = local.plan
+    leaves = tree_leaves(local)
+    names = [".".join(p) for p in tree_paths(local)]
+    for name, x in zip(names, leaves):
+        x.requires_grad_(x.is_floating_point() and (trainable is None or name in trainable))
+    batch = tuple(torch.as_tensor(np.asarray(a), device=device) for a in (inputs, labels))
+    loss = sft_loss_fn(cfg, shard=plan)(local, plan.batch_rows(batch))
+    loss.backward()
+    grads = plan.sync_grads(leaves, [x.grad for x in leaves])
+    out = {}
+    with torch.no_grad():
+        for path, x, g in zip(plan.paths, leaves, grads):
+            if g is not None:
+                out[".".join(path)] = plan.leaf_split(path, x).gather(g).cpu().numpy()
+    return _leader_out(m, {"loss": float(loss), "grads": out})
+
+
+def _metrics(out) -> list:
+    from pathlib import Path
+
+    lines = (Path(out) / "metrics.csv").read_text().strip().splitlines()
+    rows = [dict(zip(lines[0].split(","), r.split(","))) for r in lines[1:]]
+    return [float(r["loss"]) for r in rows if r.get("loss")]
+
+
+def pretrain_mesh(entry: dict, kw: dict, train: dict, out: str, data: str, mesh: tuple,
+                  resume: bool = False, copy_state: Optional[str] = None):
+    """``pretrain.setup`` at ``mesh`` = (dp, fsdp, tp) on the group: the logged
+    losses, the step and the mesh's shapes (rank 0). ``copy_state``: rank 0
+    copies the saved train state there afterwards."""
+    import shutil
+
+    from fastmax_tpu_torch.training import pretrain
+    from fastmax_tpu_torch.utils.args import EvalArgs, IOArgs, TrainArgs
+
+    _register(entry)
+    dp, fsdp, tp = mesh
+    state = pretrain.setup(model_name=entry["name"], dp=dp, fsdp=fsdp, tp=tp, **kw,
+                           train=TrainArgs(**train), eval=EvalArgs(interval=1000, max_iters=1),
+                           io=IOArgs(train_data_dir=data, out_dir=out, resume=resume),
+                           device="cpu")
+    if dist.get_rank() == 0 and copy_state:
+        shutil.copytree(f"{out}/state", copy_state)
+    dist.barrier()
+    return {"losses": _metrics(out), "step": state.step} if dist.get_rank() == 0 else None
+
+
+def finetune_mesh(entry: dict, kw: dict, train: dict, out: str, mesh: tuple):
+    """``finetune.setup`` at ``mesh`` on the group: the logged losses and the
+    names and shapes of the delta file rank 0 wrote."""
+    from safetensors.numpy import load_file
+
+    from fastmax_tpu_torch.training import finetune
+    from fastmax_tpu_torch.utils.args import EvalArgs, IOArgs, TrainArgs
+
+    _register(entry)
+    dp, fsdp, tp = mesh
+    finetune.setup(model_name=entry["name"], dp=dp, fsdp=fsdp, tp=tp, **kw,
+                   train=TrainArgs(**train), eval=EvalArgs(interval=1000, max_iters=1),
+                   io=IOArgs(out_dir=out), device="cpu")
+    dist.barrier()
+    if dist.get_rank():
+        return None
+    delta = load_file(f"{out}/{kw['method']}_weights.safetensors")
+    return {"losses": _metrics(out), "delta": {k: v for k, v in delta.items()}}
+
+
+def bench_mesh(entry: dict, kw: dict):
+    """``bench_mfu.run`` on the group (rank 0's result)."""
+    from fastmax_tpu_torch.training import bench_mfu
+
+    _register(entry)
+    out = bench_mfu.run(model_name=entry["name"], **kw, device="cpu")
+    return out if dist.get_rank() == 0 else None
+
+
+def ring_case(q, k, v, mesh: tuple, axis: str = "model", grad_out=None):
+    """``ring_attention_sharded`` on whole q, k, v at ``mesh``: the output and,
+    with ``grad_out``, the gradients of <out, grad_out> by q, k and v."""
+    from fastmax_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    m = make_mesh(*mesh)
+    q, k, v = (torch.as_tensor(np.asarray(x)).requires_grad_(grad_out is not None)
+               for x in (q, k, v))
+    out = ring_attention_sharded(q, k, v, m, axis=axis)
+    res = {"out": out.detach().numpy()}
+    if grad_out is not None:
+        (out * torch.as_tensor(np.asarray(grad_out))).sum().backward()
+        # each rank's chunk of each gradient: summed, the whole one
+        res.update({n: col.all_reduce(x.grad, m.group(axis)).numpy()
+                    for n, x in (("dq", q), ("dk", k), ("dv", v))})
+    return _leader_out(m, res)
+
+
+def sp_case(cfg: dict, params: dict, batch, mesh: tuple, what: str, steps: int = 3,
+            axis: str = "model"):
+    """The sequence-parallel entries on ``mesh``: "forward" (the whole
+    logits of ``make_sp_forward`` on batch[:, :-1]), "loss" (the loss and its
+    gradients summed over the axis), "step" (the losses of ``steps``
+    ``make_sp_train_step`` steps), "refuse" (the message a linear arm gets),
+    "three_way" (``make_sp_tp_fsdp_loss_fn``'s loss and the whole gradients)."""
+    from fastmax_tpu_torch.parallel import sequence_parallel as sp
+    from fastmax_tpu_torch.training.step import AdamW, tree_leaves
+
+    cfg = Config(**cfg)
+    m = make_mesh(*mesh)
+    whole = from_numpy_params(params, "cpu")
+    batch = torch.as_tensor(np.asarray(batch))
+    if what == "refuse":
+        cfg.attn_alg = "fastmax"
+        try:
+            sp.make_sp_loss_fn(cfg, m, axis=axis)
+        except ValueError as e:
+            return _leader_out(m, str(e))
+        raise AssertionError("the linear arm was not refused")
+    if what == "forward":
+        with torch.no_grad():
+            out = sp.make_sp_forward(cfg, m, axis=axis)(whole, batch[:, :-1])
+        return _leader_out(m, out.numpy())
+    if what == "step":
+        opt = AdamW(lambda c: 5e-3, weight_decay=1e-4)
+        state = opt.init(whole)
+        step = sp.make_sp_train_step(cfg, m, opt, axis=axis)
+        return _leader_out(m, [float(step(whole, state, batch)[2]) for _ in range(steps)])
+    if what == "loss":
+        leaves = tree_leaves(whole)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = sp.make_sp_loss_fn(cfg, m, axis=axis)(whole, batch)
+        loss.backward()
+        g = m.group(axis)
+        from fastmax_tpu_torch.parallel.sharding import tree_paths
+
+        grads = {".".join(p): col.all_reduce(x.grad, g).numpy()
+                 for p, x in zip(tree_paths(whole), leaves)}
+        return _leader_out(m, {"loss": float(loss), "grads": grads})
+    # three_way: the ring over data, tp over model, fsdp
+    loss_fn, specs = sp.make_sp_tp_fsdp_loss_fn(cfg, m, whole)
+    local = shard_params(whole, m, cfg, train=True)
+    leaves = tree_leaves(local)
+    for x in leaves:
+        x.requires_grad_(True)
+    loss = loss_fn(local, batch)
+    loss.backward()
+    plan = local.plan
+    grads = plan.sync_grads(leaves, [x.grad for x in leaves])
+    with torch.no_grad():
+        grads = {".".join(p): plan.leaf_split(p, x).gather(gr).numpy()
+                 for p, x, gr in zip(plan.paths, leaves, grads)}
+    return _leader_out(m, {"loss": float(loss), "grads": grads, "specs": specs})
 
 
 def run_cases(cases: list) -> dict:
