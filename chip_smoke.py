@@ -74,7 +74,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    loss and every gradient with the kernels against ``plain=True`` (qkv
    weights scaled so that s is of order 1); the
    same 20 steps of easy-transformer (quadratic attention) as a yardstick;
-   and 10 steps each of easy-transformer-fastmax with ``attn_alg``
+   and 6 steps each of easy-transformer-fastmax with ``attn_alg``
    linearmax and performer (their chunked scans: no K4/K5 launch, a finite
    loss that falls);
 9. finetuning: the trainable flash kernels K6 (forward: out and lse) and K7
@@ -109,8 +109,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    K9 at the four linears (m in {1, 8, 64, 128}, f32 and bf16, and its raw
    nibble mode), inputs with a non-zero mean; device times in a CUDA graph,
    weights cold, beside the bound, the plain version and dequantize +
-   ``torch.matmul``; then a random bf16 Llama-2-7B (seed 0, full width, all
-   32 layers) quantized to bnb.nf4 on the card and served by
+   ``torch.matmul``; then a random bf16 Llama-2-7B (seed 0, full width, cut
+   to 8 of its 32 layers) quantized to bnb.nf4 on the card and served by
    ``InferenceEngine.generate`` (int8 KV cache, block_size 1024, 64-token
    prompt) in each weights mode: "quantized" (autotune's choice and times
    printed, then the "pallas" backend set so that K8 is on the path),
@@ -120,7 +120,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (gated with float32 activations, reported in bf16);
    each mode against "quantized" on layer 0's four linears ("preload" within
    LOGITS_REL_TOL, the int4/int8 re-representations at a correlation above
-   0.95) and on the 32-layer logits (error, correlation, top-1 agreement);
+   0.95) and on the whole model's logits (error, correlation, top-1 agreement);
    last an 8-slot ``ContinuousBatcher`` in "quantized" and in
    "preload_int4_block" serving 8 requests of 256 tokens (K8/K9 at m = 8)
    with float32 activations and a dense cache, its first-token logits and
@@ -154,7 +154,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    every input name at its shape, moved, and reloading to the final state;
    step times, peak memory and the launch counts of each command;
 13. the inference and eval command lines, inside phase 12's directory: (a)
-   ``bench_serving.main`` on a random Llama-2-7B at full width and depth,
+   ``bench_serving.main`` on a random Llama-2-7B at full width, 8 of 32 layers,
    bnb.nf4 under "auto" (K1), int8 cache (K2), 8 slots, quantum 8: 16 requests
    of 64 + 64 tokens, then 8 of 2048 + 16 at a 4096 cache (K3), each JSON line
    checked, tok/s, TTFT and peak memory; (b) ``generate.load_and_prepare`` of
@@ -188,7 +188,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    easy-transformer-fastmax (random f32 weights): 32 greedy tokens after a
    64-token prompt against recomputing the no-cache forward each step (K4),
    logits against that forward and kernels against plain; (c) the engine on a
-   random Llama-2-7B at full depth, bnb.nf4 -> preload_int4 (K1), with each of
+   random Llama-2-7B cut to 8 of its 32 layers, bnb.nf4 -> preload_int4 (K1), with each of
    fastmax, linearmax and performer: prompts of 64 and 512 tokens, 32 new
    tokens, prefill ms, decode ms a token, the device busy share, peak memory,
    the state's bytes against the reckoning, K1 launches, logits kernels vs
@@ -200,7 +200,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``prefill_chunk`` and ``speculative_k`` with a linear arm, with the
    reference's ValueError;
 15. Gemma's GeGLU and Mixtral's MoE, the adapter methods and the optimizers:
-   (a) a random Gemma-7B at full width and depth (28 layers, 16 heads of 256,
+   (a) a random Gemma-7B at full width cut to 14 of its 28 layers (16 heads of 256,
    vocab 256000) bnb.nf4 -> ``preload_int4`` (K1), int8 cache, 4096 context:
    prompts of 64 and 512 tokens (K3 at D = 256) + 32 new, prefill ms, decode
    ms a token, busy share, peak memory, logits kernels vs plain (max and mean,
@@ -233,7 +233,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fallback, must run, here and inside pretraining) against ``PackedDataset``,
    ``pretrain.setup(data_format="packed")`` on
    easy-transformer-fastmax (K4/K5), the loss falling, logged to TensorBoard;
-   (d) GPTQ (int4, nf4) on the card at Llama-2-7B's width on 2 layers, the
+   (d) GPTQ (int4, nf4) on the card at Llama-2-7B's width on 1 layer, the
    hidden states' error below round-to-nearest's, and inside phase 12's
    directory one QLoRA step of ``finetune.setup(gptq_calib=True)`` and
    ``generate.main --gptq_calib`` on the "pallas" backend (K8); (e) the W&B
@@ -243,7 +243,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    D=128, S=4096, bf16 and f32) under phase 6's gates, timed at T = 9; K1 at
    m = 9 and m = 72 at the four 7B linears under phase 3's gates, a layer's
    four timed; (b) ``SpeculativeDecoder`` (prompt lookup, k = 8) on the random
-   Llama-2-7B of phases 5 and 7 (q4r1, int8 cache, 4096 positions, so that
+   Llama-2-7B of phases 5 and 7 cut to 8 of its 32 layers (q4r1, int8 cache, 4096
+   positions, so that
    every verify is one K3 call of 9 ragged rows): a 512-token prompt of the
    repository's text in which a 64-token segment repeats, 128 new tokens
    greedy against ``engine.generate`` and 32 against its own ``plain=True``
@@ -263,7 +264,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
 18. multi-GPU serving, inside phase 12's directory: two ranks on the one card
    (``parallel/collectives.spawn_local``, gloo: NCCL takes no two ranks on one
    GPU, so the collectives cross the host and no figure is a multi-GPU one),
-   each on its shard, against one rank: (a) Llama-2-7B (4096 context,
+   each on its shard, against one rank: (a) Llama-2-7B (8 layers, 4096 context,
    preload_int4, int8 cache) at tp 2, 64-token prompt, 16 greedy tokens (K1 on
    the split linears, K3 on the prefill, K2 over 16 of 32 groups; near-tie
    rule), each rank's weight bytes, kept-whole linears and launches, and the
@@ -278,10 +279,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 19. multi-GPU training: two ranks on the one card over gloo again, each
    trainer's entry point on a (dp, fsdp, tp) mesh against one rank on the same
    seed and batches: (a) ``pretrain.setup`` on easy-transformer-fastmax, 16 x
-   512, f32, 4 steps at (2, 1, 1), (1, 2, 1) and (1, 1, 2) (K4/K5 on a rank's
+   512, f32, 2 steps at (2, 1, 1), (1, 2, 1) and (1, 1, 2) (K4/K5 on a rank's
    rows and heads, 2 and 1 a layer and micro-batch; every step's loss within
    1e-4 relative; each rank's parameter and optimizer bytes); (b)
-   ``finetune.setup`` QLoRA on an NF4 Llama-2-7B at full width cut to 8
+   ``finetune.setup`` QLoRA on an NF4 Llama-2-7B at full width cut to 4
    layers, T 2048, one step of a global micro-batch of 2 at dp 2 and at fsdp
    2 (K6/K7 2 and 1 a layer and micro-batch, K8 as on one rank; the loss and
    the LoRA gradients within twice the distance between one rank's
@@ -291,7 +292,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the sequence-parallel loss at TinyLlama's width (2 layers, f32, T 2048 over
    2 ranks) against one rank's dense loss and gradients, one
    ``make_sp_train_step`` step and ``make_sp_tp_fsdp_loss_fn``; (e) (a) at
-   one rank over NCCL, bit for bit against the run with no mesh.
+   one rank over NCCL, bit for bit against the run with no mesh;
+20. the last of the JAX package, two ranks on the one card over gloo again:
+   (a) GPipe (``parallel/pipeline.py``): easy-transformer-fastmax at full width
+   and depth (16 layers, f32) as 2 stages of 8, batch 8 x 513, n_micro 2 and
+   4, the loss (1e-4 relative) and every gradient (atol 3e-4, rtol 2e-3)
+   against one rank's dense loss, K4/K5 exactly (M + P - 1) x 8 x (2, 1) a
+   rank; (b) ``make_pp_train_step`` on TinyLlama-1.1B at full width and depth
+   (bf16, random weights) as 2 stages of 11, batch 4 x 2049, n_micro 4, AdamW
+   for 3 steps: a falling loss, step ms, a rank's parameter and optimizer
+   bytes against the whole tree's, peak memory, K6/K7 exactly (M + P - 1) x
+   11 x (2, 1) a step; (c) ``graft_entry.dryrun_multichip(4)`` over gloo
+   (modes 1-4, 7 and 8 against the unsharded loss and tokens; K8 launched by
+   the tp NF4 decode); (d) ``scaling_bench.run`` on pythia-160m at 1 and 2
+   ranks; (e) ``graft_entry.entry()``'s forward: the logits' shape, finite.
 
 It prints the kernels' JSON line, the card line and, last, the device JSON
 line. Details go to ``chiprun_out/chip_smoke.json``. Without CUDA, or
@@ -395,7 +409,12 @@ LINEAR_FT_STEPS = 2        # QLoRA steps of each arm: the fewest that time a ste
 # script fits in its time limit (fastmax's two steps took 112.7 s at full depth and 34.0 s
 # at 8 layers on one H100 at 700 W)
 LINEAR_FT_LAYERS = 2
-LINEAR_TRAIN_STEPS = 10    # pretraining steps of linearmax and performer
+LINEAR_TRAIN_STEPS = 6     # pretraining steps of linearmax and performer (10 before phase 20)
+# the random Llama-2-7B's layers (of 32) in phases 10, 13 (a), 14 (c)-(d), 17 (b)-(d) and 18
+# (a)-(b): the script's time limit forces the cut (all 32 before phase 20). Phases 5 and 7 keep
+# all 32: their bf16 gates (phase 5's decode step on each route's own first token, phase 7's
+# first-token logits at 1.6e-02 of their 2e-02) hold at that depth and are not re-derived
+LAYERS_7B = 8
 FASTMAX_KERNELS = ("fastmax_fwd", "fastmax_bwd")
 
 LLAMA7B_LINEARS = [("qkv", 4096, 12288), ("attn_proj", 4096, 4096),
@@ -2023,7 +2042,7 @@ FLASH_TRAIN_REL = {"float32": {"out": 1e-5, "grad": 1e-4}, "bfloat16": {"out": 2
 FLASH_TRAIN_LSE_REL = 1e-5
 FLASH_TRAIN_BF16_MEAN = 5e-5
 FT_SHAPE = (2, 32, 2048, 128)   # micro-batch 2 of Llama-2-7B at T = 2048
-FT_STEPS = 4
+FT_STEPS = 3   # 4 before phase 20
 # one step of the 4-layer QLoRA model, kernels against plain=True: the loss
 # (relative) and each LoRA gradient leaf (of its largest entry). f32: sums in
 # other orders; bf16: every activation is rounded, and a flipped attention
@@ -2641,6 +2660,7 @@ NF4_ATOL, NF4_RTOL = 2e-4, 1e-4   # f32 x: the reference's own (test_quant_palla
 INT4_RAW_ATOL = 64 * INT4_ATOL
 QSERVE_MODES = ("quantized", "preload_int4_block", "preload_int4", "preload_int8", "preload",
                 "auto")
+QSERVE_BATCH_NEW = 16             # new tokens a batcher request (32 before phase 20)
 QSERVE_KERNELS = {"quantized": ("nf4_matmul", 3), "preload_int4_block": ("int4_block_matmul", 4),
                   "preload_int4": ("int4_rank1_matmul", 4), "auto": ("int4_rank1_matmul", 4)}
 CORR_MIN = 0.95                   # re-representations vs quantized (test_quant_pallas.py:134)
@@ -3080,14 +3100,15 @@ def batcher_paths(torch, batcher, kind, card) -> dict:
     ``kind`` "K9" (the block batcher) or "K8" (the quantized one): the tensor
     cores, and the route the kernel took at m = 8 before (``earlier_route``;
     K9: the FMA tile, K8: the gemv). For each, in turns (the earlier route
-    first): one decode step at every slot's position 287 (the last of phase
-    10's batchers: 256-token prompts and 32 new tokens) profiled (device µs by
+    first): one decode step at every slot's position 255 + QSERVE_BATCH_NEW (the
+    last of phase 10's batchers: 256-token prompts and QSERVE_BATCH_NEW new
+    tokens) profiled (device µs by
     kernel group), and 8 steps back to back on the host clock, with the
     device's busy share: whether a cut in the kernel's time can reach tok/s or
     the host hides it."""
     from fastmax_tpu_torch.ops import quant_kernels as qk
 
-    pos = 287
+    pos = 255 + QSERVE_BATCH_NEW
     toks = torch.ones(N_SLOTS, dtype=torch.int32, device="cuda")
     posv = torch.full((N_SLOTS,), pos, dtype=torch.int32, device="cuda")
     temps0 = torch.zeros(N_SLOTS, device="cuda")
@@ -3208,7 +3229,7 @@ def quant_serving_path(torch, results, card):
     from fastmax_tpu_torch.models.config import Config
     from fastmax_tpu_torch.ops import quant
 
-    cfg = Config.from_name("Llama-2-7b-hf")
+    cfg = Config.from_name("Llama-2-7b-hf", n_layer=LAYERS_7B)
     cfg.block_size = 1024
     gc.collect()
     torch.cuda.empty_cache()
@@ -3219,8 +3240,9 @@ def quant_serving_path(torch, results, card):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    log(f"  random bf16 Llama-2-7B (seed 0) quantized to bnb.nf4 on the card in "
-        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+    log(f"  random bf16 Llama-2-7B (seed 0) at full width cut to {LAYERS_7B} of its 32 layers, "
+        f"quantized to bnb.nf4 on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB held")
     rng = np.random.default_rng(0)
     prompt = torch.as_tensor(rng.integers(1, 32000, 64), dtype=torch.int32)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -3272,23 +3294,27 @@ def quant_serving_path(torch, results, card):
     # 7B's logits by several per cent
     batch_prompts = [rng.integers(1, 32000, 256).astype(np.int32) for _ in range(N_SLOTS)]
     nf4_f32 = with_f32_activations(torch, nf4)
-    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, 32, card, paths=True)
+    batchers = [batcher_mode(torch, cfg, nf4_f32, mode, batch_prompts, QSERVE_BATCH_NEW, card,
+                             paths=True)
                 for mode in ("quantized", "preload_int4_block")]
     # the blockwise-int4 batcher under the int8 cache: the kernels against the plain versions
     # (the same m = 8 route) under the near-tie rule; against the engine (m = 1) reported: an
     # f32 rounding difference there flips an int8 cache code now and then, and a random 7B
     # carries it to another token (a reference hazard, ROADMAP.md)
-    plain_int8 = batcher_mode(torch, cfg, nf4_f32, "preload_int4_block", batch_prompts, 32, card,
+    plain_int8 = batcher_mode(torch, cfg, nf4_f32, "preload_int4_block", batch_prompts,
+                              QSERVE_BATCH_NEW, card,
                               cache_dtype=torch.int8, plain=True, held=False)
     batchers += [plain_int8, batcher_mode(torch, cfg, nf4_f32, "preload_int4_block",
-                                          batch_prompts, 32, card, cache_dtype=torch.int8,
+                                          batch_prompts, QSERVE_BATCH_NEW, card,
+                                          cache_dtype=torch.int8,
                                           against=plain_int8["tokens"])]
     del nf4_f32
     for b in batchers:
         for k, v in b["launches"].items():
             counts[k] = counts.get(k, 0) + v
     results["quant_serving"] = {
-        "model": "Llama-2-7b-hf (random bf16 weights, seed 0) quantized to bnb.nf4, int8 KV "
+        "model": f"Llama-2-7b-hf (random bf16 weights, seed 0, {LAYERS_7B} of 32 layers) "
+                 "quantized to bnb.nf4, int8 KV "
                  "cache, block_size 1024, 64-token prompt",
         "modes": modes, "preload_vs_quantized": rel, "rerep_vs_quantized": rerep,
         "batchers": batchers, "launches": counts, "card": card}
@@ -4055,7 +4081,7 @@ def command_path(torch, results, card, then=None):
 # lora_weights.safetensors and the pretraining out_dir. bench_serving draws its 7B at full
 # depth on the card. Its first load names --max_seq_length 256: without it the cache
 # length is prompt + new + quantum = 136, not the multiple of 128 that K2 takes.
-INF_BENCH_MODEL = ["--model_name", "Llama-2-7b-hf", "--quantize", "bnb.nf4",
+INF_BENCH_MODEL = ["--quantize", "bnb.nf4",
                    "--kv_cache_dtype", "int8", "--n_slots", str(N_SLOTS), "--decode_quantum", "8"]
 INF_BENCH_LOADS = (
     ("decode", ["--n_requests", "16", "--prompt_len", "64", "--max_new_tokens", "64",
@@ -4119,17 +4145,17 @@ def inference_path(torch, results, card, tmp, ckpt, lora_file, pt_out) -> dict:
     from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint, load_model_params
 
     log("[13] the inference and eval command lines through the port's entry points: "
-        "bench_serving at full depth, generate's load, chat's stream, the tokenizer entries, "
-        "merge and convert, the eval harness, the pretrained converter")
+        f"bench_serving on {LAYERS_7B} of the 7B's layers, generate's load, chat's stream, the "
+        "tokenizer entries, merge and convert, the eval harness, the pretrained converter")
     t_phase = time.perf_counter()
     out, counts = {}, {}
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (a) bench_serving.main: random Llama-2-7B weights on the card, all 32 layers
+    # (a) bench_serving.main: random Llama-2-7B weights on the card, LAYERS_7B layers
     out["bench_serving"] = []
     for what, load, must in INF_BENCH_LOADS:
-        flags = INF_BENCH_MODEL + load
+        flags = ["--model_name", cut_model("Llama-2-7b-hf", LAYERS_7B)] + INF_BENCH_MODEL + load
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
@@ -4910,7 +4936,7 @@ def linear_serving_path(torch, results, card, tmp, ckpt) -> dict:
     out["easy_transformer"], launches = linear_engine_small(torch, results, card)
     add_counts(counts, launches)
 
-    cfg0 = Config.from_name("Llama-2-7b-hf")
+    cfg0 = Config.from_name("Llama-2-7b-hf", n_layer=LAYERS_7B)
     cfg0.block_size = 1024
     t0 = time.perf_counter()
     dense = gpt.init_params(cfg0, 0, torch.bfloat16, "cuda")
@@ -4920,12 +4946,13 @@ def linear_serving_path(torch, results, card, tmp, ckpt) -> dict:
     del nf4
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  random bf16 Llama-2-7B (seed 0) -> bnb.nf4 -> preload_int4 (K1) on the card in "
-        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.3f} GB held")
+    log(f"  random bf16 Llama-2-7B (seed 0) at full width cut to {LAYERS_7B} of its 32 "
+        f"layers -> bnb.nf4 -> preload_int4 (K1) on the card in {time.perf_counter() - t0:.2f} s;"
+        f" {torch.cuda.memory_allocated() / 1e9:.3f} GB held")
     out["engine_7b"], out["batcher_7b"] = {}, {}
     q4_f32 = with_f32_activations(torch, q4)
     for arm in LINEAR_ARMS:
-        cfg = Config.from_name("Llama-2-7b-hf", attn_alg=arm)
+        cfg = Config.from_name("Llama-2-7b-hf", attn_alg=arm, n_layer=LAYERS_7B)
         cfg.block_size = 1024
         out["engine_7b"][arm], launches = linear_engine_7b(torch, cfg, q4, arm, card)
         add_counts(counts, launches)
@@ -4973,6 +5000,7 @@ def linear_serving_path(torch, results, card, tmp, ckpt) -> dict:
 # 11.08406 in one run, 11.08506 -> 11.08548 in another, on an H100 80GB HBM3 at 700 W), so
 # only float32 shows that step's fall.
 GEMMA, MIXTRAL = "Gemma-7b", "Mixtral-8x7B-v0.1"
+GEMMA_SERVE_LAYERS = 14      # of Gemma-7B's 28 in (a) (all 28 before phase 20)
 MIXTRAL_LAYERS = 8
 FAMILY_PROMPTS = (64, 512)   # the 512-token prefill takes K3 at D = 256 over S = 4096
 FAMILY_NEW = 32
@@ -5237,8 +5265,9 @@ def families_path(torch, results, card) -> dict:
     backend = quant.get_quant_backend()
     quant.set_quant_backend("pallas")
 
-    # (a) Gemma-7B at full width and depth, bnb.nf4 -> preload_int4 (K1), 4096 context
-    cfg = Config.from_name(GEMMA)
+    # (a) Gemma-7B at full width cut to GEMMA_SERVE_LAYERS, bnb.nf4 -> preload_int4 (K1),
+    # 4096 context
+    cfg = Config.from_name(GEMMA, n_layer=GEMMA_SERVE_LAYERS)
     t0 = time.perf_counter()
     dense = gpt.init_params(cfg, 0, torch.bfloat16, "cuda")
     n_params = sum(x.numel() for x in tree_leaves(dense))
@@ -5448,12 +5477,12 @@ def adapter_commands(torch, results, card, tmp, ckpt) -> dict:
 # gradients of one step under each policy against "none": bit for bit, or each leaf's
 # mean |g - g_none| within the bf16 mean gate FLASH_TRAIN_BF16_MEAN of its mean |g_none|.
 MFU_MODEL = "tiny-llama-1.1b"
-MFU_BATCH, MFU_T, MFU_ITERS = 8, 2048, 3
+MFU_BATCH, MFU_T, MFU_ITERS = 8, 2048, 2   # 3 timed steps before phase 20
 REMAT_POLICIES = ("none", "full", "attn", "dots", "dots_attn", "dots@8:full")
 RECOMPUTES_ATTENTION = ("full", "dots")
-# (d) GPTQ at Llama-2-7B's width on 2 of its 32 layers (depth cut for time: ~27k columns a
+# (d) GPTQ at Llama-2-7B's width on 1 of its 32 layers (depth cut for time: ~27k columns a
 # layer, each a few launches), calibrated on 512 tokens of the repository's text
-GPTQ_LAYERS = 2
+GPTQ_LAYERS = 1   # 2 before phase 20
 GPTQ_CALIB_T = 512
 # (c) packed data: a few MB of the repository's printable text, tokenized by a BPE
 # tokenizer trained here (vocabulary within easy-transformer-fastmax's 205), in chunks of
@@ -5897,10 +5926,10 @@ def rest_of_training_path(torch, results, card) -> dict:
 # ----------------------------------------------------------------- phase 17
 # Speculative decoding. (a) K3 at the verify's shapes: T = k+1 rows at pos0 over kv_len =
 # pos0 + T keys; (b) the batch-1 prompt-lookup decoder on the random 7B of phases 5 and 7
-# (q4r1, int8 cache, an engine of 4096 positions: every verify is one K3 call of T = k+1
-# ragged rows, and K1 at m = k+1 on the tensor cores); (c) the draft decoder with TinyLlama
-# at full width drafting (its public pairing with Llama-2-7B: the same 32 000-token
-# vocabulary); (d) the batcher's verify at 8 slots (K1 at m = 8 (k+1) = 72 on the FMA tile;
+# (LAYERS_7B layers, q4r1, int8 cache, an engine of 4096 positions: every verify is one K3
+# call of T = k+1 ragged rows, and K1 at m = k+1 on the tensor cores); (c) the draft decoder
+# with TinyLlama at full width drafting (its public pairing with Llama-2-7B: the same 32
+# 000-token vocabulary); (d) the batcher's verify at 8 slots (K1 at m = 8 (k+1) = 72 on the FMA tile;
 # the per-slot positions take the masked SDPA over the dequantized cache, as the reference
 # does off its chip); (e) the command lines, inside phase 12's directory.
 SPEC_K = 8
@@ -6238,7 +6267,7 @@ def speculative_path(torch, results, card) -> dict:
                                          card)}
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = Config.from_name("Llama-2-7b-hf")
+    cfg = Config.from_name("Llama-2-7b-hf", n_layer=LAYERS_7B)
     cfg.block_size = 4096
     params = build_fake_7b_int4(cfg, seed=0)
     engine = InferenceEngine(cfg, params, max_seq_length=4096, weights_mode="quantized",
@@ -6687,7 +6716,7 @@ def tp_serving_path(torch, results, card, tmp, ckpt) -> dict:
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg_int4, cfg_modes = p18_config(), p18_config(P18_MODES_LAYERS)
+    cfg_int4, cfg_modes = p18_config(LAYERS_7B), p18_config(P18_MODES_LAYERS)
     prompt = p18_prompts(np, 1, P18_PROMPT)[0]
     prompts = p18_prompts(np, P18_REQUESTS, P18_PROMPT)
     counts, out = {}, {"card": card}
@@ -6943,10 +6972,11 @@ def tp_serving_alone() -> dict:
 # distance is at least one float32 step of it); (c) bench_mfu
 # at fsdp 2; (d) sequence parallelism in f32 against one rank's dense loss; (e) (a) at
 # one rank over NCCL, bit for bit against the run with no mesh.
-P19_PT_MODEL, P19_PT_STEPS, P19_PT_BATCH = "easy-transformer-fastmax", 4, 16  # 16 x 512
+# (a) 2 steps and (b) 4 layers (4 and 8 before phase 20)
+P19_PT_MODEL, P19_PT_STEPS, P19_PT_BATCH = "easy-transformer-fastmax", 2, 16  # 16 x 512
 P19_PT_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2))
 P19_PT_REL = 1e-4
-P19_FT_LAYERS, P19_FT_T, P19_FT_MESHES = 8, 2048, ((2, 1, 1), (1, 2, 1))
+P19_FT_LAYERS, P19_FT_T, P19_FT_MESHES = 4, 2048, ((2, 1, 1), (1, 2, 1))
 # (c) at 11 of TinyLlama's 22 layers: the script's time limit forces the cut (at 22 a
 # step took 7.3 s, most of it the gathers and reduce-scatters through gloo)
 P19_MFU_MODEL, P19_MFU_LAYERS = "tiny-llama-1.1b", 11
@@ -7370,6 +7400,297 @@ def train_mesh_alone() -> dict:
     return results
 
 
+# ----------------------------------------------------------------- phase 20
+# The last modules of the JAX package, on two ranks on the one card over gloo, as in phases
+# 18-19 (NCCL takes no two ranks on one GPU): no time or rate here is a multi-GPU figure.
+# (a) GPipe: easy-transformer-fastmax at full width and depth (16 layers, f32, K4/K5) as two
+# stages of 8 on the (1, 1, 2) mesh, batch 8 x 513, n_micro 2 and 4: the loss and every gradient
+# against one rank's dense make_loss_fn on the same parameters and batch (the kernels in both),
+# the loss within P20_PP_REL, the gradients within tests/test_pipeline.py's atol and rtol; K4/K5
+# exactly (M + P - 1) x 8 x (2, 1) a rank under full remat (every stage runs every tick: the
+# bubble's ticks launch too). (b) TinyLlama-1.1B at full width and depth (22 layers, bf16,
+# random weights) as two stages of 11, batch 4 x 2049, n_micro 4, make_pp_train_step with AdamW
+# for P20_TL_STEPS steps: the loss falls; step ms; a rank's parameter and optimizer bytes against
+# one rank's whole tree; peak memory a rank; K6/K7 exactly (M + P - 1) x 11 x (2, 1) a step.
+# (c) the eight-mode dry run at 4 ranks (modes 1-4, 7 and 8; 5 and 6 need data >= 2), mode 8
+# launching K8. (d) the scaling bench at 1 and 2 ranks. (e) the flagship entry's forward.
+P20_PP_MODEL, P20_PP_BATCH, P20_PP_MICRO = "easy-transformer-fastmax", 8, (2, 4)
+P20_PP_REL = P19_PT_REL
+P20_GRAD_ATOL, P20_GRAD_RTOL = 3e-4, 2e-3
+P20_TL_MODEL, P20_TL_BATCH, P20_TL_MICRO, P20_TL_STEPS = "tiny-llama-1.1b", 4, 4, 3
+P20_STAGES = 2
+P20_SCALING = dict(model_name="pythia-160m", seq_len=256, per_device_batch=4, max_devices=2,
+                   backend="gloo", iters=1)
+
+
+def p20_parity(torch, mesh, conf: dict) -> dict:
+    """(a) on a rank: rank 0's dense loss and gradients (kernels on), then the pipeline's at
+    each n_micro of P20_PP_MICRO: loss, whole gradients (rank 0 compares them), this rank's
+    launches and seconds."""
+    import numpy as np
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.parallel import collectives as col
+    from fastmax_tpu_torch.parallel import pipeline as pp
+    from fastmax_tpu_torch.parallel.sharding import tree_paths
+    from fastmax_tpu_torch.training.step import make_loss_fn, tree_leaves
+
+    cfg = Config(**conf)
+    whole = gpt.init_params(cfg, 20, torch.float32, "cuda")
+    batch = torch.as_tensor(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (P20_PP_BATCH, cfg.block_size + 1)), device="cuda")
+    out, dense = {}, {}
+    if mesh.leader:
+        leaves = tree_leaves(whole)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = make_loss_fn(cfg, remat=True)(whole, batch)
+        loss.backward()
+        out["dense_loss"] = float(loss.detach())
+        dense = {".".join(p): x.grad for p, x in zip(tree_paths(whole), leaves)}
+        for x in leaves:
+            x.grad = None
+            x.requires_grad_(False)
+    specs = pp.pp_param_specs(cfg, whole)
+    for m in P20_PP_MICRO:
+        local = pp.local_params(whole, mesh, specs)
+        leaves = tree_leaves(local)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss_fn = pp.make_pp_loss_fn(cfg, mesh, n_micro=m)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = loss_fn(local, batch)
+        loss.backward()
+        grads = pp.sync_pp_grads(local, [x.grad for x in leaves], mesh)
+        torch.cuda.synchronize()
+        row = {"loss": float(loss.detach()), "s": time.perf_counter() - t0,
+               "launches": {k: v for k, v in build.launch_counts().items() if v}}
+        rel, worst, over = 0.0, 0.0, -1.0
+        for path, g in zip(tree_paths(local), grads):
+            if path[0] == "blocks":
+                g = col.all_gather(g, 0, mesh.group("model"))
+            if mesh.leader:
+                d = dense[".".join(path)]
+                err = (g - d).abs()
+                worst = max(worst, float(err.max()))
+                rel = max(rel, float(err.max() / d.abs().max()))
+                over = max(over, float((err - (P20_GRAD_ATOL + P20_GRAD_RTOL * d.abs())).max()))
+        if mesh.leader:
+            row.update(grad_max_abs=worst, grad_rel=rel, grad_within=over <= 0)
+        out[m] = row
+        del local, leaves, grads
+    return out
+
+
+def p20_train(torch, mesh, conf: dict) -> dict:
+    """(b) on a rank: P20_TL_STEPS pipeline AdamW steps of the model; losses, step seconds,
+    this rank's parameter and optimizer bytes beside the whole tree's, peak, launches."""
+    import numpy as np
+
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models import gpt
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.parallel import pipeline as pp
+    from fastmax_tpu_torch.parallel.sharding import tree_bytes
+    from fastmax_tpu_torch.training.quant_optim import state_nbytes
+    from fastmax_tpu_torch.training.step import AdamW
+
+    cfg = Config(**conf)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole = gpt.init_params(cfg, 21, torch.bfloat16, "cuda")
+    whole_bytes = tree_bytes(whole)
+    local = pp.local_params(whole, mesh, pp.pp_param_specs(cfg, whole))
+    del whole
+    optimizer = AdamW(lambda count: 1e-3)
+    state = optimizer.init(local)
+    step = pp.make_pp_train_step(cfg, mesh, optimizer, n_micro=P20_TL_MICRO)
+    batch = torch.as_tensor(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (P20_TL_BATCH, cfg.block_size + 1)), device="cuda")
+    losses, times = [], []
+    build.reset_launch_counts()
+    for _ in range(P20_TL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(local, state, batch)[2]))
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": times, "param_bytes": tree_bytes(local),
+            "opt_bytes": state_nbytes(state), "whole_bytes": whole_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in build.launch_counts().items() if v}}
+
+
+def p20_rank(pp_conf: dict, tl_conf: dict) -> dict:
+    """One of the two ranks: (a) and (b) on the (1, 1, P20_STAGES) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from fastmax_tpu_torch.parallel.sharding import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh(1, 1, P20_STAGES)
+    return {"rank": dist.get_rank(), "parity": p20_parity(torch, mesh, pp_conf),
+            "train": p20_train(torch, mesh, tl_conf)}
+
+
+def pipeline_path(torch, results, card) -> dict:
+    """Phase 20 (see the constants above)."""
+    import numpy as np
+
+    from fastmax_tpu_torch import graft_entry
+    from fastmax_tpu_torch.kernels import build
+    from fastmax_tpu_torch.models.config import registry
+    from fastmax_tpu_torch.parallel import collectives as col
+    from fastmax_tpu_torch.parallel import scaling_bench
+
+    log("[20] the last of the JAX package: GPipe pipeline parallelism, the eight-mode dry run, "
+        "the scaling bench and the flagship entry; two ranks (four in the dry run) on the one "
+        "card over gloo (no figure here is a multi-GPU one)")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, counts = {"card": card}, {}
+    pp_conf, tl_conf = dict(registry()[P20_PP_MODEL]), dict(registry()[P20_TL_MODEL])
+    t0 = time.perf_counter()
+    ranks = col.spawn_local(p20_rank, P20_STAGES, backend="gloo", args=(pp_conf, tl_conf),
+                            timeout=600)
+    ranks_s = time.perf_counter() - t0
+    per = pp_conf["n_layer"] // P20_STAGES
+
+    # (a) pipeline parity
+    dense = ranks[0]["parity"]["dense_loss"]
+    out["parity"] = {"dense_loss": dense}
+    for m in P20_PP_MICRO:
+        row = ranks[0]["parity"][m]
+        ticks = m + P20_STAGES - 1
+        want = {"fastmax_fwd": 2 * ticks * per, "fastmax_bwd": ticks * per}
+        got = [{k: r["parity"][m]["launches"].get(k) for k in want} for r in ranks]
+        rel = abs(row["loss"] - dense) / abs(dense)
+        secs = [round(r["parity"][m]["s"], 3) for r in ranks]
+        log(f"  (a) {P20_PP_MODEL} f32 as {P20_STAGES} stages of {per} layers, batch "
+            f"{P20_PP_BATCH} x {pp_conf['block_size'] + 1}, n_micro {m} ({ticks} ticks): loss "
+            f"{row['loss']:.7f} vs one rank's dense {dense:.7f} (rel {rel:.2e}, gate "
+            f"{P20_PP_REL}); gradients max|diff| {row['grad_max_abs']:.3e}, max|diff|/max|g| "
+            f"{row['grad_rel']:.3e}, within atol {P20_GRAD_ATOL} rtol {P20_GRAD_RTOL}: "
+            f"{row['grad_within']}; loss and backward {secs} s a rank; K4/K5 a rank {got} "
+            f"(want {want})   [{card}]")
+        if not (rel <= P20_PP_REL and row["grad_within"] and all(g == want for g in got)):
+            raise AssertionError(f"(a) n_micro {m}: {row}, launches {got} vs {want}")
+        out["parity"][m] = {**row, "loss_rel": rel, "launches": got}
+        for r in ranks:
+            add_counts(counts, r["parity"][m]["launches"])
+
+    # (b) pipeline training
+    tl = [r["train"] for r in ranks]
+    per_tl = tl_conf["n_layer"] // P20_STAGES
+    ticks = P20_TL_MICRO + P20_STAGES - 1
+    want = {"flash_train_fwd": 2 * ticks * per_tl * P20_TL_STEPS,
+            "flash_train_bwd": ticks * per_tl * P20_TL_STEPS}
+    got = [{k: t["launches"].get(k) for k in want} for t in tl]
+    step_ms = [1e3 * float(np.mean(t["step_s"][1:])) for t in tl]
+    whole = tl[0]["whole_bytes"]
+    log(f"  (b) {P20_TL_MODEL} bf16 (random weights) as {P20_STAGES} stages of {per_tl}, batch "
+        f"{P20_TL_BATCH} x {tl_conf['block_size'] + 1}, n_micro {P20_TL_MICRO}, AdamW 1e-3: "
+        f"losses {[round(x, 4) for x in tl[0]['losses']]}; steps 2-{P20_TL_STEPS} "
+        f"{[round(x, 1) for x in step_ms]} ms a rank (two ranks on one card over gloo, not a "
+        f"multi-GPU figure); parameters {[t['param_bytes'] / 1e9 for t in tl]} GB and AdamW "
+        f"state {[t['opt_bytes'] / 1e9 for t in tl]} GB a rank against one rank's whole tree "
+        f"{whole / 1e9:.3f} GB and {2 * whole / 1e9:.3f} GB; peak a rank "
+        f"{[round(t['peak_gb'], 2) for t in tl]} GB; K6/K7 a rank {got} (want {want})   [{card}]")
+    if not (tl[0]["losses"][-1] < tl[0]["losses"][0] and all(g == want for g in got)
+            and all(t["param_bytes"] < 0.6 * whole for t in tl)):
+        raise AssertionError(f"(b) {tl[0]['losses']}, launches {got} vs {want}, parameter bytes "
+                             f"{[t['param_bytes'] for t in tl]} of {whole}")
+    out["train"] = {"losses": tl[0]["losses"], "step_ms": step_ms, "whole_bytes": whole,
+                    "param_bytes": [t["param_bytes"] for t in tl],
+                    "opt_bytes": [t["opt_bytes"] for t in tl],
+                    "peak_gb": [t["peak_gb"] for t in tl], "launches": got}
+    for t in tl:
+        add_counts(counts, t["launches"])
+
+    # (c) the eight-mode dry run on four ranks
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        dry = graft_entry.dryrun_multichip(4, backend="gloo")
+    dry_s = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        log(f"  (c) {line.strip()}")
+    k8 = [r.get("nf4_matmul", 0) for r in dry["launches"]]
+    log(f"  (c) dryrun_multichip(4) over gloo in {dry_s:.1f} s: mesh {dry['mesh']}, modes "
+        f"{sorted(dry['modes'])}; K8 launches a rank {k8} (mode 8's decode on rank 0: "
+        f"{dry['modes']['tp int4 decode']['launches']})   [{card}]")
+    if not (len(dry["modes"]) == 6 and min(k8) > 0):
+        raise AssertionError(f"(c) modes {sorted(dry['modes'])}, K8 launches {k8}")
+    out["dryrun"] = {"mesh": dry["mesh"], "modes": dry["modes"], "launches": dry["launches"],
+                     "s": dry_s}
+    for r in dry["launches"]:
+        add_counts(counts, r)
+
+    # (d) the scaling bench at 1 and 2 ranks
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sb = scaling_bench.run(**P20_SCALING)
+    sb_s = time.perf_counter() - t0
+    log(f"  (d) scaling_bench.run({P20_SCALING}) in {sb_s:.1f} s: "
+        f"{json.dumps({str(k): v for k, v in sb.items()})} -- the two ranks share one card over "
+        f"gloo, so the efficiency is no scaling figure   [{card}]")
+    if not (sorted(sb) == [1, 2] and sb[1]["efficiency"] == 1.0
+            and all(r["tokens_per_sec"] > 0 for r in sb.values())):
+        raise AssertionError(f"(d) {sb}")
+    out["scaling"] = {**{str(k): v for k, v in sb.items()}, "s": sb_s}
+
+    # (e) the flagship entry's forward
+    fn, (params, idx) = graft_entry.entry()
+    build.reset_launch_counts()
+    with torch.no_grad():
+        logits = fn(params, idx)
+    torch.cuda.synchronize()
+    e_counts = {k: v for k, v in build.launch_counts().items() if v}
+    ok = tuple(logits.shape) == (1, 32, 32000) and bool(torch.isfinite(logits.float()).all())
+    log(f"  (e) graft_entry.entry() on the card: logits {tuple(logits.shape)} "
+        f"{str(logits.dtype)[6:]}, finite {ok}; launches {e_counts}   [{card}]")
+    if not ok:
+        raise AssertionError(f"(e) logits {tuple(logits.shape)}")
+    out["entry"] = {"shape": list(logits.shape), "launches": e_counts}
+    add_counts(counts, e_counts)
+    del fn, params, idx, logits
+
+    out["ranks_s"] = ranks_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = counts
+    log(f"  phase 20 in {out['phase_s']:.1f} s (the pipeline ranks {ranks_s:.1f} s, the dry run "
+        f"{dry_s:.1f} s, the scaling bench {sb_s:.1f} s); launches {counts}")
+    results["pipeline"] = out
+    return counts
+
+
+def pipeline_alone() -> dict:
+    """Phase 20 by itself, outside the script's run: the kernels built, then
+    ``pipeline_path``; the results to ``chiprun_out/pipeline.json``. Run as ``python3 -c
+    "import chip_smoke; chip_smoke.pipeline_alone()"``."""
+    import torch
+
+    from fastmax_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    build.build_all()
+    results = {}
+    pipeline_path(torch, results, card)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "pipeline.json").write_text(json.dumps(results, indent=1, default=str))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -7476,20 +7797,24 @@ def main() -> int:
     add_counts(counts_p17, counts_spec_cmd)
     marks.append(("19", time.perf_counter()))
     counts_p19 = train_mesh_path(torch, results, card)
+    marks.append(("20", time.perf_counter()))
+    counts_p20 = pipeline_path(torch, results, card)
     results["launches"] = {"batch1_path": counts_b1, "serving_path": counts,
                            "training_path": counts_train, "finetune_path": counts_ft,
                            "quant_serving_path": counts_q, "lab_path": counts_lab,
                            "command_path": counts_cmd, "inference_path": counts_inf,
                            "linear_serving_path": counts_lin, "families_path": counts_fam,
                            "rest_of_training_path": counts_p16, "speculative_path": counts_p17,
-                           "tp_serving_path": counts_p18, "train_mesh_path": counts_p19}
-    # the main paths of phases 15 to 19, added to the earlier phases' counts below
+                           "tp_serving_path": counts_p18, "train_mesh_path": counts_p19,
+                           "pipeline_path": counts_p20}
+    # the main paths of phases 15 to 20, added to the earlier phases' counts below
     counts_later = {}
     add_counts(counts_later, counts_fam)
     add_counts(counts_later, counts_p16)
     add_counts(counts_later, counts_p17)
     add_counts(counts_later, counts_p18)
     add_counts(counts_later, counts_p19)
+    add_counts(counts_later, counts_p20)
 
     # K1: one decode step of one layer at m=1 (the four linears), and by path at
     # each timed m (the serving decode step is m = 8); K2: pos 191 on decode_splits' route,
@@ -7506,8 +7831,10 @@ def main() -> int:
     # packed pretraining, the GPTQ QLoRA step and generate) to K4, K5, K6, K7 and K8, and
     # phase 17's (the speculative decoders, the speculative batcher and command lines) to
     # K1 and K3, and phase 18's (both ranks of the tp 2 engine, batcher and NF4 modes on the
-    # card) to K1, K2, K3, K8 and K9, and phase 19's (both ranks of the sharded pretraining
-    # and QLoRA runs, and the NCCL rank's pretraining) to K4, K5, K6, K7 and K8.
+    # card) to K1, K2, K3, K8 and K9, phase 19's (both ranks of the sharded pretraining
+    # and QLoRA runs, and the NCCL rank's pretraining) to K4, K5, K6, K7 and K8, and phase
+    # 20's (both pipeline ranks' parity runs and training steps, the dry run's four ranks) to
+    # K4, K5, K6, K7 and K8.
     # The bound of several calls is the sum of theirs, bound by the term that
     # bounds most of it.
     dec = [r for r in int4_rows if r["m"] == 1]

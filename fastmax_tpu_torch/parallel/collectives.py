@@ -34,7 +34,10 @@ XLA's transposes of the reference's collectives are:
 * ``bcast_owner``: the owner's broadcast forward, a sum to the owner
   backward (a layer of a leaf whose layer axis is split over fsdp);
 * ``ring_shift``: rank i's tensor to rank i + 1 forward, the reverse
-  backward (ring attention's K/V rotation).
+  backward (ring attention's K/V rotation, the pipeline's stage-to-stage
+  send);
+* ``scale_grad``: identity forward, the gradient times a constant backward
+  (a loss that several ranks compute alike, each counting its share).
 
 ``shift`` sends and receives point to point under NCCL; under gloo, whose
 point-to-point send of a CUDA tensor aborts the process (its TCP pair writes
@@ -212,6 +215,17 @@ class _BcastOwner(torch.autograd.Function):
         return out, None, None, None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
 class _RingShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -254,6 +268,11 @@ def bcast_owner(stacked: torch.Tensor, index: int, owner: int, group) -> torch.T
 def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
     """``shift(x, group, 1)`` (forward); the gradient shifted back."""
     return x if _size(group) == 1 else _RingShift.apply(x, group)
+
+
+def scale_grad(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x`` itself (forward); its gradient times ``c``."""
+    return x if c == 1 else _ScaleGrad.apply(x, c)
 
 
 def all_true(flag: bool, group, device) -> bool:

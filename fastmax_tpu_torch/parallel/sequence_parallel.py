@@ -164,17 +164,6 @@ def make_sp_loss_fn(cfg: Config, mesh, *, axis: str = "model",
     return loss_fn
 
 
-class _ScaleGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, c):
-        ctx.c = c
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g * ctx.c, None
-
-
 def make_sp_tp_fsdp_loss_fn(cfg: Config, mesh, host_params: dict, *, seq_axis: str = "data",
                             tp_axis: str = "model", fsdp_axis: str = "fsdp",
                             max_seq_length: Optional[int] = None):
@@ -211,7 +200,7 @@ def make_sp_tp_fsdp_loss_fn(cfg: Config, mesh, host_params: dict, *, seq_axis: s
         total, count = _sp_loss_parts(logits, tokens, group)
         n = col.all_reduce(count.detach().clone(), group)
         loss = col.reduce_g(total / n, group)
-        return loss if fsdp == 1 else _ScaleGrad.apply(loss, 1.0 / fsdp)
+        return col.scale_grad(loss, 1.0 / fsdp)
 
     return loss_fn, specs
 

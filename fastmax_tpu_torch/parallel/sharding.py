@@ -405,7 +405,9 @@ def shard_kv_cache(cache: dict, mesh, cfg: Config, *, tp: bool = True) -> dict:
 def gather_fsdp_local(params, specs, group, axis: str = FSDP_AXIS):
     """Undo the fsdp sharding of a tree of local shards: all-gather each
     leaf's fsdp-split dim over ``group`` (the reference's manual counterpart
-    of GSPMD's per-layer all-gather)."""
+    of GSPMD's per-layer all-gather), differentiably: a leaf's gradient is
+    reduce-scattered back (``collectives.gather_scatter``), as the pipeline's
+    stage entry needs."""
     def g(path, x):
         spec = specs
         for k in path:
@@ -413,7 +415,7 @@ def gather_fsdp_local(params, specs, group, axis: str = FSDP_AXIS):
         for d, names in enumerate(tuple(spec)):
             grp = names if isinstance(names, tuple) else (names,)
             if axis in grp:
-                return col.all_gather(x, d, group)
+                return col.gather_scatter(x, d, group)
         return x
 
     return _walk(params, g)

@@ -55,7 +55,8 @@ def test_no_jax_and_no_reference_package_imported():
         "            'tools.int4_opt_r04', 'tools.int4_opt_r05', 'tools.nf4_variants_r04',\n"
         "            'tools.nf4_lab_r04', 'tools.lab_kernels', 'utils.cli', 'models.params',\n"
         "            'scripts.convert_hf_checkpoint', 'parallel.sharding', 'parallel.collectives',\n"
-        "            'utils.sharded_load'):\n"
+        "            'utils.sharded_load', 'parallel.pipeline', 'parallel.scaling_bench',\n"
+        "            'graft_entry', 'scripts.download'):\n"
         "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -87,14 +88,17 @@ def test_entry_points_default_to_cuda():
 
 
 def test_parallel_imports_neither_jax_nor_the_reference():
-    """parallel/, utils/sharded_load.py and the rank bodies that spawned ranks
-    import (tests/torch_rank_checks.py) alone, in a fresh process: no jax, no
-    fastmax_tpu, and no process group is started by importing them."""
+    """parallel/, utils/sharded_load.py, graft_entry.py and the rank bodies
+    that spawned ranks import (tests/torch_rank_checks.py) alone, in a fresh
+    process: no jax, no fastmax_tpu, and no process group is started by
+    importing them."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'tests')\n"
         "import fastmax_tpu_torch.parallel.sharding, fastmax_tpu_torch.parallel.collectives\n"
         "import fastmax_tpu_torch.utils.sharded_load, torch_rank_checks\n"
+        "import fastmax_tpu_torch.parallel.pipeline, fastmax_tpu_torch.parallel.scaling_bench\n"
+        "import fastmax_tpu_torch.graft_entry\n"
         "import torch.distributed as dist\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'fastmax_tpu'))\n"
@@ -107,6 +111,7 @@ def test_parallel_imports_neither_jax_nor_the_reference():
     assert out.stdout.strip() == "ok"
     for path in sorted((REPO / "fastmax_tpu_torch" / "parallel").glob("*.py")) + \
             [REPO / "fastmax_tpu_torch" / "utils" / "sharded_load.py",
+             REPO / "fastmax_tpu_torch" / "graft_entry.py",
              REPO / "tests" / "torch_rank_checks.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path

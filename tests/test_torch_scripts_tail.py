@@ -7,7 +7,13 @@ reader takes them; ``python -m fastmax_tpu_torch.native.build`` builds the
 C++ packed loader; ``native_available()`` is True where ``g++`` exists; with
 ``g++`` hidden the packed reader falls back, with a warning, to
 ``PackedDataset``'s blocks, as the reference's does without its library, and
-``pretrain --data_format packed`` still reads."""
+``pretrain --data_format packed`` still reads. ``scripts/download.py`` lists
+the registry as the JAX script does, offline; with the Hub's
+``snapshot_download`` replaced by a copy of a tiny HF checkpoint saved here
+(no test touches the network), it fetches with the reference's patterns and
+token, and converts what it fetched into the same checkpoint as
+``convert_hf_checkpoint`` on those files, unless asked for the tokenizer
+alone."""
 
 import json
 import os
@@ -19,12 +25,17 @@ import numpy as np
 import pytest
 
 from fastmax_tpu.data import packed_dataset as jpd
+from fastmax_tpu.scripts import download as jdownload
 from fastmax_tpu.scripts import prepare_openwebtext as jprep
+from fastmax_tpu_torch.models import config as tconfig_mod
 from fastmax_tpu_torch.native import build as tbuild
 from fastmax_tpu_torch.native import loader as tloader
+from fastmax_tpu_torch.scripts import convert_hf_checkpoint as tconv
+from fastmax_tpu_torch.scripts import download as tdownload
 from fastmax_tpu_torch.scripts import prepare_openwebtext as tprep
 from fastmax_tpu_torch.training import pretrain
 from fastmax_tpu_torch.utils.args import IOArgs
+from fastmax_tpu_torch.utils.checkpoint import load_flat_checkpoint
 from tests.test_torch_inference_tools import write_tokenizer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -165,3 +176,108 @@ def test_without_gxx_the_reader_falls_back(chunks, fresh_build, tmp_path, monkey
         batch = next(it)
     assert batch.shape == (4, 128) and batch.dtype == np.int64
     assert os.environ["PATH"] == str(empty)
+
+
+# ------------------------------------------------------------------ download
+
+
+def test_download_lists_the_registry_as_the_jax_script(capsys):
+    tdownload.main([])
+    got = capsys.readouterr().out
+    jdownload.download()
+    assert got == capsys.readouterr().out
+    assert got.splitlines() == ["Supported models:"] + [f"  {n}" for n in
+                                                        tconfig_mod.available_models()]
+
+
+HUB_LLAMA = dict(name="hub-llama", block_size=64, vocab_size=96, padded_vocab_size=96,
+                 n_layer=2, n_head=4, n_embd=64, n_query_groups=2, intermediate_size=112,
+                 rotary_percentage=1.0, parallel_residual=False, bias=False,
+                 _norm_class="RMSNorm", _mlp_class="LLaMAMLP")
+
+
+def write_hf_llama(d: Path, conf: dict) -> None:
+    """A random Llama checkpoint in HF's names and layouts (``model.safetensors``,
+    q/k/v apart, (out, in) weights), a config and a tokenizer file."""
+    import torch
+    from safetensors.torch import save_file
+
+    rng = np.random.default_rng(5)
+    c, i, v, hs = conf["n_embd"], conf["intermediate_size"], conf["vocab_size"], \
+        conf["n_embd"] // conf["n_head"]
+    shapes = {"model.embed_tokens.weight": (v, c), "model.norm.weight": (c,),
+              "lm_head.weight": (v, c)}
+    for layer in range(conf["n_layer"]):
+        pre = f"model.layers.{layer}."
+        shapes.update({
+            pre + "input_layernorm.weight": (c,), pre + "post_attention_layernorm.weight": (c,),
+            pre + "self_attn.q_proj.weight": (conf["n_head"] * hs, c),
+            pre + "self_attn.k_proj.weight": (conf["n_query_groups"] * hs, c),
+            pre + "self_attn.v_proj.weight": (conf["n_query_groups"] * hs, c),
+            pre + "self_attn.o_proj.weight": (c, conf["n_head"] * hs),
+            pre + "mlp.gate_proj.weight": (i, c), pre + "mlp.up_proj.weight": (i, c),
+            pre + "mlp.down_proj.weight": (c, i)})
+    d.mkdir(parents=True)
+    save_file({n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for n, s in shapes.items()}, str(d / "model.safetensors"))
+    (d / "config.json").write_text(json.dumps({"model_type": "llama"}))
+    (d / "tokenizer.json").write_text("{}")
+
+
+@pytest.fixture
+def hub(tmp_path, monkeypatch):
+    """``huggingface_hub.snapshot_download`` replaced by a copy, by the
+    allowed patterns, of a tiny HF Llama written here, and the model
+    registered under its repository's last name: (the written directory, the
+    calls the fake got, the name)."""
+    import fnmatch
+    import shutil
+
+    import huggingface_hub
+
+    src = tmp_path / "hub"
+    write_hf_llama(src, HUB_LLAMA)
+    calls = []
+
+    def snapshot_download(repo_id, local_dir, allow_patterns, token):
+        calls.append(dict(repo_id=repo_id, local_dir=local_dir, allow_patterns=allow_patterns,
+                          token=token))
+        Path(local_dir).mkdir(parents=True)
+        for f in src.iterdir():
+            if any(fnmatch.fnmatch(f.name, pat) for pat in allow_patterns):
+                shutil.copy(f, Path(local_dir) / f.name)
+        return str(local_dir)
+
+    monkeypatch.setattr(huggingface_hub, "snapshot_download", snapshot_download)
+    reg = dict(tconfig_mod.registry(), **{HUB_LLAMA["name"]: dict(HUB_LLAMA)})
+    monkeypatch.setattr(tconfig_mod, "registry", lambda: reg)
+    return src, calls, HUB_LLAMA["name"]
+
+
+def test_download_converts_what_it_fetched(hub, tmp_path, monkeypatch):
+    src, calls, name = hub
+    monkeypatch.setenv("HF_TOKEN", "hf_from_the_environment")
+    tdownload.main(["--repo_id", f"org/{name}", "--checkpoint_dir", str(tmp_path / "ck")])
+    d = tmp_path / "ck" / "org" / name
+    assert calls == [dict(repo_id=f"org/{name}", local_dir=d, token="hf_from_the_environment",
+                          allow_patterns=["*.safetensors*", "*.bin*", "*.json", "tokenizer*"])]
+    ref = tconv.convert_hf_checkpoint(src, model_name=name, out_dir=tmp_path / "ref")
+    got, want = load_flat_checkpoint(d), load_flat_checkpoint(ref)
+    assert sorted(got) == sorted(want) and "lm_head.weight" in got
+    for n, w in want.items():
+        np.testing.assert_array_equal(got[n].numpy(), w.numpy(), err_msg=n)
+    assert json.loads((d / "lit_config.json").read_text()) == \
+        json.loads((ref / "lit_config.json").read_text())
+    assert (d / "tokenizer.json").exists()
+
+
+def test_download_tokenizer_only_skips_the_conversion(hub, tmp_path):
+    src, calls, name = hub
+    tdownload.download(repo_id=f"org/{name}", checkpoint_dir=tmp_path / "ck",
+                       access_token="hf_given", tokenizer_only=True)
+    d = tmp_path / "ck" / "org" / name
+    assert calls[0]["allow_patterns"] == ["tokenizer*", "generation_config.json"]
+    assert calls[0]["token"] == "hf_given"
+    names = sorted(p.name for p in d.iterdir())
+    assert "tokenizer.json" in names and "lit_config.json" not in names
+    assert not any(n.endswith((".safetensors", ".bin")) for n in names)

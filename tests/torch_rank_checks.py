@@ -458,3 +458,72 @@ def run_cases(cases: list) -> dict:
     """Run [(name, function name, kwargs), ...] of this module in order on
     this rank; {name: result}."""
     return {name: globals()[fn](**kw) for name, fn, kw in cases}
+
+
+def _whole_pp_grads(local: dict, grads: list, specs: dict, mesh) -> dict:
+    """Whole gradients from a stage's synced ones: each leaf gathered over the
+    axes its spec names (the layer axis over ``model``, in stage order)."""
+    from fastmax_tpu_torch.parallel.sharding import _lookup, tree_paths
+
+    out = {}
+    for path, g in zip(tree_paths(local), grads):
+        for d, name in enumerate(_lookup(specs, path)):
+            if name is not None:
+                g = col.all_gather(g, d, mesh.group(name))
+        out[".".join(path)] = g.float().numpy()
+    return out
+
+
+def pp_case(cfg: dict, params: dict, batch, mesh: tuple, what: str, n_micro: int = 2,
+            steps: int = 3):
+    """The pipeline entries on ``mesh``: "loss" (``make_pp_loss_fn``'s value),
+    "grads" (its value and whole gradients, with every rank's gradients of
+    the leaves outside ``blocks``), "fsdp" (the same through
+    ``pp_fsdp_param_specs``), "step" (the losses of ``steps``
+    ``make_pp_train_step`` steps of AdamW), "refuse" (the messages of an
+    n_layer the stages do not divide and of a batch n_micro does not)."""
+    from fastmax_tpu_torch.parallel import pipeline as pp
+    from fastmax_tpu_torch.parallel.sharding import tree_paths
+    from fastmax_tpu_torch.training.step import AdamW, tree_leaves
+
+    m = make_mesh(*mesh)
+    if what == "refuse":
+        msgs = []
+        try:
+            pp.make_pp_loss_fn(Config(**{**cfg, "n_layer": 3}), m, n_micro=n_micro)
+        except ValueError as e:
+            msgs.append(str(e))
+        fn = pp.make_pp_loss_fn(Config(**cfg), m, n_micro=n_micro + 1)
+        try:
+            fn(None, torch.zeros((n_micro * 2, 9), dtype=torch.int64))
+        except ValueError as e:
+            msgs.append(str(e))
+        return _leader_out(m, msgs)
+    cfg = Config(**cfg)
+    whole = from_numpy_params(params, "cpu")
+    batch = torch.as_tensor(np.asarray(batch))
+    specs = pp.pp_fsdp_param_specs(cfg, whole, fsdp_size=m.shape["fsdp"]) if what == "fsdp" \
+        else pp.pp_param_specs(cfg, whole)
+    local = pp.local_params(whole, m, specs)
+    if what == "step":
+        opt = AdamW(lambda c: 5e-3, weight_decay=1e-4)
+        state = opt.init(local)
+        step = pp.make_pp_train_step(cfg, m, opt, n_micro=n_micro)
+        return _leader_out(m, [float(step(local, state, batch)[2]) for _ in range(steps)])
+    fsdp_specs = specs if what == "fsdp" else None
+    loss_fn = pp.make_pp_loss_fn(cfg, m, n_micro=n_micro, fsdp_specs=fsdp_specs)
+    if what == "loss":
+        with torch.no_grad():
+            return _leader_out(m, float(loss_fn(local, batch)))
+    leaves = tree_leaves(local)
+    for x in leaves:
+        x.requires_grad_(True)
+    loss = loss_fn(local, batch)
+    loss.backward()
+    grads = pp.sync_pp_grads(local, [x.grad for x in leaves], m, fsdp_specs=fsdp_specs)
+    replicated = {".".join(p): g.numpy() for p, g in zip(tree_paths(local), grads)
+                  if p[0] != "blocks"}
+    whole_g = _whole_pp_grads(local, grads, specs, m)
+    if not m.leader:
+        return {"replicated": replicated}
+    return {"loss": float(loss.detach()), "grads": whole_g, "replicated": replicated}
