@@ -852,7 +852,8 @@ KERNEL_GROUPS = (("K1 int4_rank1_matmul", ("int4_gemv_kernel", "int4_rank1_tc_ke
                  ("K6 flash_train_fwd", ("flash_train_fwd_kernel",
                                          "flash_train_fwd_tc_kernel")),
                  ("K7 flash_train_bwd", ("flash_train_bwd_kernel",
-                                         "flash_train_bwd_tc_kernel")),
+                                         "flash_train_bwd_tc_kernel",
+                                         "flash_train_bwd_tc_pair_kernel")),
                  ("K8 nf4_matmul", ("nf4_gemv_kernel", "nf4_tc_kernel", "nf4_gemm_kernel",
                                     "nf4_splitk_reduce_kernel")),
                  ("K9 int4_block_matmul", ("int4_block_gemv_kernel", "int4_block_tc_kernel",
@@ -927,7 +928,8 @@ def profile_device(torch, fn, label, per: int = 1, cpu: bool = True) -> dict:
         log(f"    {dev_us:10.1f} us  x{count:7.1f}  {name}")
     return {"device_us": total, "by_group_us": groups, "aten_calls": aten,
             "kernel_launches": sum(n for n, _ in kernels.values()) / per,
-            "top": [{"us": d, "name": n, "calls": c} for d, n, c in top]}
+            "top": [{"us": d, "name": n, "calls": c} for d, n, c in top],
+            "names": sorted(kernels)}
 
 
 def profile_decode(torch, engine, first, tok_s, steps: int = 8) -> dict:
@@ -2042,6 +2044,7 @@ FLASH_TRAIN_REL = {"float32": {"out": 1e-5, "grad": 1e-4}, "bfloat16": {"out": 2
 FLASH_TRAIN_LSE_REL = 1e-5
 FLASH_TRAIN_BF16_MEAN = 5e-5
 FT_SHAPE = (2, 32, 2048, 128)   # micro-batch 2 of Llama-2-7B at T = 2048
+FT_REPEAT_256 = (1, 4, 1024, 256)  # the bit-for-bit repeat at Gemma's head (K7's warp pairs)
 FT_STEPS = 3   # 4 before phase 20
 # one step of the 4-layer QLoRA model, kernels against plain=True: the loss
 # (relative) and each LoRA gradient leaf (of its largest entry). f32: sums in
@@ -2215,14 +2218,15 @@ def flash_train_times(torch, gen, dtype, n_sets: int = 4, shape=FT_SHAPE) -> dic
 def check_flash_train(torch, gen, results):
     f32, bf16 = torch.float32, torch.bfloat16
     # (entry, (B, H, T, D), dtype): the finetune shape through both entries in
-    # both types; T=1088 through attention() (padded to 1536); D=64; 192, 256;
-    # a ragged T=200 in one whole-T block (the tensor-core K6's tile and block
-    # edges: 200 is no multiple of 64)
+    # both types; T=1088 through attention() (padded to 1536); D=64; 256 (bf16:
+    # the tensor cores, K7's warp pairs); 192 (bf16: the FMA kernels' only bf16
+    # head); a ragged T=200 in one whole-T block (the tensor-core K6's tile and
+    # block edges: 200 is no multiple of 64)
     cases = [("fused", FT_SHAPE, bf16), ("fused", FT_SHAPE, f32),
              ("trainable", FT_SHAPE, bf16), ("trainable", FT_SHAPE, f32),
              ("attention", (2, 32, 1088, 128), bf16), ("fused", (4, 32, 2048, 64), bf16),
-             ("fused", (1, 8, 1024, 256), bf16), ("trainable", (1, 8, 640, 192), f32),
-             ("fused", (1, 4, 200, 128), bf16)]
+             ("fused", (1, 8, 1024, 256), bf16), ("fused", (1, 8, 1024, 192), bf16),
+             ("trainable", (1, 8, 640, 192), f32), ("fused", (1, 4, 200, 128), bf16)]
     checks = []
     for entry, shape, dt in cases:
         c = flash_train_case(torch, gen, entry, shape, dt, f64=entry != "attention")
@@ -2233,8 +2237,9 @@ def check_flash_train(torch, gen, results):
             log("    from float64 dense attention, of its largest value, kernels / plain: "
                 + ", ".join(f"{k} {a:.1e} / {b:.1e}"
                             for k, (a, b) in c["from_f64_kernels_plain"].items()))
-    flash_train_repeats(torch, gen, FT_SHAPE, bf16)
-    log(f"  fused {FT_SHAPE} bf16: out, dq, dk, dv equal bit for bit over 3 calls")
+    for shape in (FT_SHAPE, FT_REPEAT_256):
+        flash_train_repeats(torch, gen, shape, bf16)
+        log(f"  fused {shape} bf16: out, dq, dk, dv equal bit for bit over 3 calls")
     rows = []
     for dt in (bf16, f32):
         r = flash_train_times(torch, gen, dt)
@@ -5240,6 +5245,80 @@ def moe_dispatch_check(torch, engine, prompt, card) -> dict:
     return {"repeat_bitwise": same, "sorted_vs_dense_f32": rel}
 
 
+# the device functions of K6 and K7 that bf16 at D = 256 must run (the FMA ones are
+# flash_train_fwd_kernel and flash_train_bwd_kernel)
+TC_ROUTE_256 = {"flash_train_fwd": "flash_train_fwd_tc_kernel",
+                "flash_train_bwd": "flash_train_bwd_tc_pair_kernel"}
+ROUTE_CALLS, ROUTE_PROFILES = 3, 3
+
+
+def tc_route_256(prof, what, card):
+    """The device functions of K6 and K7 in ``prof`` (profile_device's), or None where it
+    recorded no device time; raises unless each kernel ran its TC_ROUTE_256 function and
+    nothing else."""
+    if not prof["device_us"]:
+        return None
+    ran = {kernel: sorted({n for n in prof["names"] if kernel in n}) for kernel in TC_ROUTE_256}
+    log(f"  device functions of K6/K7 in {what}: " + "; ".join(
+        f"{kernel}: {fns}" for kernel, fns in ran.items()) + f"   [{card}]")
+    for kernel, fn in TC_ROUTE_256.items():
+        if not ran[kernel] or not all(fn in n for n in ran[kernel]):
+            raise AssertionError(f"{kernel} in {what} ran {ran[kernel]}, not {fn}")
+    return ran
+
+
+def flash_train_route(torch, gen, shape, card):
+    """``tc_route_256`` of a profile of ROUTE_CALLS K6 and K7 calls at ``shape`` (bf16, D =
+    256). A profile this short has come back empty late in a whole run of this script, so
+    an empty one is taken again, up to ROUTE_PROFILES times; None if each was empty."""
+    from fastmax_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, w = flash_train_inputs(torch, gen, shape, torch.bfloat16)
+    scale, blk = shape[3] ** -0.5, fa._fused_block(shape[2])
+    out, lse = fa._train_fwd(q, k, v, scale, blk, False)
+    delta = torch.sum(w.float() * out.float(), dim=-1)
+
+    def calls():
+        for _ in range(ROUTE_CALLS):
+            fa._train_fwd(q, k, v, scale, blk, False)
+            fa._train_bwd(q, k, v, w, lse, delta, scale, False)
+
+    what = f"{ROUTE_CALLS} K6 and K7 calls at {shape} bf16"
+    for _ in range(ROUTE_PROFILES):
+        prof = profile_device(torch, calls, what, per=ROUTE_CALLS)
+        if prof["device_us"]:
+            break
+    return tc_route_256(prof, what, card)
+
+
+def qlora_micro_batch_profile(torch, state, model_name, data, card) -> dict:
+    """One micro-batch (forward and backward, the step's only one) of a finished QLoRA run
+    on ``data``, profiled by kernel group: device us, and K6's and K7's share of it."""
+    from fastmax_tpu_torch.data.lm_datasets import SFTDataset
+    from fastmax_tpu_torch.models.config import Config
+    from fastmax_tpu_torch.training import finetune
+
+    cfg = Config.from_name(model_name, attn_alg="quadratic")
+    batch = tuple(torch.as_tensor(x, device="cuda")
+                  for x in SFTDataset.load(data, 7).sample_batch(1, FAMILY_FT_T))
+    loss_fn = finetune.sft_loss_fn(cfg)
+
+    def micro_batch():
+        loss_fn(state.params, batch).backward()
+
+    micro_batch()
+    prof = profile_device(torch, micro_batch, f"one {model_name} QLoRA micro-batch")
+    if not prof["device_us"]:
+        return prof
+    groups = prof["by_group_us"]
+    prof["k6_k7_us"] = groups["K6 flash_train_fwd"] + groups["K7 flash_train_bwd"]
+    prof["k6_k7_share"] = prof["k6_k7_us"] / prof["device_us"]
+    log(f"  {model_name} QLoRA micro-batch: device {prof['device_us'] / 1e3:.1f} ms, K6 "
+        f"{groups['K6 flash_train_fwd'] / 1e3:.2f} + K7 {groups['K7 flash_train_bwd'] / 1e3:.2f}"
+        f" ms = {prof['k6_k7_share']:.4f} of it   [{card}]")
+    return prof
+
+
 def families_path(torch, results, card) -> dict:
     """Phase 15 (a)-(e); (f) runs in phase 12's directory (``adapter_commands``).
     Returns the launch counts of its main paths."""
@@ -5307,6 +5386,7 @@ def families_path(torch, results, card) -> dict:
         f"SDPA backward {(r['sdpa_fwd_bwd_ms'] - r['sdpa_fwd_ms']) * 1e3:.1f}, bound "
         f"{bb['bound_ms'] * 1e3:.1f}, {bb['bound_by']}); errors "
         + ", ".join(f"{k} {a:.2e}" for k, (a, _, _) in c["errors"].items()) + f"   [{card}]")
+    r["route"] = flash_train_route(torch, gen, shape, card)
     del q4, q4_f32
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -5321,6 +5401,15 @@ def families_path(torch, results, card) -> dict:
         run["mlp_lora_b_max"] = moved
         if not moved > 0:
             raise AssertionError(f"{GEMMA} QLoRA: the MLP's lora_B did not move")
+        run["micro_batch_profile"] = qlora_micro_batch_profile(torch, state, GEMMA, data, card)
+        # the main path's own K6/K7 launches witness the route too; one witness must speak
+        run["route"] = tc_route_256(run["micro_batch_profile"], f"one {GEMMA} QLoRA "
+                                    "micro-batch", card)
+        if run["route"] is None and out["k6_k7_gemma"]["route"] is None:
+            raise AssertionError(f"K6/K7 at D = 256: no profile recorded device time, so "
+                                 f"the route to {TC_ROUTE_256} is not shown")
+        log(f"  {GEMMA} QLoRA step 2: {run['step_s'] * 1e3:.1f} ms (host clock, one micro-batch "
+            f"and the update)   [{card}]")
         add_counts(counts, run["launches"])
         out["gemma_qlora"] = run
         del state

@@ -24,24 +24,26 @@
 //
 // Bound: operations, 10 D flops per visible (row, key) pair (the two score products and the
 // three gradient products); at the finetune shape (B=2, H=32, T=2048, D=128) 173.8 us on the
-// bf16 tensor cores. Two kernels, chosen statically by type and D (launch_d):
+// bf16 tensor cores. Three kernels, chosen statically by type and D (launch_d):
 //
-// bf16 with D = 64 or 128 (the finetune's type and Llama-2-7B's head): every product on the
-// tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, with K6's helpers (mma_bf16.cuh). A
-// CTA of 4 warps owns a 64-row tile of one head, a warp 16 whole rows of it, staged once in
-// shared memory (Q and do in the dq role, K and V in the dk/dv role). The other side's
-// 64-row tiles stream through a double-buffered cp.async ring, zero-filled past T; the dk/dv
-// role's stages carry the query rows' lse and delta beside Q and do. Rows are stored in
-// 16-byte chunks XOR-swizzled by row, as in K6, so ldmatrix reads have no bank conflicts. A
-// warp takes a streamed tile 32 rows at a time:
+// bf16 with D = 64, 128 or 256 (the finetune's type; Llama-2-7B's head, Gemma's and
+// pythia-1b's): every product on the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, with
+// K6's helpers (mma_bf16.cuh). A CTA owns a 64-row tile of one head, staged once in shared
+// memory (Q and do in the dq role, K and V in the dk/dv role). The other side's 64-row tiles
+// stream through a double-buffered cp.async ring, zero-filled past T; the dk/dv role's
+// stages carry the query rows' lse and delta beside Q and do. Rows are stored in 16-byte
+// chunks XOR-swizzled by row, as in K6, so ldmatrix reads have no bank conflicts. p and ds
+// go from their f32 C fragments straight into bf16 A fragments (cvt.rn, round to nearest
+// even, as the reference's casts). The causal and T masks are tested only in blocks that
+// hold a masked pair (the diagonal tiles, the ragged last one); a wholly visible block takes
+// an unmasked copy of the same arithmetic.
+//
+// D = 64 and 128 (flash_train_bwd_tc_kernel): a CTA of 4 warps, a warp 16 whole rows of the
+// own tile. A warp takes a streamed tile 32 rows at a time:
 //   dq role:    S = Q K^T and dP = do V^T (16 x 32 C fragments), p and ds = p (dP - delta),
 //               then dQ += bf16(dS) K, K read with ldmatrix.trans;
 //   dk/dv role: S^T = K Q^T and dP^T = V do^T, p^T and ds^T, then dV += bf16(P^T) do and
 //               dK += bf16(dS^T) Q, do and Q read with ldmatrix.trans.
-// p and ds go from their f32 C fragments straight into bf16 A fragments (cvt.rn, round to
-// nearest even, as the reference's casts), with no trip through shared memory. The causal
-// and T masks are tested only in blocks that hold a masked pair (the diagonal tiles, the
-// ragged last one); a wholly visible block takes an unmasked copy of the same arithmetic.
 // Registers: a dk/dv warp holds dK and dV of its 16 keys, D f32 a thread, so it streams 32
 // query rows at a time (not 64: 32 more score registers) and reads its K/V A fragments
 // from shared memory at each use; a dq warp holds its Q/do A fragments in registers (D / 2).
@@ -49,18 +51,32 @@
 // CTA at D = 128, 2 CTAs an SM. Holding the dk/dv warp's fragments too (16 query rows at a
 // time), or 64-key steps in the dq role, measured no faster.
 //
+// D = 256 (flash_train_bwd_tc_pair_kernel, FlashAttention-2's split for large heads): dK and
+// dV of 16 keys would take 256 registers a thread, so a CTA has 8 warps on its 64-row tile.
+// Warps w and w + 4 (a pair) own the same 16 rows, and each holds the accumulators (dK and
+// dV, or dQ) of one half of D: 128 columns, 128 registers in the dk/dv role, 64 in the dq
+// role. Of each streamed 64-row tile, warp w forms p and ds (or their transposes) against
+// the first 32 rows and warp w + 4 against the last 32, each contracting over the whole D
+// with the own tile's A fragments read from shared memory at each use. Each rounds them to
+// bf16 A fragments as above and writes them, lane by lane, to its pair's slots in shared
+// memory; after a barrier of the pair (bar.sync of 64 threads), each warp adds all 64 rows
+// into its half of D, the first 32 before the last. That adds no product and gives every
+// sum one order; p and ds are rounded element by element (below), so rounding them before
+// shared memory is rounding them as the reference does. 2 x 64.5 KB of stages, 64 KB of own
+// tiles and 16 KB of exchange slots: 209 KB a CTA, one CTA an SM; 244 registers a thread,
+// no spills.
+//
 // Why p and ds need no block-wide rounding, unlike K6's p: here p = exp(s * scale - lse)
 // depends on its own element and the forward's lse alone, with no running max, so each
 // rounding the reference makes (p to do's type before dv, ds to q's and k's type before dk
 // and dq) is elementwise, and a tile of any size rounds the same values. s * scale is its
 // own rounded f32 product (__fmul_rn): nvcc would contract s * scale - lse into one FMA.
 //
-// f32, and bf16 with D = 192 or 256: f32 FMAs from shared memory (bf16 widened on load).
-// The reference multiplies f32 operands in f32 (TF32 would change the results). D = 192 and
-// 256 in bf16 take it too, by a static choice: they are off the finetune's path, and the
-// tensor-core kernel's dK and dV (192 and 256 registers a thread for 16 keys) do not fit
-// under its launch bound. A CTA of 8 warps owns BT rows (64, or 32 for D >= 192) and keeps
-// a tile pair's p and ds in shared memory between the score and the gradient products.
+// f32, and bf16 with D = 192: f32 FMAs from shared memory (bf16 widened on load). The
+// reference multiplies f32 operands in f32 (TF32 would change the results). D = 192 is the
+// only bf16 head left on this kernel: no model of the registry has it. A CTA of 8 warps owns
+// BT rows (64, or 32 for D >= 192) and keeps a tile pair's p and ds in shared memory between
+// the score and the gradient products.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -327,7 +343,7 @@ constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTile = 16 * kTcWarps;     // rows of the own tile and of each streamed tile
 constexpr int kStages = 2;               // streamed tiles in flight
 constexpr int kNC = 2;                   // 16-row blocks of a streamed tile a warp takes at once
-static_assert(kTcThreads == 2 * kTile, "a stage's lse and delta take one thread a value");
+static_assert(kTcThreads >= 2 * kTile, "a stage's lse and delta take one thread a value");
 
 // a stage: two (kTile, D) bf16 tiles, then kTile lse and kTile delta (f32)
 template <int D> __host__ __device__ constexpr size_t stage_bytes() {
@@ -345,15 +361,32 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 }
 
 // rows [r0, r0 + kTile) of a (T, D) head into a swizzled tile; rows at or past T zero-filled
-template <int D>
+template <int D, int kThreads>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int t_len,
                                           int tid) {
   constexpr int kChunks = D / 8;
 #pragma unroll
-  for (int i = tid; i < kTile * kChunks; i += kTcThreads) {
+  for (int i = tid; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r0 + r < t_len;
     cp_async16(dst + swz<D>(r, c), src + static_cast<size_t>(ok ? r0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+// A stage: streamed rows [r0, r0 + kTile) of the two tiles a and b and, where `stats` (the
+// dk/dv role), the rows' lse (threads 0 .. kTile - 1) and delta (the next kTile threads)
+template <int D, int kThreads>
+__device__ __forceinline__ void load_stage(unsigned char* stage, const bf16* a, const bf16* b,
+                                           const float* lse_h, const float* delta_h,
+                                           bool stats, int r0, int t_len, int tid) {
+  bf16* st = reinterpret_cast<bf16*>(stage);
+  load_rows<D, kThreads>(st, a, r0, t_len, tid);
+  load_rows<D, kThreads>(st + kTile * D, b, r0, t_len, tid);
+  if (stats && tid < 2 * kTile) {
+    const int r = tid % kTile;
+    const bool ok = r0 + r < t_len;
+    cp_async4(reinterpret_cast<float*>(st + 2 * kTile * D) + tid,
+              (tid < kTile ? lse_h : delta_h) + (ok ? r0 + r : 0), ok);
   }
 }
 
@@ -492,35 +525,37 @@ __device__ __forceinline__ void a_frags(uint32_t a[kNC][4], const float c[2 * kN
                                  : pack_bf16x2(c[2 * kk + h][2 * e2], c[2 * kk + h][2 * e2 + 1]);
 }
 
-// acc (the warp's 16 rows x D) += A B: A the bf16 A fragments of 16 rows x 16 kNC, B 16 kNC
-// rows of a streamed tile from row `br`, read with ldmatrix.trans
-template <int D>
-__device__ __forceinline__ void acc_rows(float acc[D / 8][4], const uint32_t a[kNC][4],
-                                         const bf16* b, int br, int lane) {
+// acc (the warp's 16 rows x N columns of D from 16-byte chunk `cc`) += A B: A the bf16 A
+// fragments of 16 rows x 16 kNC, B those columns of 16 kNC rows of a streamed tile from row
+// `br`, read with ldmatrix.trans
+template <int D, int N>
+__device__ __forceinline__ void acc_rows(float acc[N / 8][4], const uint32_t a[kNC][4],
+                                         const bf16* b, int br, int cc, int lane) {
   const int brow = br + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < kNC; ++kk)
 #pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
+    for (int np = 0; np < N / 16; ++np) {
       uint32_t f[4];
-      ldsm_x4_trans(f, b + swz<D>(brow + 16 * kk, 2 * np + (lane >> 4)));
+      ldsm_x4_trans(f, b + swz<D>(brow + 16 * kk, cc + 2 * np + (lane >> 4)));
       mma_bf16(acc[2 * np], a[kk], f[0], f[1]);
       mma_bf16(acc[2 * np + 1], a[kk], f[2], f[3]);
     }
 }
 
-// rows w0 + g and w0 + g + 8 (those before T) of acc, times `mul`, into a (T, D) head
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float acc[D / 8][4], int w0,
-                                           int t_len, float mul, int lane) {
+// rows w0 + g and w0 + g + 8 (those before T) of acc (N columns from column c0), times
+// `mul`, into a (T, D) head
+template <int D, int N>
+__device__ __forceinline__ void store_rows(bf16* dst, const float acc[N / 8][4], int w0,
+                                           int t_len, float mul, int c0, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = w0 + g + 8 * h;
     if (row >= t_len) continue;
-    bf16* out = dst + static_cast<size_t>(row) * D;
+    bf16* out = dst + static_cast<size_t>(row) * D + c0;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < N / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * n + 2 * t) =
           __floats2bfloat162_rn(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
@@ -563,18 +598,9 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_train_bwd_tc_kernel(
   const bf16* str_b = (dq_role ? v : dout) + head;
   int issued = 0, used = 0;
   auto issue = [&]() {
-    if (issued < n_items) {
-      const int r0 = r_first + issued * kTile;
-      bf16* st = reinterpret_cast<bf16*>(ring + (issued % kStages) * stage_bytes<D>());
-      load_rows<D>(st, str_a, r0, t_len, tid);
-      load_rows<D>(st + kElems, str_b, r0, t_len, tid);
-      if (!dq_role) {  // lse in threads 0 .. kTile - 1, delta in the rest
-        const int r = tid % kTile;
-        const bool ok = r0 + r < t_len;
-        cp_async4(reinterpret_cast<float*>(st + 2 * kElems) + tid,
-                  (tid < kTile ? lse_h : delta_h) + (ok ? r0 + r : 0), ok);
-      }
-    }
+    if (issued < n_items)
+      load_stage<D, kTcThreads>(ring + (issued % kStages) * stage_bytes<D>(), str_a, str_b,
+                                lse_h, delta_h, !dq_role, r_first + issued * kTile, t_len, tid);
     cp_async_commit();  // an empty group past the end keeps the count of groups
     ++issued;
   };
@@ -584,8 +610,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_train_bwd_tc_kernel(
     issue();
     return reinterpret_cast<const bf16*>(ring + (used++ % kStages) * stage_bytes<D>());
   };
-  load_rows<D>(own_a, (dq_role ? q : k) + head, t0, t_len, tid);
-  load_rows<D>(own_b, (dq_role ? dout : v) + head, t0, t_len, tid);
+  load_rows<D, kTcThreads>(own_a, (dq_role ? q : k) + head, t0, t_len, tid);
+  load_rows<D, kTcThreads>(own_b, (dq_role ? dout : v) + head, t0, t_len, tid);
   for (int i = 0; i < kStages - 1; ++i) issue();
 
   if (dq_role) {
@@ -621,11 +647,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_train_bwd_tc_kernel(
           dq_scores<false>(s, dp, lse_r, delta_r, kt + c0, w0, t_len, scale, lane);
         uint32_t da[kNC][4];
         a_frags<false>(da, dp);
-        acc_rows<D>(acc, da, ks, c0, lane);
+        acc_rows<D, D>(acc, da, ks, c0, 0, lane);
       }
     }
     cp_async_wait<0>();
-    store_rows<D>(dq + head, acc, w0, t_len, scale, lane);
+    store_rows<D, D>(dq + head, acc, w0, t_len, scale, 0, lane);
     return;
   }
 
@@ -657,13 +683,203 @@ __global__ void __launch_bounds__(kTcThreads, 2) flash_train_bwd_tc_kernel(
       uint32_t pa[kNC][4], da[kNC][4];
       a_frags<true>(pa, s);
       a_frags<false>(da, dp);
-      acc_rows<D>(acc_v, pa, dos, c0, lane);
-      acc_rows<D>(acc_k, da, qs, c0, lane);
+      acc_rows<D, D>(acc_v, pa, dos, c0, 0, lane);
+      acc_rows<D, D>(acc_k, da, qs, c0, 0, lane);
     }
   }
   cp_async_wait<0>();
-  store_rows<D>(dk + head, acc_k, w0, t_len, scale, lane);
-  store_rows<D>(dv + head, acc_v, w0, t_len, 1.f, lane);
+  store_rows<D, D>(dk + head, acc_k, w0, t_len, scale, 0, lane);
+  store_rows<D, D>(dv + head, acc_v, w0, t_len, 1.f, 0, lane);
+}
+
+// ------------------------------------------------------------------ bf16 at D = 256: warp pairs
+
+constexpr int kPairWarps = 2 * kTcWarps;  // warps w and w + kTcWarps own the same 16 rows
+constexpr int kPairThreads = 32 * kPairWarps;
+constexpr int kSlotWords = kNC * 4 * 32;  // one warp's A fragments of p or ds
+// shared memory: the 4-warp kernel's, then each pair's exchange slots [stage half][p, ds]
+template <int D> constexpr size_t pair_smem_bytes() {
+  return tc_smem_bytes<D>() + kTcWarps * 4 * kSlotWords * sizeof(uint32_t);
+}
+
+// the barrier of warp pair `pair`'s 64 threads (ids 1 .. kTcWarps; 0 is __syncthreads')
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// a warp's A fragments to and from an exchange slot, 16 bytes a lane, lanes side by side
+__device__ __forceinline__ void put_frags(uint32_t* slot, const uint32_t a[kNC][4], int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kNC; ++kk)
+    reinterpret_cast<uint4*>(slot)[kk * 32 + lane] = make_uint4(a[kk][0], a[kk][1], a[kk][2],
+                                                                a[kk][3]);
+}
+__device__ __forceinline__ void get_frags(uint32_t a[kNC][4], const uint32_t* slot, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kNC; ++kk) {
+    const uint4 w = reinterpret_cast<const uint4*>(slot)[kk * 32 + lane];
+    a[kk][0] = w.x, a[kk][1] = w.y, a[kk][2] = w.z, a[kk][3] = w.w;
+  }
+}
+
+// The 4-warp kernel's roles, ring and products with each warp's accumulators cut to one half
+// of D. Per streamed tile, warp w + kTcWarps h forms p and ds against the tile's rows
+// 16 kNC h .. 16 kNC (h + 1) - 1, puts their A fragments in its pair's slots, and after the
+// pair's barrier both warps add the two halves' rows, in that order, into their columns.
+template <int D>
+__global__ void __launch_bounds__(kPairThreads, 1) flash_train_bwd_tc_pair_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int t_len, float scale) {
+  constexpr int kElems = kTile * D;  // of one tile
+  constexpr int kCols = D / 2;       // a warp's columns of D
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* own_a = reinterpret_cast<bf16*>(smem_raw);  // dq role: Q;  dk/dv role: K
+  bf16* own_b = own_a + kElems;                      // dq role: do; dk/dv role: V
+  unsigned char* ring = reinterpret_cast<unsigned char*>(own_b + kElems);
+  uint32_t* slots = reinterpret_cast<uint32_t*>(ring + kStages * stage_bytes<D>());
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pair = warp % kTcWarps, half = warp / kTcWarps;
+  const int g = lane >> 2;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+  const int bh = blockIdx.x;
+  const bool dq_role = (blockIdx.y & 1) == 0;  // as in the 4-warp kernel
+  const int tile = dq_role ? n_tiles - 1 - static_cast<int>(blockIdx.y >> 1)
+                           : static_cast<int>(blockIdx.y >> 1);
+  const int t0 = tile * kTile;
+  const size_t head = static_cast<size_t>(bh) * t_len * D;
+  const float* lse_h = lse + static_cast<size_t>(bh) * t_len;
+  const float* delta_h = delta + static_cast<size_t>(bh) * t_len;
+  const int wl = 16 * pair;  // the pair's first row in the own tiles
+  const int w0 = t0 + wl;    // and in the head; this thread's are w0 + g (+ 8)
+  const int c0 = 16 * kNC * half;  // the streamed rows this warp forms p and ds against
+  const int cc = kCols / 8 * half;  // the warp's first 16-byte chunk of D
+  uint32_t* pair_slots = slots + pair * 4 * kSlotWords;
+  // the pair's slot of stage half h: p (a = 0) or ds (a = 1)
+  auto slot = [&](int h, int a) { return pair_slots + (2 * h + a) * kSlotWords; };
+
+  const int n_items = dq_role ? tile + 1 : n_tiles - tile;
+  const int r_first = dq_role ? 0 : t0;
+  const bf16* str_a = (dq_role ? k : q) + head;
+  const bf16* str_b = (dq_role ? v : dout) + head;
+  int issued = 0, used = 0;
+  auto issue = [&]() {
+    if (issued < n_items)
+      load_stage<D, kPairThreads>(ring + (issued % kStages) * stage_bytes<D>(), str_a, str_b,
+                                  lse_h, delta_h, !dq_role, r_first + issued * kTile, t_len,
+                                  tid);
+    cp_async_commit();  // an empty group past the end keeps the count of groups
+    ++issued;
+  };
+  auto acquire = [&]() -> const bf16* {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the stage is everyone's; the stage and the slots read last are free
+    issue();
+    return reinterpret_cast<const bf16*>(ring + (used++ % kStages) * stage_bytes<D>());
+  };
+  load_rows<D, kPairThreads>(own_a, (dq_role ? q : k) + head, t0, t_len, tid);
+  load_rows<D, kPairThreads>(own_b, (dq_role ? dout : v) + head, t0, t_len, tid);
+  for (int i = 0; i < kStages - 1; ++i) issue();
+  OwnFrags<D, false> own;  // read at each use: held, they would take D registers
+
+  if (dq_role) {
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w0 + g + 8 * h;
+      lse_r[h] = row < t_len ? lse_h[row] : 0.f;
+      delta_r[h] = row < t_len ? delta_h[row] : 0.f;
+    }
+    float acc[kCols / 8][4];
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    // the last key a row of the pair sees; -1 when its rows all lie at or past T
+    const int last = w0 < t_len ? min(w0 + 15, t_len - 1) : -1;
+    for (int it = 0; it < n_items; ++it) {
+      const bf16* ks = acquire();
+      const bf16* vs = ks + kElems;
+      const int kt = it * kTile;
+      if (it == 0) own.init(own_a, own_b, wl, lane);  // Q and do landed with the first tile
+      if (kt + c0 <= last) {  // warp-uniform: some key of this warp's rows is visible
+        float s[2 * kNC][4], dp[2 * kNC][4];
+        dots<D>(s, dp, own, ks, vs, c0, lane);
+        if (kt + c0 + 16 * kNC - 1 > w0 || w0 + 15 >= t_len)
+          dq_scores<true>(s, dp, lse_r, delta_r, kt + c0, w0, t_len, scale, lane);
+        else
+          dq_scores<false>(s, dp, lse_r, delta_r, kt + c0, w0, t_len, scale, lane);
+        uint32_t da[kNC][4];
+        a_frags<false>(da, dp);
+        put_frags(slot(half, 1), da, lane);
+      }
+      pair_sync(pair);
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        if (kt + 16 * kNC * h > last) break;  // pair-uniform: these keys and the rest masked
+        uint32_t da[kNC][4];
+        get_frags(da, slot(h, 1), lane);
+        acc_rows<D, kCols>(acc, da, ks, 16 * kNC * h, cc, lane);
+      }
+    }
+    cp_async_wait<0>();
+    store_rows<D, kCols>(dq + head, acc, w0, t_len, scale, 8 * cc, lane);
+    return;
+  }
+
+  float acc_k[kCols / 8][4], acc_v[kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const bool live = w0 < t_len;  // some key of the pair lies before T
+  for (int it = 0; it < n_items; ++it) {
+    const bf16* qs = acquire();
+    if (it == 0) own.init(own_a, own_b, wl, lane);  // K and V landed with the first tile
+    const bf16* dos = qs + kElems;
+    const float* lse_s = reinterpret_cast<const float*>(dos + kElems);
+    const float* delta_s = lse_s + kTile;
+    const int q0 = t0 + it * kTile;
+    // pair-uniform: streamed rows c .. c + 16 kNC - 1 hold a query before T at or past the
+    // pair's first key
+    auto visible = [&](int c) {
+      return live && q0 + c < t_len && q0 + c + 16 * kNC - 1 >= w0;
+    };
+    if (visible(c0)) {
+      float s[2 * kNC][4], dp[2 * kNC][4];
+      dots<D>(s, dp, own, qs, dos, c0, lane);
+      if (q0 + c0 < w0 + 15 || q0 + c0 + 16 * kNC > t_len)
+        dkv_scores<true>(s, dp, lse_s, delta_s, c0, q0, w0, t_len, scale, lane);
+      else
+        dkv_scores<false>(s, dp, lse_s, delta_s, c0, q0, w0, t_len, scale, lane);
+      uint32_t pa[kNC][4], da[kNC][4];
+      a_frags<true>(pa, s);
+      a_frags<false>(da, dp);
+      put_frags(slot(half, 0), pa, lane);
+      put_frags(slot(half, 1), da, lane);
+    }
+    pair_sync(pair);
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      if (!visible(16 * kNC * h)) continue;
+      uint32_t pa[kNC][4], da[kNC][4];
+      get_frags(pa, slot(h, 0), lane);
+      get_frags(da, slot(h, 1), lane);
+      acc_rows<D, kCols>(acc_v, pa, dos, 16 * kNC * h, cc, lane);
+      acc_rows<D, kCols>(acc_k, da, qs, 16 * kNC * h, cc, lane);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<D, kCols>(dk + head, acc_k, w0, t_len, scale, 8 * cc, lane);
+  store_rows<D, kCols>(dv + head, acc_v, w0, t_len, 1.f, 8 * cc, lane);
+}
+
+// the tensor-core kernel of a head size: warp pairs at D = 256
+template <int D> auto tc_kernel() {
+  if constexpr (D == 256) return flash_train_bwd_tc_pair_kernel<D>;
+  else return flash_train_bwd_tc_kernel<D>;
 }
 
 template <int D>
@@ -674,8 +890,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
   if (bases % 16 != 0) return cudaErrorMisalignedAddress;
-  auto kernel = flash_train_bwd_tc_kernel<D>;
-  constexpr int kSmem = static_cast<int>(tc_smem_bytes<D>());
+  auto kernel = tc_kernel<D>();
+  constexpr bool kPair = D == 256;
+  constexpr int kThreads = kPair ? kPairThreads : kTcThreads;
+  constexpr int kSmem = static_cast<int>(kPair ? pair_smem_bytes<D>() : tc_smem_bytes<D>());
   static bool smem_set = false;  // set once, before any CUDA-graph capture of a launch
   if (!smem_set) {
     const cudaError_t err =
@@ -684,7 +902,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
     smem_set = true;
   }
   const dim3 grid(bh, 2 * ((t_len + kTile - 1) / kTile));
-  kernel<<<grid, kTcThreads, kSmem, stream>>>(
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_len, scale);
@@ -692,7 +910,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
 }
 
 // The kernel for a type and head size, chosen statically: bf16 at D = 64 and 128 on the
-// tensor cores, everything else on the FMA kernel.
+// 4-warp tensor-core kernel, at 256 on its warp pairs; f32 and bf16 at D = 192 on the FMA
+// kernel.
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv, int bh,
@@ -711,8 +930,7 @@ cudaError_t launch_d<bf16>(const void* q, const void* k, const void* v, const vo
       return launch_fma<bf16, 192>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
                                    stream);
     case 256:
-      return launch_fma<bf16, 256>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale,
-                                   stream);
+      return launch_tc<256>(q, k, v, dout, lse, delta, dq, dk, dv, bh, t_len, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -20,16 +20,20 @@
 // Bound: operations, 4 D flops per visible (row, key) pair; at the finetune shape (B=2,
 // H=32, T=2048, D=128) 69.5 us on the bf16 tensor cores. Two kernels, chosen statically:
 //
-// bf16 with D = 64 or 128 (the finetune's type and Llama-2-7B's head): the tensor cores.
-// A CTA of 4 warps owns 64 query rows of one head; a warp owns 16 whole rows, so a row's
-// max and sum need only the shuffles within a quad of the mma fragment layout. Q is staged
-// once in shared memory; K and V stream in 64-key tiles through a double-buffered ring
-// (cp.async, 16 B a thread, zero-filled past the block). Rows are stored in 16-byte chunks
-// XOR-swizzled by row, so ldmatrix reads are free of bank conflicts. Both products are
-// mma.sync m16n8k16 bf16 x bf16 -> f32; V is read with ldmatrix.trans. 167 registers a
-// thread at D = 128 let 3 CTAs share an SM. Holding Q's fragments in registers, or giving
-// a warp 32 rows (two m16 tiles: each K/V fragment read serves both), needs more registers
-// (both spill at D = 128) and measured no faster.
+// bf16 with D = 64, 128 or 256 (the finetune's type; Llama-2-7B's head, Gemma's and
+// pythia-1b's): the tensor cores. A CTA of 4 warps owns 64 query rows of one head; a warp
+// owns 16 whole rows, so a row's max and sum need only the shuffles within a quad of the mma
+// fragment layout. Q is staged once in shared memory; K and V stream in 64-key tiles
+// through a double-buffered ring (cp.async, 16 B a thread, zero-filled past the block).
+// Rows are stored in 16-byte chunks XOR-swizzled by row, so ldmatrix reads are free of bank
+// conflicts. Both products are mma.sync m16n8k16 bf16 x bf16 -> f32; V is read with
+// ldmatrix.trans. 167 registers a thread at D = 128 let 3 CTAs share an SM. Holding Q's
+// fragments in registers, or giving a warp 32 rows (two m16 tiles: each K/V fragment read
+// serves both), needs more registers (both spill at D = 128) and measured no faster. At
+// D = 256 a warp's O accumulator is 128 f32 registers a thread beside 32 of a tile's scores,
+// so the launch bound asks for 2 CTAs an SM (kTcMinCtas: up to 255 registers) and Q's
+// fragments are still read from shared memory at each use: 255 registers, no spills, with
+// 64-key tiles; the CTA's 96 KB of shared memory lets 2 CTAs share an SM.
 //
 // p must be rounded to bf16 against the max of the whole online block (up to 512 keys),
 // not of a 64-key tile: the rounding of p is part of the reference's function, and a
@@ -44,13 +48,11 @@
 // half the function's operations again. Keeping the block's f32 scores in shared memory
 // instead (64 x 512 x 4 = 128 KB a CTA) would leave one CTA of 4 warps an SM.
 //
-// f32, and bf16 with D = 192 or 256: f32 FMAs from shared memory (bf16 widened on load).
-// The reference multiplies f32 operands in f32 (TF32 would change the results). D = 192
-// and 256 in bf16 take it too, by a static choice: they are off the finetune's path, and
-// their accumulators (96 and 128 registers a thread for 16 rows) have not been fitted
-// beside the scores under the tensor-core kernel's launch bound. One CTA owns BQ query
-// rows (64, or 32 for D >= 192) and
-// keeps a block's scores whole in shared memory (BQ x ob f32) until its row max is known.
+// f32, and bf16 with D = 192: f32 FMAs from shared memory (bf16 widened on load). The
+// reference multiplies f32 operands in f32 (TF32 would change the results). D = 192 is the
+// only bf16 head left on this kernel: no model of the registry has it. One CTA owns BQ
+// query rows (64, or 32 for D >= 192) and keeps a block's scores whole in shared memory
+// (BQ x ob f32) until its row max is known.
 //
 // Both issue tiles heaviest first (the last query tile sees the most keys). No atomics:
 // every sum has one order, so repeated calls give the same bits.
@@ -89,6 +91,9 @@ constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;     // query rows of a CTA
 constexpr int kStages = 2;                 // 64-key tiles of K or V in flight
 static_assert(kTcRows == kBK, "load_tile stages the Q tile");
+// CTAs an SM the launch bound asks for: 3 (at most 170 registers a thread) up to D = 128,
+// 2 (255) at D = 256, whose accumulator alone takes 128
+template <int D> constexpr int kTcMinCtas = D <= 128 ? 3 : 2;
 
 // shared memory: the CTA's Q tile, then the ring of K/V tiles
 template <int D> constexpr size_t tc_smem_bytes() {
@@ -172,7 +177,7 @@ __device__ __forceinline__ void tile_scores(float s[8][4], const bf16* qs, const
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 3) flash_train_fwd_tc_kernel(
+__global__ void __launch_bounds__(kTcThreads, kTcMinCtas<D>) flash_train_fwd_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int t_len, int ob, float scale) {
   constexpr int kTile = kBK * D;  // elements of one stage
@@ -302,6 +307,10 @@ __global__ void __launch_bounds__(kTcThreads, 3) flash_train_fwd_tc_kernel(
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
                       int bh, int t_len, int ob, float scale, cudaStream_t stream) {
+  // cp.async copies 16-byte chunks of the rows: the bases must be 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  if (bases % 16 != 0) return cudaErrorMisalignedAddress;
   auto kernel = flash_train_fwd_tc_kernel<D>;
   constexpr int kSmem = static_cast<int>(tc_smem_bytes<D>());
   // set once, before any CUDA-graph capture of a launch
@@ -514,8 +523,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* out, f
   return cudaGetLastError();
 }
 
-// The kernel for a type and head size, chosen statically: bf16 at D = 64 and 128 on the
-// tensor cores, everything else on the FMA kernel.
+// The kernel for a type and head size, chosen statically: bf16 at D = 64, 128 and 256 on
+// the tensor cores, f32 and bf16 at D = 192 on the FMA kernel.
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                      int t_len, int d, int ob, float scale, cudaStream_t stream);
@@ -527,7 +536,7 @@ cudaError_t launch_d<bf16>(const void* q, const void* k, const void* v, void* ou
     case 64: return launch_tc<64>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
     case 128: return launch_tc<128>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
     case 192: return launch_fma<bf16, 192>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
-    case 256: return launch_fma<bf16, 256>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
+    case 256: return launch_tc<256>(q, k, v, out, lse, bh, t_len, ob, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

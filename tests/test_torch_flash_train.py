@@ -86,13 +86,15 @@ def _torch_side(fn, q, k, v, w, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [512, 1024])
+@pytest.mark.parametrize("t,d", [(512, 64), (1024, 64), (512, 256)],
+                         ids=["512", "1024", "512-d256"])
 @pytest.mark.parametrize("entry", ["fused", "trainable"])
-def test_plain_flash_matches_jax_interpret(entry, t, dtype):
+def test_plain_flash_matches_jax_interpret(entry, t, d, dtype):
     """out, lse, dq, dk, dv of the plain versions against the JAX entries in
-    interpret mode (the fused one with T=1024 runs two 512-key blocks)."""
-    q, k, v, w = _inputs((1, 2, t, 64), seed=t)
-    scale = 64 ** -0.5
+    interpret mode (the fused one with T=1024 runs two 512-key blocks), at
+    head size 64 and at Gemma's 256."""
+    q, k, v, w = _inputs((1, 2, t, d), seed=t)
+    scale = d ** -0.5
     bf16 = dtype == torch.bfloat16
     if entry == "fused":
         jfn = lambda q, k, v: jfa.flash_attention_fused(q, k, v, None, True)
@@ -212,13 +214,16 @@ def _needs_card():
 @pytest.mark.parametrize("entry,shape", [("fused", (2, 4, 512, 64)), ("fused", (1, 3, 1024, 128)),
                                          ("trainable", (2, 2, 384, 192)),
                                          ("fused", (1, 2, 200, 256)),
-                                         ("trainable", (1, 4, 640, 128))])
+                                         ("trainable", (1, 4, 640, 128)),
+                                         ("fused", (1, 2, 1024, 256)),
+                                         ("trainable", (1, 2, 640, 256))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_the_card(entry, shape, dtype):
     """K6 and K7 through the entries against plain=True, with chip_smoke.py's
     checks and tolerances: every head size the route sends, a ragged T=200
     in the fused entry's one whole-T block, 384 and 640 rows (tiles and
-    blocks that do not divide T evenly)."""
+    blocks that do not divide T evenly); at D = 256 (bf16: K7's warp pairs)
+    also two 512-key blocks and 128-key blocks over ragged tiles."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(sum(shape))
     before = build.launch_counts()
@@ -230,16 +235,18 @@ def test_kernels_match_plain_on_the_card(entry, shape, dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_repeat_bit_for_bit():
+@pytest.mark.parametrize("shape", [(2, 4, 1024, 128), (1, 4, 1024, 256)])
+def test_kernels_repeat_bit_for_bit(shape):
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    chip_smoke.flash_train_repeats(torch, gen, (2, 4, 1024, 128), torch.bfloat16)
+    chip_smoke.flash_train_repeats(torch, gen, shape, torch.bfloat16)
 
 
-# the case a planted fault is checked on: bf16 at D = 128 runs the tensor-core kernels;
-# at D = 256 it runs K7's FMA kernel
+# the case a planted fault is checked on: bf16 at D = 128 runs the tensor-core kernels, at
+# D = 256 K6's tensor-core kernel and K7's warp pairs; at D = 192 the FMA kernels
 TC_CASE = ("fused", (2, 4, 1024, 128), torch.bfloat16)
-FMA_CASE = ("fused", (1, 8, 1024, 256), torch.bfloat16)
+TC256_CASE = ("fused", (1, 8, 1024, 256), torch.bfloat16)
+FMA_CASE = ("fused", (1, 8, 1024, 192), torch.bfloat16)
 # faults planted in a copy of csrc/: (kernel, file, the code as written, as planted, case)
 FAULTS = {
     "K6 diagonal unmasked": ("flash_train_fwd", "flash_train_fwd.cu",
@@ -250,6 +257,11 @@ FAULTS = {
         "for (int e = 0; e < 4; ++e) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);",
         "for (int e = 0; e < 4; ++e) if (kt == k0) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);",
         TC_CASE),
+    "K6 p against the first tile's max, D = 256": (
+        "flash_train_fwd", "flash_train_fwd.cu",
+        "for (int e = 0; e < 4; ++e) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);",
+        "for (int e = 0; e < 4; ++e) if (kt == k0) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);",
+        TC256_CASE),
     "K7 diagonal unmasked": ("flash_train_bwd", "flash_train_bwd.cu",
                              "const bool visible = key <= query && query < t_len;",
                              "const bool visible = query < t_len;", TC_CASE),
@@ -260,6 +272,15 @@ FAULTS = {
         "flash_train_bwd", "flash_train_bwd.cu",
         "return pack_bf16x2(lo, hi);",
         "return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);", TC_CASE),
+    "K7 p truncated before the pair exchange, D = 256": (
+        "flash_train_bwd", "flash_train_bwd.cu",
+        "return pack_bf16x2(lo, hi);",
+        "return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);",
+        TC256_CASE),
+    "K7 pair exchange: a warp's own p for its partner's rows, D = 256": (
+        "flash_train_bwd", "flash_train_bwd.cu",
+        "get_frags(pa, slot(h, 0), lane);",
+        "get_frags(pa, slot(half, 0), lane);", TC256_CASE),
     "K7 p unrounded before dv": ("flash_train_bwd", "flash_train_bwd.cu",
                                  "ps[row * PS + col] = round_to<T>(p);",
                                  "ps[row * PS + col] = p;", FMA_CASE),
@@ -282,10 +303,13 @@ def _planted(tmp_path, fault):
 def test_checks_catch_a_planted_fault(fault, tmp_path, monkeypatch):
     """chip_smoke.py's check fails for a kernel built with the diagonal block
     unmasked or delta dropped from ds; for a K7 whose p is truncated to bf16
-    (toward zero, not to nearest even) before dv in the tensor-core kernel,
-    or left unrounded there in the FMA kernel (bf16, D = 256); and for a K6
-    that rounds p against the max of each online block's first 64-key tile
-    instead of the whole block's (pass 1 cut short). The rounding faults move
+    (toward zero, not to nearest even) before dv in the tensor-core kernels
+    (at D = 256 before the pair's exchange in shared memory), or left
+    unrounded there in the FMA kernel (bf16, D = 192); for a K7 whose warps
+    at D = 256 add their own p^T in place of their partner's rows; and for a
+    K6 that rounds p against the max of each online block's first 64-key
+    tile instead of the whole block's (pass 1 cut short), at D = 128 and
+    256. The rounding faults move
     an output by rounding alone, which only the mean gate sees (this test's
     print on an H100, K6: 3.8e-3 of the largest value, under the max gate, and
     1.2e-3 of the mean, 23 times the mean gate; K7 p truncated: 3.9e-3 and
